@@ -9,6 +9,11 @@ binarisation). Same flags and defaults, plus ``--device``. Without
     python -m timetuning_tpu_torch.cli.propagate --data_root DAVIS \\
         --compute_dtype bfloat16 --clip_batch 2
 
+Supported runs include ``--architecture dino-s16`` at 224 and
+``--architecture dino-s8 --input_resolution 448`` (56x56 patches, 3,137
+tokens: the ViT's long-token path, the flash kernel and the row kernels in
+bf16, the flash kernel in f32), each in either compute dtype.
+
 The per-group compute (preprocess -> ViT -> propagate -> upsample -> argmax)
 is ``propagate_clip_group``, which takes in-memory uint8 clips;
 ``evaluate_clips`` adds the grouping and the J&F scoring, and

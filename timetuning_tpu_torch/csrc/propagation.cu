@@ -28,16 +28,31 @@
 // work is two kernels:
 //   (a) prop_affinity_kernel, ONE launch over (8-query tile, t, clip): the
 //       affinity rows of every target frame at once (1,200 blocks at the
-//       eval shape, against 50 if each step ran alone), top-k and
-//       normalisation, written as dense rows P[b, t-1, q, live * N] to a
-//       scratch buffer (37 MB at the eval shape);
+//       S/16 eval shape, against 50 if each step ran alone), top-k and
+//       normalisation, written as rows P[b, t-1, q, live * slots] to a
+//       scratch buffer;
 //   (b) prop_seg_kernel, one launch per t on one stream: seg_t = segs . P_t^T
 //       over the kept (nonzero) entries, reading maps that earlier launches
 //       wrote.
 // In (a) a block owns 8 query rows; it stages 256 keys x 32 features per
 // shared-memory tile, one key per thread against all 8 queries, and keeps
-// each row (live_frames * N floats) in shared memory for the top-k, one warp
-// per row. In (b) a warp owns one query row.
+// the 8 rows for the top-k, one warp per row. In (b) a warp owns one query
+// row.
+//
+// Row layout. With radius r > 0 every key outside the (2r+1)^2 window of
+// its query has affinity exactly 0, while exp(cos / 0.1) > 0 inside it. So
+// when the window is smaller than the frame, a row stores only the window
+// of each live context frame, slot (dy, dx) for key (qy+dy-r, qx+dx-r);
+// slots off the grid hold 0. The k-th largest value and the kept set are
+// those of the dense row: if the window holds at least k positive entries
+// the threshold is one of them, and if it holds fewer the threshold is 0 in
+// both layouts and every entry is kept. At 56x56 patches (ViT-S/8 at 448),
+// r = 12: 5 x 625 floats a row instead of 5 x 3,136, and the scratch is
+// 0.94 GB a clip instead of 4.7 GB. The block scores only the keys in the
+// bounding box of its 8 queries' windows. With r = 0, or a window no
+// smaller than the frame, a row holds all N keys of each context frame.
+// The 8 rows stay in shared memory when they fit there (227 KB); otherwise
+// the block builds them in place in the scratch rows of global memory.
 #include "common.cuh"
 
 namespace {
@@ -59,11 +74,11 @@ __device__ __forceinline__ int live_frames(int t, int n_slots) {
 __global__ void __launch_bounds__(kThreads)
 prop_affinity_kernel(const float* __restrict__ feats, float* __restrict__ P,
                      int T, int N, int D, int row_max, int n_slots, int grid_w,
-                     int radius, int topk, float temperature) {
+                     int radius, int win, int rows_in_smem, int topk,
+                     float temperature) {
   extern __shared__ __align__(16) float sm[];
   float* Qt = sm;                       // [D][kQ] target rows, transposed
   float* Ks = Qt + (size_t)D * kQ;      // [kKeys][kKsLd]
-  float* aff = Ks + kKeys * kKsLd;      // [kQ][n_live * N]
 
   const int b = blockIdx.z;
   const int t = blockIdx.y + 1;
@@ -71,21 +86,43 @@ prop_affinity_kernel(const float* __restrict__ feats, float* __restrict__ P,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int n_rows = min(kQ, N - q0);
   const int n_live = live_frames(t, n_slots);
   const int first_recent = t - (n_live - 1);
-  const int row_len = n_live * N;
+  const int slots = win > 0 ? win * win : N;     // per context frame
+  const int row_len = n_live * slots;
   const float* fb = feats + (size_t)b * T * N * D;
+  float* Pt = P + ((size_t)b * (T - 1) + t - 1) * N * row_max;
+  // this block's rows, kQ of them, row_max floats apart
+  float* rows = rows_in_smem ? Ks + kKeys * kKsLd : Pt + (size_t)q0 * row_max;
 
+  for (int i = tid; i < n_rows * row_len; i += kThreads)
+    rows[(size_t)(i / row_len) * row_max + i % row_len] = 0.f;
   for (int i = tid; i < kQ * D; i += kThreads) {
     const int q = i / D;
     const int d = i % D;
-    Qt[d * kQ + q] = (q0 + q < N) ? fb[((size_t)t * N + q0 + q) * D + d] : 0.f;
+    Qt[d * kQ + q] = q < n_rows ? fb[((size_t)t * N + q0 + q) * D + d] : 0.f;
   }
+
+  // the keys to score: the bounding box of the block's query windows
+  const int grid_h = N / grid_w;
+  int y0 = 0, y1 = grid_h - 1, x0 = 0, x1 = grid_w - 1;
+  if (radius > 0) {
+    const int qa = q0, qb = q0 + n_rows - 1;
+    y0 = max(0, qa / grid_w - radius);
+    y1 = min(grid_h - 1, qb / grid_w + radius);
+    if (qa / grid_w == qb / grid_w) {
+      x0 = max(0, qa % grid_w - radius);
+      x1 = min(grid_w - 1, qb % grid_w + radius);
+    }
+  }
+  const int bw = x1 - x0 + 1;
+  const int n_box = (y1 - y0 + 1) * bw;
 
   for (int c = 0; c < n_live; ++c) {
     const int frame = c == 0 ? 0 : first_recent + c - 1;
     const float* kb = fb + (size_t)frame * N * D;
-    for (int m0 = 0; m0 < N; m0 += kKeys) {
+    for (int m0 = 0; m0 < n_box; m0 += kKeys) {
       float acc[kQ];
 #pragma unroll
       for (int q = 0; q < kQ; ++q) acc[q] = 0.f;
@@ -96,11 +133,13 @@ prop_affinity_kernel(const float* __restrict__ feats, float* __restrict__ P,
 #pragma unroll
         for (int l = 0; l < kLoads; ++l) {
           const int i = tid + l * kThreads;
-          const int r = i / (kDc / 4);
+          const int kbox = m0 + i / (kDc / 4);
           ld[l] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (m0 + r < N)
+          if (kbox < n_box) {
+            const int m = (y0 + kbox / bw) * grid_w + x0 + kbox % bw;
             ld[l] = *reinterpret_cast<const float4*>(
-                kb + (size_t)(m0 + r) * D + d0 + (i % (kDc / 4)) * 4);
+                kb + (size_t)m * D + d0 + (i % (kDc / 4)) * 4);
+          }
         }
         __syncthreads();
 #pragma unroll
@@ -130,25 +169,29 @@ prop_affinity_kernel(const float* __restrict__ feats, float* __restrict__ P,
           acc[7] += qb.w * kv;
         }
       }
-      const int m = m0 + tid;
-      if (m < N) {
+      const int kbox = m0 + tid;
+      if (kbox < n_box) {
+        const int my = y0 + kbox / bw;
+        const int mx = x0 + kbox % bw;
 #pragma unroll
         for (int q = 0; q < kQ; ++q) {
-          const int qi = q0 + q;
-          bool keep = true;
-          if (radius > 0)
-            keep = abs(qi / grid_w - m / grid_w) <= radius &&
-                   abs(qi % grid_w - m % grid_w) <= radius;
-          aff[q * row_len + c * N + m] = keep ? expf(acc[q] / temperature) : 0.f;
+          if (q >= n_rows) break;
+          const int qy = (q0 + q) / grid_w;
+          const int qx = (q0 + q) % grid_w;
+          if (radius > 0 && (abs(qy - my) > radius || abs(qx - mx) > radius))
+            continue;
+          const int slot = win > 0 ? (my - qy + radius) * win + (mx - qx + radius)
+                                   : my * grid_w + mx;
+          rows[(size_t)q * row_max + c * slots + slot] = expf(acc[q] / temperature);
         }
       }
     }
   }
   __syncthreads();
 
+  if (warp >= n_rows) return;
   const int qi = q0 + warp;
-  if (qi >= N) return;
-  const float* row = aff + warp * row_len;
+  const float* row = rows + (size_t)warp * row_max;
 
   // k-th largest value, duplicates counted (ops/propagation.kth_largest_value)
   float bound = INFINITY, kth = 0.f;
@@ -181,7 +224,9 @@ prop_affinity_kernel(const float* __restrict__ feats, float* __restrict__ P,
     if (v >= kth) s += v;
   }
   const float denom = tt::warp_sum(s) + 1e-12f;
-  float* prow = P + (((size_t)b * (T - 1) + t - 1) * N + qi) * row_max;
+  // in place when the rows live in global memory (each lane rewrites only
+  // the entries it read)
+  float* prow = Pt + (size_t)qi * row_max;
   for (int j = lane; j < row_len; j += 32) {
     const float v = row[j];
     prow[j] = v >= kth ? v / denom : 0.f;
@@ -191,14 +236,17 @@ prop_affinity_kernel(const float* __restrict__ feats, float* __restrict__ P,
 __global__ void __launch_bounds__(kThreads)
 prop_seg_kernel(const float* __restrict__ P, const float* __restrict__ seg0,
                 float* __restrict__ out, int T, int N, int K, int t,
-                int row_max, int n_slots) {
+                int row_max, int n_slots, int grid_w, int radius, int win) {
   const int b = blockIdx.y;
   const int qi = blockIdx.x * kQ + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (qi >= N) return;
   const int n_live = live_frames(t, n_slots);
   const int first_recent = t - (n_live - 1);
-  const int row_len = n_live * N;
+  const int slots = win > 0 ? win * win : N;
+  const int row_len = n_live * slots;
+  // key of window slot s: (qy + s / win - r, qx + s % win - r)
+  const int base = (qi / grid_w - radius) * grid_w + qi % grid_w - radius;
   const float* prow = P + (((size_t)b * (T - 1) + t - 1) * N + qi) * row_max;
   float* ob = out + (size_t)b * (T - 1) * K * N;
   const float* s0 = seg0 + (size_t)b * K * N;
@@ -211,8 +259,9 @@ prop_seg_kernel(const float* __restrict__ P, const float* __restrict__ seg0,
     for (int j = lane; j < row_len; j += 32) {
       const float p = prow[j];
       if (p != 0.f) {
-        const int c = j / N;
-        const int m = j - c * N;
+        const int c = j / slots;
+        const int sl = j - c * slots;
+        const int m = win > 0 ? base + (sl / win) * grid_w + sl % win : sl;
         const float* sv = c == 0
                               ? s0 + (size_t)k0 * N + m
                               : ob + ((size_t)(first_recent + c - 2) * K + k0) * N + m;
@@ -231,19 +280,31 @@ prop_seg_kernel(const float* __restrict__ P, const float* __restrict__ seg0,
 
 }  // namespace
 
-// scratch: [B, T-1, N, (1 + min(n_slots, T-2)) * N] f32
+// The floats of one scratch row: live context frames x slots per frame.
+extern "C" int tt_propagate_row_floats(int T, int N, int n_slots, int radius) {
+  const int live_max = 1 + (n_slots < T - 2 ? n_slots : T - 2);
+  const long side = 2L * radius + 1;
+  const long slots = radius > 0 && side * side < N ? side * side : N;
+  return (int)(live_max * slots);
+}
+
+// scratch: [B, T-1, N, row_max] f32, row_max = tt_propagate_row_floats(...)
 extern "C" int tt_propagate_labels(const float* feats, const float* seg0,
                                    float* scratch, float* out, int B, int T,
                                    int N, int D, int K, int n_slots, int grid_w,
-                                   int radius, int topk, float temperature,
-                                   void* stream) {
-  if (B <= 0 || B > 65535 || T < 2 || N <= 0 || K <= 0 || D % kDc != 0 ||
-      n_slots < 1 || grid_w <= 0 || N % grid_w != 0 || topk < 1)
+                                   int radius, int topk, int row_max,
+                                   float temperature, void* stream) {
+  if (B <= 0 || B > 65535 || T < 2 || T > 65536 || N <= 0 || K <= 0 ||
+      D % kDc != 0 || n_slots < 1 || grid_w <= 0 || N % grid_w != 0 ||
+      topk < 1 || radius < 0 ||
+      row_max != tt_propagate_row_floats(T, N, n_slots, radius))
     return (int)cudaErrorInvalidValue;
-  const int row_max = (1 + (n_slots < T - 2 ? n_slots : T - 2)) * N;
-  const size_t smem =
-      sizeof(float) * ((size_t)D * kQ + (size_t)kKeys * kKsLd +
-                       (size_t)kQ * row_max);
+  const long side = 2L * radius + 1;
+  const int win = radius > 0 && side * side < N ? (int)side : 0;
+  const size_t smem_base = sizeof(float) * ((size_t)D * kQ + (size_t)kKeys * kKsLd);
+  const size_t smem_rows = sizeof(float) * (size_t)kQ * row_max;
+  const int rows_in_smem = smem_base + smem_rows <= kMaxSmem;
+  const size_t smem = smem_base + (rows_in_smem ? smem_rows : 0);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       prop_affinity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -252,13 +313,13 @@ extern "C" int tt_propagate_labels(const float* feats, const float* seg0,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int q_tiles = (N + kQ - 1) / kQ;
   prop_affinity_kernel<<<dim3(q_tiles, T - 1, B), kThreads, smem, st>>>(
-      feats, scratch, T, N, D, row_max, n_slots, grid_w, radius, topk,
-      temperature);
+      feats, scratch, T, N, D, row_max, n_slots, grid_w, radius, win,
+      rows_in_smem, topk, temperature);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   for (int t = 1; t < T; ++t) {
     prop_seg_kernel<<<dim3(q_tiles, B), kThreads, 0, st>>>(
-        scratch, seg0, out, T, N, K, t, row_max, n_slots);
+        scratch, seg0, out, T, N, K, t, row_max, n_slots, grid_w, radius, win);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

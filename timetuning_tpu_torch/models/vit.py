@@ -6,10 +6,14 @@ probabilities on request, bicubic positional-embedding interpolation for any
 input resolution. Parameter names follow the timm/DINO state dict, so a
 reference ``.pth`` loads with ``load_state_dict``.
 
-Dtype contract, as the JAX ``Block``: a bf16 block runs its two residual
-branches through the hand-written kernels (ops/fused_block; on a CPU tensor
-their plain versions); an f32 block, and any block asked for its attention
-probabilities, runs the plain LayerNorm / Attention / MLP composition.
+Dtype contract and routing, as the JAX ``Block`` (vit.py:228-273): a bf16
+block runs its two residual branches through the hand-written kernels
+(ops/fused_block; on a CPU tensor their plain versions), the whole-block
+kernels up to 1024 tokens (the CLS token counted) and the row kernels with
+the flash core above; an f32 block, and any block asked for its attention
+probabilities, runs the plain LayerNorm / Attention / MLP composition, whose
+attention core goes through the dispatcher (ops/attention.attention), so an
+f32 block over 1024 tokens on the card runs the flash kernel in f32.
 Parameters stay f32 and are cast to the compute dtype where they are used.
 """
 
@@ -21,11 +25,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from timetuning_tpu_torch.ops.attention import attention_xla
+from timetuning_tpu_torch.ops.attention import WHOLE_SEQUENCE_TOKENS, attention
 from timetuning_tpu_torch.ops.fused_block import (
     _ln,
     attention_block_branch,
+    attention_block_branch_flash,
     mlp_block_branch,
+    mlp_rows,
 )
 
 
@@ -102,7 +108,7 @@ class Attention(nn.Module):
         Dh = D // self.num_heads
         qkv = _linear(x, self.qkv).reshape(B, S, 3, self.num_heads, Dh)
         q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-        out, probs = attention_xla(q, k, v, return_probs=return_probs)
+        out, probs = attention(q, k, v, return_probs=return_probs)
         out = out.permute(0, 2, 1, 3).reshape(B, S, D)
         return _linear(out, self.proj), probs
 
@@ -130,14 +136,17 @@ class Block(nn.Module):
 
     def forward(self, x, return_probs: bool = False):
         if self.dtype == torch.bfloat16 and not return_probs:
-            a, m = self.attn, self.mlp
-            x = attention_block_branch(
-                x.to(self.dtype), self.norm1.weight, self.norm1.bias,
-                a.qkv.weight.t(), a.qkv.bias, a.proj.weight.t(), a.proj.bias,
-                self.num_heads)
-            x = mlp_block_branch(
-                x, self.norm2.weight, self.norm2.bias, m.fc1.weight.t(),
-                m.fc1.bias, m.fc2.weight.t(), m.fc2.bias)
+            a, m, dt = self.attn, self.mlp, self.dtype
+            long = x.shape[1] > WHOLE_SEQUENCE_TOKENS
+            attn_branch = attention_block_branch_flash if long else attention_block_branch
+            mlp_branch = mlp_rows if long else mlp_block_branch
+            x = attn_branch(
+                x.to(dt), self.norm1.weight, self.norm1.bias,
+                a.qkv.weight.t().to(dt), a.qkv.bias, a.proj.weight.t().to(dt),
+                a.proj.bias, self.num_heads)
+            x = mlp_branch(
+                x, self.norm2.weight, self.norm2.bias, m.fc1.weight.t().to(dt),
+                m.fc1.bias, m.fc2.weight.t().to(dt), m.fc2.bias)
             return x, None
         y, probs = self.attn(_ln(x, self.norm1.weight, self.norm1.bias),
                              return_probs=return_probs)

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``timetuning_tpu_torch/csrc`` compile with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``. The build runs at first use, from the package's sources only, into
+``sm_90a``, one ``nvcc`` process per source, all started together, and link
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at first use, from the package's sources only, into
 ``timetuning_tpu_torch/_build/``. The library's file name carries a hash of
 the sources and the compiler flags: an edited source builds a new library and
 an unchanged one loads the existing file.
@@ -32,7 +33,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -57,6 +58,14 @@ KERNELS = {
                "timetuning_tpu/ops/propagation_pallas.py:50"),
         Kernel("preprocess", "timetuning_tpu_torch/csrc/preprocess.cu",
                "timetuning_tpu/ops/preprocess_pallas.py:113"),
+        Kernel("flash_attention", "timetuning_tpu_torch/csrc/flash_attention.cu",
+               "timetuning_tpu/ops/flash_attention.py:47 and :154"),
+        Kernel("ln_dense", "timetuning_tpu_torch/csrc/rows_block.cu",
+               "timetuning_tpu/ops/fused_block.py:298"),
+        Kernel("dense_residual", "timetuning_tpu_torch/csrc/rows_block.cu",
+               "timetuning_tpu/ops/fused_block.py:308"),
+        Kernel("mlp_rows", "timetuning_tpu_torch/csrc/mlp_block.cu",
+               "timetuning_tpu/ops/fused_block.py:282"),
     )
 }
 
@@ -70,13 +79,17 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "tt_attention_block": [_P] * 10 + [_I] * 4 + [_P],
     "tt_mlp_block": [_P] * 9 + [_I] * 3 + [_P],
-    "tt_propagate_labels": [_P] * 4 + [_I] * 9 + [_F, _P],
+    "tt_propagate_labels": [_P] * 4 + [_I] * 10 + [_F, _P],
     "tt_eval_preprocess": [_P, _P, _P, _I, _P, _P, _I] + [_F] * 6 + [_P]
     + [_I] * 4 + [_P],
+    "tt_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
+    "tt_ln_dense": [_P] * 6 + [_I] * 3 + [_P],
+    "tt_dense_residual": [_P] * 5 + [_I] * 3 + [_P],
+    "tt_propagate_row_floats": [_I] * 4,
 }
 
 _lock = threading.Lock()
@@ -111,16 +124,32 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [f"{tmp}.{src.stem}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+            for src, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]     # every compile ends first
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objs]
+    try:
+        for cmd, proc, (out, err) in zip(cmds, procs, outs):
+            _check_nvcc(cmd, proc.returncode, out, err)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(f"{tmp}.so", path)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return path
+
+
+def _check_nvcc(cmd: list[str], rc: int, out: str, err: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}\n{err}")
 
 
 def library() -> ctypes.CDLL:

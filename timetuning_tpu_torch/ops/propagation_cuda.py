@@ -3,7 +3,9 @@
 Counterpart of ``timetuning_tpu/ops/propagation_pallas.py``. The TPU kernel
 is gated to clips of at most 8 frames there, only because its Mosaic compile
 time grows with T; this kernel has no such gate and serves the 25-frame eval
-clips too.
+clips too, at any patch count: with a neighbourhood radius r its scratch rows
+hold only the (2r+1)^2 window of each context frame (0.94 GB a clip at
+ViT-S/8's 56x56 patches, r = 12, T = 25).
 """
 
 from __future__ import annotations
@@ -60,14 +62,17 @@ def propagate_labels_batch_cuda(features, first_seg, n_last: int = 7,
     seg0 = first_seg.float().contiguous()
     kernel_lib.require_cuda("propagate_labels_batch", feats_n, seg0)
     n_slots = context_slots(T, n_last)
-    # the normalised affinity rows of every target frame, [B, T-1, N, live*N]
-    live_max = 1 + min(n_slots, T - 2)
-    rows = torch.empty((B, T - 1, N, live_max * N), dtype=torch.float32,
+    radius = max(int(radius), 0)         # the plain mask: radius <= 0 is no mask
+    # the normalised affinity rows of every target frame; a row's length is
+    # the kernel's (the window or the whole frame, csrc/propagation.cu)
+    row = kernel_lib.library().tt_propagate_row_floats(T, N, n_slots, radius)
+    rows = torch.empty((B, T - 1, N, row), dtype=torch.float32,
                        device=features.device)
     out = torch.empty((B, T - 1, K, N), dtype=torch.float32,
                       device=features.device)
     kernel_lib.launch(
         "propagation", "tt_propagate_labels", features.device,
         feats_n.data_ptr(), seg0.data_ptr(), rows.data_ptr(), out.data_ptr(),
-        B, T, N, D, K, n_slots, w, radius, topk, float(temperature))
+        B, T, N, D, K, n_slots, w, radius, topk, rows.shape[-1],
+        float(temperature))
     return out
