@@ -10,11 +10,13 @@ import pytest
 import torch
 
 from timetuning_tpu_torch.data.transforms import IMAGENET_MEAN, REFERENCE_STD
+from timetuning_tpu_torch.ops import attention as at
 from timetuning_tpu_torch.ops import flash_attention as fa
 from timetuning_tpu_torch.ops import fused_block as fb
 from timetuning_tpu_torch.ops import kernel_lib
 from timetuning_tpu_torch.ops import preprocess_cuda as pc
 from timetuning_tpu_torch.ops import propagation_cuda as prc
+from timetuning_tpu_torch.ops import sinkhorn_cuda as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -135,6 +137,95 @@ def test_flash_attention_kernel_uneven_and_masked(dev, dtype, Sq, Sk, kv_len):
     torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 197, 256, 1024])
+def test_mha_kernel_matches_plain(dev, dtype, S):
+    """Kernel 10 on contiguous q, k, v. bf16: one bf16 ulp of the output
+    (rtol 1e-2) plus a p that rounds the other way because the kernel's row
+    sum is accumulated tile by tile (atol 4e-3, as the flash kernel's
+    bound); f32: the same f32 operations summed in another order."""
+    q, k, v = _qkv(dev, dtype, S, S, seed=S, B=2, H=3)
+    got = at.attention_mha(q, k, v)
+    want = at.attention_mha_plain(q, k, v)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mha_kernel_reads_strided_qkv_views_in_place(dev, dtype):
+    """The q, k, v views that ``models/vit.Attention`` makes of its qkv rows:
+    no copy on the way in, and the output is a view of the merged layout."""
+    B, S, H = 3, 197, 6
+    rng = np.random.default_rng(5)
+    qkv = _t(rng.standard_normal((B, S, 3, H, 64)), dev, dtype)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    assert at._aligned(q) is q and not q.is_contiguous()
+    got = at.attention_mha(q, k, v)
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    want = at.attention_mha_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[dtype])
+
+
+def test_attention_function_carries_gradients_through_the_kernel(dev):
+    """impl="pallas": the forward is kernel 10, the backward the analytic
+    recompute; against autograd through the plain version, f32."""
+    q, k, v = _qkv(dev, torch.float32, 70, 70, seed=8)
+    g = torch.randn_like(q)
+    grads = []
+    for fn in (lambda a, b, c: at.attention(a, b, c, impl="pallas")[0],
+               lambda a, b, c: at.attention_xla(a, b, c)[0]):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        kernel_lib.reset_launch_counts()
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    assert kernel_lib.launch_counts()["mha"] == 0      # the plain pass ran last
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _sinkhorn_inputs(dev, K, B, seed, with_valid):
+    rng = np.random.default_rng(seed)
+    Q = _t(np.exp(rng.uniform(-1, 1, (K, B)) / 0.05), dev)
+    valid = _t(rng.uniform(size=B) > 0.3, dev) if with_valid else None
+    return Q, valid
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("n_iters", [3, 10])
+@pytest.mark.parametrize("K,B", [(200, 6272), (200, 25088), (8, 50), (200, 45000)])
+def test_sinkhorn_kernel_matches_plain(dev, K, B, n_iters, with_valid):
+    """Kernel 11 at the train step's two sizes, a tiny one and one whose
+    slabs do not fit the SMs' shared memory (36 MB: the device-memory
+    slabs). f32 sums in another order, compounded over the iterations."""
+    Q, valid = _sinkhorn_inputs(dev, K, B, K + B + n_iters, with_valid)
+    got = sk.sinkhorn_cuda(Q, n_iters, valid)
+    want = sk.sinkhorn_plain(Q, n_iters, valid)
+    assert got.shape == (B, K) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-8)
+
+
+def test_kernel_wrappers_raise_on_inputs_that_require_grad(dev):
+    x, attn, mlp = _block_inputs(dev, 1, 10)
+    q, k, v = _qkv(dev, torch.bfloat16, 8, 8)
+    Q, _ = _sinkhorn_inputs(dev, 8, 50, 0, False)
+    calls = [
+        lambda: fb.attention_block_branch(x.clone().requires_grad_(True), *attn,
+                                          num_heads=6),
+        lambda: fb.mlp_block_branch(x, mlp[0].clone().requires_grad_(True), *mlp[1:]),
+        lambda: fa.flash_attention(q.clone().requires_grad_(True), k, v),
+        lambda: at.attention_mha(q, k.clone().requires_grad_(True), v),
+        lambda: sk.sinkhorn_cuda(Q.clone().requires_grad_(True), 3),
+        lambda: prc.propagate_labels_batch_cuda(
+            torch.randn(1, 3, 16, 32, device=dev, requires_grad=True),
+            torch.rand(1, 2, 16, device=dev)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
 @pytest.mark.parametrize("S", [1025, 3137])
 def test_row_kernels_match_plain(dev, S):
     """ln_dense, dense_residual and mlp_rows, and the flash attention branch
@@ -180,9 +271,14 @@ def test_each_wrapper_counts_its_launches(dev):
     fb.attention_block_branch_flash(x, *attn, num_heads=6)   # ln_dense, flash,
     fb.mlp_rows(x, *mlp)                                      # dense_residual
     fa.flash_attention(*_qkv(dev, torch.float32, 5, 7))
+    at.attention(*_qkv(dev, torch.bfloat16, 5, 5))            # auto: kernel 10
+    at.attention(*_qkv(dev, torch.float32, 5, 5), impl="pallas")
+    at.attention(*_qkv(dev, torch.float32, 5, 5))             # auto, f32: plain
+    sk.sinkhorn_cuda(torch.rand(4, 9, device=dev), 2)
     assert kernel_lib.launch_counts() == {
         "attention_block": 1, "mlp_block": 1, "propagation": 1, "preprocess": 1,
-        "flash_attention": 2, "ln_dense": 1, "dense_residual": 1, "mlp_rows": 1}
+        "flash_attention": 2, "ln_dense": 1, "dense_residual": 1, "mlp_rows": 1,
+        "mha": 2, "sinkhorn": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

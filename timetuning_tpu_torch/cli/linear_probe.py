@@ -14,7 +14,7 @@ backbone's weights are a random init from seed 0.
 
 ``train_and_validate`` takes any iterables of (uint8 images [B, S, S, 3],
 uint8 masks [B, s, s]) batches; ``run_linear_probe`` feeds it from the Pascal
-VOC loader (the JAX package's framework-free ``data/pascal.py``).
+VOC loader (``data/pascal.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ import argparse
 
 import torch
 
-from timetuning_tpu_torch._host import host_module
 from timetuning_tpu_torch.cli.propagate import default_device
+from timetuning_tpu_torch.data import pascal
 from timetuning_tpu_torch.data.transforms import IMAGENET_STD, eval_preprocess_batch
 from timetuning_tpu_torch.eval.linear_probe import LinearProbeConfig, LinearProbeTrainer
 from timetuning_tpu_torch.models.registry import Backbone, get_backbone
@@ -73,7 +73,6 @@ def train_and_validate(args, bb: Backbone, train_loader, val_loader,
 
 
 def run_linear_probe(args, log=print) -> dict:
-    pascal = host_module("data.pascal")
     device = default_device(args)
     bb = get_backbone(args.architecture, args.model_path, dtype=torch.float32,
                       device=device)

@@ -5,7 +5,7 @@ linear_finetune.py:55-89): a 1x1 conv head over the frozen backbone's patch
 grid, bilinearly upsampled to ``mask_size``, trained with SGD (momentum 0.9,
 weight decay 1e-4) under a step-decay schedule and a cross-entropy that
 ignores label 255; validation reports ``PredsmIoU`` in linear-probe mode
-(the JAX package's framework-free ``eval/metrics.py``).
+(``eval/metrics.py``).
 
 The numbers follow the JAX trainer step for step:
 
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from timetuning_tpu_torch._host import host_module
+from timetuning_tpu_torch.eval.metrics import PredsmIoU
 from timetuning_tpu_torch.models.heads import LinearProbeHead
 from timetuning_tpu_torch.ops.resize import resize_bilinear
 
@@ -118,7 +118,7 @@ class LinearProbeTrainer:
     @torch.no_grad()
     def validate(self, loader) -> float:
         """mIoU with linear_probe matching (reference linear_finetune.py:34-51)."""
-        metric = host_module("eval.metrics").PredsmIoU(
+        metric = PredsmIoU(
             self.cfg.num_classes, self.cfg.num_classes, involve_bg=True)
         for frames, masks in loader:
             preds = self.forward(self.feature_fn(frames)).argmax(dim=1)

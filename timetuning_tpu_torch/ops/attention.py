@@ -1,24 +1,33 @@
-"""Multi-head self-attention: the plain version and the dispatcher.
+"""Multi-head self-attention: the plain version, the whole-sequence kernel
+and the dispatcher.
 
 Counterpart of ``timetuning_tpu/ops/attention.py``. ``attention_xla`` is the
 plain version, the path of every block asked for its probabilities and of
-f32 blocks up to 1024 tokens. ``attention`` routes as the JAX dispatcher
-(:156-200) does on its TPU with ``impl="auto"``, by ``attention_route``:
+f32 blocks up to 1024 tokens. ``attention_mha`` is kernel 10
+(csrc/mha.cu), the whole-sequence kernel of up to 1024 tokens, forward only;
+``_AttentionFused`` gives it the JAX package's custom VJP (the forward is
+the kernel, the backward the analytic softmax-attention gradient recomputed
+in plain torch: the JAX package has no backward kernel either).
+
+``attention`` routes as the JAX dispatcher (:156-200), by ``impl``:
+
+  ``xla``      the plain version, always;
+  ``pallas``   the kernels, always (``fused`` means the same): the flash
+               kernel above 1024 tokens, kernel 10 up to 1024, in bf16 or
+               f32; asking for the probabilities raises;
+  ``auto``     by ``attention_route``:
 
   =====================  ===========  ========================
   tokens, dtype          probs        route
   =====================  ===========  ========================
   S > 1024               no           flash kernel
-  S <= 1024, bf16        no           kernel 10 (not ported)
+  S <= 1024, bf16        no           kernel 10
   S <= 1024, f32         no           plain
   any                    yes          plain
   =====================  ===========  ========================
 
-A CPU tensor takes the plain version on every row, as JAX off the TPU
-(:187). Kernel 10, the whole-sequence ``_mha_kernel`` (:53), is still to
-port; a CUDA tensor that the table sends to it raises. The model never
-sends one: a bf16 ViT block runs its own kernels unless it is asked for the
-probabilities (models/vit.py).
+A CPU tensor takes the plain version on every ``auto`` row, as JAX off the
+TPU (:187), and a kernel wrapper given a CPU tensor runs its plain version.
 """
 
 from __future__ import annotations
@@ -27,10 +36,14 @@ import math
 
 import torch
 
+from timetuning_tpu_torch.ops import kernel_lib
+
 # Above this many tokens (the CLS token counted) attention runs the flash
 # kernel and a bf16 ViT block the row kernels (timetuning_tpu/ops/attention.py:192,
 # models/vit.py:248-251): the TPU's whole-sequence kernels stop there.
 WHOLE_SEQUENCE_TOKENS = 1024
+
+IMPLS = ("auto", "xla", "pallas", "fused")
 
 
 def attention_xla(q, k, v, return_probs: bool = False):
@@ -44,29 +57,121 @@ def attention_xla(q, k, v, return_probs: bool = False):
     return out, (probs if return_probs else None)
 
 
+def attention_mha_plain(q, k, v):
+    """The plain version of kernel 10: ``attention_xla``'s arithmetic, which
+    is ``_mha_kernel``'s (``timetuning_tpu/ops/attention.py:53-76``): scaled
+    f32 scores, the softmax normalised before the second product, the
+    probabilities rounded to v's dtype, the product with v accumulated in
+    f32, the output in q's dtype. The TPU kernel's key mask only hides its
+    own padding of S; nothing is padded here."""
+    return attention_xla(q, k, v)[0]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernel can read it in place (head features contiguous,
+    16-byte aligned rows), else a contiguous copy."""
+    per16 = 16 // t.element_size()
+    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s % per16 == 0 for s in t.stride()[:3])):
+        return t
+    return t.contiguous()
+
+
+def attention_mha(q, k, v):
+    """Kernel 10 (csrc/mha.cu). q, k, v: [B, H, S, 64] with S <= 1024, all
+    bf16 or all f32, read as the strided views they are. Returns
+    [B, H, S, 64] in q's dtype, a view of a [B, S, H, 64] buffer, so merging
+    the heads afterwards is free. Forward only: ``attention(...,
+    impl="pallas")`` wraps it with its backward."""
+    kernel_lib.require_no_grad("attention_mha", q, k, v)
+    if q.device.type == "cpu":
+        return attention_mha_plain(q, k, v)
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"attention_mha: expected q, k, v of one shape "
+                         f"[B, H, S, Dh], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S, Dh = q.shape
+    if Dh != 64:
+        raise ValueError(f"attention_mha: the kernel takes 64-wide heads, got "
+                         f"Dh={Dh}")
+    if S > WHOLE_SEQUENCE_TOKENS:
+        raise ValueError(f"attention_mha: the kernel takes at most "
+                         f"{WHOLE_SEQUENCE_TOKENS} tokens, got S={S} (the flash "
+                         "kernel serves longer sequences)")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"attention_mha: expected q, k, v all bf16 or all "
+                         f"f32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    kernel_lib.require_cuda("attention_mha", q, k, v)
+    q, k, v = _aligned(q.detach()), _aligned(k.detach()), _aligned(v.detach())
+    out = torch.empty((B, S, H, Dh), dtype=q.dtype,
+                      device=q.device).permute(0, 2, 1, 3)
+    kernel_lib.launch(
+        "mha", "tt_mha", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, H, S,
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    return out
+
+
+class _AttentionFused(torch.autograd.Function):
+    """Kernel 10 with the backward of ``_attention_fused_bwd``
+    (``timetuning_tpu/ops/attention.py:134-150``): the probabilities are
+    recomputed in f32 from q and k (memory-cheap at these sequence lengths)
+    and the four gradient products are plain torch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return attention_mha(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        qf, kf, vf, g32 = q.float(), k.float(), v.float(), g.float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+        p = torch.softmax(s, dim=-1)
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, g32)
+        dp = torch.einsum("bhqd,bhkd->bhqk", g32, vf)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+        dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_route(dtype: torch.dtype, seq_len: int, return_probs: bool,
-                    on_cuda: bool) -> str:
-    """"flash", "mha" (kernel 10) or "plain", by the table of the module
-    docstring."""
-    if not on_cuda or return_probs:
+                    on_cuda: bool, impl: str = "auto") -> str:
+    """"flash", "mha" (kernel 10) or "plain", by the module docstring."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention: unknown impl {impl!r}; one of {IMPLS}")
+    if impl in ("pallas", "fused"):
+        if return_probs:
+            raise RuntimeError(
+                "attention probabilities are only available through the "
+                "plain path (the whole-sequence and flash kernels never "
+                "materialise them); with a forced kernel impl, request them "
+                "via impl='xla' or 'auto': mask_features needs the last "
+                "block's probabilities, so it cannot be combined with "
+                "attn_impl='pallas' or 'fused'")
+        return "flash" if seq_len > WHOLE_SEQUENCE_TOKENS else "mha"
+    if impl == "xla" or not on_cuda or return_probs:
         return "plain"
     if seq_len > WHOLE_SEQUENCE_TOKENS:
         return "flash"
     return "mha" if dtype == torch.bfloat16 else "plain"
 
 
-def attention(q, k, v, return_probs: bool = False):
+def attention(q, k, v, return_probs: bool = False, impl: str = "auto"):
     """q, k, v: [B, H, S, Dh] -> ([B, H, S, Dh], probs or None), routed by
-    ``attention_route``."""
+    ``attention_route``. The kernel-10 route is differentiable
+    (``_AttentionFused``); the flash route is forward only."""
     route = attention_route(q.dtype, q.shape[2], return_probs,
-                            q.device.type == "cuda")
+                            q.device.type == "cuda", impl)
     if route == "flash":
         from timetuning_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention(q, k, v), None
     if route == "mha":
-        raise NotImplementedError(
-            f"attention: {q.dtype} at {q.shape[2]} tokens routes to the "
-            "whole-sequence kernel (timetuning_tpu/ops/attention.py:53 "
-            "_mha_kernel), not ported yet (ROADMAP queue 2, row 10)")
+        return _AttentionFused.apply(q, k, v), None
     return attention_xla(q, k, v, return_probs=return_probs)

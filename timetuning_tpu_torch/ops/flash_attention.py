@@ -20,7 +20,7 @@ import math
 import torch
 
 from timetuning_tpu_torch.ops import kernel_lib
-from timetuning_tpu_torch.ops.attention import attention_xla
+from timetuning_tpu_torch.ops.attention import _aligned, attention_xla
 
 _NEG = -1e30
 
@@ -41,20 +41,11 @@ def flash_attention_xla(q, k, v, kv_len: int | None = None):
                         v.float()).to(q.dtype)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if the kernel can read it in place (head features contiguous,
-    16-byte aligned rows), else a contiguous copy."""
-    per16 = 16 // t.element_size()
-    if (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(s % per16 == 0 for s in t.stride()[:3])):
-        return t
-    return t.contiguous()
-
-
 def flash_attention(q, k, v, kv_len: int | None = None):
     """Kernels 5 and 6 (csrc/flash_attention.cu). q [B, H, Sq, 64], k and v
     [B, H, Sk, 64], bf16 or f32; ``kv_len`` masks keys at or beyond it.
     Returns [B, H, Sq, 64] in q's dtype."""
+    kernel_lib.require_no_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_xla(q, k, v, kv_len)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:

@@ -101,6 +101,8 @@ def _check_dense(name, D, w):
 def attention_block_branch(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                            num_heads: int):
     """Kernel 1 (csrc/attention_block.cu). ``x``: [B, S, D] bf16."""
+    kernel_lib.require_no_grad("attention_block_branch", x, ln_s, ln_b, w_qkv,
+                               b_qkv, w_proj, b_proj)
     if x.device.type == "cpu":
         return attention_block_xla(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                                    num_heads)
@@ -152,6 +154,7 @@ def _mlp_launch(kernel, x, ln_s, ln_b, w1, b1, w2, b2):
 
 def mlp_block_branch(x, ln_s, ln_b, w1, b1, w2, b2):
     """Kernel 2 (csrc/mlp_block.cu). ``x``: [B, S, D] bf16."""
+    kernel_lib.require_no_grad("mlp_block_branch", x, ln_s, ln_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return mlp_block_xla(x, ln_s, ln_b, w1, b1, w2, b2)
     return _mlp_launch("mlp_block", x, ln_s, ln_b, w1, b1, w2, b2)
@@ -162,6 +165,7 @@ def mlp_rows(x, ln_s, ln_b, w1, b1, w2, b2):
     tokens (``_mlp_rows_pallas``, ``timetuning_tpu/ops/fused_block.py:350``).
     csrc/mlp_block.cu's GEMM tile is row-tiled already, so this launches it,
     counted as ``mlp_rows``. ``x``: [B, S, D] bf16."""
+    kernel_lib.require_no_grad("mlp_rows", x, ln_s, ln_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return mlp_block_xla(x, ln_s, ln_b, w1, b1, w2, b2)
     return _mlp_launch("mlp_rows", x, ln_s, ln_b, w1, b1, w2, b2)
@@ -172,6 +176,7 @@ def ln_dense_rows(x, ln_s, ln_b, w, b):
     the token rows (``_ln_dense_pallas``,
     ``timetuning_tpu/ops/fused_block.py:364``). ``x``: [B, S, D] bf16,
     ``w``: [D, E]."""
+    kernel_lib.require_no_grad("ln_dense_rows", x, ln_s, ln_b, w, b)
     if x.device.type == "cpu":
         return ln_dense_xla(x, ln_s, ln_b, w, b)
     _check_x("ln_dense_rows", x)
@@ -194,6 +199,7 @@ def dense_residual_rows(y, x, w, b):
     ``x + (y @ w + b)``, the sum in f32, over the token rows
     (``_dense_residual_pallas``, ``timetuning_tpu/ops/fused_block.py:376``).
     ``y``: [B, S, K] bf16, ``x``: [B, S, E] bf16, ``w``: [K, E]."""
+    kernel_lib.require_no_grad("dense_residual_rows", y, x, w, b)
     if y.device.type == "cpu":
         return dense_residual_xla(y, x, w, b)
     _check_x("dense_residual_rows", y)

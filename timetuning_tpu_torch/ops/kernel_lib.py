@@ -66,6 +66,10 @@ KERNELS = {
                "timetuning_tpu/ops/fused_block.py:308"),
         Kernel("mlp_rows", "timetuning_tpu_torch/csrc/mlp_block.cu",
                "timetuning_tpu/ops/fused_block.py:282"),
+        Kernel("mha", "timetuning_tpu_torch/csrc/mha.cu",
+               "timetuning_tpu/ops/attention.py:53"),
+        Kernel("sinkhorn", "timetuning_tpu_torch/csrc/sinkhorn.cu",
+               "timetuning_tpu/ops/sinkhorn_pallas.py:51 and :91"),
     )
 }
 
@@ -90,6 +94,9 @@ _SIGNATURES = {
     "tt_ln_dense": [_P] * 6 + [_I] * 3 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 3 + [_P],
     "tt_propagate_row_floats": [_I] * 4,
+    "tt_mha": [_P] * 4 + [_I] * 4 + [_L] * 12 + [_P],
+    "tt_sinkhorn": [_P] * 5 + [_I] * 3 + [_P],
+    "tt_sinkhorn_plan": [_I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -188,3 +195,18 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(
                 f"{name}: expected CUDA tensors on one device, got {t.device} "
                 f"(first input on {dev})")
+
+
+def require_no_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """The input check of a wrapper whose kernel has no backward: a launch
+    returns a tensor with no ``grad_fn``, so an input that requires grad
+    while grad mode is on would have its gradient dropped in silence. Raise
+    instead; the caller runs the no-grad passes under ``torch.no_grad()``
+    and the differentiated pass through a path that has a backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no backward "
+            "(its result would carry no grad_fn); call it under "
+            "torch.no_grad(), or route the differentiated pass through plain "
+            "attention (attn_impl='xla') or impl='pallas'")

@@ -39,6 +39,7 @@ def propagate_labels_batch_cuda(features, first_seg, n_last: int = 7,
                                 spatial_size: tuple[int, int] | None = None):
     """Kernel 3. features [B, T, N, D] (any float dtype: normalised in that
     dtype, then read as f32), first_seg [B, K, N] -> [B, T-1, K, N] f32."""
+    kernel_lib.require_no_grad("propagate_labels_batch", features, first_seg)
     if features.device.type == "cpu":
         return propagate_labels_batch_plain(
             features, first_seg, n_last=n_last, radius=radius, topk=topk,

@@ -1,0 +1,85 @@
+"""Sinkhorn-Knopp optimal-transport assignment.
+
+Counterpart of ``timetuning_tpu/ops/sinkhorn.py`` (reference
+my_utils.py:246-274, the non-log-space Sinkhorn with its global,
+cross-process normalisation). The iteration is the diagonal-scaling form:
+Sinkhorn only rescales rows and columns, so Q_t = diag(a) Q_0 diag(b) and an
+iteration is two matrix-vector products against the unchanged Q_0, with no
+[K, B] matrix written per iteration. The JAX package computes this form
+outside any hand-written kernel, so here it is plain ``torch.mv``. The
+materialising form, which the TPU kernel of ``ops/sinkhorn_pallas.py``
+runs, is ``ops/sinkhorn_cuda.py``.
+
+Everything is f32. With a ``torch.distributed`` process group the three sums
+that span the global batch (the total mass, the valid-sample count, the
+per-prototype row sums) are all-reduced over it, as the JAX version psums
+them over its mesh axis.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-12
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x
+    import torch.distributed as dist
+
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def sinkhorn(Q: torch.Tensor, n_iters: int = 3, group=None,
+             world_size: int = 1,
+             valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Doubly-stochastic normalisation of a transport matrix.
+
+    Q: [K, B] non-negative scores (``exp(scores / eps).T``), K prototypes and
+    B samples. ``world_size`` sets the column marginal ``1 / (B * world)``;
+    ``valid`` [B] (1 = real sample, 0 = padding) zeroes columns and removes
+    them from every sum. Returns [B, K]: every valid row sums to 1 and the
+    prototype masses are balanced over the (global) batch.
+
+    A marginal that is exactly zero (a masked column, a prototype row that
+    underflowed) is pinned to 0 instead of compounding ``r / eps`` into inf:
+    its scaling can never matter, and 0 * inf would poison the result.
+    """
+    Q = Q.float()
+    K, B = Q.shape
+    if valid is not None:
+        Q = Q * valid.float()[None, :]
+    Q = Q / (_all_reduce(Q.sum(), group) + _EPS)
+
+    r = 1.0 / K
+    if valid is None:
+        c = 1.0 / (B * world_size + _EPS)
+    else:
+        c = 1.0 / (_all_reduce(valid.float().sum(), group) + _EPS)
+
+    a = torch.ones(K, dtype=torch.float32, device=Q.device)
+    b = torch.ones(B, dtype=torch.float32, device=Q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=Q.device)
+    Qt = Q.t()
+    for _ in range(n_iters):
+        u = a * _all_reduce(torch.mv(Q, b), group)              # [K]
+        a = torch.where(u > 0, a * (r / (u + _EPS)), zero)
+        col = b * torch.mv(Qt, a)                               # [B], local
+        b = torch.where(col > 0, b * (c / (col + _EPS)), zero)
+    col = b * torch.mv(Qt, a)
+    return (Q * a[:, None] * (b / (col + _EPS))[None, :]).t()
+
+
+@torch.no_grad()
+def sinkhorn_assignment(scores: torch.Tensor, epsilon: float = 0.05,
+                        n_iters: int = 10, group=None, world_size: int = 1,
+                        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """``find_optimal_assignment`` (reference time_tuning.py:157-168):
+    scores [B, K] -> ``sinkhorn(exp(scores / eps).T)`` [B, K]. The assignment
+    is a soft label, not a differentiable path: no gradient."""
+    q = torch.exp(scores.detach() / epsilon).t()
+    return sinkhorn(q, n_iters=n_iters, group=group, world_size=world_size,
+                    valid=valid)
