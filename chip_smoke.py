@@ -14,11 +14,13 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    of the evals below, with its error bound and the times of both (CUDA
    events): kernels 1-4 at ViT-S/16 (50 frames at 224, two 25-frame clips
    of 480x854); the flash kernel in bf16 and f32 at [4 x 6 heads, 3,137
-   tokens, 64], and at queries != keys with a key mask; the row kernels
-   (ln_dense, dense_residual, mlp_rows) at 50 frames x 3,137 tokens; the
-   propagation kernel at 56x56 patches; kernel 10 (whole-sequence
-   attention) in bf16 and f32 at the train step's [128, 6, 197, 64] and at
-   256 and 1,024 tokens; kernel 11 (Sinkhorn) at [200, 6,272] and
+   tokens, 64], at queries != keys with a key mask, and in bf16 at the eval
+   group's own 50 frames; the row kernels (ln_dense, dense_residual,
+   mlp_rows) at 50 frames x 3,137 tokens; the propagation kernel at 56x56
+   patches; kernel 10 (whole-sequence attention) in bf16 and f32 at the
+   train step's [128, 6, 197, 64] and at 256, 257 (both sides of its
+   one-pass limit) and 1,024 tokens; after each attention row the count of
+   the softmax's exponentials and the time they alone need; kernel 11 (Sinkhorn) at [200, 6,272] and
    [200, 25,088] with and without a validity mask; kernel 3 at the train
    step's 32 clips x 4 frames x 200 label channels;
 4. 12 blocks of ViT-S/16 at 224 (4 frames) and of ViT-S/8 at 448 (1 frame,
@@ -52,7 +54,9 @@ take for the same work (``bound_ms``: the larger of its bytes, each input
 read and each output written once, over 3.35 TB/s, and its operations over
 the published peak of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32) and,
 where PyTorch has library calls for the same function, their time
-(``library_ms``; measured here, used nowhere in the port).
+(``library_ms``; measured here, used nowhere in the port). Kernel, plain and
+library times are device times: the timed launches are queued behind a
+device-side sleep, so a slow host does not show in them.
 
 Launch counts are set to 0 just before each main-path run (phases 5 to 8)
 and read just after; each run must launch the kernels of its path, and the
@@ -63,6 +67,7 @@ power limit, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -94,6 +99,25 @@ def bound(nbytes: float, flops: float, kind: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+@functools.lru_cache(maxsize=None)
+def max_sm_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def exp_line(key: str, n_exp: float, bound_ms: float) -> None:
+    """The exponentials a softmax over these scores needs and the time they
+    alone take on the card's special-function units (16 a clock an SM, at
+    the card's maximum SM clock), beside the row's ``bound_ms``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = max_sm_mhz()
+    ms = n_exp / (16 * sms * mhz * 1e6) * 1e3
+    print(f"exponentials {key}: {n_exp:.4g} at 16 a clock an SM on {sms} SMs at "
+          f"{mhz:.0f} MHz = {ms:.4f} ms alone (bound_ms {bound_ms:.4f})", flush=True)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,13 +125,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "n/a"
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
-    """Mean time of ``fn`` on the card (CUDA events over ``reps`` calls)."""
+def cuda_ms(fn, warmup: int = 3, reps: int = 20, queued: bool = True) -> float:
+    """Mean time of ``fn`` on the card (CUDA events over ``reps`` calls).
+    ``queued``: the calls are queued behind a few milliseconds of device-side
+    spinning, so a kernel of some ten microseconds is timed on the card and
+    not by how fast the host enqueues it (a wrapper's Python and three
+    tensor-map encodes take longer than such a kernel runs). The main-path
+    phases pass False: there the host's share is part of what is measured."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(8_000_000)    # device clocks: ~4-5 ms
     start.record()
     for _ in range(reps):
         fn()
@@ -317,51 +348,77 @@ def check_propagation(dev, report, rng, N: int, key: str, lattice: bool = False,
         raise AssertionError(f"{key}: kernel disagrees with plain version")
 
 
-def check_long_token_kernels(dev, results: dict) -> None:
-    """The kernels of the ViT-S/8 at 448 path, at its shapes."""
+def check_flash_kernels(dev, results: dict) -> None:
+    """Kernels 5/6 at the ViT-S/8 448 path's shapes: one block's attention
+    core of 4 frames x 6 heads (the plain version holds [4, 6, S, S] f32
+    scores, 236 MB a frame), in f32, at queries != keys with a key mask,
+    then in bf16 (the kernels line's), and in bf16 at the eval group's own
+    50 frames (the plain version in chunks of 5 frames)."""
     from timetuning_tpu_torch.ops import flash_attention as fa
-    from timetuning_tpu_torch.ops import fused_block as fb
 
     rng = np.random.default_rng(8)
-    t, w = _tensor_maker(dev, rng)
+    t, _ = _tensor_maker(dev, rng)
     report = _reporter(results)
     T8 = (S8 // 8) ** 2 + 1
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    # flash: one block's attention core of 4 frames x 6 heads (the plain
-    # version holds [4, 6, S, S] f32 scores, 236 MB a frame), in f32, at
-    # queries != keys with a key mask, then in bf16 (the kernels line's)
-    def check_flash(key, q, k, v, kv_len, atol, rtol, tol, extra):
+    def check_flash(key, q, k, v, kv_len, atol, rtol, tol, extra, chunk=None):
+        chunk = chunk or q.shape[0]
+
+        def plain():
+            return torch.cat([fa.flash_attention_xla(q[i:i + chunk], k[i:i + chunk],
+                                                     v[i:i + chunk], kv_len=kv_len)
+                              for i in range(0, q.shape[0], chunk)])
+
         got = fa.flash_attention(q, k, v, kv_len=kv_len)
-        want = fa.flash_attention_xla(q, k, v, kv_len=kv_len)
+        want = plain()
         torch.cuda.synchronize()
         ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
         keys = k.shape[2] if kv_len is None else kv_len
         kind = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        n_exp = float(q.shape[0] * q.shape[1] * q.shape[2] * keys)
         # the library call on the same q and the unmasked keys
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         report("flash_attention", got, want, tol,
                cuda_ms(lambda: fa.flash_attention(q, k, v, kv_len=kv_len)),
-               cuda_ms(lambda: fa.flash_attention_xla(q, k, v, kv_len=kv_len),
-                       warmup=1, reps=5),
+               cuda_ms(plain, warmup=1, reps=5 if chunk == q.shape[0] else 2),
                extra=extra, key=key,
                work=(io_bytes(q, k[:, :, :keys], v[:, :, :keys], got),
-                     4.0 * q.shape[0] * q.shape[1] * q.shape[2] * keys * 64, kind),
+                     4.0 * n_exp * 64, kind),
                library_ms=cuda_ms(lambda: sdpa(q, k[:, :, :keys], v[:, :, :keys])))
+        exp_line(key, n_exp, results[key]["bound_ms"])
         if not ok:
             raise AssertionError(f"{key}: kernel disagrees with plain version")
 
     qkv = [rng.standard_normal((4, 6, T8, 64)) for _ in range(3)]
     f32 = "atol=1e-5 rtol=1e-4 (f32 sums in another order)"
+    bf16 = ("atol=4e-3 rtol=1e-2 (one bf16 ulp of the output, p rounds to bf16 "
+            "against another max)")
     q, k, v = (t(a) for a in qkv)
     check_flash("flash_attention/f32", q, k, v, None, 1e-5, 1e-4, f32,
                 f"f32 [4x6, {T8}, 64] ")
     check_flash("flash_attention/masked", q[:, :, :1000], k, v, 2900, 1e-5, 1e-4,
                 f32, f"f32 Sq=1000 Sk={T8} kv_len=2900 ")
     q, k, v = (t(a, torch.bfloat16) for a in qkv)
-    check_flash("flash_attention", q, k, v, None, 4e-3, 1e-2,
-                "atol=4e-3 rtol=1e-2 (one bf16 ulp of the output, p rounds "
-                "to bf16 against another max)", f"bf16 [4x6, {T8}, 64] ")
-    del q, k, v
+    check_flash("flash_attention", q, k, v, None, 4e-3, 1e-2, bf16,
+                f"bf16 [4x6, {T8}, 64] ")
+    # the eval group's own launch: the strided q, k, v views of 50 frames' qkv rows
+    B = CLIPS * FRAMES
+    qkv50 = torch.from_numpy(rng.standard_normal((B, T8, 3, 6, 64), dtype=np.float32)
+                             ).to(dev, torch.bfloat16)
+    q, k, v = (qkv50[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    check_flash(f"flash_attention/bf16/{B}", q, k, v, None, 4e-3, 1e-2, bf16,
+                f"bf16 [{B}x6, {T8}, 64] strided views, plain in chunks of 5 ", chunk=5)
+
+
+def check_long_token_kernels(dev, results: dict) -> None:
+    """The row kernels and the propagation kernel of the ViT-S/8 at 448
+    path, at its shapes."""
+    from timetuning_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(8)
+    t, w = _tensor_maker(dev, rng)
+    report = _reporter(results)
+    T8 = (S8 // 8) ** 2 + 1
 
     # the row kernels: one block's branches at 50 frames x 3,137 tokens;
     # bound: bf16 rounding at O(1) values
@@ -472,28 +529,27 @@ def check_kernels(dev, results: dict) -> None:
         raise AssertionError("preprocess: kernel disagrees with plain version")
 
 
-def check_train_kernels(dev, results: dict) -> None:
-    """Kernels 10 and 11 and kernel 3 at the train step's shapes."""
+def check_mha_kernels(dev, results: dict) -> None:
+    """Kernel 10 on the strided q, k, v views that models/vit.Attention makes
+    of its qkv rows: the trunk's launch of a 32-clip step (one pass over a
+    strip of 208 keys), both sides of the one-pass limit (256 and 257
+    tokens) and the longest sequence the kernel takes (two passes)."""
     from timetuning_tpu_torch.ops import attention as at
-    from timetuning_tpu_torch.ops import sinkhorn as sk_matvec
-    from timetuning_tpu_torch.ops import sinkhorn_cuda as sk
 
     rng = np.random.default_rng(10)
     t, _ = _tensor_maker(dev, rng)
     report = _reporter(results)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    frames = TRAIN_B * TRAIN_F
-
-    # K10 on the strided q, k, v views that models/vit.Attention makes of its
-    # qkv rows: the trunk's launch of a 32-clip step, then a whole number of
-    # key tiles and the longest sequence the kernel takes
     tols = {torch.bfloat16: (4e-3, 1e-2, "atol=4e-3 rtol=1e-2 (one bf16 ulp of "
                              "the output, a p that rounds the other way)"),
             torch.float32: (1e-5, 1e-4, "atol=1e-5 rtol=1e-4 (f32 sums in "
                             "another order)")}
-    for B, S_tok in ((frames, 197), (8, 256), (8, 1024)):
+    for B, S_tok, dtypes in ((TRAIN_B * TRAIN_F, 197, (torch.bfloat16, torch.float32)),
+                             (8, 256, (torch.bfloat16, torch.float32)),
+                             (8, 257, (torch.bfloat16,)),
+                             (8, 1024, (torch.bfloat16, torch.float32))):
         base = rng.standard_normal((B, S_tok, 3, 6, 64))
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             qkv = t(base, dtype)
             q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
             got = at.attention_mha(q, k, v)
@@ -503,15 +559,28 @@ def check_train_kernels(dev, results: dict) -> None:
             ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
             kind = "bf16" if dtype == torch.bfloat16 else "f32"
             key = "mha" if (S_tok, kind) == (197, "bf16") else f"mha/{kind}/{S_tok}"
+            n_exp = float(B * 6 * S_tok * S_tok)
+            plan = f"plan {at.mha_plan(S_tok)} " if kind == "bf16" else ""
             report("mha", got, want, tol,
                    cuda_ms(lambda: at.attention_mha(q, k, v)),
                    cuda_ms(lambda: at.attention_mha_plain(q, k, v), warmup=1, reps=5),
-                   extra=f"{kind} [{B} x 6, {S_tok}, 64] ", key=key,
-                   work=(io_bytes(q, k, v, got), 4.0 * B * 6 * S_tok * S_tok * 64, kind),
+                   extra=f"{kind} [{B} x 6, {S_tok}, 64] {plan}", key=key,
+                   work=(io_bytes(q, k, v, got), 4.0 * n_exp * 64, kind),
                    library_ms=cuda_ms(lambda: sdpa(q, k, v)))
+            exp_line(key, n_exp, results[key]["bound_ms"])
             if not ok:
                 raise AssertionError(f"{key}: kernel disagrees with plain version")
         del qkv, q, k, v, got, want
+
+
+def check_train_kernels(dev, results: dict) -> None:
+    """Kernel 11 and kernel 3 at the train step's shapes."""
+    from timetuning_tpu_torch.ops import sinkhorn as sk_matvec
+    from timetuning_tpu_torch.ops import sinkhorn_cuda as sk
+
+    rng = np.random.default_rng(10)
+    t, _ = _tensor_maker(dev, rng)
+    report = _reporter(results)
 
     # K11 at the score matrices of 32- and 128-clip steps, 10 iterations,
     # without and with a validity mask; beside it the matvec form that the
@@ -644,7 +713,7 @@ def run_eval(dev, clips, arch: str, size: int, totals: dict) -> dict:
                 bb, frames, onehots, input_resolution=size, n_last=4,
                 radius=12, topk=5, dtype=prop.compute_dtype(args))
 
-        ms = cuda_ms(group, warmup=1, reps=5)
+        ms = cuda_ms(group, warmup=1, reps=5, queued=False)
         s = scores[dtype]
         print(f"eval {arch}/{size} {dtype}: J={s['J']:.6f} F={s['F']:.6f} "
               f"J&F={s['J&F']:.6f} | evaluate_clips (with host J&F) "
@@ -864,7 +933,7 @@ def train_split(model, cfg, state, clip) -> None:
         "AdamW + EMA": nograd(update),
     }
     for name, fn in parts.items():
-        print(f"train split B={B}: {cuda_ms(fn, warmup=2, reps=10):8.3f} ms  {name}",
+        print(f"train split B={B}: {cuda_ms(fn, warmup=2, reps=10, queued=False):8.3f} ms  {name}",
               flush=True)
     state.opt.zero_grad()
 
@@ -972,13 +1041,13 @@ def run_train(dev, totals: dict) -> None:
                 big = synthetic_train_clips(128, dev, seed=1)
                 torch.cuda.reset_peak_memory_stats()
                 step(state, big)
-                ms128 = cuda_ms(lambda: step(state, big), warmup=0, reps=2)
+                ms128 = cuda_ms(lambda: step(state, big), warmup=0, reps=2, queued=False)
                 print(f"train default B=128: step {ms128:.3f} ms = "
                       f"{128 / ms128 * 1e3:.1f} clips/s, peak memory "
                       f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
                 del big
             else:
-                ms3 = cuda_ms(lambda: step(state, clip), warmup=0, reps=3)
+                ms3 = cuda_ms(lambda: step(state, clip), warmup=0, reps=3, queued=False)
                 print(f"train {config} B={TRAIN_B}: step {ms3:.3f} ms over 3 more steps "
                       f"= {TRAIN_B / ms3 * 1e3:.1f} clips/s", flush=True)
             del model, state, step
@@ -1058,7 +1127,9 @@ def main() -> int:
 
     results: dict = {}
     check_kernels(dev, results)
+    check_flash_kernels(dev, results)
     check_long_token_kernels(dev, results)
+    check_mha_kernels(dev, results)
     check_train_kernels(dev, results)
     check_vit(dev, "dino-s16", S, 4)
     check_vit(dev, "dino-s8", S8, 1)

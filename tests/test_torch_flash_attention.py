@@ -76,6 +76,25 @@ def test_wrapper_matches_tpu_kernels_interpret(kernel, Sq, Sk, kv_len):
                                    np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("Sq,Sk,kv_len", [(1, 40, None), (129, 300, 1),
+                                          (127, 256, 128), (127, 256, 129)])
+def test_wrapper_matches_tpu_kernel_at_block_and_tile_edges(Sq, Sk, kv_len):
+    """The edges that the CUDA kernel's tiling adds (one query, one valid
+    key, 127 and 129 rows around its 128-row block, a mask on and one past
+    its 128-key tile edge): the wrapper's CPU path against the single-pass
+    TPU kernel in interpret mode, tolerances as above."""
+    arrs = _qkv(Sq, Sk, seed=Sq + 7 * Sk)
+    for jdt, tdt, tol in ((jnp.float32, torch.float32, 1e-5),
+                          (jnp.bfloat16, torch.bfloat16, 2e-2)):
+        want = jfa.flash_attention_fwd_pallas(*(jnp.asarray(a, jdt) for a in arrs),
+                                              kv_len=kv_len, interpret=True)
+        got = tfa.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                                  kv_len=kv_len)
+        assert got.dtype == tdt and got.shape == (1, 2, Sq, 64)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     """A non-CPU tensor never reaches the plain version: a head width other
     than 64, or mixed dtypes, raise before any launch (meta tensors stand in

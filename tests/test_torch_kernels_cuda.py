@@ -138,6 +138,67 @@ def test_flash_attention_kernel_uneven_and_masked(dev, dtype, Sq, Sk, kv_len):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,Sk,kv_len", [
+    (1, 40, None),                # one query, fewer keys than a tile
+    (127, 63, None), (129, 300, None),      # either side of a 128-row block
+    (200, 256, 128), (200, 256, 129),       # the mask on and just past a tile edge
+    (129, 500, 1),                # one valid key
+])
+def test_flash_attention_kernel_block_and_tile_edges(dev, dtype, Sq, Sk, kv_len):
+    """The edges of the bf16 kernel's tiling: 128 query rows a block (a last
+    block of one row), 128 keys a tile, fewer keys than one tile (the rest
+    arrives zero-filled and masked), a mask that ends on a tile edge (no
+    ragged tile) or one key past it, and a single valid key."""
+    q, k, v = _qkv(dev, dtype, Sq, Sk, seed=Sq + Sk, B=2, H=3)
+    got = fa.flash_attention(q, k, v, kv_len=kv_len)
+    want = fa.flash_attention_xla(q, k, v, kv_len=kv_len)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[dtype])
+
+
+def test_flash_attention_kernel_three_warpgroup_blocks(dev):
+    """A grid large enough that the bf16 kernel takes its 192-row blocks
+    (120 of them, one wave, against 192 blocks of 128 rows): a ragged last
+    block, queries != keys and a mask that ends inside a key tile."""
+    q, k, v = _qkv(dev, torch.bfloat16, 900, 1100, seed=21, B=4, H=6)
+    got = fa.flash_attention(q, k, v, kv_len=1000)
+    want = fa.flash_attention_xla(q, k, v, kv_len=1000)
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_attention_kernel_reads_strided_views_at_the_eval_batch(dev):
+    """q, k, v as views of a [B, S, 3, H, 64] qkv buffer over several batch
+    entries and heads: the tensor map's batch and head coordinates (126
+    blocks of 192 rows here)."""
+    B, S, H = 3, 1300, 6
+    qkv = _t(np.random.default_rng(9).standard_normal((B, S, 3, H, 64)), dev,
+             torch.bfloat16)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    assert at._aligned(q) is q and not q.is_contiguous()
+    got = fa.flash_attention(q, k, v)
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    want = fa.flash_attention_xla(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 5, 64, 65, 128, 197, 208, 256, 257, 700, 1024])
+def test_mha_kernel_strided_views_at_every_plan(dev, dtype, S):
+    """Kernel 10 on the strided q, k, v views of a qkv buffer at each strip
+    width of the one-pass plan (64, 128, 208, 256 keys), at a last query tile
+    of one and of five rows (65, 197), on both sides of the one-pass limit
+    (256, 257) and at a ragged and a full last chunk of the two-pass plan."""
+    B, H = 3, 6
+    qkv = _t(np.random.default_rng(S).standard_normal((B, S, 3, H, 64)), dev, dtype)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    got = at.attention_mha(q, k, v)
+    want = at.attention_mha_plain(q, k, v)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S", [1, 197, 256, 1024])
 def test_mha_kernel_matches_plain(dev, dtype, S):
     """Kernel 10 on contiguous q, k, v. bf16: one bf16 ulp of the output
@@ -181,6 +242,27 @@ def test_attention_function_carries_gradients_through_the_kernel(dev):
     assert kernel_lib.launch_counts()["mha"] == 0      # the plain pass ran last
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_attention_function_gradient_at_the_train_step_sequence(dev):
+    """``_AttentionFused`` in bf16 at S = 197 (the one-pass plan at 208 keys)
+    on strided views: the backward recomputes the probabilities in f32 from
+    the saved bf16 q, k, v, as plain autograd does through ``attention_xla``,
+    so the gradients differ by their final rounding to bf16 and by f32 sums
+    taken in another order."""
+    qkv = _t(np.random.default_rng(12).standard_normal((2, 197, 3, 6, 64)), dev,
+             torch.bfloat16)
+    g = torch.randn(2, 6, 197, 64, device=dev, dtype=torch.bfloat16)
+    grads = []
+    for fn in (lambda a, b, c: at.attention(a, b, c, impl="pallas")[0],
+               lambda a, b, c: at.attention_xla(a, b, c)[0]):
+        leaf = qkv.clone().requires_grad_(True)
+        kernel_lib.reset_launch_counts()
+        fn(*(leaf[:, :, i].permute(0, 2, 1, 3) for i in range(3))).backward(g)
+        grads.append((leaf.grad, kernel_lib.launch_counts()["mha"]))
+    (got, n_kernel), (want, n_plain) = grads
+    assert (n_kernel, n_plain) == (1, 0)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
 
 
 def _sinkhorn_inputs(dev, K, B, seed, with_valid):

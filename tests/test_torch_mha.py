@@ -70,6 +70,48 @@ def test_plain_matches_tpu_kernel_bf16():
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2 ** -7)
 
 
+@pytest.mark.parametrize("S,plan", [
+    (1, (1, 64)), (64, (1, 64)), (65, (1, 128)), (128, (1, 128)), (129, (1, 208)),
+    (197, (1, 208)), (208, (1, 208)), (209, (1, 256)), (256, (1, 256)),
+    (257, (2, 384)), (700, (2, 768)), (1024, (2, 1024))])
+def test_mha_plan_by_sequence_length(S, plan):
+    """One pass up to 256 tokens, over the narrowest strip the kernel has that
+    holds the sequence; two passes up to 1024, over whole 128-key chunks. The
+    key count handed to the kernel covers the sequence and is a whole number
+    of the second product's 16-key steps."""
+    assert tattn.mha_plan(S) == plan
+    passes, keys = plan
+    assert keys >= S and keys % 16 == 0
+    if passes == 1:
+        assert keys in tattn.ONE_PASS_KEYS and keys <= 256
+        assert not any(S <= n < keys for n in tattn.ONE_PASS_KEYS)
+    else:
+        assert keys % tattn.TWO_PASS_CHUNK == 0 and keys - S < tattn.TWO_PASS_CHUNK
+
+
+@pytest.mark.parametrize("S", [0, -3, 1025, 3137])
+def test_mha_plan_raises_outside_the_kernels_range(S):
+    with pytest.raises(ValueError, match="at most 1024 tokens"):
+        tattn.mha_plan(S)
+
+
+@pytest.mark.parametrize("S", [5, 197, 257])
+def test_wrapper_on_cpu_matches_tpu_kernel_bf16(S):
+    """The kernel's wrapper given CPU tensors (its plain version, whatever
+    the plan for S) against ``_mha_kernel`` in interpret mode, on the strided
+    q, k, v views of a qkv buffer; bound as the plain version's above."""
+    qkv = np.random.default_rng(S).standard_normal((1, S, 3, 2, 64)).astype(np.float32)
+    t = torch.from_numpy(qkv).bfloat16()
+    tq, tk, tv = (t[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    got = tattn.attention_mha(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 2, S, 64)
+    assert torch.equal(got, tattn.attention_mha_plain(tq, tk, tv))
+    j = jnp.asarray(qkv).astype(jnp.bfloat16)
+    want = _mha_kernel_interpret(*(j[:, :, i].transpose(0, 2, 1, 3) for i in range(3)))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), rtol=0, atol=2 ** -7)
+
+
 def test_function_backward_matches_jax_custom_vjp():
     """The Function's backward against ``_attention_fused_bwd`` itself and
     against ``jax.grad`` through plain attention, f32, 1e-5."""

@@ -103,6 +103,40 @@ def test_port_cli_never_imports_jax(davis_tree, weights):
     assert 0.0 <= _jf(proc.stdout)["J&F"] <= 1.0
 
 
+def test_default_device_is_the_card_or_an_error(monkeypatch):
+    """Without ``--device`` the CLIs run on the card and raise where there is
+    none; the CPU is taken only when asked for."""
+    from timetuning_tpu_torch.cli import linear_probe as lp
+
+    assert lp.default_device is tcli.default_device
+    parse = tcli.build_parser().parse_args
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tcli.default_device(parse([]))
+    assert tcli.default_device(parse(["--device", "cpu"])) == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tcli.default_device(parse([])) == torch.device("cuda")
+    assert tcli.default_device(parse(["--device", "cpu"])) == torch.device("cpu")
+    lp_args = lp.build_parser().parse_args(["--pascal_root", "unused"])
+    assert lp_args.device is None and tcli.default_device(lp_args) == torch.device("cuda")
+
+
+@pytest.mark.parametrize("cli", ["propagate", "linear_probe"])
+def test_clis_without_device_raise_where_there_is_no_card(monkeypatch, davis_tree,
+                                                          weights, cli):
+    """Neither CLI takes the CPU in silence: with no card and no ``--device``
+    ``main`` raises before it loads a model or reads data."""
+    from timetuning_tpu_torch.cli import linear_probe as lp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device found"):
+        if cli == "propagate":
+            tcli.main(_argv(davis_tree, weights))
+        else:
+            lp.main(["--pascal_root", "does-not-exist", "--architecture",
+                     "vit-tiny-test"])
+
+
 def test_str2bool_copy_matches_original():
     import argparse
 

@@ -42,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mask_size", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+                   help="torch device (default: cuda, and an error where there "
+                        "is no card; pass cpu to run on the host)")
     return p
 
 

@@ -76,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="clips per device dispatch; metrics do not depend "
                         "on it")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+                   help="torch device (default: cuda, and an error where there "
+                        "is no card; pass cpu to run on the host)")
     return p
 
 
@@ -167,9 +168,15 @@ def evaluate_clips(args, bb: Backbone,
 
 
 def default_device(args) -> torch.device:
+    """``--device`` when given; else the card, and an error where there is
+    none: the CLIs never take the CPU without being asked to."""
     if args.device:
         return torch.device(args.device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found (torch.cuda.is_available() is false) and no "
+            "--device given; pass --device cpu to run on the host")
+    return torch.device("cuda")
 
 
 def run_propagation(args, metrics: tuple = ("jf",)) -> dict:

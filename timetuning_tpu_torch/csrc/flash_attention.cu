@@ -10,9 +10,8 @@
 // _flash_kernel (:47, K/V of one head resident in VMEM, the key loop inside
 // the program) and _flash_kernel_stream (:154, K/V streamed over a grid
 // axis, the carry in scratch). A Hopper SM has 227 KB of shared memory, not
-// VMEM's megabytes, so this kernel always streams K/V: one block per
-// (64-query tile, head, batch), a loop over 64-key tiles staged in shared
-// memory, the carry (m, l, acc) in registers.
+// VMEM's megabytes, so this kernel always streams K/V through a ring of
+// tiles in shared memory, the carry (m, l, acc) in registers.
 //
 // Per key tile, as the TPU kernels: s = dot(q, k) * scale (the scale after
 // the f32 product), s = -1e30 at masked keys, m_new = max(m, rowmax s),
@@ -23,25 +22,46 @@
 //
 // What bounds it on the card: the two products, 4 * Sq * Sk * 64 FLOPs a
 // head (2.5 GFLOP at S = 3,137, ViT-S/8 at 448) against 0.8 MB of q, k and v
-// in bf16: far above the ridge, so product rate decides.
-//   bf16: WMMA 16x16x16 tensor-core products with f32 accumulation (as the
-//   attention-block kernel), 4 warps of 16 query rows. A lane owns one row
-//   and 32 of its columns for the softmax and the rescale of acc, which it
-//   keeps in registers; p @ v of each tile goes through the warp's rows of
-//   the score tile in shared memory, then acc = acc * corr + (p @ v).
+// in bf16: far above the ridge, so product rate decides; and at a head width
+// of 64 the Sq * Sk exponentials of the softmax (16 a clock an SM) take as
+// long as the products at the tensor cores' peak.
+//   bf16: a block owns 128 or 192 query rows of one (batch, head): two or
+//   three consumer warpgroups of 64 rows each and a producer warpgroup that
+//   gives its registers to them (setmaxnreg). One producer lane fills a
+//   ring of four [128 keys, 64] K and V tiles by TMA (cp.async.bulk.tensor
+//   on an mbarrier, 128-byte swizzle, rows past Sk zero-filled), ahead of
+//   their use; each K/V tile serves every warpgroup. Three warpgroups keep
+//   the tensor cores and the exponential units busier (9 % faster at 50 x 6
+//   x 3,137 on an H100) but make fewer, larger blocks: the host takes
+//   whichever needs fewer waves of the card's SMs. A consumer computes
+//   s = q k^T by wgmma (m64n128k16, q and k from shared memory, s in
+//   registers), the softmax in the accumulator's own register layout (row
+//   reductions by quad shuffles, exp as exp2 with scale * log2 e folded into
+//   one FMA, the key mask only in a ragged last tile), packs p to bf16 in
+//   registers and feeds it as the A operand of the second wgmma (m64n64k16,
+//   v MN-major from shared memory); acc stays in registers and is rescaled
+//   there. Scores, p and acc never touch shared memory. The
+//   warpgroups are not ordered against each other: while one is in its
+//   softmax the others' products can run. (Forcing them to take turns with
+//   named barriers, tile it's q k^T issued with tile it - 1's p @ v, was
+//   measured 19 % slower at 50 x 6 x 3,137 on an H100 and is not kept.)
 //   f32: CUDA-core FMAs in f32 (no TF32: the f32 path is held to the plain
-//   f32 composition at f32 tolerance), 256 threads each owning a 4x4 tile of
-//   scores and of acc, 4 threads a row for the softmax.
+//   f32 composition at f32 tolerance) on the tiles of attention_f32.cuh: a
+//   block of 128 threads owns 64 query rows, a thread 8 rows x 4 columns of
+//   the scores and of acc with float4 operand reads, the softmax in
+//   registers over the 16 lanes of a row, K/V tiles of 64 keys by cp.async
+//   into two buffers, the next tile's copies under this one's arithmetic.
 // Dh is fixed at 64 (every ViT-S/B configuration of the repo).
+#include "attention_f32.cuh"
+#include "attention_wgmma.cuh"
 #include "common.cuh"
 
 namespace {
 
 using tt::bf16;
+namespace hp = tt::hopper;
 
 constexpr int kDh = 64;
-constexpr int kQ = 64;         // queries per block
-constexpr int kK = 64;         // keys per tile
 constexpr float kNeg = -1e30f;
 
 struct Strides {
@@ -49,310 +69,223 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------- bf16 --
-constexpr int kBThreads = 128;  // 4 warps x 16 query rows
-constexpr int kLd = kDh + 8;    // bf16 tile row (144 bytes)
-constexpr int kSLd = kK + 4;    // f32 score row
-constexpr int kBSmem =
-    (2 * kQ + 2 * kK) * kLd * (int)sizeof(bf16) + kQ * kSLd * (int)sizeof(float);
+constexpr int kBK = 128;                 // keys per tile
+constexpr int kStages = 4;               // K/V tiles in flight
+constexpr int kTileBytes = kBK * hp::kRowBytes;
 
-__global__ void __launch_bounds__(kBThreads)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                  int Sk, int kv_len, float scale, Strides st) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kQ * kLd;
-  bf16* Vs = Ks + kK * kLd;
-  bf16* Ps = Vs + kK * kLd;
-  float* Ss = reinterpret_cast<float*>(Ps + kQ * kLd);
+// kWG consumer warpgroups of 64 query rows each, and the producer's
+template <int kWG>
+struct FlashBlock {
+  static constexpr int kBQ = 64 * kWG;                // queries per block
+  static constexpr int kConsumerWarps = 4 * kWG;
+  static constexpr int kThreads = (kWG + 1) * 128;
+  static constexpr int kQBytes = kBQ * hp::kRowBytes;
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  // 1,024 bytes of slack: the tiles start at the next 1,024-byte boundary
+  static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int kWG>
+__global__ void __launch_bounds__(FlashBlock<kWG>::kThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                  int Sq, int kv_len, float scale_log2, long long ob,
+                  long long oh, long long os) {
+  constexpr int kBQ = FlashBlock<kWG>::kBQ;
+  constexpr int kConsumerWarps = FlashBlock<kWG>::kConsumerWarps;
+  constexpr int kQBytes = FlashBlock<kWG>::kQBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + kQBytes;            // stage s: K then V
+  const uint32_t bar_q = base + FlashBlock<kWG>::kBarOffset;
+  const uint32_t bar_full = bar_q + 8;             // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kQ;
+  const int q0 = blockIdx.x * kBQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const bf16* qp = q + b * st.qb + h * st.qh;
-  const bf16* kp = k + b * st.kb + h * st.kh;
-  const bf16* vp = v + b * st.vb + h * st.vh;
+  const int n_tiles = (kv_len + kBK - 1) / kBK;
 
-  // [64 rows x 64] starting at row t0 of a [S, 64] slice with row stride
-  // ss; rows past S are zero-filled
-  auto load_tile = [&](bf16* dst, const bf16* src, long long ss, int t0, int S) {
-    for (int i = tid; i < 64 * (kDh / 8); i += kBThreads) {
-      const int r = i / (kDh / 8);
-      const int c = (i % (kDh / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (t0 + r < S)
-        val = *reinterpret_cast<const uint4*>(src + (t0 + r) * ss + c);
-      *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
+  if (tid == 0) {
+    hp::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(bar_full + 8 * s, 1);
+      hp::mbar_init(bar_empty + 8 * s, kConsumerWarps);
     }
-  };
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_tile(Qs, qp, st.qs, q0, Sq);
+  if (warp >= kConsumerWarps) {
+    // producer warpgroup: one lane keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (warp == kConsumerWarps && lane == 0) {
+      hp::mbar_arrive_expect_tx(bar_q, kQBytes);
+      hp::tma_load(q_s, &map_q, bar_q, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t round = (it / kStages) & 1;
+        hp::mbar_wait(bar_empty + 8 * s, round ^ 1);   // passes at once in round 0
+        hp::mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kTileBytes);
+        hp::tma_load(kv_s + s * 2 * kTileBytes, &map_k, bar_full + 8 * s, it * kBK, h, b);
+        hp::tma_load(kv_s + s * 2 * kTileBytes + kTileBytes, &map_v, bar_full + 8 * s,
+                     it * kBK, h, b);
+      }
+    }
+    return;
+  }
 
-  // row-wise work: lane -> (row warp*16 + lane/2, 32 of the 64 tile columns)
-  const int my_row = warp * 16 + (lane >> 1);
-  const int half = (lane & 1) * 32;
-  float* srow = Ss + my_row * kSLd + half;
-  bf16* prow = Ps + my_row * kLd + half;
-  float m_run = kNeg, l_run = 0.f;
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  if (kWG == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;");
+  const int wg = warp >> 2;
+  const int r0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);   // and r0 + 8
+  const uint32_t q_wg = q_s + wg * 64 * hp::kRowBytes;
   float acc[32];
 #pragma unroll
-  for (int c = 0; c < 32; ++c) acc[c] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg;          // running row max, in log2 units
+  float l0 = 0.f, l1 = 0.f;            // this lane's share of the row sums
 
-  const int n_tiles = (kv_len + kK - 1) / kK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kK;
-    __syncthreads();                      // the last tile's K/V reads are done
-    load_tile(Ks, kp, st.ks, k0, Sk);
-    load_tile(Vs, vp, st.vs, k0, Sk);
-    __syncthreads();
+  hp::mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t round = (it / kStages) & 1;
+    const uint32_t k_s = kv_s + s * 2 * kTileBytes;
+    hp::mbar_wait(bar_full + 8 * s, round);
 
-    // this warp's raw scores [16 x 64] = Q_w K^T
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[4];
+    float sc[kBK / 2];
+    hp::qk_product(sc, q_wg, k_s);
+    if (it == n_tiles - 1 && kv_len % kBK != 0)
+      hp::mask_keys(sc, it * kBK, kv_len, lane);
+
+    float mx0, mx1, sum0, sum1;
+    hp::row_max(sc, mx0, mx1);
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float corr0 = hp::fast_exp2(m0 - mn0);
+    const float corr1 = hp::fast_exp2(m1 - mn1);
+    hp::exp_rows(sc, scale_log2, mn0, mn1, sum0, sum1);
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(sf[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kDh; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * kLd + kk, kLd);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-          wmma::load_matrix_sync(kf, Ks + j * 16 * kLd + kk, kLd);
-          wmma::mma_sync(sf[j], a, kf, sf[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Ss + warp * 16 * kSLd + j * 16, sf[j], kSLd,
-                                wmma::mem_row_major);
+    for (int j = 0; j < 8; ++j) {
+      acc[4 * j] *= corr0;
+      acc[4 * j + 1] *= corr0;
+      acc[4 * j + 2] *= corr1;
+      acc[4 * j + 3] *= corr1;
     }
-    __syncwarp();
-
-    // online softmax of this lane's 32 columns
-    float mx = kNeg;
-#pragma unroll
-    for (int c = 0; c < 32; ++c)
-      if (k0 + half + c < kv_len) mx = fmaxf(mx, srow[c] * scale);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float corr = expf(m_run - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p =
-          k0 + half + c < kv_len ? expf(srow[c] * scale - m_new) : 0.f;
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * corr + sum;
-    m_run = m_new;
-    __syncwarp();
-
-    // p @ v for this warp's rows, through its rows of the score tile
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(pv[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * kLd + kk, kLd);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, Vs + kk * kLd + j * 16, kLd);
-          wmma::mma_sync(pv[j], a, vf, pv[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Ss + warp * 16 * kSLd + j * 16, pv[j], kSLd,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 32; ++c) acc[c] = acc[c] * corr + srow[c];
-    __syncwarp();
+    uint32_t pa[kBK / 4];
+    hp::pack_rows(sc, 1.f, 1.f, pa);
+    hp::pv_product<kBK / 16>(acc, pa, k_s + kTileBytes, true);
+    if (lane == 0) hp::mbar_arrive(bar_empty + 8 * s);   // this warp's reads are done
   }
 
-  const int row = q0 + my_row;
-  if (row < Sq) {
-    const float l = fmaxf(l_run, 1e-20f);
-    bf16* dst = o + b * st.ob + h * st.oh + row * st.os + half;
-#pragma unroll
-    for (int c = 0; c < 32; c += 8) {
-      uint4 pk;
-      bf16* e = reinterpret_cast<bf16*>(&pk);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(acc[c + j] / l);
-      *reinterpret_cast<uint4*>(dst + c) = pk;
-    }
-  }
+  l0 = fmaxf(hp::quad_sum(l0), 1e-20f);
+  l1 = fmaxf(hp::quad_sum(l1), 1e-20f);
+  hp::store_rows(acc, l0, l1, o + b * ob + h * oh, os, r0, Sq, lane);
 }
 
 // ----------------------------------------------------------------- f32 --
-constexpr int kFThreads = 256;  // 16 x 16 threads, a 4x4 tile each
-constexpr int kQLd = kDh + 4;   // Q rows: float4 stores, two rows 4 banks apart
-constexpr int kKLd = kDh + 1;   // K rows: 16 rows read at one column, no conflict
-constexpr int kVLd = kDh;       // V rows: read along the row
-constexpr int kPLd = kK + 1;
+namespace f32 = tt::f32attn;
 constexpr int kFSmem =
-    (kQ * kQLd + kK * kKLd + kK * kVLd + kQ * kPLd + 2 * kQ) * (int)sizeof(float);
+    (4 * f32::kTile + 2 * f32::kVTile) * (int)sizeof(float);   // Q, 2 K, P; 2 V
 
-__global__ void __launch_bounds__(kFThreads)
+__global__ void __launch_bounds__(f32::kThreads, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Sq,
                  int Sk, int kv_len, float scale, Strides st) {
   extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                  // [kQ][kQLd]
-  float* Ks = Qs + kQ * kQLd;       // [kK][kKLd]
-  float* Vs = Ks + kK * kKLd;       // [kK][kVLd]
-  float* Ps = Vs + kK * kVLd;       // [kQ][kPLd] scores, then p
-  float* corr_s = Ps + kQ * kPLd;   // [kQ]
-  float* l_s = corr_s + kQ;         // [kQ]
+  float* Qs = fsm;                       // [64][kLd]
+  float* Ks = Qs + f32::kTile;           // [2][64][kLd]
+  float* Vs = Ks + 2 * f32::kTile;       // [2][64][64]
+  float* Ps = Vs + 2 * f32::kVTile;      // [64][kLd]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kQ;
+  const int q0 = blockIdx.x * f32::kBQ;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;          // rows ty + 16 i
-  const int tx = tid & 15;          // columns tx + 16 j
+  const int ty = tid >> 4;               // rows ty + 8 i
+  const int tx = tid & 15;               // keys tx + 16 j, head features 4 tx + c
   const float* qp = q + b * st.qb + h * st.qh;
   const float* kp = k + b * st.kb + h * st.kh;
   const float* vp = v + b * st.vb + h * st.vh;
 
-  auto load_tile = [&](float* dst, int ld, const float* src, long long ss,
-                       int t0, int S) {
-    for (int i = tid; i < 64 * (kDh / 4); i += kFThreads) {
-      const int r = i / (kDh / 4);
-      const int c = (i % (kDh / 4)) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t0 + r < S) val = *reinterpret_cast<const float4*>(src + (t0 + r) * ss + c);
-      float* d = dst + r * ld + c;
-      d[0] = val.x;
-      d[1] = val.y;
-      d[2] = val.z;
-      d[3] = val.w;
-    }
-  };
+  f32::load_tile_async(Ks, f32::kLd, kp, st.ks, 0, Sk, tid);
+  f32::load_tile_async(Vs, f32::kDh, vp, st.vs, 0, Sk, tid);
+  f32::async_commit();
+  f32::load_tile(Qs, f32::kLd, qp, st.qs, q0, Sq, tid);
 
-  load_tile(Qs, kQLd, qp, st.qs, q0, Sq);
-
-  // softmax roles: row sr, columns sc0 .. sc0 + 15
-  const int sr = tid >> 2;
-  const int sc0 = (tid & 3) * 16;
-  float m_run = kNeg, l_run = 0.f;
-  float acc[4][4];
+  float m_run[8], l_run[8], acc[8][4];   // l_run: this lane's share of the row sum
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    m_run[i] = kNeg;
+    l_run[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  }
 
-  const int n_tiles = (kv_len + kK - 1) / kK;
+  const int n_tiles = (kv_len + f32::kBK - 1) / f32::kBK;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kK;
-    __syncthreads();                      // the last tile's reads are done
-    load_tile(Ks, kKLd, kp, st.ks, k0, Sk);
-    load_tile(Vs, kVLd, vp, st.vs, k0, Sk);
+    const int k0 = kt * f32::kBK;
+    const int buf = kt & 1;
+    // tile kt has landed, and the last tile's reads of the other buffers
+    // and of P are done: the next tile's copies go out under this one's work
+    f32::async_wait<0>();
     __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kDh; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * kQLd + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = Ks[(tx + 16 * j) * kKLd + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += a[i] * kk[j];
+    if (kt + 1 < n_tiles) {
+      f32::load_tile_async(Ks + (buf ^ 1) * f32::kTile, f32::kLd, kp, st.ks,
+                           k0 + f32::kBK, Sk, tid);
+      f32::load_tile_async(Vs + (buf ^ 1) * f32::kVTile, f32::kDh, vp, st.vs,
+                           k0 + f32::kBK, Sk, tid);
+      f32::async_commit();
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kPLd + tx + 16 * j] = s[i][j] * scale;
-    __syncthreads();
 
-    // online softmax, 4 threads a row (neighbouring lanes)
-    {
-      float* prow = Ps + sr * kPLd + sc0;
-      float mx = kNeg;
+    float s[8][4];
+    f32::qk_tile(s, Qs, Ks + buf * f32::kTile, scale, ty, tx);
+    if (k0 + f32::kBK > kv_len) f32::mask_keys(s, k0, kv_len, tx);
+
+    // online softmax in registers; masked keys give exp(-1e30 - m) = 0
 #pragma unroll
-      for (int c = 0; c < 16; ++c)
-        if (k0 + sc0 + c < kv_len) mx = fmaxf(mx, prow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      const float corr = expf(m_run - m_new);
+    for (int i = 0; i < 8; ++i) {
+      const float mx = f32::row_max16(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float corr = expf(m_run[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = k0 + sc0 + c < kv_len ? expf(prow[c] - m_new) : 0.f;
-        sum += p;
-        prow[c] = p;
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run = l_run * corr + sum;
-      m_run = m_new;
-      if ((tid & 3) == 0) corr_s[sr] = corr;
+      l_run[i] = l_run[i] * corr + sum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] *= corr;
     }
+    f32::store_p(Ps, s, ty, tx);
     __syncthreads();
-
-    // acc = acc * corr + p @ v
-    float pv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) pv[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < kK; ++kk) {
-      float p[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * kPLd + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kVLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) pv[i][j] += p[i] * vv[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float cr = corr_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = acc[i][j] * cr + pv[i][j];
-    }
+    f32::pv_tile(acc, Ps, f32::kLd, Vs + buf * f32::kVTile, f32::kBK, ty, tx);
   }
 
-  if ((tid & 3) == 0) l_s[sr] = fmaxf(l_run, 1e-20f);
-  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= Sq) continue;
-    float* dst = o + b * st.ob + h * st.oh + (q0 + r) * st.os;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dst[tx + 16 * j] = acc[i][j] / l_s[r];
-  }
+  for (int i = 0; i < 8; ++i) l_run[i] = fmaxf(f32::row_sum16(l_run[i]), 1e-20f);
+  f32::store_rows(acc, l_run, o + b * st.ob + h * st.oh, st.os, q0, Sq, ty, tx);
 }
 
 }  // namespace
 
 // q, k, v, o: device pointers of bf16 (is_bf16 = 1) or f32 values; strides
-// in elements. 1 <= kv_len <= Sk.
+// in elements. 1 <= kv_len <= Sk. bf16: the head features contiguous, every
+// stride a multiple of 8 elements and every base 16-byte aligned (TMA).
 extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int is_bf16, int B, int H, int Sq,
                                   int Sk, int kv_len, long long qb, long long qh,
@@ -363,24 +296,43 @@ extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Sq <= 0 || Sk <= 0 ||
       kv_len < 1 || kv_len > Sk)
     return (int)cudaErrorInvalidValue;
-  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Sq + kQ - 1) / kQ, H, B);
   const float scale = 1.f / sqrtf((float)kDh);
   cudaError_t e;
   if (is_bf16) {
-    e = cudaFuncSetAttribute(flash_bf16_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmem);
+    CUtensorMap map_q, map_k, map_v;
+    // three consumer warpgroups a block run a row ~9 % faster than two, in
+    // blocks of 192 rows instead of 128: take the form whose waves over the
+    // card's SMs cost less
+    int sms = 0, device = 0;
+    if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+            cudaSuccess)
+      return (int)e;
+    auto waves = [&](int rows) {
+      return (((long long)(Sq + rows - 1) / rows * H * B + sms - 1) / sms) * rows;
+    };
+    const bool three = 0.91 * waves(192) < waves(128);
+    const int q_rows = three ? 192 : 128;
+    if ((e = hp::make_qkv_map(&map_q, q, B, H, Sq, qb, qh, qs, q_rows)) != cudaSuccess ||
+        (e = hp::make_qkv_map(&map_k, k, B, H, Sk, kb, kh, ks, kBK)) != cudaSuccess ||
+        (e = hp::make_qkv_map(&map_v, v, B, H, Sk, vb, vh, vs, kBK)) != cudaSuccess)
+      return (int)e;
+    const auto kernel = three ? flash_bf16_kernel<3> : flash_bf16_kernel<2>;
+    const int smem = three ? FlashBlock<3>::kSmem : FlashBlock<2>::kSmem;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    flash_bf16_kernel<<<grid, kBThreads, kBSmem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, kv_len,
-        scale, st);
+    const dim3 grid((Sq + q_rows - 1) / q_rows, H, B);
+    kernel<<<grid, three ? FlashBlock<3>::kThreads : FlashBlock<2>::kThreads, smem, s>>>(
+        map_q, map_k, map_v, static_cast<bf16*>(o), Sq, kv_len, scale * hp::kLog2e,
+        ob, oh, os);
   } else {
+    const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
     e = cudaFuncSetAttribute(flash_f32_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
     if (e != cudaSuccess) return (int)e;
-    flash_f32_kernel<<<grid, kFThreads, kFSmem, s>>>(
+    const dim3 grid((Sq + f32::kBQ - 1) / f32::kBQ, H, B);
+    flash_f32_kernel<<<grid, f32::kThreads, kFSmem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, kv_len,
         scale, st);

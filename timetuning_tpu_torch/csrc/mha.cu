@@ -21,356 +21,540 @@
 // What bounds it on the card: at the train step's shape (128 frames x 6
 // heads, S = 197) the two products are ~7.6 GFLOP against ~77 MB of q, k, v
 // and o in bf16, so device memory bounds it (bytes / 3.35 TB/s), not the
-// tensor cores. The design is the simple one: one block per (64-query tile,
-// head, batch) that walks the keys in 64-row tiles twice, first for each
-// row's max and sum, then for p and p @ v; a [64, S] score strip never has
-// to fit in shared memory, and S up to 1024 costs nothing extra. K is read
-// twice and V once per query tile (4 query tiles at S = 197), which the L2
-// cache serves; the kernel's time against its byte bound says what that
-// costs.
-//   bf16: WMMA 16x16x16 tensor-core products, f32 accumulation, 4 warps of
-//   16 query rows; the same two-pass core as the attention-block kernel
-//   (attention_block.cu), on strided [B, H, S, 64] views instead of a packed
-//   qkv buffer.
-//   f32: CUDA-core FMAs (no TF32, so an f32 model stays f32), 256 threads
-//   each owning a 4x4 tile of scores and of the output.
+// tensor cores; at 8 x 6 x 1,024 the products and the softmax's
+// exponentials (16 a clock an SM) do.
+//   bf16, S <= 256 (one pass): a block is one warpgroup and owns one
+//   (batch, head). One thread asks TMA for the head's whole Q, K and V
+//   (128-byte swizzle, rows past S zero-filled), so each is read from device
+//   memory once a head; two or three blocks share an SM, so one block's
+//   loads run under another's arithmetic. (With fewer heads than two an SM
+//   a block owns one query tile instead and K/V come again from L2.) For
+//   each 64-row query tile in turn: the whole score strip [64, N] by wgmma
+//   (m64nNk16, N = 64, 128, 208 or 256 keys, chosen by the caller's plan)
+//   in registers, exact row max and sum by quad
+//   shuffles, p normalised, rounded to bf16 and fed from registers as the A
+//   operand of p @ v (m64n64k16, V MN-major). q k^T runs once and nothing
+//   but Q, K and V is ever in shared memory, as the TPU kernel keeps its
+//   strip in VMEM.
+//   bf16, 256 < S <= 1,024 (two passes): a block owns 128 query rows of one
+//   (batch, head), 64 a warpgroup; a producer warp asks TMA for Q, for K in
+//   128-key chunks that stay resident in shared memory (128 KB at
+//   S = 1,024), and for V through a ring of three tiles. Pass 1 walks K for
+//   each row's max and sum (online), pass 2 walks the resident K again for
+//   p = exp(s - max) / sum and p @ v with V streamed. A [64, 1,024] strip
+//   does not fit a warpgroup's registers, so q k^T runs twice; K is fetched
+//   once a block.
+//   f32: CUDA-core FMAs (no TF32, so an f32 model stays f32) on the tiles
+//   of attention_f32.cuh: a block of 128 threads owns 64 query rows, a
+//   thread 8 rows x 4 columns of the scores and of the output with float4
+//   operand reads; 64-key tiles arrive by cp.async into two buffers. Up to
+//   256 tokens one pass: the block's [64, S] scores stay in shared memory
+//   (52 KB at S = 197) and q k^T runs once; up to 1,024 two passes (K, then
+//   K and V), the row statistics in registers.
 // Dh is fixed at 64 (every ViT of the repo).
+#include "attention_f32.cuh"
+#include "attention_wgmma.cuh"
 #include "common.cuh"
 
 namespace {
 
 using tt::bf16;
+namespace hp = tt::hopper;
 
 constexpr int kDh = 64;
-constexpr int kQ = 64;         // queries per block
-constexpr int kK = 64;         // keys per tile
 constexpr float kNeg = -1e30f;
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-// ---------------------------------------------------------------- bf16 --
-constexpr int kBThreads = 128;  // 4 warps x 16 query rows
-constexpr int kLd = kDh + 8;    // bf16 tile row (144 bytes)
-constexpr int kSLd = kK + 4;    // f32 score row
-constexpr int kBSmem =
-    (2 * kQ + 2 * kK) * kLd * (int)sizeof(bf16) + kQ * kSLd * (int)sizeof(float);
+// ------------------------------------------------------ bf16, one pass --
+constexpr int kOneMaxKeys = 256;          // the widest wgmma: the strip's limit
+constexpr int kOneThreads = 128;          // one warpgroup
 
-__global__ void __launch_bounds__(kBThreads)
-mha_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                float scale, Strides st) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kQ * kLd;
-  bf16* Vs = Ks + kK * kLd;
-  bf16* Ps = Vs + kK * kLd;
-  float* Ss = reinterpret_cast<float*>(Ps + kQ * kLd);
+// shared memory of a block that owns q_rows query rows and a strip of `keys`
+constexpr int one_pass_smem(int q_rows, int keys) {
+  return (q_rows + 2 * keys) * hp::kRowBytes + 2 * 8 + 1024;
+}
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kQ;
+// N: the key count the strip is padded to; q_rows: the query rows a block
+// owns, the rows of the Q box (64 a query tile)
+template <int N>
+__global__ void __launch_bounds__(kOneThreads, 2)
+mha_one_pass_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                    int S, int q_rows, float scale_log2, long long ob, long long oh,
+                    long long os) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + q_rows * hp::kRowBytes;
+  const uint32_t v_s = k_s + N * hp::kRowBytes;
+  const uint32_t bar_qk = v_s + N * hp::kRowBytes;
+  const uint32_t bar_v = bar_qk + 8;
+
+  const int b = blockIdx.y;
+  const int h = blockIdx.x;
+  const int q0 = blockIdx.z * q_rows;
+  const int q_end = min(S, q0 + q_rows);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const bf16* qp = q + b * st.qb + h * st.qh;
-  const bf16* kp = k + b * st.kb + h * st.kh;
-  const bf16* vp = v + b * st.vb + h * st.vh;
 
-  // [64 rows x 64] starting at row t0 of a [S, 64] slice with row stride
-  // ss; rows past S are zero-filled
-  auto load_tile = [&](bf16* dst, const bf16* src, long long ss, int t0) {
-    for (int i = tid; i < 64 * (kDh / 8); i += kBThreads) {
-      const int r = i / (kDh / 8);
-      const int c = (i % (kDh / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (t0 + r < S)
-        val = *reinterpret_cast<const uint4*>(src + (t0 + r) * ss + c);
-      *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
-    }
-  };
-
-  // this warp's raw scores [16 x 64] = Q_w K^T into Ss
-  auto scores = [&]() {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kDh; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qs + warp * 16 * kLd + kk, kLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + j * 16 * kLd + kk, kLd);
-        wmma::mma_sync(acc[j], a, kf, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Ss + warp * 16 * kSLd + j * 16, acc[j], kSLd,
-                              wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  load_tile(Qs, qp, st.qs, q0);
-
-  // row-wise work: lane -> (row warp*16 + lane/2, 32 of the 64 tile columns)
-  const int my_row = warp * 16 + (lane >> 1);
-  const int half = (lane & 1) * 32;
-  const float* srow = Ss + my_row * kSLd + half;
-  const int n_tiles = (S + kK - 1) / kK;
-
-  // pass 1: each row's max and softmax denominator
-  float m_run = kNeg, l_run = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kK;
-    __syncthreads();
-    load_tile(Ks, kp, st.ks, k0);
-    __syncthreads();
-    scores();
-    float mx = kNeg;
-    for (int c = 0; c < 32; ++c)
-      if (k0 + half + c < S) mx = fmaxf(mx, srow[c] * scale);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
-    for (int c = 0; c < 32; ++c)
-      if (k0 + half + c < S) sum += expf(srow[c] * scale - m_new);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * expf(m_run - m_new) + sum;
-    m_run = m_new;
-    __syncwarp();
+  if (tid == 0) {
+    hp::mbar_init(bar_qk, 1);
+    hp::mbar_init(bar_v, 1);
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // V on a barrier of its own: q k^T and the softmax start without it
+    hp::mbar_arrive_expect_tx(bar_qk, (q_rows + N) * hp::kRowBytes);
+    hp::tma_load(k_s, &map_k, bar_qk, 0, h, b);
+    hp::tma_load(q_s, &map_q, bar_qk, q0, h, b);
+    hp::mbar_arrive_expect_tx(bar_v, N * hp::kRowBytes);
+    hp::tma_load(v_s, &map_v, bar_v, 0, h, b);
   }
 
-  // pass 2: p = exp(s - max) / sum rounded to bf16, o += p @ v
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(of[j], 0.f);
-  bf16* prow = Ps + my_row * kLd + half;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kK;
-    __syncthreads();
-    load_tile(Ks, kp, st.ks, k0);
-    load_tile(Vs, vp, st.vs, k0);
-    __syncthreads();
-    scores();
-    for (int c = 0; c < 32; ++c) {
-      const float p =
-          (k0 + half + c < S) ? expf(srow[c] * scale - m_run) / l_run : 0.f;
-      prow[c] = __float2bfloat16(p);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Ps + warp * 16 * kLd + kk, kLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, Vs + kk * kLd + j * 16, kLd);
-        wmma::mma_sync(of[j], a, vf, of[j]);
-      }
-    }
-    __syncwarp();
-  }
+  bf16* out = o + b * ob + h * oh;
+  hp::mbar_wait(bar_qk, 0);
+  for (int t = 0; q0 + t * 64 < q_end; ++t) {
+    float sc[N / 2];
+    hp::qk_product(sc, q_s + t * 64 * hp::kRowBytes, k_s);
+    if (S < N) hp::mask_keys(sc, 0, S, lane);
 
-  // this warp's [16 x 64] output through its rows of the score tile
+    float mx0, mx1, sum0, sum1;
+    hp::row_max(sc, mx0, mx1);
+    hp::exp_rows(sc, scale_log2, mx0 * scale_log2, mx1 * scale_log2, sum0, sum1);
+    sum0 = hp::quad_sum(sum0);
+    sum1 = hp::quad_sum(sum1);
+    uint32_t pa[N / 4];
+    hp::pack_rows(sc, 1.f / sum0, 1.f / sum1, pa);
+
+    float acc[32];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(Ss + warp * 16 * kSLd + j * 16, of[j], kSLd,
-                            wmma::mem_row_major);
-  __syncwarp();
-  const int row = q0 + my_row;
-  if (row < S) {
-    bf16* dst = o + b * st.ob + h * st.oh + row * st.os + half;
-#pragma unroll
-    for (int c = 0; c < 32; c += 8) {
-      uint4 pk;
-      bf16* e = reinterpret_cast<bf16*>(&pk);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(srow[c + j]);
-      *reinterpret_cast<uint4*>(dst + c) = pk;
-    }
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    hp::mbar_wait(bar_v, 0);
+    hp::pv_product<N / 16>(acc, pa, v_s, false);
+    hp::store_rows(acc, 1.f, 1.f, out, os,
+                   q0 + t * 64 + warp * 16 + (lane >> 2), S, lane);
   }
 }
 
-// ----------------------------------------------------------------- f32 --
-constexpr int kFThreads = 256;  // 16 x 16 threads, a 4x4 tile each
-constexpr int kQLd = kDh + 4;   // Q rows: two rows 4 banks apart
-constexpr int kKLd = kDh + 1;   // K rows: 16 rows read at one column, no conflict
-constexpr int kVLd = kDh;       // V rows: read along the row
-constexpr int kPLd = kK + 1;
-constexpr int kFSmem =
-    (kQ * kQLd + kK * kKLd + kK * kVLd + kQ * kPLd) * (int)sizeof(float);
+// ---------------------------------------------------- bf16, two passes --
+constexpr int kTwoQ = 128;                // queries per block, 64 a warpgroup
+constexpr int kTwoK = 128;                // keys per chunk
+constexpr int kTwoMaxChunks = 8;          // S <= 1,024
+constexpr int kTwoStages = 3;             // V tiles in flight
+constexpr int kTwoConsumerWarps = 8;
+constexpr int kTwoThreads = (kTwoConsumerWarps + 1) * 32;
+constexpr int kTwoQBytes = kTwoQ * hp::kRowBytes;
+constexpr int kTwoChunkBytes = kTwoK * hp::kRowBytes;
+constexpr int kTwoBarOffset =
+    kTwoQBytes + (kTwoMaxChunks + kTwoStages) * kTwoChunkBytes;
+constexpr int kTwoBars = 1 + kTwoMaxChunks + 2 * kTwoStages;
 
-__global__ void __launch_bounds__(kFThreads)
+__global__ void __launch_bounds__(kTwoThreads, 1)
+mha_two_pass_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                    int S, float scale_log2, long long ob, long long oh,
+                    long long os) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + kTwoQBytes;                      // [n_chunks] resident
+  const uint32_t v_s = k_s + kTwoMaxChunks * kTwoChunkBytes;   // [kTwoStages] ring
+  const uint32_t bar_q = base + kTwoBarOffset;
+  const uint32_t bar_k = bar_q + 8;                            // [kTwoMaxChunks], used once
+  const uint32_t bar_full = bar_k + 8 * kTwoMaxChunks;         // [kTwoStages]
+  const uint32_t bar_empty = bar_full + 8 * kTwoStages;
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kTwoQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_chunks = (S + kTwoK - 1) / kTwoK;
+
+  if (tid == 0) {
+    hp::mbar_init(bar_q, 1);
+    for (int c = 0; c < kTwoMaxChunks; ++c) hp::mbar_init(bar_k + 8 * c, 1);
+    for (int s = 0; s < kTwoStages; ++s) {
+      hp::mbar_init(bar_full + 8 * s, 1);
+      hp::mbar_init(bar_empty + 8 * s, kTwoConsumerWarps);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kTwoConsumerWarps) {
+    if (lane == 0) {
+      hp::mbar_arrive_expect_tx(bar_q, kTwoQBytes);
+      hp::tma_load(q_s, &map_q, bar_q, q0, h, b);
+      for (int c = 0; c < n_chunks; ++c) {
+        hp::mbar_arrive_expect_tx(bar_k + 8 * c, kTwoChunkBytes);
+        hp::tma_load(k_s + c * kTwoChunkBytes, &map_k, bar_k + 8 * c, c * kTwoK, h, b);
+      }
+      for (int c = 0; c < n_chunks; ++c) {
+        const int s = c % kTwoStages;
+        const uint32_t round = (c / kTwoStages) & 1;
+        hp::mbar_wait(bar_empty + 8 * s, round ^ 1);   // passes at once in round 0
+        hp::mbar_arrive_expect_tx(bar_full + 8 * s, kTwoChunkBytes);
+        hp::tma_load(v_s + s * kTwoChunkBytes, &map_v, bar_full + 8 * s, c * kTwoK, h, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;
+  const uint32_t q_wg = q_s + wg * 64 * hp::kRowBytes;
+  const bool ragged = S % kTwoK != 0;
+  hp::mbar_wait(bar_q, 0);
+
+  // pass 1: each row's max (log2 units) and softmax denominator
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    hp::mbar_wait(bar_k + 8 * c, 0);
+    float sc[kTwoK / 2];
+    hp::qk_product(sc, q_wg, k_s + c * kTwoChunkBytes);
+    if (ragged && c == n_chunks - 1) hp::mask_keys(sc, c * kTwoK, S, lane);
+    float mx0, mx1, sum0, sum1;
+    hp::row_max(sc, mx0, mx1);
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    hp::exp_rows(sc, scale_log2, mn0, mn1, sum0, sum1);
+    l0 = l0 * hp::fast_exp2(m0 - mn0) + sum0;
+    l1 = l1 * hp::fast_exp2(m1 - mn1) + sum1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+  const float inv0 = 1.f / hp::quad_sum(l0);
+  const float inv1 = 1.f / hp::quad_sum(l1);
+
+  // pass 2: p = exp(s - max) / sum rounded to bf16, acc += p @ v; K's
+  // barriers have completed their only phase, so the waits pass at once
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s = c % kTwoStages;
+    const uint32_t round = (c / kTwoStages) & 1;
+    float sc[kTwoK / 2];
+    hp::qk_product(sc, q_wg, k_s + c * kTwoChunkBytes);
+    if (ragged && c == n_chunks - 1) hp::mask_keys(sc, c * kTwoK, S, lane);
+    float sum0, sum1;
+    hp::exp_rows(sc, scale_log2, m0, m1, sum0, sum1);
+    uint32_t pa[kTwoK / 4];
+    hp::pack_rows(sc, inv0, inv1, pa);
+    hp::mbar_wait(bar_full + 8 * s, round);
+    hp::pv_product<kTwoK / 16>(acc, pa, v_s + s * kTwoChunkBytes, true);
+    if (lane == 0) hp::mbar_arrive(bar_empty + 8 * s);   // this warp's reads are done
+  }
+  hp::store_rows(acc, 1.f, 1.f, o + b * ob + h * oh, os,
+                 q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2), S, lane);
+}
+
+template <int N>
+cudaError_t launch_one_pass(const CUtensorMap& mq, const CUtensorMap& mk,
+                            const CUtensorMap& mv, bf16* o, int B, int H, int S,
+                            int q_rows, float scale_log2, long long ob,
+                            long long oh, long long os, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      mha_one_pass_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      one_pass_smem(kOneMaxKeys, N));
+  if (e != cudaSuccess) return e;
+  mha_one_pass_kernel<N><<<dim3(H, B, (S + q_rows - 1) / q_rows), kOneThreads,
+                           one_pass_smem(q_rows, N), s>>>(
+      mq, mk, mv, o, S, q_rows, scale_log2, ob, oh, os);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- f32 --
+namespace f32 = tt::f32attn;
+constexpr int kFSmem =
+    (4 * f32::kTile + 2 * f32::kVTile) * (int)sizeof(float);   // Q, 2 K, P; 2 V
+
+// S <= 256: one pass. The block's [64, S] strip of scaled scores stays in
+// shared memory (rows of S rounded up to 4, plus 4: 52 KB at S = 197, two
+// blocks an SM), so q k^T runs once: pass 1 writes the strip and finds each
+// row's max; every thread then turns its own entries into exp(s - max),
+// sums them, and divides them by the row's sum; p @ v reads the strip. K
+// tiles, then V tiles, arrive through the same two buffers.
+constexpr int kStripMaxKeys = 256;
+__host__ __device__ constexpr int strip_ld(int S) { return (S + 3) / 4 * 4 + 4; }
+constexpr int strip_smem(int S) {
+  return (3 * f32::kTile + f32::kBQ * strip_ld(S)) * (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(f32::kThreads, 2)
+mha_f32_strip_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int S,
+                     float scale, Strides st) {
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                       // [64][kLd]
+  float* KVs = Qs + f32::kTile;          // [2][64][kLd] for K, [64][64] of each for V
+  float* Ss = KVs + 2 * f32::kTile;      // [64][ld]: scores, then p
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * f32::kBQ;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;               // rows ty + 8 i
+  const int tx = tid & 15;               // keys tx + 16 j, head features 4 tx + c
+  const float* qp = q + b * st.qb + h * st.qh;
+  const float* kp = k + b * st.kb + h * st.kh;
+  const float* vp = v + b * st.vb + h * st.vh;
+  const int n_tiles = (S + f32::kBK - 1) / f32::kBK;
+  const int ld = strip_ld(S);
+  const int cols = ld - 4;               // S rounded up to 4: the strip's live width
+
+  f32::load_tile_async(KVs, f32::kLd, kp, st.ks, 0, S, tid);
+  f32::async_commit();
+  f32::load_tile(Qs, f32::kLd, qp, st.qs, q0, S, tid);
+
+  // pass 1: the scaled scores into the strip (-1e30 at keys past S), and
+  // this lane's share of each row's max
+  float m_row[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) m_row[i] = kNeg;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * f32::kBK;
+    const int buf = kt & 1;
+    f32::async_wait<0>();
+    __syncthreads();                     // tile kt landed; the other buffer is free
+    if (kt + 1 < n_tiles) {
+      f32::load_tile_async(KVs + (buf ^ 1) * f32::kTile, f32::kLd, kp, st.ks,
+                           k0 + f32::kBK, S, tid);
+      f32::async_commit();
+    }
+    float s[8][4];
+    f32::qk_tile(s, Qs, KVs + buf * f32::kTile, scale, ty, tx);
+    if (k0 + f32::kBK > S) f32::mask_keys(s, k0, S, tx);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = k0 + tx + 16 * j;
+      if (c < cols)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          Ss[(ty + 8 * i) * ld + c] = s[i][j];
+          m_row[i] = fmaxf(m_row[i], s[i][j]);
+        }
+    }
+  }
+  __syncthreads();                       // pass 1's reads of both K buffers are done
+  f32::load_tile_async(KVs, f32::kDh, vp, st.vs, 0, S, tid);
+  f32::async_commit();
+
+  // this thread's own entries of the strip: exp(s - max), their sum, p
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float m = f32::row_max16(m_row[i]);
+    float* row = Ss + (ty + 8 * i) * ld;
+    float sum = 0.f;
+    for (int c = tx; c < cols; c += 16) {
+      const float e = expf(row[c] - m);  // masked: 0
+      row[c] = e;
+      sum += e;
+    }
+    const float l = f32::row_sum16(sum);
+    for (int c = tx; c < cols; c += 16) row[c] = row[c] / l;
+  }
+
+  // pass 2: acc += p @ v over the strip
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * f32::kBK;
+    const int buf = kt & 1;
+    f32::async_wait<0>();
+    __syncthreads();                     // V tile kt landed; p is whole (kt = 0)
+    if (kt + 1 < n_tiles) {
+      f32::load_tile_async(KVs + (buf ^ 1) * f32::kTile, f32::kDh, vp, st.vs,
+                           k0 + f32::kBK, S, tid);
+      f32::async_commit();
+    }
+    f32::pv_tile(acc, Ss + k0, ld, KVs + buf * f32::kTile, min(f32::kBK, cols - k0),
+                 ty, tx);
+  }
+
+  float one[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) one[i] = 1.f;
+  f32::store_rows(acc, one, o + b * st.ob + h * st.oh, st.os, q0, S, ty, tx);
+}
+
+// S <= 1,024: two passes
+__global__ void __launch_bounds__(f32::kThreads, 2)
 mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int S,
                float scale, Strides st) {
   extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                  // [kQ][kQLd]
-  float* Ks = Qs + kQ * kQLd;       // [kK][kKLd]
-  float* Vs = Ks + kK * kKLd;       // [kK][kVLd]
-  float* Ps = Vs + kK * kVLd;       // [kQ][kPLd] scores, then p
+  float* Qs = fsm;                       // [64][kLd]
+  float* Ks = Qs + f32::kTile;           // [2][64][kLd]
+  float* Vs = Ks + 2 * f32::kTile;       // [2][64][64]
+  float* Ps = Vs + 2 * f32::kVTile;      // [64][kLd]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kQ;
+  const int q0 = blockIdx.x * f32::kBQ;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;          // rows ty + 16 i
-  const int tx = tid & 15;          // columns tx + 16 j
+  const int ty = tid >> 4;               // rows ty + 8 i
+  const int tx = tid & 15;               // keys tx + 16 j, head features 4 tx + c
   const float* qp = q + b * st.qb + h * st.qh;
   const float* kp = k + b * st.kb + h * st.kh;
   const float* vp = v + b * st.vb + h * st.vh;
+  const int n_tiles = (S + f32::kBK - 1) / f32::kBK;
 
-  auto load_tile = [&](float* dst, int ld, const float* src, long long ss,
-                       int t0) {
-    for (int i = tid; i < 64 * (kDh / 4); i += kFThreads) {
-      const int r = i / (kDh / 4);
-      const int c = (i % (kDh / 4)) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t0 + r < S) val = *reinterpret_cast<const float4*>(src + (t0 + r) * ss + c);
-      float* d = dst + r * ld + c;
-      d[0] = val.x;
-      d[1] = val.y;
-      d[2] = val.z;
-      d[3] = val.w;
-    }
-  };
+  f32::load_tile_async(Ks, f32::kLd, kp, st.ks, 0, S, tid);
+  f32::async_commit();
+  f32::load_tile(Qs, f32::kLd, qp, st.qs, q0, S, tid);
 
-  // the scaled scores of the staged key tile into Ps
-  auto scores = [&]() {
-    float s[4][4];
+  // pass 1: each row's max and softmax denominator (this lane's share of it)
+  float m_run[8], l_run[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kDh; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * kQLd + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = Ks[(tx + 16 * j) * kKLd + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += a[i] * kk[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(ty + 16 * i) * kPLd + tx + 16 * j] = s[i][j] * scale;
-  };
-
-  load_tile(Qs, kQLd, qp, st.qs, q0);
-
-  // softmax roles: row sr, columns sc0 .. sc0 + 15 (4 neighbouring lanes a row)
-  const int sr = tid >> 2;
-  const int sc0 = (tid & 3) * 16;
-  float* prow = Ps + sr * kPLd + sc0;
-  const int n_tiles = (S + kK - 1) / kK;
-
-  // pass 1: each row's max and softmax denominator
-  float m_run = kNeg, l_run = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kK;
-    __syncthreads();                      // the last tile's reads are done
-    load_tile(Ks, kKLd, kp, st.ks, k0);
-    __syncthreads();
-    scores();
-    __syncthreads();
-    float mx = kNeg;
-#pragma unroll
-    for (int c = 0; c < 16; ++c)
-      if (k0 + sc0 + c < S) mx = fmaxf(mx, prow[c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 16; ++c)
-      if (k0 + sc0 + c < S) sum += expf(prow[c] - m_new);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l_run = l_run * expf(m_run - m_new) + sum;
-    m_run = m_new;
+  for (int i = 0; i < 8; ++i) {
+    m_run[i] = kNeg;
+    l_run[i] = 0.f;
   }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * f32::kBK;
+    const int buf = kt & 1;
+    f32::async_wait<0>();
+    __syncthreads();                     // tile kt landed; the other buffer is free
+    if (kt + 1 < n_tiles) {
+      f32::load_tile_async(Ks + (buf ^ 1) * f32::kTile, f32::kLd, kp, st.ks,
+                           k0 + f32::kBK, S, tid);
+      f32::async_commit();
+    }
+    float s[8][4];
+    f32::qk_tile(s, Qs, Ks + buf * f32::kTile, scale, ty, tx);
+    if (k0 + f32::kBK > S) f32::mask_keys(s, k0, S, tx);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float mx = f32::row_max16(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+      const float m_new = fmaxf(m_run[i], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);   // masked: 0
+      l_run[i] = l_run[i] * expf(m_run[i] - m_new) + sum;
+      m_run[i] = m_new;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) l_run[i] = f32::row_sum16(l_run[i]);
 
   // pass 2: p = exp(s - max) / sum, acc += p @ v
-  float acc[4][4];
+  float acc[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  __syncthreads();                       // pass 1's reads of both K buffers are done
+  f32::load_tile_async(Ks, f32::kLd, kp, st.ks, 0, S, tid);
+  f32::load_tile_async(Vs, f32::kDh, vp, st.vs, 0, S, tid);
+  f32::async_commit();
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kK;
-    __syncthreads();
-    load_tile(Ks, kKLd, kp, st.ks, k0);
-    load_tile(Vs, kVLd, vp, st.vs, k0);
-    __syncthreads();
-    scores();
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < 16; ++c)
-      prow[c] = k0 + sc0 + c < S ? expf(prow[c] - m_run) / l_run : 0.f;
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kK; ++kk) {
-      float p[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * kPLd + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kVLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += p[i] * vv[j];
+    const int k0 = kt * f32::kBK;
+    const int buf = kt & 1;
+    f32::async_wait<0>();
+    __syncthreads();                     // and the last tile's reads of P are done
+    if (kt + 1 < n_tiles) {
+      f32::load_tile_async(Ks + (buf ^ 1) * f32::kTile, f32::kLd, kp, st.ks,
+                           k0 + f32::kBK, S, tid);
+      f32::load_tile_async(Vs + (buf ^ 1) * f32::kVTile, f32::kDh, vp, st.vs,
+                           k0 + f32::kBK, S, tid);
+      f32::async_commit();
     }
+    float s[8][4];
+    f32::qk_tile(s, Qs, Ks + buf * f32::kTile, scale, ty, tx);
+    if (k0 + f32::kBK > S) f32::mask_keys(s, k0, S, tx);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = expf(s[i][j] - m_run[i]) / l_run[i];
+    f32::store_p(Ps, s, ty, tx);
+    __syncthreads();
+    f32::pv_tile(acc, Ps, f32::kLd, Vs + buf * f32::kVTile, f32::kBK, ty, tx);
   }
 
+  float one[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= S) continue;
-    float* dst = o + b * st.ob + h * st.oh + (q0 + r) * st.os;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dst[tx + 16 * j] = acc[i][j];
-  }
+  for (int i = 0; i < 8; ++i) one[i] = 1.f;
+  f32::store_rows(acc, one, o + b * st.ob + h * st.oh, st.os, q0, S, ty, tx);
 }
 
 }  // namespace
 
 // q, k, v, o: device pointers of bf16 (is_bf16 = 1) or f32 values; strides
-// in elements. 1 <= S <= 1024.
+// in elements. 1 <= S <= 1024. bf16: `passes` and `keys` are the caller's
+// plan (ops/attention.mha_plan): one pass over a strip of keys = 64, 128,
+// 208 or 256 >= S, or two passes over keys = S rounded up to 128-key chunks;
+// the head features contiguous, every stride a multiple of 8 elements and
+// every base 16-byte aligned (TMA). f32 takes the plan's passes: one keeps
+// the scores of S <= 256 keys in shared memory, two recompute them.
 extern "C" int tt_mha(const void* q, const void* k, const void* v, void* o,
-                      int is_bf16, int B, int H, int S, long long qb,
-                      long long qh, long long qs, long long kb, long long kh,
-                      long long ks, long long vb, long long vh, long long vs,
-                      long long ob, long long oh, long long os, void* stream) {
+                      int is_bf16, int B, int H, int S, int passes, int keys,
+                      long long qb, long long qh, long long qs, long long kb,
+                      long long kh, long long ks, long long vb, long long vh,
+                      long long vs, long long ob, long long oh, long long os,
+                      void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S > 1024)
     return (int)cudaErrorInvalidValue;
-  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((S + kQ - 1) / kQ, H, B);
   const float scale = 1.f / sqrtf((float)kDh);
   cudaError_t e;
   if (is_bf16) {
-    e = cudaFuncSetAttribute(mha_bf16_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmem);
+    const float scale_log2 = scale * hp::kLog2e;
+    bf16* out = static_cast<bf16*>(o);
+    const bool one = passes == 1;
+    if (one ? (keys < S || (keys != 64 && keys != 128 && keys != 208 && keys != 256))
+            : (passes != 2 || keys != (S + kTwoK - 1) / kTwoK * kTwoK))
+      return (int)cudaErrorInvalidValue;
+    // one pass: a block owns all query tiles of its head, so K and V are
+    // fetched once a head; with fewer heads than two a multiprocessor it
+    // owns one tile and the heads' tiles spread over the card
+    int sms = 0, device = 0;
+    if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+            cudaSuccess)
+      return (int)e;
+    const int q_rows = !one ? kTwoQ : B * H >= 2 * sms ? (S + 63) / 64 * 64 : 64;
+    const int kv_rows = one ? keys : kTwoK;
+    CUtensorMap mq, mk, mv;
+    if ((e = hp::make_qkv_map(&mq, q, B, H, S, qb, qh, qs, q_rows)) != cudaSuccess ||
+        (e = hp::make_qkv_map(&mk, k, B, H, S, kb, kh, ks, kv_rows)) != cudaSuccess ||
+        (e = hp::make_qkv_map(&mv, v, B, H, S, vb, vh, vs, kv_rows)) != cudaSuccess)
+      return (int)e;
+    if (one) {
+      auto launch = keys == 64 ? launch_one_pass<64>
+                    : keys == 128 ? launch_one_pass<128>
+                    : keys == 208 ? launch_one_pass<208>
+                                  : launch_one_pass<256>;
+      return (int)launch(mq, mk, mv, out, B, H, S, q_rows, scale_log2, ob, oh, os, s);
+    }
+    constexpr int smem = kTwoBarOffset + kTwoBars * 8 + 1024;
+    e = cudaFuncSetAttribute(mha_two_pass_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    mha_bf16_kernel<<<grid, kBThreads, kBSmem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), S, scale, st);
+    mha_two_pass_kernel<<<dim3((S + kTwoQ - 1) / kTwoQ, H, B), kTwoThreads, smem, s>>>(
+        mq, mk, mv, out, S, scale_log2, ob, oh, os);
   } else {
-    e = cudaFuncSetAttribute(mha_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
+    if (passes != 2 && (passes != 1 || S > kStripMaxKeys))
+      return (int)cudaErrorInvalidValue;
+    const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+    const auto kernel = passes == 1 ? mha_f32_strip_kernel : mha_f32_kernel;
+    const int smem = passes == 1 ? strip_smem(S) : kFSmem;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             passes == 1 ? strip_smem(kStripMaxKeys) : kFSmem);
     if (e != cudaSuccess) return (int)e;
-    mha_f32_kernel<<<grid, kFThreads, kFSmem, s>>>(
+    const dim3 grid((S + f32::kBQ - 1) / f32::kBQ, H, B);
+    kernel<<<grid, f32::kThreads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), S, scale, st);
   }

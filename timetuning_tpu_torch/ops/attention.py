@@ -4,7 +4,8 @@ and the dispatcher.
 Counterpart of ``timetuning_tpu/ops/attention.py``. ``attention_xla`` is the
 plain version, the path of every block asked for its probabilities and of
 f32 blocks up to 1024 tokens. ``attention_mha`` is kernel 10
-(csrc/mha.cu), the whole-sequence kernel of up to 1024 tokens, forward only;
+(csrc/mha.cu), the whole-sequence kernel of up to 1024 tokens, forward only
+(``mha_plan`` says how it walks a sequence of S tokens);
 ``_AttentionFused`` gives it the JAX package's custom VJP (the forward is
 the kernel, the backward the analytic softmax-attention gradient recomputed
 in plain torch: the JAX package has no backward kernel either).
@@ -77,6 +78,32 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+# The key counts that the one-pass bf16 kernel can hold as one strip of
+# scores in a warpgroup's registers (the widths of its wgmma instruction),
+# and the key chunk of the two-pass kernel.
+ONE_PASS_KEYS = (64, 128, 208, 256)
+TWO_PASS_CHUNK = 128
+
+
+def mha_plan(seq_len: int) -> tuple[int, int]:
+    """How kernel 10 walks ``seq_len`` tokens: ``(passes, keys)``. Up to 256
+    tokens, one pass: in bf16 the head's whole K and V in shared memory and
+    each 64-row strip of scores in registers, padded to ``keys``, the
+    narrowest of ``ONE_PASS_KEYS`` that holds the sequence (208 at 197
+    tokens); in f32 the strip of scores in shared memory. Up to 1024 tokens,
+    two passes (row statistics, then p @ v; in bf16 over K resident in
+    shared memory in chunks of ``TWO_PASS_CHUNK`` keys), ``keys`` the
+    sequence rounded up to whole chunks. f32 reads only ``passes``.
+    csrc/mha.cu checks the plan it is handed."""
+    if not 1 <= seq_len <= WHOLE_SEQUENCE_TOKENS:
+        raise ValueError(f"attention_mha: the kernel takes at least one and at "
+                         f"most {WHOLE_SEQUENCE_TOKENS} tokens, got S={seq_len} "
+                         "(the flash kernel serves longer sequences)")
+    if seq_len <= ONE_PASS_KEYS[-1]:
+        return 1, next(n for n in ONE_PASS_KEYS if n >= seq_len)
+    return 2, -(-seq_len // TWO_PASS_CHUNK) * TWO_PASS_CHUNK
+
+
 def attention_mha(q, k, v):
     """Kernel 10 (csrc/mha.cu). q, k, v: [B, H, S, 64] with S <= 1024, all
     bf16 or all f32, read as the strided views they are. Returns
@@ -94,10 +121,7 @@ def attention_mha(q, k, v):
     if Dh != 64:
         raise ValueError(f"attention_mha: the kernel takes 64-wide heads, got "
                          f"Dh={Dh}")
-    if S > WHOLE_SEQUENCE_TOKENS:
-        raise ValueError(f"attention_mha: the kernel takes at most "
-                         f"{WHOLE_SEQUENCE_TOKENS} tokens, got S={S} (the flash "
-                         "kernel serves longer sequences)")
+    passes, keys = mha_plan(S)
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             q.dtype == k.dtype == v.dtype):
         raise ValueError(f"attention_mha: expected q, k, v all bf16 or all "
@@ -109,7 +133,7 @@ def attention_mha(q, k, v):
     kernel_lib.launch(
         "mha", "tt_mha", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, S,
+        int(q.dtype == torch.bfloat16), B, H, S, passes, keys,
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     return out
 

@@ -94,7 +94,7 @@ _SIGNATURES = {
     "tt_ln_dense": [_P] * 6 + [_I] * 3 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 3 + [_P],
     "tt_propagate_row_floats": [_I] * 4,
-    "tt_mha": [_P] * 4 + [_I] * 4 + [_L] * 12 + [_P],
+    "tt_mha": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
     "tt_sinkhorn": [_P] * 5 + [_I] * 3 + [_P],
     "tt_sinkhorn_plan": [_I, _I, _P],
 }
