@@ -13,7 +13,9 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the evals below, with its error bound and the times of both (CUDA
    events): kernels 1-4 at ViT-S/16 (50 frames at 224, two 25-frame clips
-   of 480x854); the flash kernel in bf16 and f32 at [4 x 6 heads, 3,137
+   of 480x854), kernel 1 also at the train step's 128 frames and at 8 x 577
+   tokens (its core's two passes), kernel 7 also at kernel 1's 9,850 rows;
+   the flash kernel in bf16 and f32 at [4 x 6 heads, 3,137
    tokens, 64], at queries != keys with a key mask, and in bf16 at the eval
    group's own 50 frames; the row kernels (ln_dense, dense_residual,
    mlp_rows) at 50 frames x 3,137 tokens; the propagation kernel at 56x56
@@ -28,8 +30,8 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    host;
 5. the DAVIS mask-propagation eval of the port (``cli/propagate``'s
    per-group compute) on two synthetic 25-frame 480x854 clips with seeded
-   random weights, at ``dino-s16``/224 (a one-colour box) and at
-   ``dino-s8``/448 (a textured box, see ``synthetic_clips``), each in bf16
+   random weights, at ``dino-s16``/224 and at ``dino-s8``/448 (a textured
+   box at both, see ``synthetic_clips``), each in bf16
    through the kernels and in f32; J&F of both, device frames/s, and a
    ``torch.profiler`` trace of three groups: device idle share and kernel
    time by name;
@@ -196,12 +198,16 @@ def synthetic_clips(seed: int = 0, textured: bool = False):
     """Two clips of a coloured box moving over a noisy background, with the
     box's annotation, made from ``seed``. ``textured``: the box carries a
     fixed random texture instead of one colour. On a one-colour box the
-    patches of a random-init ViT-S/8 at 448 differ only through a faint
-    position signal, which rounding the features to bf16 (the reference's
-    own rounding point, before the propagation) erases; the propagated
-    masks then differ between bf16 and f32 with no kernel involved (the
-    plain versions on the host show the same gap). A textured box gives
-    the top-k matches by content in both."""
+    patches of a random-init ViT differ only through a faint position
+    signal, which rounding the features to bf16 (the reference's own
+    rounding point, before the propagation) erases; the propagated masks
+    then differ between bf16 and f32 with no kernel involved (the plain
+    versions on the host show the same gap), and move with any change of
+    summation order: at ViT-S/16 the bf16 J&F went from 0.564 to 0.513
+    against 0.558 in f32 when the block kernels changed their tile, the
+    12-block forward agreeing with the plain one as before. A textured box
+    gives the top-k matches by content in both (0.5495 against 0.5514 at
+    ViT-S/16, 0.862 against 0.849 at ViT-S/8), so both evals use it."""
     rng = np.random.default_rng(seed)
     clips = []
     for v in range(CLIPS):
@@ -223,7 +229,10 @@ def _tensor_maker(dev, rng):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
 
     def w(n_in, n_out):
-        return t(rng.standard_normal((n_in, n_out)) / np.sqrt(n_in))
+        """A Linear weight as ``models/vit.Block`` hands it to the kernels:
+        the [out, in] f32 parameter transposed and cast to bf16, a [in, out]
+        view that the wrappers read in place (no transpose-copy is timed)."""
+        return t(rng.standard_normal((n_out, n_in)) / np.sqrt(n_in)).t().to(torch.bfloat16)
 
     return t, w
 
@@ -480,31 +489,48 @@ def check_kernels(dev, results: dict) -> None:
 
     # K1, K2: one block's branch at B=50 frames x 197 tokens; bound: bf16
     # rounding at O(1) values (the kernel adds the residual in f32, the plain
-    # composition in bf16: one bf16 ulp apart)
-    M = B * T
-    for name, kern, plain, wts, flops, lib in (
-            ("attention_block", fb.attention_block_branch,
-             fb.attention_block_xla, attn + (heads,),
-             2.0 * M * D * 4 * D + 4.0 * B * heads * T * T * 64,
-             library_block(x, ln_s, ln_b, [(attn[2], attn[3], False),
-                                           (attn[4], attn[5], False)],
-                           residual=x, heads=heads)),
-            ("mlp_block", fb.mlp_block_branch, fb.mlp_block_xla, mlp,
-             4.0 * M * D * Hd,
-             library_block(x, ln_s, ln_b, [(mlp[2], mlp[3], True),
-                                           (mlp[4], mlp[5], False)], residual=x))):
+    # composition in bf16: one bf16 ulp apart). K1 also at the train step's
+    # 128 frames and at a two-pass length of its core (8 x 577 tokens, ViT-S/16
+    # at 384); K7 at K1's own rows (9,850: 77 row blocks on the card's SMs)
+    def check_block(name, key, kern, plain, x, wts, flops, lib):
         got = kern(x, *wts)
         want = plain(x, *wts)
         torch.cuda.synchronize()
         ok = torch.allclose(got.float(), want.float(), atol=3e-2, rtol=3e-2)
         report(name, got, want, "atol=rtol=3e-2 (bf16 rounding at O(1))",
                cuda_ms(lambda: kern(x, *wts)), cuda_ms(lambda: plain(x, *wts)),
-               extra=f"[{B}, {T}, {D}] ",
+               extra=f"{list(x.shape)} ", key=key,
                work=(io_bytes(x, *(a for a in wts if torch.is_tensor(a)), got),
                      flops, "bf16"),
                library_ms=cuda_ms(lib))
         if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with plain version")
+            raise AssertionError(f"{key}: kernel disagrees with plain version")
+
+    def attn_flops(b, s):
+        return 2.0 * b * s * D * 4 * D + 4.0 * b * heads * s * s * 64
+
+    def attn_lib(xb):
+        return library_block(xb, ln_s, ln_b, [(attn[2], attn[3], False),
+                                              (attn[4], attn[5], False)],
+                             residual=xb, heads=heads)
+
+    M = B * T
+    check_block("attention_block", "attention_block", fb.attention_block_branch,
+                fb.attention_block_xla, x, attn + (heads,), attn_flops(B, T), attn_lib(x))
+    check_block("mlp_block", "mlp_block", fb.mlp_block_branch, fb.mlp_block_xla, x, mlp,
+                4.0 * M * D * Hd,
+                library_block(x, ln_s, ln_b, [(mlp[2], mlp[3], True),
+                                              (mlp[4], mlp[5], False)], residual=x))
+    check_block("ln_dense", f"ln_dense/{M}", fb.ln_dense_rows, fb.ln_dense_xla, x,
+                attn[:4], 2.0 * M * D * 3 * D,
+                library_block(x, ln_s, ln_b, [(attn[2], attn[3], False)]))
+    more = np.random.default_rng(1)     # `rng` goes on to K3's features as it was
+    for b, s in ((TRAIN_B * TRAIN_F, T), (8, 577)):
+        xb = t(more.standard_normal((b, s, D)), torch.bfloat16)
+        check_block("attention_block", f"attention_block/{b}x{s}",
+                    fb.attention_block_branch, fb.attention_block_xla, xb,
+                    attn + (heads,), attn_flops(b, s), attn_lib(xb))
+        del xb
 
     check_propagation(dev, report, rng, 196, "propagation")
 
@@ -1135,7 +1161,7 @@ def main() -> int:
     check_vit(dev, "dino-s8", S8, 1)
 
     totals: dict = {}
-    run_eval(dev, synthetic_clips(), "dino-s16", S, totals)
+    run_eval(dev, synthetic_clips(textured=True), "dino-s16", S, totals)
     run_eval(dev, synthetic_clips(textured=True), "dino-s8", S8, totals)
     run_linear_probe(dev, totals)
     run_train(dev, totals)

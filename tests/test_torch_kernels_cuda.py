@@ -49,13 +49,19 @@ def _block_inputs(dev, B, S, D=384, hidden=1536, seed=0):
     return x, attn, mlp
 
 
-@pytest.mark.parametrize("S", [1, 64, 197, 260])
-def test_attention_block_kernel_matches_plain(dev, S):
-    """Ragged sequence edges (1, 197, 260) and an exact tile (64); bound:
-    bf16 rounding at O(1) values."""
-    x, attn, _ = _block_inputs(dev, 3, S)
+@pytest.mark.parametrize("B", [1, 50])
+@pytest.mark.parametrize("S", [1, 64, 197, 208, 256, 257, 260, 577, 1024])
+def test_attention_block_kernel_matches_plain(dev, S, B):
+    """Ragged sequence edges (1, 197, 260, 577), exact tiles (64, 256, 1024),
+    every strip width of the one-pass core, both sides of its limit (256,
+    257) and the two-pass core up to its longest sequence; one frame (fewer
+    heads than the card has SMs: a block of the core owns one query tile)
+    and the eval group's 50 (a block owns a head). Bound: bf16 rounding at
+    O(1) values."""
+    x, attn, _ = _block_inputs(dev, B, S)
     got = fb.attention_block_branch(x, *attn, num_heads=6)
     want = fb.attention_block_xla(x, *attn, num_heads=6)
+    assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
@@ -65,6 +71,64 @@ def test_mlp_block_kernel_matches_plain(dev, S):
     got = fb.mlp_block_branch(x, *mlp)
     want = fb.mlp_block_xla(x, *mlp)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+def _dense_inputs(dev, M, N, K, seed):
+    rng = np.random.default_rng(seed)
+    x = _t(rng.standard_normal((1, M, K)), dev, torch.bfloat16)
+    res = _t(rng.standard_normal((1, M, N)), dev, torch.bfloat16)
+    ln = (_t(1 + 0.1 * rng.standard_normal(K), dev), _t(0.1 * rng.standard_normal(K), dev))
+    w = _t(rng.standard_normal((K, N)) / np.sqrt(K), dev)
+    return x, res, ln, w, _t(0.1 * rng.standard_normal(N), dev)
+
+
+@pytest.mark.parametrize("K", [64, 384, 768, 1536])
+@pytest.mark.parametrize("N", [8, 200, 1152])
+@pytest.mark.parametrize("M", [1, 127, 129, 9850])
+def test_dense_row_kernels_at_ragged_rows_and_columns(dev, M, N, K):
+    """The GEMM tile at its edges: rows that do not fill a row block (1, 127,
+    129; 9,850 = 77 blocks cut into slices), a last column tile of 8 and of 72
+    columns (N = 8, 200), one K step and many, A resident at 128 rows
+    (K <= 512) and at 64 rows (768) under the LayerNorm prologue, streamed
+    without it (the prologue stops at K = 1,024). Bound: bf16 rounding at
+    O(1) values."""
+    x, res, ln, w, b = _dense_inputs(dev, M, N, K, seed=M + N + K)
+    pairs = [(fb.dense_residual_rows(x, res, w, b), fb.dense_residual_xla(x, res, w, b))]
+    if K <= fb.GEMM_LN_K:
+        pairs.append((fb.ln_dense_rows(x, *ln, w, b), fb.ln_dense_xla(x, *ln, w, b)))
+    for got, want in pairs:
+        assert got.shape == (1, M, N) and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("n_slices", [1, 2, 5, 9])
+def test_dense_row_kernels_agree_under_every_slicing(dev, n_slices, monkeypatch):
+    """Whatever plan the host hands over, the tiles of a row block are each
+    computed once: every slicing gives the bits of one slice."""
+    x, res, ln, w, b = _dense_inputs(dev, 300, 1152, 384, seed=3)
+    want = fb.ln_dense_rows(x, *ln, w, b), fb.dense_residual_rows(x, res, w, b)
+    monkeypatch.setattr(fb, "_slices", lambda *a: n_slices)
+    got = fb.ln_dense_rows(x, *ln, w, b), fb.dense_residual_rows(x, res, w, b)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    monkeypatch.setattr(fb, "_slices", lambda *a: 10)      # more than 9 tiles
+    with pytest.raises(RuntimeError, match="invalid"):
+        fb.ln_dense_rows(x, *ln, w, b)
+
+
+@pytest.mark.parametrize("K,ln,epi", [
+    (K, ln, epi) for ln, epi in ((True, 0), (True, 1), (False, 2))
+    for K in (64, 384, 512, 576, 768, 1024, 1536) if not (ln and K > 1024)])
+def test_gemm_plan_mirrors_the_tiles_own_route(dev, K, ln, epi):
+    """``fused_block.gemm_plan``'s rows a block are the C side's
+    (``tt::gemm::route``), whose ring has at least three stages and whose
+    shared memory fits a block, for each epilogue (bias, GELU, residual; the
+    LayerNorm prologue stops at K = 1,024)."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    assert kernel_lib.library().tt_gemm_route(int(ln), epi, K, out) == 0
+    assert out[0] == fb.gemm_plan(1000, 1152, K, ln, 132).block_rows
+    assert out[1] >= 3 and out[2] <= 227 * 1024
 
 
 @pytest.mark.parametrize("T,N,D,n_last,radius,topk", [
@@ -369,6 +433,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fb.attention_block_branch(x.float(), *attn, num_heads=6)
     with pytest.raises(ValueError, match="64-wide"):
         fb.attention_block_branch(x, *attn, num_heads=4)
+    with pytest.raises(ValueError, match="at most 1024"):
+        fb.attention_block_branch(x.expand(1, 10, 384).repeat(1, 103, 1), *attn,
+                                  num_heads=6)
+    narrow = torch.zeros(1, 10, 96, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fb.ln_dense_rows(narrow, torch.ones(96, device=dev), torch.zeros(96, device=dev),
+                         torch.zeros(96, 8, device=dev), torch.zeros(8, device=dev))
     with pytest.raises(ValueError, match="uint8"):
         pc.eval_preprocess_cuda(torch.zeros(1, 8, 8, 3, device=dev), 4,
                                 IMAGENET_MEAN, REFERENCE_STD)

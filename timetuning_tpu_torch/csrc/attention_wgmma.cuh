@@ -1,20 +1,23 @@
-// Device and host code shared by the attention cores that run on Hopper's
-// warpgroup tensor-core instructions: the flash kernel (flash_attention.cu)
-// and the whole-sequence kernel (mha.cu), both in bf16 at a head width of 64.
+// Device and host code shared by the kernels that run on Hopper's warpgroup
+// tensor-core instructions: the flash kernel (flash_attention.cu) and the
+// whole-sequence kernel (mha.cu), both in bf16 at a head width of 64, and the
+// GEMM tile of the block kernels (gemm_wgmma.cuh), whose K steps are 64 wide.
 //
 // What is here:
-//   * mbarrier and TMA (cp.async.bulk.tensor) wrappers, and the host function
-//     that encodes a 4-D tensor map over a strided [B, H, S, 64] bf16 view
-//     (cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint: the
-//     library links no libcuda);
-//   * the shared-memory matrix descriptor of wgmma for the one layout both
-//     kernels use: rows of 64 bf16 (128 bytes, one 128-byte swizzle atom),
-//     eight rows a 1,024-byte group, exactly what TMA writes with
+//   * mbarrier, named-barrier and TMA (cp.async.bulk.tensor) wrappers, loads
+//     and stores, and the host functions that encode a 4-D tensor map over a
+//     strided [B, H, S, 64] bf16 view and a 2-D one over a [rows, cols] matrix
+//     in boxes 64 columns wide (cuTensorMapEncodeTiled, found through
+//     cudaGetDriverEntryPoint: the library links no libcuda);
+//   * the shared-memory matrix descriptor of wgmma for the one layout all
+//     three kernels use: rows of 64 bf16 (128 bytes, one 128-byte swizzle
+//     atom), eight rows a 1,024-byte group, exactly what TMA writes with
 //     CU_TENSOR_MAP_SWIZZLE_128B into a 1,024-byte aligned tile. A K tile
-//     [keys, 64] read this way is K-major for q k^T; a V tile [keys, 64] is
-//     MN-major for p v (the transpose bit of the instruction);
+//     [keys, 64] read this way is K-major for q k^T, as are the GEMM tile's
+//     A and W panels; a V tile [keys, 64] is MN-major for p v (the transpose
+//     bit of the instruction);
 //   * wgmma.mma_async wrappers (m64nNk16, f32 accumulators in registers):
-//     A and B from shared memory for q k^T at N = 64, 128, 208 and 256 keys,
+//     A and B from shared memory at N = 64, 128, 208 and 256,
 //     A from registers for p v at N = 64 head features;
 //   * the softmax pieces in the accumulator's own register layout.
 //
@@ -97,6 +100,34 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 2-D map (make_2d_map) at (col, row): global to shared memory
+// on bar, and shared memory to global (the part of the box past the tensor's
+// edge is not written) as part of this thread's current bulk group
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src,
+                                             int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// returns once at most kPending of this thread's committed bulk groups still
+// read their shared memory; a thread waits for 0 before it exits
+template <int kPending>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kPending) : "memory");
+}
+
 // ----------------------------------------------------------------- wgmma --
 // The descriptor of a tile of 128-byte rows at a 1,024-byte aligned shared
 // address (or a whole number of k16 steps into one): start address, stride
@@ -119,6 +150,27 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// returns once at most kPending of this warpgroup's committed groups are in flight
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
+}
+
+// ------------------------------------------------- barriers among warps --
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads: a
+// sync waits until that many threads have arrived, an arrive does not wait.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// after plain stores to shared memory that a wgmma or a TMA store will read
+// (the asynchronous proxy), before the barrier that hands them over
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // pins registers that a wgmma in flight reads or writes: the compiler keeps
@@ -470,17 +522,13 @@ __device__ __forceinline__ void store_rows(const float (&o)[32], float d0, float
 }
 
 // ------------------------------------------------------------------ host --
-// A tensor map over a [B, H, S, 64] bf16 view with strides sb, sh, ss (in
-// elements; the 64 head features contiguous, every stride a multiple of 8
-// and the base 16-byte aligned) whose box is [box_rows, 64] of one (batch,
-// head), 128-byte swizzled. Returns cudaSuccess or an error.
-inline cudaError_t make_qkv_map(CUtensorMap* map, const void* base, int B, int H,
-                                int S, long long sb, long long sh, long long ss,
-                                int box_rows) {
-  using EncodeTiled = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-      CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+    CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, or nullptr
+inline EncodeTiled tensor_map_encoder() {
   static const EncodeTiled encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -490,6 +538,17 @@ inline cudaError_t make_qkv_map(CUtensorMap* map, const void* base, int B, int H
       fn = nullptr;
     return reinterpret_cast<EncodeTiled>(fn);
   }();
+  return encode;
+}
+
+// A tensor map over a [B, H, S, 64] bf16 view with strides sb, sh, ss (in
+// elements; the 64 head features contiguous, every stride a multiple of 8
+// and the base 16-byte aligned) whose box is [box_rows, 64] of one (batch,
+// head), 128-byte swizzled. Returns cudaSuccess or an error.
+inline cudaError_t make_qkv_map(CUtensorMap* map, const void* base, int B, int H,
+                                int S, long long sb, long long sh, long long ss,
+                                int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (box_rows < 1 || box_rows > 256 || ss <= 0 || (H > 1 && sh <= 0) ||
       (B > 1 && sb <= 0))
@@ -504,6 +563,26 @@ inline cudaError_t make_qkv_map(CUtensorMap* map, const void* base, int B, int H
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over a row-major [rows, cols] bf16 matrix (cols a multiple of
+// 8, the base 16-byte aligned) whose box is [box_rows, 64 columns], 128-byte
+// swizzled: a load zero-fills what lies past the matrix, a store skips it.
+inline cudaError_t make_2d_map(CUtensorMap* map, const void* base, long long rows,
+                               long long cols, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (box_rows < 1 || box_rows > 256 || rows < 1 || cols < 8 || cols % 8 != 0)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {kHeadDim, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

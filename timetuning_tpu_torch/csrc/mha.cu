@@ -51,10 +51,13 @@
 //   256 tokens one pass: the block's [64, S] scores stay in shared memory
 //   (52 KB at S = 197) and q k^T runs once; up to 1,024 two passes (K, then
 //   K and V), the row statistics in registers.
-// Dh is fixed at 64 (every ViT of the repo).
+// Dh is fixed at 64 (every ViT of the repo). The bf16 core is also the
+// attention core of the attention-block kernel (attention_block.cu, through
+// mha_core.cuh).
 #include "attention_f32.cuh"
 #include "attention_wgmma.cuh"
 #include "common.cuh"
+#include "mha_core.cuh"
 
 namespace {
 
@@ -491,6 +494,64 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
+// The bf16 core on strided [B, H, S, 64] views (strides in elements): the
+// caller's plan (ops/attention.mha_plan) is checked here, for tt_mha below
+// and for the attention-block kernel (attention_block.cu), which runs this
+// core on the q, k, v thirds of its qkv rows.
+cudaError_t tt::launch_mha_bf16(const void* q, const void* k, const void* v, void* o,
+                                int B, int H, int S, int passes, int keys,
+                                long long qb, long long qh, long long qs,
+                                long long kb, long long kh, long long ks,
+                                long long vb, long long vh, long long vs,
+                                long long ob, long long oh, long long os,
+                                cudaStream_t s) {
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S > 1024)
+    return cudaErrorInvalidValue;
+  const float scale_log2 = 1.f / sqrtf((float)kDh) * hp::kLog2e;
+  bf16* out = static_cast<bf16*>(o);
+  const bool one = passes == 1;
+  if (one ? (keys < S || (keys != 64 && keys != 128 && keys != 208 && keys != 256))
+          : (passes != 2 || keys != (S + kTwoK - 1) / kTwoK * kTwoK))
+    return cudaErrorInvalidValue;
+  // one pass: a block owns all query tiles of its head, so K and V are
+  // fetched once a head, or one tile, so that the heads' tiles spread over
+  // the card (K and V then come again from L2: a tile costs ~1.3 of its
+  // share of a head): whichever takes fewer waves of two blocks an SM.
+  // 768 heads of 197 tokens stay whole; 300, and anything under two heads
+  // an SM, go by tiles
+  cudaError_t e;
+  int sms = 0, device = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return e;
+  const int q_tiles = (S + 63) / 64;
+  const long long slots = 2LL * sms;
+  const long long whole = ((long long)B * H + slots - 1) / slots * q_tiles * 10;
+  const long long tiled = ((long long)B * H * q_tiles + slots - 1) / slots * 13;
+  const int q_rows = !one ? kTwoQ : whole <= tiled ? q_tiles * 64 : 64;
+  const int kv_rows = one ? keys : kTwoK;
+  CUtensorMap mq, mk, mv;
+  if ((e = hp::make_qkv_map(&mq, q, B, H, S, qb, qh, qs, q_rows)) != cudaSuccess ||
+      (e = hp::make_qkv_map(&mk, k, B, H, S, kb, kh, ks, kv_rows)) != cudaSuccess ||
+      (e = hp::make_qkv_map(&mv, v, B, H, S, vb, vh, vs, kv_rows)) != cudaSuccess)
+    return e;
+  if (one) {
+    auto launch = keys == 64 ? launch_one_pass<64>
+                  : keys == 128 ? launch_one_pass<128>
+                  : keys == 208 ? launch_one_pass<208>
+                                : launch_one_pass<256>;
+    return launch(mq, mk, mv, out, B, H, S, q_rows, scale_log2, ob, oh, os, s);
+  }
+  constexpr int smem = kTwoBarOffset + kTwoBars * 8 + 1024;
+  e = cudaFuncSetAttribute(mha_two_pass_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  mha_two_pass_kernel<<<dim3((S + kTwoQ - 1) / kTwoQ, H, B), kTwoThreads, smem, s>>>(
+      mq, mk, mv, out, S, scale_log2, ob, oh, os);
+  return cudaGetLastError();
+}
+
 // q, k, v, o: device pointers of bf16 (is_bf16 = 1) or f32 values; strides
 // in elements. 1 <= S <= 1024. bf16: `passes` and `keys` are the caller's
 // plan (ops/attention.mha_plan): one pass over a strip of keys = 64, 128,
@@ -507,56 +568,22 @@ extern "C" int tt_mha(const void* q, const void* k, const void* v, void* o,
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S > 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)tt::launch_mha_bf16(q, k, v, o, B, H, S, passes, keys, qb, qh, qs, kb,
+                                    kh, ks, vb, vh, vs, ob, oh, os, s);
+  if (passes != 2 && (passes != 1 || S > kStripMaxKeys))
+    return (int)cudaErrorInvalidValue;
   const float scale = 1.f / sqrtf((float)kDh);
-  cudaError_t e;
-  if (is_bf16) {
-    const float scale_log2 = scale * hp::kLog2e;
-    bf16* out = static_cast<bf16*>(o);
-    const bool one = passes == 1;
-    if (one ? (keys < S || (keys != 64 && keys != 128 && keys != 208 && keys != 256))
-            : (passes != 2 || keys != (S + kTwoK - 1) / kTwoK * kTwoK))
-      return (int)cudaErrorInvalidValue;
-    // one pass: a block owns all query tiles of its head, so K and V are
-    // fetched once a head; with fewer heads than two a multiprocessor it
-    // owns one tile and the heads' tiles spread over the card
-    int sms = 0, device = 0;
-    if ((e = cudaGetDevice(&device)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-            cudaSuccess)
-      return (int)e;
-    const int q_rows = !one ? kTwoQ : B * H >= 2 * sms ? (S + 63) / 64 * 64 : 64;
-    const int kv_rows = one ? keys : kTwoK;
-    CUtensorMap mq, mk, mv;
-    if ((e = hp::make_qkv_map(&mq, q, B, H, S, qb, qh, qs, q_rows)) != cudaSuccess ||
-        (e = hp::make_qkv_map(&mk, k, B, H, S, kb, kh, ks, kv_rows)) != cudaSuccess ||
-        (e = hp::make_qkv_map(&mv, v, B, H, S, vb, vh, vs, kv_rows)) != cudaSuccess)
-      return (int)e;
-    if (one) {
-      auto launch = keys == 64 ? launch_one_pass<64>
-                    : keys == 128 ? launch_one_pass<128>
-                    : keys == 208 ? launch_one_pass<208>
-                                  : launch_one_pass<256>;
-      return (int)launch(mq, mk, mv, out, B, H, S, q_rows, scale_log2, ob, oh, os, s);
-    }
-    constexpr int smem = kTwoBarOffset + kTwoBars * 8 + 1024;
-    e = cudaFuncSetAttribute(mha_two_pass_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    mha_two_pass_kernel<<<dim3((S + kTwoQ - 1) / kTwoQ, H, B), kTwoThreads, smem, s>>>(
-        mq, mk, mv, out, S, scale_log2, ob, oh, os);
-  } else {
-    if (passes != 2 && (passes != 1 || S > kStripMaxKeys))
-      return (int)cudaErrorInvalidValue;
-    const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-    const auto kernel = passes == 1 ? mha_f32_strip_kernel : mha_f32_kernel;
-    const int smem = passes == 1 ? strip_smem(S) : kFSmem;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             passes == 1 ? strip_smem(kStripMaxKeys) : kFSmem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((S + f32::kBQ - 1) / f32::kBQ, H, B);
-    kernel<<<grid, f32::kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), S, scale, st);
-  }
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  const auto kernel = passes == 1 ? mha_f32_strip_kernel : mha_f32_kernel;
+  const int smem = passes == 1 ? strip_smem(S) : kFSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      passes == 1 ? strip_smem(kStripMaxKeys) : kFSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + f32::kBQ - 1) / f32::kBQ, H, B);
+  kernel<<<grid, f32::kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, scale, st);
   return (int)cudaGetLastError();
 }

@@ -20,14 +20,24 @@ composition beside it (``attention_block_xla``, ``mlp_block_xla``,
 ``ln_dense_xla``, ``dense_residual_xla``, named after their JAX
 counterparts). Every product of the plain versions is taken in f32 from its
 operands' values, as the JAX compositions' ``preferred_element_type=f32``.
+
+Every product of the kernels is one launch of the GEMM tile of
+csrc/gemm_wgmma.cuh; ``gemm_plan`` says how the tile lays a product out on
+the card (it is handed to the kernels, which check it), and the attention
+core of ``attention_block_branch`` is kernel 10's, walked by
+``ops/attention.mha_plan``.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from timetuning_tpu_torch.ops import kernel_lib
+from timetuning_tpu_torch.ops.attention import mha_plan
 from timetuning_tpu_torch.ops.flash_attention import flash_attention
 
 _LN_EPS = 1e-6   # the reference LayerNorm eps (torch's default is 1e-5)
@@ -91,11 +101,85 @@ def _check_x(name, x):
                          f"{tuple(x.shape)}")
 
 
+# The GEMM tile (csrc/gemm_wgmma.cuh): 128 output columns a tile, 64-wide K
+# steps (one 128-byte swizzle atom of bf16 a row); with the LayerNorm
+# prologue a block's rows stay resident in shared memory, 128 rows a block up
+# to GEMM_LN_WIDE_K columns and 64 up to GEMM_LN_K.
+GEMM_TILE_COLS = 128
+GEMM_K_STEP = 64
+GEMM_LN_WIDE_K = 512
+GEMM_LN_K = 1024
+GEMM_L2_SHARE = 20 * 2 ** 20     # of the card's L2 (50 MB on an H100)
+
+
+class GemmPlan(NamedTuple):
+    """How the tile runs ``out[M, N] = A[M, K] @ W[N, K]^T``: the rows of a
+    block (``block_rows``) and ``n_slices``, the work items a row block is
+    cut into along its ``n_tiles`` column tiles (``items`` blocks in all)."""
+
+    block_rows: int
+    n_tiles: int
+    n_slices: int
+    items: int
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int) -> GemmPlan:
+    """The plan of one product on a card of ``sms`` multiprocessors.
+
+    Rows a block, by K (mirrors ``tt::gemm::route``, to which the card's
+    tests hold it): with the LayerNorm prologue (``ln``) the block's
+    normalised rows stay resident in shared memory, 128 of them up to
+    K = 512 and 64 up to 1,024; without it A streams through the ring with W,
+    128 rows a block.
+
+    Slices, by waves: a block costs its fill plus its tiles, and the card
+    runs ``sms`` blocks at a time, so the count with the fewest waves x
+    (fill + tiles a slice) wins, the smaller on a tie. The fill, measured on
+    an H100 in tiles' worth of products: ~4.5 for the prologue (the rows' way
+    in from device memory, then the LayerNorm), ~1 for a streamed block (its
+    ring's first stages). 1,226 row blocks (ViT-S/8 at 448, 50 frames) keep
+    one slice and so do 77 (ViT-S/16, 50 frames): cutting them repeats the
+    prologue. A streamed A comes again from L2 for every tile of its row
+    block; where a wave's blocks of A do not fit ``GEMM_L2_SHARE`` (fc2:
+    K = 1,536, 393 KB a block) a row block is cut into as many slices as it
+    has tiles, which then run side by side and share one pass over A."""
+    if min(M, N, K, sms) < 1 or K % GEMM_K_STEP or N % 8:
+        raise ValueError(f"gemm_plan: M={M}, N={N}, K={K}: the tile takes an "
+                         f"inner width that is a multiple of {GEMM_K_STEP} "
+                         "and an out width that is a multiple of 8")
+    if ln and K > GEMM_LN_K:
+        raise ValueError(f"gemm_plan: the LayerNorm prologue takes K <= "
+                         f"{GEMM_LN_K}, got {K}")
+    block_rows = 64 if ln and K > GEMM_LN_WIDE_K else 128
+    n_tiles = -(-N // GEMM_TILE_COLS)
+    row_blocks = -(-M // block_rows)
+    if not ln and min(row_blocks, sms) * block_rows * K * 2 > GEMM_L2_SHARE:
+        n_slices = n_tiles
+    else:
+        fill4 = 18 if ln else 4             # in quarter tiles
+        _, n_slices = min(
+            (-(-row_blocks * ns // sms) * (fill4 + 4 * -(-n_tiles // ns)), ns)
+            for ns in range(1, n_tiles + 1))
+    return GemmPlan(block_rows, n_tiles, n_slices, row_blocks * n_slices)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _slices(device, M, N, K, ln) -> int:
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return gemm_plan(M, N, K, ln, _sm_count(index)).n_slices
+
+
 def _check_dense(name, D, w):
-    """``w`` [D, E]: the GEMM tile takes D % 32 == 0 and E % 8 == 0."""
-    if w.dim() != 2 or w.shape[0] != D or D % 32 or w.shape[1] % 8:
+    """``w`` [D, E]: the GEMM tile takes D % 64 == 0 and E % 8 == 0."""
+    if w.dim() != 2 or w.shape[0] != D or D % GEMM_K_STEP or w.shape[1] % 8:
         raise ValueError(f"{name}: weight shape {tuple(w.shape)} for D={D} "
-                         "(in width a multiple of 32, out width of 8)")
+                         f"(in width a multiple of {GEMM_K_STEP}, out width "
+                         "of 8)")
 
 
 def attention_block_branch(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
@@ -108,12 +192,16 @@ def attention_block_branch(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                                    num_heads)
     _check_x("attention_block_branch", x)
     B, S, D = x.shape
-    if D % num_heads or D // num_heads != 64 or D % 32:
+    if D % num_heads or D // num_heads != 64:
         raise ValueError(f"attention_block_branch: the kernel takes 64-wide "
                          f"heads, got D={D}, heads={num_heads}")
     if tuple(w_qkv.shape) != (D, 3 * D) or tuple(w_proj.shape) != (D, D):
         raise ValueError("attention_block_branch: weight shapes "
                          f"{tuple(w_qkv.shape)}, {tuple(w_proj.shape)} for D={D}")
+    if D > GEMM_LN_K:
+        raise ValueError(f"attention_block_branch: the LN prologue takes "
+                         f"D <= {GEMM_LN_K}, got {D}")
+    passes, keys = mha_plan(S)
     x = x.contiguous()
     args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w_qkv),
             _f32(b_qkv, 3 * D), _weight_nk(w_proj), _f32(b_proj, D)]
@@ -124,7 +212,9 @@ def attention_block_branch(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     kernel_lib.launch(
         "attention_block", "tt_attention_block", x.device,
         *(a.data_ptr() for a in args), qkv.data_ptr(), merged.data_ptr(),
-        out.data_ptr(), B, S, D, num_heads)
+        out.data_ptr(), B, S, D, num_heads,
+        _slices(x.device, B * S, 3 * D, D, True),
+        _slices(x.device, B * S, D, D, False), passes, keys)
     return out
 
 
@@ -135,10 +225,10 @@ def _mlp_launch(kernel, x, ln_s, ln_b, w1, b1, w2, b2):
     B, S, D = x.shape
     Hd = w1.shape[1]
     if (tuple(w1.shape) != (D, Hd) or tuple(w2.shape) != (Hd, D)
-            or D % 32 or Hd % 32 or D > 1024):
+            or D % GEMM_K_STEP or Hd % GEMM_K_STEP or D > GEMM_LN_K):
         raise ValueError(f"{kernel}: weight shapes {tuple(w1.shape)}, "
                          f"{tuple(w2.shape)} for D={D} (widths must be "
-                         "multiples of 32, D <= 1024)")
+                         f"multiples of {GEMM_K_STEP}, D <= {GEMM_LN_K})")
     x = x.contiguous()
     args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w1), _f32(b1, Hd),
             _weight_nk(w2), _f32(b2, D)]
@@ -148,7 +238,8 @@ def _mlp_launch(kernel, x, ln_s, ln_b, w1, b1, w2, b2):
     kernel_lib.launch(
         kernel, "tt_mlp_block", x.device,
         *(a.data_ptr() for a in args), hidden.data_ptr(), out.data_ptr(),
-        B * S, D, Hd)
+        B * S, D, Hd, _slices(x.device, B * S, Hd, D, True),
+        _slices(x.device, B * S, D, Hd, False))
     return out
 
 
@@ -182,15 +273,17 @@ def ln_dense_rows(x, ln_s, ln_b, w, b):
     _check_x("ln_dense_rows", x)
     B, S, D = x.shape
     _check_dense("ln_dense_rows", D, w)
-    if D > 1024:
-        raise ValueError(f"ln_dense_rows: the LN prologue takes D <= 1024, got {D}")
+    if D > GEMM_LN_K:
+        raise ValueError(f"ln_dense_rows: the LN prologue takes D <= "
+                         f"{GEMM_LN_K}, got {D}")
     E = w.shape[1]
     x = x.contiguous()
     args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w), _f32(b, E)]
     kernel_lib.require_cuda("ln_dense_rows", *args)
     out = torch.empty(B, S, E, dtype=torch.bfloat16, device=x.device)
     kernel_lib.launch("ln_dense", "tt_ln_dense", x.device,
-                      *(a.data_ptr() for a in args), out.data_ptr(), B * S, E, D)
+                      *(a.data_ptr() for a in args), out.data_ptr(), B * S, E, D,
+                      _slices(x.device, B * S, E, D, True))
     return out
 
 
@@ -214,7 +307,8 @@ def dense_residual_rows(y, x, w, b):
     kernel_lib.require_cuda("dense_residual_rows", *args)
     out = torch.empty(B, S, E, dtype=torch.bfloat16, device=y.device)
     kernel_lib.launch("dense_residual", "tt_dense_residual", y.device,
-                      *(a.data_ptr() for a in args), out.data_ptr(), B * S, E, K)
+                      *(a.data_ptr() for a in args), out.data_ptr(), B * S, E, K,
+                      _slices(y.device, B * S, E, K, False))
     return out
 
 

@@ -85,14 +85,15 @@ def launch_counts() -> dict[str, int]:
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "tt_attention_block": [_P] * 10 + [_I] * 4 + [_P],
-    "tt_mlp_block": [_P] * 9 + [_I] * 3 + [_P],
+    "tt_attention_block": [_P] * 10 + [_I] * 8 + [_P],
+    "tt_mlp_block": [_P] * 9 + [_I] * 5 + [_P],
     "tt_propagate_labels": [_P] * 4 + [_I] * 10 + [_F, _P],
     "tt_eval_preprocess": [_P, _P, _P, _I, _P, _P, _I] + [_F] * 6 + [_P]
     + [_I] * 4 + [_P],
     "tt_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
-    "tt_ln_dense": [_P] * 6 + [_I] * 3 + [_P],
-    "tt_dense_residual": [_P] * 5 + [_I] * 3 + [_P],
+    "tt_ln_dense": [_P] * 6 + [_I] * 4 + [_P],
+    "tt_dense_residual": [_P] * 5 + [_I] * 4 + [_P],
+    "tt_gemm_route": [_I, _I, _I, _P],
     "tt_propagate_row_floats": [_I] * 4,
     "tt_mha": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
     "tt_sinkhorn": [_P] * 5 + [_I] * 3 + [_P],

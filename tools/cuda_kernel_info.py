@@ -7,9 +7,14 @@ tensor-core, TMA and asynchronous-copy instructions its machine code holds
 
     python tools/cuda_kernel_info.py [source.cu ...]
 
-Without arguments: ``flash_attention.cu`` and ``mha.cu``. Needs the CUDA
-toolkit (``nvcc``, ``cuobjdump``), no card. Prints ptxas's warnings too (a
-``wgmma`` that it had to serialise shows up there).
+Without arguments: the sources that hold ``wgmma`` kernels, the two attention
+cores (``flash_attention.cu``, ``mha.cu``) and the three block sources built
+on the GEMM tile of ``gemm_wgmma.cuh`` (``rows_block.cu``,
+``attention_block.cu``, ``mlp_block.cu``; its kernels print as
+``gemm_wgmma_kernel<LN prologue, A streamed, 64-row groups, epilogue>``). Needs the CUDA
+toolkit (``nvcc``, ``cuobjdump``), no card. Prints ptxas's warnings and its
+"Potential Performance Loss" remarks too (a ``wgmma`` that it had to
+serialise shows up as such a remark, C7510-C7520, under ``ptxas info``).
 """
 
 from __future__ import annotations
@@ -29,17 +34,23 @@ SASS = ("HGMMA", "UTMALDG", "LDGSTS", "SYNCS")
 
 
 def short(mangled: str) -> str:
-    """``..._kernelILi208EE...`` -> ``mha_one_pass_kernel<208>``."""
-    for m in re.finditer(r"\d+", mangled):       # Itanium: <length><name>
-        name = mangled[m.end():m.end() + int(m.group())]
+    """``..._kernelILi208EE...`` -> ``mha_one_pass_kernel<208>``;
+    ``..._kernelILb1ELb0ELi2ELi0EE...`` -> ``gemm_wgmma_kernel<1,0,2,0>``."""
+    # Itanium: <length><name>; a length may follow a hash that ends in a
+    # digit, so every suffix of a run of digits is tried
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        end = m.end(1)
+        name = mangled[end:end + int(m.group(1))]
         if name.endswith("_kernel"):
-            arg = re.match(r"ILi(\d+)E", mangled[m.end() + len(name):])
-            return name + (f"<{arg.group(1)}>" if arg else "")
+            args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end + len(name):])
+            vals = re.findall(r"L[a-z](\d+)E", args.group(1)) if args else []
+            return name + (f"<{','.join(vals)}>" if vals else "")
     return mangled
 
 
 def main(argv: list[str]) -> int:
-    names = argv or ["flash_attention.cu", "mha.cu"]
+    names = argv or ["flash_attention.cu", "mha.cu", "rows_block.cu",
+                     "attention_block.cu", "mlp_block.cu"]
     nvcc = kernel_lib._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     with tempfile.TemporaryDirectory() as tmp:
@@ -77,7 +88,7 @@ def main(argv: list[str]) -> int:
                     used = line.split(":", 1)[1].strip()
                     ops = ", ".join(f"{op} {n}" for op, n in counts.get(fn, {}).items())
                     print(f"{fn}: {used}; {spills}; {ops}")
-                elif "warning" in line.lower():
+                elif "warning" in line.lower() or "Performance Loss" in line:
                     print(f"  {line.strip()}")
     return 0
 

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Device times of the port's block kernels (K1, K2/K9, K7, K8) and of kernel
+10 at the main paths' shapes, for one or several copies of the kernel
+sources, in turns inside one process on one card.
+
+    python tools/time_block_kernels.py [--slices 1,2,3] [--host] [csrc_dir ...]
+
+Without a directory: the package's own ``timetuning_tpu_torch/csrc``. With
+several (copies of it with one edit each, kept in a gitignored directory),
+each is built and timed in the order given and then in the reverse order, so
+that two variants are compared on one card under one power limit. Times are
+CUDA events over 20 launches queued behind a device-side sleep
+(``chip_smoke.cuda_ms``): device times, whatever the host does.
+
+``--slices``: also time K7, K8, fc1-like (384 -> 1,536 with the prologue) and
+fc2-like (1,536 -> 384 with the residual) products with the GEMM tile's plan
+forced to each of these slice counts (capped at the product's tiles), beside
+the plan's own choice: the measurements ``ops/fused_block.gemm_plan``'s cost
+constants come from. ``--host``: the host's time for one call of each wrapper
+at a tiny shape, without synchronising (what a launch costs the Python side).
+
+Needs a CUDA card and nvcc; prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from timetuning_tpu_torch.ops import attention as at  # noqa: E402
+from timetuning_tpu_torch.ops import fused_block as fb  # noqa: E402
+from timetuning_tpu_torch.ops import kernel_lib  # noqa: E402
+
+SHAPES = {"50x3137": (50, 3137), "50x197": (50, 197), "128x197": (128, 197)}
+D, HEADS = 384, 6
+
+
+def inputs(dev, gen, B, S):
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def w(n_in, n_out):     # as models/vit.Block passes a Linear weight
+        return (r(n_out, n_in) / n_in ** 0.5).t().to(torch.bfloat16)
+
+    return dict(
+        x=r(B, S, D).bfloat16(), y=r(B, S, D).bfloat16(), h=r(B, S, 4 * D).bfloat16(),
+        ln=(1 + 0.1 * r(D), 0.1 * r(D)), qkv=(w(D, 3 * D), 0.1 * r(3 * D)),
+        proj=(w(D, D), 0.1 * r(D)), fc1=(w(D, 4 * D), 0.1 * r(4 * D)),
+        fc2=(w(4 * D, D), 0.1 * r(D)), q3=r(B, S, 3, HEADS, 64).bfloat16())
+
+
+def kernels(i, S):
+    q, k, v = (i["q3"][:, :, j].permute(0, 2, 1, 3) for j in range(3))
+    fns = {
+        "ln_dense": lambda: fb.ln_dense_rows(i["x"], *i["ln"], *i["qkv"]),
+        "dense_residual": lambda: fb.dense_residual_rows(i["y"], i["x"], *i["proj"]),
+        "mlp": lambda: fb.mlp_rows(i["x"], *i["ln"], *i["fc1"], *i["fc2"]),
+    }
+    if S <= at.WHOLE_SEQUENCE_TOKENS:
+        fns["attention_block"] = lambda: fb.attention_block_branch(
+            i["x"], *i["ln"], *i["qkv"], *i["proj"], HEADS)
+        fns["mha"] = lambda: at.attention_mha(q, k, v)
+    return fns
+
+
+def products(i):
+    return {
+        "ln_dense 384->1152": lambda: fb.ln_dense_rows(i["x"], *i["ln"], *i["qkv"]),
+        "dense_residual 384->384": lambda: fb.dense_residual_rows(i["y"], i["x"], *i["proj"]),
+        "ln_dense 384->1536": lambda: fb.ln_dense_rows(i["x"], *i["ln"], *i["fc1"]),
+        "dense_residual 1536->384": lambda: fb.dense_residual_rows(i["h"], i["x"], *i["fc2"]),
+    }
+
+
+def line(label, fns):
+    print(f"{label}: " + "  ".join(f"{k} {cs.cuda_ms(f):.4f}" for k, f in fns.items()),
+          flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("csrc", nargs="*", type=Path)
+    ap.add_argument("--slices", default="")
+    ap.add_argument("--host", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_block_kernels: needs a CUDA card")
+    print(cs.nvidia_smi(), flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = {name: inputs(dev, gen, B, S) for name, (B, S) in SHAPES.items()}
+
+    dirs = args.csrc or [kernel_lib.CSRC_DIR]
+    for d in dirs + (dirs[::-1] if len(dirs) > 1 else []):
+        kernel_lib._lib = None
+        kernel_lib.CSRC_DIR = d.resolve()
+        kernel_lib.library()
+        for name, (_, S) in SHAPES.items():
+            line(f"{d.name} {name} ms", kernels(data[name], S))
+
+    if args.slices:
+        plan = fb._slices
+        for name in SHAPES:
+            line(f"{dirs[0].name} {name} the plan's slices, ms", products(data[name]))
+            for ns in (int(v) for v in args.slices.split(",")):
+                fb._slices = lambda dev_, M, N, K, ln, ns=ns: min(ns, -(-N // fb.GEMM_TILE_COLS))
+                line(f"{dirs[0].name} {name} slices={ns} ms", products(data[name]))
+            fb._slices = plan
+
+    if args.host:
+        tiny = inputs(dev, gen, 1, 16)
+        fns = kernels(tiny, 16)
+        fns["F.linear (one library call)"] = lambda: torch.nn.functional.linear(
+            tiny["x"], tiny["proj"][0].t())
+        for name, fn in fns.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            best = float("inf")
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                best = min(best, (time.perf_counter() - t0) / 200)
+                torch.cuda.synchronize()
+            print(f"host us a call at [1, 16, {D}], no synchronise: {name} {best * 1e6:.1f}",
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
