@@ -13,8 +13,10 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the evals below, with its error bound and the times of both (CUDA
    events): kernels 1-4 at ViT-S/16 (50 frames at 224, two 25-frame clips
-   of 480x854), kernel 1 also at the train step's 128 frames and at 8 x 577
-   tokens (its core's two passes), kernel 7 also at kernel 1's 9,850 rows;
+   of 480x854), kernels 1 and 2 also at the train step's 128 frames, kernel
+   1 at 8 x 577 tokens (its core's two passes), kernel 7 also at kernel 1's
+   9,850 rows; the bf16 hidden of kernels 2 and 9 against the plain hidden,
+   and their two launches (fc1 + GELU, fc2) timed apart;
    the flash kernel in bf16 and f32 at [4 x 6 heads, 3,137
    tokens, 64], at queries != keys with a key mask, and in bf16 at the eval
    group's own 50 frames; the row kernels (ln_dense, dense_residual,
@@ -302,6 +304,41 @@ def library_block(x, ln_s, ln_b, layers, residual=None, heads=0):
     return run
 
 
+def check_mlp_parts(key: str, x, mlp) -> None:
+    """The two launches of kernel 2 / 9 apart on ``x``: the bf16 hidden of the
+    first (LN2 + fc1 + the kernels' one-range GELU) against the plain hidden
+    (erf GELU) on the same bf16 weights, and both launches' device times
+    under the profiler. The products are the same sums in another order and
+    the two GELUs are 3e-7 apart, so a value differs where its rounding to
+    bf16 flips, by one ulp; and where a normalised value of its row rounds
+    the other way (the kernel's rsqrtf against rsqrt: a few rows in a
+    hundred), which moves the row's pre-activations by that value's ulp
+    times its weight. Bound: every hidden value within one bf16 ulp of the
+    plain one or two such flips of the largest normalised value under the
+    largest weight, at most 1e-3 of them differing at all."""
+    from timetuning_tpu_torch.ops import fused_block as fb
+
+    def ulp_of(a):
+        return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+    got = fb.mlp_hidden_rows(x, *mlp[:4]).float()
+    want = fb.mlp_hidden_xla(x, *mlp[:4]).float()
+    torch.cuda.synchronize()
+    flips = (2 * ulp_of(fb._ln(x, mlp[0], mlp[1]).float().abs().max())
+             * mlp[2].float().abs().max()).item()
+    apart = (got - want).abs()
+    over = (apart > ulp_of(torch.maximum(got.abs(), want.abs())).clamp(min=flips)).sum().item()
+    share = (apart > 0).float().mean().item()
+    print(f"hidden {key}: {list(got.shape)} bf16 against the plain hidden: "
+          f"max_abs_err={apart.max().item():.3e}, over one ulp and {flips:.1e}: {over}, "
+          f"differing at all: {share:.3e} (bound: 0 over, <= 1e-3 differing)",
+          flush=True)
+    if over or share > 1e-3:
+        raise AssertionError(f"{key}: the kernel's hidden disagrees with the plain hidden")
+    del got, want, apart
+    trace(lambda: fb.mlp_rows(x, *mlp), f"{key}, fc1 and fc2 apart", reps=5, top=2)
+
+
 def lattice_features(rng, lead: tuple, D: int = 384, nnz: int = 256):
     """[*lead, D] f32 features with ``nnz`` entries of +-1/16 at random
     places and zeros elsewhere: unit norm exactly (the normalisation is
@@ -463,6 +500,7 @@ def check_long_token_kernels(dev, results: dict) -> None:
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with plain version")
         del got, want
+    check_mlp_parts("mlp_rows", x, mlp)
 
     check_propagation(dev, report, np.random.default_rng(3136), (S8 // 8) ** 2,
                       "propagation/s8", lattice=True)
@@ -489,9 +527,10 @@ def check_kernels(dev, results: dict) -> None:
 
     # K1, K2: one block's branch at B=50 frames x 197 tokens; bound: bf16
     # rounding at O(1) values (the kernel adds the residual in f32, the plain
-    # composition in bf16: one bf16 ulp apart). K1 also at the train step's
-    # 128 frames and at a two-pass length of its core (8 x 577 tokens, ViT-S/16
-    # at 384); K7 at K1's own rows (9,850: 77 row blocks on the card's SMs)
+    # composition in bf16: one bf16 ulp apart). K1 and K2 also at the train
+    # step's 128 frames, K1 at a two-pass length of its core (8 x 577 tokens,
+    # ViT-S/16 at 384); K7 at K1's own rows (9,850: 77 row blocks on the card's
+    # SMs); K2's bf16 hidden against the plain hidden, its two launches apart
     def check_block(name, key, kern, plain, x, wts, flops, lib):
         got = kern(x, *wts)
         want = plain(x, *wts)
@@ -521,6 +560,7 @@ def check_kernels(dev, results: dict) -> None:
                 4.0 * M * D * Hd,
                 library_block(x, ln_s, ln_b, [(mlp[2], mlp[3], True),
                                               (mlp[4], mlp[5], False)], residual=x))
+    check_mlp_parts("mlp_block", x, mlp)
     check_block("ln_dense", f"ln_dense/{M}", fb.ln_dense_rows, fb.ln_dense_xla, x,
                 attn[:4], 2.0 * M * D * 3 * D,
                 library_block(x, ln_s, ln_b, [(attn[2], attn[3], False)]))
@@ -530,6 +570,13 @@ def check_kernels(dev, results: dict) -> None:
         check_block("attention_block", f"attention_block/{b}x{s}",
                     fb.attention_block_branch, fb.attention_block_xla, xb,
                     attn + (heads,), attn_flops(b, s), attn_lib(xb))
+        if s == T:
+            check_block("mlp_block", f"mlp_block/{b}x{s}", fb.mlp_block_branch,
+                        fb.mlp_block_xla, xb, mlp, 4.0 * b * s * D * Hd,
+                        library_block(xb, ln_s, ln_b, [(mlp[2], mlp[3], True),
+                                                       (mlp[4], mlp[5], False)],
+                                      residual=xb))
+            check_mlp_parts(f"mlp_block/{b}x{s}", xb, mlp)
         del xb
 
     check_propagation(dev, report, rng, 196, "propagation")

@@ -111,3 +111,87 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(branch):
         fn(torch.from_numpy(x).to("meta"))
     with pytest.raises(ValueError):
         fn(torch.from_numpy(x).to("meta", torch.bfloat16))
+
+
+def _gelu_f64(h):
+    h = h.double()
+    return 0.5 * h * (1.0 + torch.special.erf(h / 2.0 ** 0.5))
+
+
+def test_gelu_kernel_form_is_exact_to_1e6_over_the_f32_range():
+    """The kernels' one-range GELU (its torch mirror: the same coefficients,
+    f32) against erf in f64: a dense grid of [-12, 12], random values where
+    the hidden lives, and every value next to the clamp."""
+    rng = np.random.default_rng(0)
+    near = np.nextafter(np.float32(tfb.GELU_CLAMP), np.float32([0, 100]))
+    h = torch.from_numpy(np.concatenate([
+        np.linspace(-12, 12, 2_000_001), rng.uniform(-6.5, 6.5, 500_000),
+        2 * rng.standard_normal(500_000), near, -near, [0.0, -0.0, 6.0, -6.0],
+    ]).astype(np.float32))
+    got = tfb.gelu_kernel_form(h)
+    assert got.dtype == torch.float32
+    err = (got.double() - _gelu_f64(h)).abs().max().item()
+    assert err <= 1e-6, err
+
+
+def test_gelu_kernel_form_tails_are_exact():
+    """Above the range the GELU is its argument and below it 0, exactly; a
+    NaN stays one."""
+    big = torch.tensor([6.0, 6.5, 12.0, 12.5, 1e3, 3e38, float("inf")])
+    assert torch.equal(tfb.gelu_kernel_form(big), big)
+    assert torch.equal(tfb.gelu_kernel_form(-big), torch.zeros_like(big))
+    assert torch.isnan(tfb.gelu_kernel_form(torch.tensor([float("nan")]))).all()
+
+
+@pytest.mark.parametrize("scale", [0.5, 0.75, 1.0])
+def test_bf16_hidden_from_the_kernel_form_is_within_one_ulp_of_gelus(scale):
+    """The hidden is rounded to bf16 once: the two GELUs, 3e-7 apart, then
+    round apart on a few values in 10^4, by one ulp of the hidden (or by the
+    1e-6 both are exact to, where an ulp is smaller). 10^6 seeded values at
+    the spread of a LayerNorm's rows through a Linear layer (far below -4,
+    where the GELU is under 1e-4, the two agree to 1e-6 and not to an ulp:
+    there erf's own f32 form is no more exact)."""
+    h = torch.from_numpy(
+        (scale * np.random.default_rng(1).standard_normal(1_000_000)).astype(np.float32))
+    got = tfb.gelu_kernel_form(h).bfloat16().float()
+    want = torch.nn.functional.gelu(h).bfloat16().float()
+    apart = (got - want).abs()
+    assert (apart > 0).float().mean().item() <= 1e-3
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(got.abs(), want.abs()))) - 7)
+    assert (apart <= torch.clamp(ulp, min=1e-6)).all()
+
+
+def test_mlp_launches_alone_compose_to_the_branch_on_the_cpu():
+    """``mlp_hidden_rows`` and ``mlp_out_rows`` (the two launches of kernels
+    2 and 9 apart) take their plain versions on CPU tensors and count no
+    launch."""
+    from timetuning_tpu_torch.ops import kernel_lib
+
+    x, _, mlp = _inputs(7)
+    xt, w = torch.from_numpy(x).bfloat16(), _t(mlp)
+    kernel_lib.reset_launch_counts()
+    hidden = tfb.mlp_hidden_rows(xt, *w[:4])
+    assert hidden.shape == (B, S, HID) and hidden.dtype == torch.bfloat16
+    # the second launch sums the residual in f32, the branch's plain version
+    # in bf16: one bf16 ulp of O(1) values apart
+    torch.testing.assert_close(tfb.mlp_out_rows(hidden, xt, *w[4:]).float(),
+                               tfb.mlp_block_xla(xt, *w).float(), atol=2e-2, rtol=2e-2)
+    assert not any(kernel_lib.launch_counts().values())
+
+
+@pytest.mark.parametrize("D,hidden,ok", [
+    (384, 1536, True), (768, 3072, True),       # the registry's ViT-S and ViT-B
+    (1024, 4096, True), (64, 64, True),
+    (32, 128, False), (384, 1500, False), (1088, 4352, False),
+])
+def test_mlp_wrappers_take_the_widths_they_took(D, hidden, ok):
+    """The MLP kernels take widths that are multiples of 64 up to D = 1,024,
+    ViT-S's and ViT-B's among them, and refuse the rest before any launch."""
+    w1, w2 = torch.empty(D, hidden, device="meta"), torch.empty(hidden, D, device="meta")
+    if ok:
+        assert tfb._mlp_weights("mlp_block", D, w1, w2) == hidden
+        assert tfb.gemm_plan(9850, hidden, D, True, 132).items > 0
+        assert tfb.gemm_plan(9850, D, hidden, False, 132).items > 0
+    else:
+        with pytest.raises(ValueError, match="multiples of 64"):
+            tfb._mlp_weights("mlp_block", D, w1, w2)

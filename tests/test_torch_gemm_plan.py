@@ -22,19 +22,28 @@ SHARED_MEMORY_BYTES = 227 * 1024
     (1152, 384, True),      # LN1 + qkv (K7, K1's first product)
     (384, 384, False),      # proj + residual (K8, K1's last)
     (1536, 384, True),      # LN2 + fc1 + GELU
-    (384, 1536, False),     # fc2 + residual
+    (384, 1536, False),     # fc2 + residual: wide where the rows fill the card
     (2304, 768, True),      # a ViT-B row: wider than a resident 128-row block
     (768, 768, False),
+    (3072, 768, True),      # ViT-B's fc1
+    (768, 3072, False),     # ViT-B's fc2: two wide units
 ])
 def test_gemm_plan_covers_every_tile_once_within_shared_memory(M, N, K, ln):
     p = fb.gemm_plan(M, N, K, ln, H100_SMS)
     assert p.block_rows == (64 if ln and K > 512 else 128)
-    assert p.n_tiles == -(-N // 128) and 1 <= p.n_slices <= p.n_tiles
+    # a long streamed K is wide where the wide blocks fill the card once
+    wide = not ln and K >= 1024 and -(-M // 128) * -(-N // 384) >= H100_SMS
+    assert p.unit_cols == (384 if wide else 128)
+    assert p.n_units == -(-N // p.unit_cols) and 1 <= p.n_slices <= p.n_units
     assert p.items == -(-M // p.block_rows) * p.n_slices
-    # the slices of a row block, as the kernel cuts them, cover each tile once
-    edges = [s * p.n_tiles // p.n_slices for s in range(p.n_slices + 1)]
-    assert edges[0] == 0 and edges[-1] == p.n_tiles
+    # the slices of a row block, as the kernel cuts them, cover each unit once
+    edges = [s * p.n_units // p.n_slices for s in range(p.n_slices + 1)]
+    assert edges[0] == 0 and edges[-1] == p.n_units
     assert all(b > a for a, b in zip(edges, edges[1:]))
+    # a wide product is one item a unit: the rows of A are read once a unit
+    if wide:
+        assert p.n_slices == p.n_units
+        assert 3 * (128 * 64 * 2 + 384 * 64 * 2) + 1024 <= SHARED_MEMORY_BYTES
     # a resident block of A leaves room for a ring of at least three W tiles
     # and the epilogue's boxes in a block's shared memory
     if ln:
@@ -44,16 +53,32 @@ def test_gemm_plan_covers_every_tile_once_within_shared_memory(M, N, K, ln):
 @pytest.mark.parametrize("name,N,K,ln,n_slices", [
     ("s8_eval", 1152, 384, True, 1),     # 1,226 row blocks: whole waves, one slice
     ("s8_eval", 384, 384, False, 1),
-    ("s8_eval", 384, 1536, False, 3),    # a wave's 393 KB blocks of A overflow L2
+    ("s8_eval", 384, 1536, False, 1),    # wide: all 384 columns in one walk over K
+    ("s8_eval", 1536, 384, True, 1),
     ("s16_eval", 1152, 384, True, 1),    # 77 row blocks: a cut repeats the prologue
     ("s16_eval", 384, 384, False, 1),
-    ("s16_eval", 384, 1536, False, 3),
+    ("s16_eval", 384, 1536, False, 3),   # 77 row blocks: by turns, a slice a tile
+    ("s16_eval", 1536, 384, True, 1),
     ("s16_train", 1152, 384, True, 1),
     ("s16_train", 1536, 384, True, 2),   # 197 row blocks x 12 tiles: 394 items
     ("s16_train", 384, 384, False, 1),
+    ("s16_train", 384, 1536, False, 1),  # 197 row blocks fill the card: wide
+    ("s16_eval", 768, 3072, False, 2),   # ViT-B's fc2: a unit of 384 columns each
 ])
 def test_gemm_plan_slices_at_the_main_paths_shapes(name, N, K, ln, n_slices):
     assert fb.gemm_plan(ROWS[name], N, K, ln, H100_SMS).n_slices == n_slices
+
+
+@pytest.mark.parametrize("name,n_slices,plain", [
+    ("s8_eval", 1, 1),      # 1,226 row blocks: whole waves
+    ("s16_eval", 3, 1),     # 77 x 12 tiles = 924 = 7 an SM: two waves of four tiles
+    ("s16_train", 2, 2),    # 197 row blocks: three waves of six
+])
+def test_gemm_plan_slices_of_fc1_with_the_gelu_epilogue(name, n_slices, plain):
+    """The GELU tile costs a quarter more than a bias tile, which moves the
+    77 row blocks of an eval group from one slice to three."""
+    assert fb.gemm_plan(ROWS[name], 1536, 384, True, H100_SMS, True).n_slices == n_slices
+    assert fb.gemm_plan(ROWS[name], 1536, 384, True, H100_SMS).n_slices == plain
 
 
 def test_gemm_plan_cuts_few_row_blocks_to_fill_the_card():
@@ -65,13 +90,19 @@ def test_gemm_plan_cuts_few_row_blocks_to_fill_the_card():
 
 
 def test_gemm_plan_cuts_a_streamed_block_only_where_l2_overflows():
-    """A streamed A is read again for every tile of its row block: from L2,
-    if a wave's blocks fit their share of it."""
-    assert fb.gemm_plan(ROWS["s8_eval"], 384, 1536, False, H100_SMS).n_slices == 3
-    assert 132 * 128 * 1536 * 2 > fb.GEMM_L2_SHARE > 132 * 128 * 384 * 2
-    # ten row blocks of K = 1,536 fit: the waves decide, as for any product
-    assert fb.gemm_plan(1280, 384, 1536, False, H100_SMS).n_slices == 3
-    assert fb.gemm_plan(1280, 384, 1536, False, 8).n_slices == 1
+    """A streamed A by turns (K < 1,024) is read again for every tile of its
+    row block: from L2, if a wave's blocks fit their share of it."""
+    assert fb.gemm_plan(ROWS["s8_eval"], 768, 768, False, H100_SMS).n_slices == 6
+    assert 132 * 128 * 768 * 2 > fb.GEMM_L2_SHARE > 132 * 128 * 384 * 2
+    # ten row blocks of K = 768 fit: the waves decide, as for any product
+    assert fb.gemm_plan(1280, 768, 768, False, H100_SMS).n_slices == 6
+    assert fb.gemm_plan(1280, 768, 768, False, 10).n_slices == 1
+    # from K = 1,024 on a product that fills the card is wide and reads
+    # nothing twice; 77 row blocks of K = 1,536 go by turns and overflow L2
+    assert fb.gemm_plan(ROWS["s8_eval"], 384, 1536, False, H100_SMS).n_slices == 1
+    small = fb.gemm_plan(ROWS["s16_eval"], 384, 1536, False, H100_SMS)
+    assert (small.unit_cols, small.n_slices) == (128, 3)
+    assert fb.gemm_plan(ROWS["s16_eval"], 384, 1536, False, 64).unit_cols == 384
 
 
 @pytest.mark.parametrize("M,N,K,ln,match", [

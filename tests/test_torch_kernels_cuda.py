@@ -73,6 +73,66 @@ def test_mlp_block_kernel_matches_plain(dev, S):
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("D,hidden", [(384, 1536), (768, 3072)])
+@pytest.mark.parametrize("B,S", [(3, 1), (3, 50), (3, 197), (2, 1024),      # K2's
+                                 (1, 63), (1, 64), (1, 65), (1, 127), (1, 129),
+                                 (50, 197)])
+def test_mlp_kernels_match_plain_at_block_edges_and_both_vit_widths(dev, B, S, D, hidden):
+    """K2 and K9 (one source) at ViT-S's and ViT-B's widths: sequences of 1,
+    50, 197 and 1,024 tokens, and rows on both sides of every block edge
+    (64-row groups, 128-row blocks; 9,850 rows = 77 blocks). Bound: bf16
+    rounding at O(1) values."""
+    x, _, mlp = _block_inputs(dev, B, S, D=D, hidden=hidden, seed=B + S)
+    want = fb.mlp_block_xla(x, *mlp)
+    for kern in (fb.mlp_block_branch, fb.mlp_rows):
+        got = kern(x, *mlp)
+        assert got.shape == x.shape and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+def _bf16_ulp(a, b):
+    return torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()))) - 7)
+
+
+@pytest.mark.parametrize("D,hidden", [(384, 1536), (768, 3072), (512, 2048)])
+@pytest.mark.parametrize("M", [65, 9850])
+def test_mlp_hidden_is_within_one_ulp_of_the_plain_hidden(dev, M, D, hidden):
+    """The bf16 hidden of the first launch (LN2 + fc1 + the kernels' one-range
+    GELU) against the plain hidden (erf GELU) on the same bf16 weights. The
+    products are the same f32 sums in another order and the two GELUs are
+    3e-7 apart, so a value differs where its rounding to bf16 flips, by one
+    ulp of the hidden; and where a normalised value of the row itself rounds
+    the other way (the kernel's rsqrtf against rsqrt: a few rows in a
+    hundred), which moves the row's pre-activations by that value's ulp
+    times its weight. Bound: every value within one bf16 ulp or two such
+    flips of the largest normalised value under the largest weight, at most
+    1e-3 of them differing at all (counted over 9,850 rows: in 65 rows one
+    such row more or less decides the share)."""
+    x, _, mlp = _block_inputs(dev, 1, M, D=D, hidden=hidden, seed=M)
+    w = (mlp[0], mlp[1], mlp[2].bfloat16(), mlp[3])
+    got = fb.mlp_hidden_rows(x, *w).float()
+    want = fb.mlp_hidden_xla(x, *w).float()
+    normed = fb._ln(x, w[0], w[1]).float().abs().max()
+    flips = (2 * _bf16_ulp(normed, normed) * w[2].float().abs().max()).item()
+    apart = (got - want).abs()
+    over = apart > torch.clamp(_bf16_ulp(got, want), min=flips)
+    assert not over.any(), (over.sum().item(), flips, got[over][:4], want[over][:4])
+    if M > 1000:
+        assert (apart > 0).float().mean().item() <= 1e-3
+
+
+def test_mlp_launches_alone_compose_to_the_kernel(dev):
+    """fc1 and fc2 launched apart give the bits of the one call, and count as
+    no kernel's launch."""
+    x, _, mlp = _block_inputs(dev, 2, 197, seed=5)
+    kernel_lib.reset_launch_counts()
+    hidden = fb.mlp_hidden_rows(x, *mlp[:4])
+    out = fb.mlp_out_rows(hidden, x, *mlp[4:])
+    assert not any(kernel_lib.launch_counts().values())
+    assert torch.equal(out, fb.mlp_block_branch(x, *mlp))
+    assert kernel_lib.launch_counts()["mlp_block"] == 1
+
+
 def _dense_inputs(dev, M, N, K, seed):
     rng = np.random.default_rng(seed)
     x = _t(rng.standard_normal((1, M, K)), dev, torch.bfloat16)
@@ -101,6 +161,24 @@ def test_dense_row_kernels_at_ragged_rows_and_columns(dev, M, N, K):
         torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("M,N,K", [
+    (16_897, 384, 1536),     # 133 row blocks, the last of one row: fc2's own widths
+    (17_000, 200, 1024),     # a unit of two tiles, the second of 72 columns
+    (17_000, 8, 1536),       # a unit of 8 columns
+    (8_500, 456, 1024),      # two units, the second of 72 columns; 67 row blocks x 2
+    (9_850, 768, 3072),      # ViT-B's fc2 at 77 row blocks
+])
+def test_wide_product_at_ragged_rows_and_columns(dev, M, N, K):
+    """The wide form (a streamed product from K = 1,024 on whose blocks fill
+    the card: 384 output columns a block in one walk over K) at its edges.
+    Bound: bf16 rounding at O(1) values."""
+    assert fb.gemm_plan(M, N, K, False, fb._sm_count(0)).unit_cols == fb.GEMM_WIDE_COLS
+    x, res, _, w, b = _dense_inputs(dev, M, N, K, seed=M + N + K)
+    got, want = fb.dense_residual_rows(x, res, w, b), fb.dense_residual_xla(x, res, w, b)
+    assert got.shape == (1, M, N) and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
 @pytest.mark.parametrize("n_slices", [1, 2, 5, 9])
 def test_dense_row_kernels_agree_under_every_slicing(dev, n_slices, monkeypatch):
     """Whatever plan the host hands over, the tiles of a row block are each
@@ -119,16 +197,21 @@ def test_dense_row_kernels_agree_under_every_slicing(dev, n_slices, monkeypatch)
     (K, ln, epi) for ln, epi in ((True, 0), (True, 1), (False, 2))
     for K in (64, 384, 512, 576, 768, 1024, 1536) if not (ln and K > 1024)])
 def test_gemm_plan_mirrors_the_tiles_own_route(dev, K, ln, epi):
-    """``fused_block.gemm_plan``'s rows a block are the C side's
-    (``tt::gemm::route``), whose ring has at least three stages and whose
-    shared memory fits a block, for each epilogue (bias, GELU, residual; the
-    LayerNorm prologue stops at K = 1,024)."""
+    """``fused_block.gemm_plan``'s rows a block and columns a unit are the C
+    side's (``tt::gemm::route``), whose ring has at least three stages and
+    whose shared memory fits a block, for each epilogue (bias, GELU,
+    residual; the LayerNorm prologue stops at K = 1,024) and both forms (by
+    turns; wide from K = 1,024 on without the prologue, where the row blocks
+    fill the card)."""
     import ctypes
 
-    out = (ctypes.c_int * 3)()
-    assert kernel_lib.library().tt_gemm_route(int(ln), epi, K, out) == 0
-    assert out[0] == fb.gemm_plan(1000, 1152, K, ln, 132).block_rows
-    assert out[1] >= 3 and out[2] <= 227 * 1024
+    out = (ctypes.c_int * 5)()
+    for M in (1000, 100_000):       # 8 and 782 row blocks: under and over a card's SMs
+        assert kernel_lib.library().tt_gemm_route(int(ln), epi, M, 1152, K, 132, out) == 0
+        plan = fb.gemm_plan(M, 1152, K, ln, 132)
+        assert (out[0], out[3]) == (plan.block_rows, plan.unit_cols)
+        assert out[1] >= 3 and out[2] <= 227 * 1024
+        assert out[4] == int(not ln and K >= 1024 and M > 1000)
 
 
 @pytest.mark.parametrize("T,N,D,n_last,radius,topk", [

@@ -1,25 +1,63 @@
 // MLP residual branch of one ViT block, bf16 in and out:
 //   out = x + fc2(GELU_erf(fc1(LN2(x))))
 //
-// Replaces the TPU kernel timetuning_tpu/ops/fused_block.py:_mlp_kernel
-// (reached through _mlp_pallas / mlp_block_branch).
+// Replaces the TPU kernels timetuning_tpu/ops/fused_block.py:_mlp_kernel
+// (:158, reached through _mlp_pallas / mlp_block_branch: kernel 2) and
+// _mlp_rows_kernel (:282, the same over the row chunks of sequences above
+// 1,024 tokens: kernel 9).
 //
-// What bounds it on the card: the two GEMMs, ~37 GFLOP per block at the
-// eval shape (B*S = 9850 rows, D=384, hidden 1536) against ~8 MB of
-// activations in and out plus a 30 MB bf16 hidden: far above the bf16
-// ridge, so tensor-core rate decides.
+// What bounds it on the card: the two GEMMs. At kernel 2's eval shape (B*S =
+// 9,850 rows, D = 384, hidden 1,536) 23 GFLOP against ~8 MB of activations
+// in and out plus a 30 MB bf16 hidden; at kernel 9's (156,850 rows of a
+// ViT-S/8 448 group) 370 GFLOP against 240 MB plus a 482 MB hidden that is
+// written once and read once: 0.37 ms by the operations, 0.40 ms for the two
+// launches by their own bounds (fc1 0.19 by either; fc2 0.19 by operations,
+// 0.22 by bytes). The operations decide, as long as the hidden's way out and
+// back runs under the products.
 //
 // Design. The TPU kernel keeps the f32 hidden of a whole row block in VMEM.
 // Here the branch is two launches of the tensor-core GEMM tile
-// (gemm_wgmma.cuh: wgmma, W by TMA): LN2 prologue + fc1 + bias + exact erff
-// GELU over a resident normalised row block, rounded to a bf16 hidden
-// [B*S, 4D] (the plain composition rounds the hidden to bf16 at the same
-// point), then fc2 + bias + the residual add in f32 with the hidden and W
-// streamed over K = 4D. The TPU kernel's Abramowitz-Stegun erf existed only
-// because Mosaic has no erf; CUDA's erff is used as is. The tile was
-// designed for the qkv and proj products (K = 384); the GELU's erff over the
-// hidden runs in the epilogue, under the other warpgroup's products only.
+// (gemm_wgmma.cuh: wgmma, W by TMA). First LN2 prologue + fc1 + bias + GELU
+// over a resident normalised row block, the warpgroups by turns, rounded to
+// a bf16 hidden [B*S, 4D] (the plain composition rounds the hidden to bf16
+// at the same point). The GELU is the tile's one-range form (gelu_many: one
+// polynomial, one ex2, no branch, exact to 3e-7), which runs under the
+// other warpgroup's products where CUDA's two-range erff took twice their
+// time; the TPU kernel's Abramowitz-Stegun erf existed only because Mosaic
+// has no erf. Then fc2 + bias + the residual add in f32 with the hidden and
+// W streamed over K = 4D: in the tile's wide form where the row blocks fill
+// the card (the hidden read once: 0.36 against 0.41 ms at kernel 9's rows),
+// by turns with a slice a column tile below that (kernel 2's 77 row blocks:
+// 0.031 against 0.036 ms). Keeping the hidden on chip was counted and not
+// built: two accumulators (the hidden chunk's and the output rows' [64 x
+// 384]) do not fit a thread's registers at 128-row blocks, 64-row blocks read
+// all of W1 and W2 (2.4 MB) for 36,864 clocks of products, 64 bytes a clock
+// an SM, which is more than L2 delivers, and what it would save already runs
+// under the products of the two launches.
 #include "gemm_wgmma.cuh"
+
+// The two launches apart (the timing tools and the card's check of the bf16
+// hidden call them; the model calls tt_mlp_block). slices: the product's plan
+// (ops/fused_block.gemm_plan).
+extern "C" int tt_mlp_fc1(const void* x, const float* ln_s, const float* ln_b,
+                          const void* w1, const float* b1, void* hidden, int M,
+                          int D, int Hd, int slices, void* stream) {
+  using tt::bf16;
+  return (int)tt::launch_gemm<true, tt::kBiasGelu>(
+      static_cast<const bf16*>(x), ln_s, ln_b, static_cast<const bf16*>(w1), b1,
+      nullptr, static_cast<bf16*>(hidden), M, Hd, D, slices,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tt_mlp_fc2(const void* hidden, const void* x, const void* w2,
+                          const float* b2, void* out, int M, int D, int Hd,
+                          int slices, void* stream) {
+  using tt::bf16;
+  return (int)tt::launch_gemm<false, tt::kBiasResidual>(
+      static_cast<const bf16*>(hidden), nullptr, nullptr,
+      static_cast<const bf16*>(w2), b2, static_cast<const bf16*>(x),
+      static_cast<bf16*>(out), M, D, Hd, slices, static_cast<cudaStream_t>(stream));
+}
 
 // slices_fc1, slices_fc2: the two GEMMs' plans (ops/fused_block.gemm_plan).
 extern "C" int tt_mlp_block(const void* x, const float* ln_s, const float* ln_b,
@@ -27,14 +65,7 @@ extern "C" int tt_mlp_block(const void* x, const float* ln_s, const float* ln_b,
                             const float* b2, void* hidden, void* out, int M,
                             int D, int Hd, int slices_fc1, int slices_fc2,
                             void* stream) {
-  using tt::bf16;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = tt::launch_gemm<true, tt::kBiasGelu>(
-      static_cast<const bf16*>(x), ln_s, ln_b, static_cast<const bf16*>(w1), b1,
-      nullptr, static_cast<bf16*>(hidden), M, Hd, D, slices_fc1, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)tt::launch_gemm<false, tt::kBiasResidual>(
-      static_cast<const bf16*>(hidden), nullptr, nullptr,
-      static_cast<const bf16*>(w2), b2, static_cast<const bf16*>(x),
-      static_cast<bf16*>(out), M, D, Hd, slices_fc2, st);
+  const int e = tt_mlp_fc1(x, ln_s, ln_b, w1, b1, hidden, M, D, Hd, slices_fc1, stream);
+  if (e != 0) return e;
+  return tt_mlp_fc2(hidden, x, w2, b2, out, M, D, Hd, slices_fc2, stream);
 }

@@ -53,12 +53,15 @@ extern "C" int tt_dense_residual(const void* y, const void* x, const void* w,
       static_cast<cudaStream_t>(stream));
 }
 
-// How the tile lays out a product of inner width K (ln: with the LayerNorm
-// prologue; epi: 0 bias, 1 bias + GELU, 2 bias + residual): out[0] = the rows
-// of a block, out[1] = the ring's stages, out[2] = its dynamic shared memory
-// in bytes. For the tests that hold ops/fused_block.gemm_plan to it.
-extern "C" int tt_gemm_route(int ln, int epi, int K, int* out) {
-  const tt::gemm::Route r = tt::gemm::route(ln != 0, epi, K);
+// How the tile lays out the product [M, K] x [K, N] on a card of sms
+// multiprocessors (ln: with the LayerNorm prologue; epi: 0 bias, 1 bias +
+// GELU, 2 bias + residual): out[0] = the rows of a block, out[1] = the ring's
+// stages, out[2] = its dynamic shared memory in bytes, out[3] = the output
+// columns of a unit of work, out[4] = the form (tt::gemm::Form). For the
+// tests that hold ops/fused_block.gemm_plan to it.
+extern "C" int tt_gemm_route(int ln, int epi, int M, int N, int K, int sms, int* out) {
+  const tt::gemm::Route r = tt::gemm::route(ln != 0, epi, M, N, K, sms);
   out[0] = r.block_rows, out[1] = r.stages, out[2] = r.smem;
+  out[3] = r.unit_cols, out[4] = r.form;
   return 0;
 }

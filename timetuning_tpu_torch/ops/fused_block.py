@@ -67,11 +67,46 @@ def attention_block_xla(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
         _ln(x, ln_s, ln_b), w_qkv, b_qkv, w_proj, b_proj, num_heads)
 
 
-def mlp_block_xla(x, ln_s, ln_b, w1, b1, w2, b2):
+def mlp_hidden_xla(x, ln_s, ln_b, w1, b1):
+    """``gelu(fc1(LN2(x)))``, bias and exact-erf GELU in f32, rounded to
+    ``x``'s dtype once: the hidden of ``mlp_block_xla``."""
     h = _dot(_ln(x, ln_s, ln_b), w1) + b1
-    h = F.gelu(h, approximate="none").to(x.dtype)
-    out = _dot(h, w2) + b2
+    return F.gelu(h, approximate="none").to(x.dtype)
+
+
+def mlp_block_xla(x, ln_s, ln_b, w1, b1, w2, b2):
+    out = _dot(mlp_hidden_xla(x, ln_s, ln_b, w1, b1), w2) + b2
     return x + out.to(x.dtype)
+
+
+# The kernels' GELU (csrc/gemm_wgmma.cuh ``gelu_many``), one range and no
+# branch: gelu(h) = max(h, 0) - t (2^p(t) - 2^p(6)) with t = min(|h|, 6) and
+# p a polynomial for log2(Phi(-t)), Phi the normal distribution function
+# (h Phi(h) = max(h, 0) - |h| Phi(-|h|)); the coefficients are a fit weighted
+# by t Phi(-t), what an error of p costs the result. Above 6 it is h and
+# below -6 it is 0, exactly; within, it is off by at most 3e-7.
+GELU_CLAMP = 6.0
+GELU_LOG2_TAIL = (-9.999930859e-01, -1.151201725e+00, -4.587709606e-01,
+                  -5.341212451e-02, 8.080730215e-03, -7.692239597e-04,
+                  3.309331805e-05)
+
+
+def gelu_kernel_form(h):
+    """The torch mirror of the kernels' GELU on f32 values: the same
+    coefficients and the same order of operations (a multiply and an add
+    where the kernel has one fused multiply-add)."""
+    h = h.float()
+    t = h.abs().clamp(max=GELU_CLAMP)
+
+    def tail(t):
+        p = torch.full_like(t, GELU_LOG2_TAIL[-1])
+        for c in GELU_LOG2_TAIL[-2::-1]:
+            p = p * t + c
+        return torch.exp2(p)
+
+    e = tail(t) - tail(torch.full((), GELU_CLAMP, dtype=torch.float32,
+                                  device=h.device))
+    return h.clamp(min=0) - t * e
 
 
 def ln_dense_xla(x, ln_s, ln_b, w, b):
@@ -104,46 +139,66 @@ def _check_x(name, x):
 # The GEMM tile (csrc/gemm_wgmma.cuh): 128 output columns a tile, 64-wide K
 # steps (one 128-byte swizzle atom of bf16 a row); with the LayerNorm
 # prologue a block's rows stay resident in shared memory, 128 rows a block up
-# to GEMM_LN_WIDE_K columns and 64 up to GEMM_LN_K.
+# to GEMM_LN_WIDE_K columns and 64 up to GEMM_LN_K. Its two forms: by turns
+# (the short-K products, fc1 + GELU among them) and wide (a streamed product
+# from GEMM_WIDE_K on that fills the card: fc2).
 GEMM_TILE_COLS = 128
 GEMM_K_STEP = 64
 GEMM_LN_WIDE_K = 512
 GEMM_LN_K = 1024
+GEMM_WIDE_K = 1024
+GEMM_WIDE_COLS = 3 * GEMM_TILE_COLS
 GEMM_L2_SHARE = 20 * 2 ** 20     # of the card's L2 (50 MB on an H100)
 
 
 class GemmPlan(NamedTuple):
     """How the tile runs ``out[M, N] = A[M, K] @ W[N, K]^T``: the rows of a
-    block (``block_rows``) and ``n_slices``, the work items a row block is
-    cut into along its ``n_tiles`` column tiles (``items`` blocks in all)."""
+    block (``block_rows``), the output columns of a unit of work
+    (``unit_cols``: a block walks whole units), and ``n_slices``, the work
+    items a row block is cut into along its ``n_units`` units (``items``
+    blocks in all)."""
 
     block_rows: int
-    n_tiles: int
+    unit_cols: int
+    n_units: int
     n_slices: int
     items: int
 
 
 @functools.lru_cache(maxsize=256)
-def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int) -> GemmPlan:
-    """The plan of one product on a card of ``sms`` multiprocessors.
+def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
+              gelu: bool = False) -> GemmPlan:
+    """The plan of one product on a card of ``sms`` multiprocessors
+    (``gelu``: with the GELU epilogue, the MLP's first product).
 
-    Rows a block, by K (mirrors ``tt::gemm::route``, to which the card's
-    tests hold it): with the LayerNorm prologue (``ln``) the block's
-    normalised rows stay resident in shared memory, 128 of them up to
+    Rows a block and columns a unit, by K (mirrors ``tt::gemm::route``, to
+    which the card's tests hold it): with the LayerNorm prologue (``ln``) the
+    block's normalised rows stay resident in shared memory, 128 of them up to
     K = 512 and 64 up to 1,024; without it A streams through the ring with W,
-    128 rows a block.
+    128 rows a block. A unit is one 128-column tile, except that a streamed
+    product from K = 1,024 on (fc2) whose blocks fill
+    the card at least once is wide, 384 columns a unit, one item a unit, so
+    that the rows of A (the hidden) are read once a unit and not once a tile
+    (fewer row blocks go by turns, a slice a tile: measured on an H100, fc2 at
+    77 row blocks 0.0314 ms by turns against 0.0355 wide, at 1,226 0.408
+    against 0.364).
 
-    Slices, by waves: a block costs its fill plus its tiles, and the card
-    runs ``sms`` blocks at a time, so the count with the fewest waves x
-    (fill + tiles a slice) wins, the smaller on a tie. The fill, measured on
-    an H100 in tiles' worth of products: ~4.5 for the prologue (the rows' way
-    in from device memory, then the LayerNorm), ~1 for a streamed block (its
-    ring's first stages). 1,226 row blocks (ViT-S/8 at 448, 50 frames) keep
-    one slice and so do 77 (ViT-S/16, 50 frames): cutting them repeats the
-    prologue. A streamed A comes again from L2 for every tile of its row
-    block; where a wave's blocks of A do not fit ``GEMM_L2_SHARE`` (fc2:
-    K = 1,536, 393 KB a block) a row block is cut into as many slices as it
-    has tiles, which then run side by side and share one pass over A."""
+    Slices of the other forms, by waves: a block costs its fill plus its
+    units, and the card runs ``sms`` blocks at a time, so the count with the
+    fewest waves x (fill + tiles a slice) wins, the smaller on a tie. The
+    fill, measured on an H100 in tiles' worth of products: ~4.5 for the
+    prologue (the rows' way in from device memory, then the LayerNorm), ~1
+    for a streamed block (its ring's first stages); a tile with the GELU
+    epilogue costs 1.25 (what of it shows beside the other warpgroup's
+    products). 1,226 row blocks (ViT-S/8 at 448, 50 frames) keep one slice
+    and so do 77 (ViT-S/16, 50 frames) without the GELU: cutting them repeats
+    the prologue; with it, 77 row blocks of fc1's 12 tiles go in three slices
+    (two waves of four tiles: 0.0474 ms against 0.0502 in one) and 197 in
+    two (0.0896 against 0.1008). A streamed A by turns comes again
+    from L2 for every tile of its row block; where a wave's blocks of A do
+    not fit ``GEMM_L2_SHARE`` (ViT-B's proj: K = 768, 197 KB a block) a row
+    block is cut into as many slices as it has tiles, which then run side by
+    side and share one pass over A."""
     if min(M, N, K, sms) < 1 or K % GEMM_K_STEP or N % 8:
         raise ValueError(f"gemm_plan: M={M}, N={N}, K={K}: the tile takes an "
                          f"inner width that is a multiple of {GEMM_K_STEP} "
@@ -152,16 +207,23 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int) -> GemmPlan:
         raise ValueError(f"gemm_plan: the LayerNorm prologue takes K <= "
                          f"{GEMM_LN_K}, got {K}")
     block_rows = 64 if ln and K > GEMM_LN_WIDE_K else 128
-    n_tiles = -(-N // GEMM_TILE_COLS)
     row_blocks = -(-M // block_rows)
+    n_units = -(-N // GEMM_WIDE_COLS)
+    if not ln and K >= GEMM_WIDE_K and -(-M // 128) * n_units >= sms:
+        return GemmPlan(block_rows, GEMM_WIDE_COLS, n_units, n_units,
+                        row_blocks * n_units)
+    unit_cols = GEMM_TILE_COLS
+    n_units = -(-N // unit_cols)
     if not ln and min(row_blocks, sms) * block_rows * K * 2 > GEMM_L2_SHARE:
-        n_slices = n_tiles
+        n_slices = n_units
     else:
         fill4 = 18 if ln else 4             # in quarter tiles
+        tile4 = 5 if gelu else 4
         _, n_slices = min(
-            (-(-row_blocks * ns // sms) * (fill4 + 4 * -(-n_tiles // ns)), ns)
-            for ns in range(1, n_tiles + 1))
-    return GemmPlan(block_rows, n_tiles, n_slices, row_blocks * n_slices)
+            (-(-row_blocks * ns // sms) * (fill4 + tile4 * -(-n_units // ns)), ns)
+            for ns in range(1, n_units + 1))
+    return GemmPlan(block_rows, unit_cols, n_units, n_slices,
+                    row_blocks * n_slices)
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,9 +231,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _slices(device, M, N, K, ln) -> int:
+def _slices(device, M, N, K, ln, gelu=False) -> int:
     index = torch.cuda.current_device() if device.index is None else device.index
-    return gemm_plan(M, N, K, ln, _sm_count(index)).n_slices
+    return gemm_plan(M, N, K, ln, _sm_count(index), gelu).n_slices
 
 
 def _check_dense(name, D, w):
@@ -218,17 +280,25 @@ def attention_block_branch(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     return out
 
 
+def _mlp_weights(kernel, D, w1, w2):
+    """fc1 [D, Hd] and fc2 [Hd, D] (either may be None) at widths the GEMM
+    tile takes; returns Hd."""
+    Hd = w1.shape[1] if w1 is not None else w2.shape[0]
+    if ((w1 is not None and tuple(w1.shape) != (D, Hd))
+            or (w2 is not None and tuple(w2.shape) != (Hd, D))
+            or D % GEMM_K_STEP or Hd % GEMM_K_STEP or D > GEMM_LN_K):
+        shapes = ", ".join(str(tuple(w.shape)) for w in (w1, w2) if w is not None)
+        raise ValueError(f"{kernel}: weight shapes {shapes} for D={D} (widths "
+                         f"must be multiples of {GEMM_K_STEP}, D <= {GEMM_LN_K})")
+    return Hd
+
+
 def _mlp_launch(kernel, x, ln_s, ln_b, w1, b1, w2, b2):
     """csrc/mlp_block.cu's two GEMMs over the B*S token rows, counted as
     ``kernel``."""
     _check_x(kernel, x)
     B, S, D = x.shape
-    Hd = w1.shape[1]
-    if (tuple(w1.shape) != (D, Hd) or tuple(w2.shape) != (Hd, D)
-            or D % GEMM_K_STEP or Hd % GEMM_K_STEP or D > GEMM_LN_K):
-        raise ValueError(f"{kernel}: weight shapes {tuple(w1.shape)}, "
-                         f"{tuple(w2.shape)} for D={D} (widths must be "
-                         f"multiples of {GEMM_K_STEP}, D <= {GEMM_LN_K})")
+    Hd = _mlp_weights(kernel, D, w1, w2)
     x = x.contiguous()
     args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w1), _f32(b1, Hd),
             _weight_nk(w2), _f32(b2, D)]
@@ -238,8 +308,51 @@ def _mlp_launch(kernel, x, ln_s, ln_b, w1, b1, w2, b2):
     kernel_lib.launch(
         kernel, "tt_mlp_block", x.device,
         *(a.data_ptr() for a in args), hidden.data_ptr(), out.data_ptr(),
-        B * S, D, Hd, _slices(x.device, B * S, Hd, D, True),
+        B * S, D, Hd, _slices(x.device, B * S, Hd, D, True, True),
         _slices(x.device, B * S, D, Hd, False))
+    return out
+
+
+def mlp_hidden_rows(x, ln_s, ln_b, w1, b1):
+    """The first launch of kernels 2 and 9 alone: the bf16 hidden
+    ``gelu(fc1(LN2(x)))`` [B, S, Hd]. For the card's check of the hidden and
+    the timing tools; it counts as no kernel's launch (the model calls
+    ``mlp_block_branch`` / ``mlp_rows``)."""
+    kernel_lib.require_no_grad("mlp_hidden_rows", x, ln_s, ln_b, w1, b1)
+    if x.device.type == "cpu":
+        return mlp_hidden_xla(x, ln_s, ln_b, w1, b1)
+    _check_x("mlp_hidden_rows", x)
+    B, S, D = x.shape
+    Hd = _mlp_weights("mlp_hidden_rows", D, w1, None)
+    args = [x.contiguous(), _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w1),
+            _f32(b1, Hd)]
+    kernel_lib.require_cuda("mlp_hidden_rows", *args)
+    hidden = torch.empty(B, S, Hd, dtype=torch.bfloat16, device=x.device)
+    kernel_lib.launch(None, "tt_mlp_fc1", x.device,
+                      *(a.data_ptr() for a in args), hidden.data_ptr(), B * S, D,
+                      Hd, _slices(x.device, B * S, Hd, D, True, True))
+    return hidden
+
+
+def mlp_out_rows(hidden, x, w2, b2):
+    """The second launch of kernels 2 and 9 alone: ``x + fc2(hidden)``, the
+    sum in f32. Counts as no kernel's launch, as ``mlp_hidden_rows``."""
+    kernel_lib.require_no_grad("mlp_out_rows", hidden, x, w2, b2)
+    if x.device.type == "cpu":
+        return dense_residual_xla(hidden, x, w2, b2)
+    _check_x("mlp_out_rows", x)
+    _check_x("mlp_out_rows", hidden)
+    B, S, D = x.shape
+    Hd = _mlp_weights("mlp_out_rows", D, None, w2)
+    if tuple(hidden.shape) != (B, S, Hd):
+        raise ValueError(f"mlp_out_rows: hidden {tuple(hidden.shape)} for "
+                         f"[{B}, {S}, {Hd}]")
+    args = [hidden.contiguous(), x.contiguous(), _weight_nk(w2), _f32(b2, D)]
+    kernel_lib.require_cuda("mlp_out_rows", *args)
+    out = torch.empty_like(x)
+    kernel_lib.launch(None, "tt_mlp_fc2", x.device,
+                      *(a.data_ptr() for a in args), out.data_ptr(), B * S, D, Hd,
+                      _slices(x.device, B * S, D, Hd, False))
     return out
 
 

@@ -87,13 +87,15 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     "tt_attention_block": [_P] * 10 + [_I] * 8 + [_P],
     "tt_mlp_block": [_P] * 9 + [_I] * 5 + [_P],
+    "tt_mlp_fc1": [_P] * 6 + [_I] * 4 + [_P],
+    "tt_mlp_fc2": [_P] * 5 + [_I] * 4 + [_P],
     "tt_propagate_labels": [_P] * 4 + [_I] * 10 + [_F, _P],
     "tt_eval_preprocess": [_P, _P, _P, _I, _P, _P, _I] + [_F] * 6 + [_P]
     + [_I] * 4 + [_P],
     "tt_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
     "tt_ln_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 4 + [_P],
-    "tt_gemm_route": [_I, _I, _I, _P],
+    "tt_gemm_route": [_I] * 6 + [_P],
     "tt_propagate_row_floats": [_I] * 4,
     "tt_mha": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
     "tt_sinkhorn": [_P] * 5 + [_I] * 3 + [_P],
@@ -174,9 +176,11 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
+def launch(kernel: str | None, fn: str, device: torch.device, *args) -> None:
     """Call the C entry point ``fn`` on ``device`` and its current PyTorch
-    stream (passed last), raise on a nonzero CUDA error, count the launch."""
+    stream (passed last), raise on a nonzero CUDA error, count the launch as
+    ``kernel``'s (None: a part of a kernel called alone by a check or a
+    timing tool, which counts for no kernel)."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -184,7 +188,8 @@ def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.tt_error_string(err).decode()
         raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")
-    KERNELS[kernel].launches += 1
+    if kernel is not None:
+        KERNELS[kernel].launches += 1
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

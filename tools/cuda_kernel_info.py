@@ -11,7 +11,8 @@ Without arguments: the sources that hold ``wgmma`` kernels, the two attention
 cores (``flash_attention.cu``, ``mha.cu``) and the three block sources built
 on the GEMM tile of ``gemm_wgmma.cuh`` (``rows_block.cu``,
 ``attention_block.cu``, ``mlp_block.cu``; its kernels print as
-``gemm_wgmma_kernel<LN prologue, A streamed, 64-row groups, epilogue>``). Needs the CUDA
+``gemm_wgmma_kernel<LN prologue, 64-row groups, prologue chunks, epilogue>``
+and ``gemm_wide_kernel``). Needs the CUDA
 toolkit (``nvcc``, ``cuobjdump``), no card. Prints ptxas's warnings and its
 "Potential Performance Loss" remarks too (a ``wgmma`` that it had to
 serialise shows up as such a remark, C7510-C7520, under ``ptxas info``).

@@ -12,11 +12,14 @@ that two variants are compared on one card under one power limit. Times are
 CUDA events over 20 launches queued behind a device-side sleep
 (``chip_smoke.cuda_ms``): device times, whatever the host does.
 
-``--slices``: also time K7, K8, fc1-like (384 -> 1,536 with the prologue) and
-fc2-like (1,536 -> 384 with the residual) products with the GEMM tile's plan
-forced to each of these slice counts (capped at the product's tiles), beside
-the plan's own choice: the measurements ``ops/fused_block.gemm_plan``'s cost
-constants come from. ``--host``: the host's time for one call of each wrapper
+The MLP branch (K2 / K9) is timed whole and as its two launches apart (fc1
+with the LayerNorm prologue and the GELU epilogue; fc2 with the residual).
+
+``--slices``: also time K7, K8, fc1 without the GELU (384 -> 1,536 with the
+prologue), the MLP's fc1 + GELU and its fc2 (1,536 -> 384 with the residual)
+with the GEMM tile's plan forced to each of these slice counts (capped at
+the product's tiles), beside the plan's own choice: the measurements
+``ops/fused_block.gemm_plan``'s cost constants come from. ``--host``: the host's time for one call of each wrapper
 at a tiny shape, without synchronising (what a launch costs the Python side).
 
 Needs a CUDA card and nvcc; prints the card's name and power limit first.
@@ -63,6 +66,8 @@ def kernels(i, S):
         "ln_dense": lambda: fb.ln_dense_rows(i["x"], *i["ln"], *i["qkv"]),
         "dense_residual": lambda: fb.dense_residual_rows(i["y"], i["x"], *i["proj"]),
         "mlp": lambda: fb.mlp_rows(i["x"], *i["ln"], *i["fc1"], *i["fc2"]),
+        "mlp fc1+gelu": lambda: fb.mlp_hidden_rows(i["x"], *i["ln"], *i["fc1"]),
+        "mlp fc2": lambda: fb.mlp_out_rows(i["h"], i["x"], *i["fc2"]),
     }
     if S <= at.WHOLE_SEQUENCE_TOKENS:
         fns["attention_block"] = lambda: fb.attention_block_branch(
@@ -76,8 +81,19 @@ def products(i):
         "ln_dense 384->1152": lambda: fb.ln_dense_rows(i["x"], *i["ln"], *i["qkv"]),
         "dense_residual 384->384": lambda: fb.dense_residual_rows(i["y"], i["x"], *i["proj"]),
         "ln_dense 384->1536": lambda: fb.ln_dense_rows(i["x"], *i["ln"], *i["fc1"]),
-        "dense_residual 1536->384": lambda: fb.dense_residual_rows(i["h"], i["x"], *i["fc2"]),
+        "mlp fc1+gelu 384->1536": lambda: fb.mlp_hidden_rows(i["x"], *i["ln"], *i["fc1"]),
+        "mlp fc2 1536->384": lambda: fb.mlp_out_rows(i["h"], i["x"], *i["fc2"]),
     }
+
+
+def forced_slices(ns):
+    """``fused_block._slices`` with every plan's slices forced to ``ns``,
+    capped at the product's units (a wide product keeps one item a unit)."""
+    def slices(device, M, N, K, ln, gelu=False):
+        p = fb.gemm_plan(M, N, K, ln, fb._sm_count(0), gelu)
+        return p.n_units if p.unit_cols == fb.GEMM_WIDE_COLS else min(ns, p.n_units)
+
+    return slices
 
 
 def line(label, fns):
@@ -111,7 +127,7 @@ def main() -> int:
         for name in SHAPES:
             line(f"{dirs[0].name} {name} the plan's slices, ms", products(data[name]))
             for ns in (int(v) for v in args.slices.split(",")):
-                fb._slices = lambda dev_, M, N, K, ln, ns=ns: min(ns, -(-N // fb.GEMM_TILE_COLS))
+                fb._slices = forced_slices(ns)
                 line(f"{dirs[0].name} {name} slices={ns} ms", products(data[name]))
             fb._slices = plan
 
