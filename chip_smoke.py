@@ -20,8 +20,9 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    the flash kernel in bf16 and f32 at [4 x 6 heads, 3,137
    tokens, 64], at queries != keys with a key mask, and in bf16 at the eval
    group's own 50 frames; the row kernels (ln_dense, dense_residual,
-   mlp_rows) at 50 frames x 3,137 tokens; the propagation kernel at 56x56
-   patches; kernel 10 (whole-sequence attention) in bf16 and f32 at the
+   mlp_rows) at 50 frames x 3,137 tokens; the propagation kernel (kernel 3)
+   in bf16 and f32 at 196 and at 56x56 patches, with the rows it sent to
+   its exact dense pass and its scratch bytes; kernel 10 (whole-sequence attention) in bf16 and f32 at the
    train step's [128, 6, 197, 64] and at 256, 257 (both sides of its
    one-pass limit) and 1,024 tokens; after each attention row the count of
    the softmax's exponentials and the time they alone need; kernel 11 (Sinkhorn) at [200, 6,272] and
@@ -71,6 +72,7 @@ power limit, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -83,9 +85,10 @@ import torch
 CLIPS, FRAMES, H, W, S = 2, 25, 480, 854, 224
 S8 = 448                            # ViT-S/8 input: 56x56 patches, 3,137 tokens
 TRAIN_B, TRAIN_F = 32, 4            # the train step's clips and frames a clip
+S8_NORMAL_SEED = 33                 # K3's normal features at 3,136 patches
 
 # published dense peaks of one H100 SXM (NVIDIA's data sheet) at 700 W
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 MEM_BYTES_PER_S = 3.35e12
 
 
@@ -352,46 +355,107 @@ def lattice_features(rng, lead: tuple, D: int = 384, nnz: int = 256):
     return x.reshape(*lead, D)
 
 
-def check_propagation(dev, report, rng, N: int, key: str, lattice: bool = False,
+def propagation_features(rng, kind: str, lead: tuple, D: int = 384):
+    """K3's test features: ``normal``; ``lattice`` (``lattice_features``);
+    ``ties``, every patch one of three lattice vectors, so that whole
+    windows tie at the k-th value and every row takes the exact dense
+    pass."""
+    if kind == "normal":
+        return rng.standard_normal((*lead, D))
+    if kind == "lattice":
+        return lattice_features(rng, lead, D)
+    return lattice_features(rng, (3,), D)[rng.integers(0, 3, lead)]
+
+
+def check_propagation(dev, report, rng, N: int, key: str, features: str = "normal",
                       shape: tuple = (CLIPS, FRAMES, 4),
-                      kw: dict = dict(n_last=4, radius=12, topk=5)) -> None:
+                      kw: dict = dict(n_last=4, radius=12, topk=5),
+                      dtype: torch.dtype = torch.bfloat16) -> None:
     """K3 on ``shape`` = (clips, frames, label channels) of N patches at
     D=384 (the evals': two 25-frame clips, n_last 4, radius 12, top-k 5),
-    inputs drawn from ``rng``; bound rtol=1e-4, atol=1e-5 (f32 sums in
-    another order) and argmax agreement >= 99.9 %.
+    ``features`` (``propagation_features``) drawn from ``rng`` in ``dtype``;
+    bound rtol=1e-4, atol=1e-5 (f32 sums in another order; f32 inputs
+    through their TF32 split, hi.hi + hi.lo + lo.hi) and argmax agreement
+    >= 99.9 %. The work is tagged by the type the products take: bf16
+    inputs at the bf16 peak, f32 at the f32 one, with the least time of the
+    design's own arithmetic beside it (three TF32 products at the TF32
+    peak). Prints the rows that went through the exact dense pass (kept
+    sets that do not fit a compact row) and the kernel's scratch bytes.
 
     The bound holds only where no row's k-th and (k+1)-th affinities lie
     within f32 rounding of each other: there the kept set depends on the
     summation order, and the plain version in f32 and in f64 differ as
-    much. Normal features at 150,000 rows (3,136 patches) draw such rows
-    under every seed tried; ``lattice`` features (``lattice_features``)
-    give exact dot products, so both versions order every row alike."""
+    much. ``lattice`` features give exact dot products, so both versions
+    order every row alike; ``normal`` ones at 3,136 patches are drawn from
+    a seed whose rows keep their k-th and (k+1)-th dot products apart (by
+    1.9e-7 at least, in f64: ``tools/propagation_gaps.py``), and the plain
+    version in f64 is printed beside."""
     from timetuning_tpu_torch.ops import propagation_cuda as prc
 
     t, _ = _tensor_maker(dev, rng)
     B, T, K = shape
-    feats = t(lattice_features(rng, (B, T, N)) if lattice else
-              rng.standard_normal((B, T, N, 384)), torch.bfloat16)
+    feats = t(propagation_features(rng, features, (B, T, N)), dtype)
     seg0 = torch.softmax(t(rng.standard_normal((B, K, N))) * 3, dim=1)
-    got = prc.propagate_labels_batch_cuda(feats, seg0, **kw)
+    got, overflow, scratch = prc.propagate_labels_batch_stats(feats, seg0, **kw)
     want = prc.propagate_labels_batch_plain(feats, seg0, **kw)
-    torch.cuda.synchronize()
     close = torch.isclose(got, want, rtol=1e-4, atol=1e-5).float().mean().item()
     agree = (got.argmax(2) == want.argmax(2)).float().mean().item()
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    flops = propagation_flops(B, T, N, 384, K, kw["n_last"], kw["radius"], kw["topk"])
+    extra = ""
+    if kind == "f32":
+        split = bound(io_bytes(feats, seg0, got), 3 * flops, "tf32")["bound_ms"]
+        extra = f"3xTF32 least {split:.4f} ms "
+        if features == "normal":
+            want64 = prc.propagate_labels_batch_plain(feats.double(), seg0.double(), **kw)
+            near = [torch.isclose(x.double(), want64, rtol=1e-4, atol=1e-5).double().mean().item()
+                    for x in (got, want)]
+            extra += (f"within_tol against plain f64: kernel {near[0]:.6f} plain f32 "
+                      f"{near[1]:.6f} ")
+            del want64
     report("propagation", got, want,
            "rtol=1e-4 atol=1e-5 (f32 sums in another order), argmax >= 99.9%",
            cuda_ms(lambda: prc.propagate_labels_batch_cuda(feats, seg0, **kw)),
            cuda_ms(lambda: prc.propagate_labels_batch_plain(feats, seg0, **kw),
                    warmup=1, reps=3 if N > 1000 else 5),
-           extra=f"[{B}, {T}, {N}, 384] x {K} channels"
-                 f"{' lattice' if lattice else ''} within_tol={close:.6f} "
-                 f"argmax_agree={agree:.6f} ",
-           key=key,
-           work=(io_bytes(feats, seg0, got),
-                 propagation_flops(B, T, N, 384, K, kw["n_last"], kw["radius"],
-                                   kw["topk"]), "f32"))
+           extra=f"{kind} [{B}, {T}, {N}, 384] x {K} channels {features} "
+                 f"within_tol={close:.6f} argmax_agree={agree:.6f} overflow_rows="
+                 f"{int(overflow.sum())} of {B * (T - 1) * N} scratch_bytes={scratch} "
+                 + extra,
+           key=key, work=(io_bytes(feats, seg0, got), flops, kind))
     if close < 1.0 or agree < 0.999:
         raise AssertionError(f"{key}: kernel disagrees with plain version")
+
+
+@contextlib.contextmanager
+def dense_pass_rows():
+    """While open, K3's calls go through ``propagate_labels_batch_stats``;
+    yields a list that gets each call's (rows through the exact dense pass,
+    as a device tensor; rows; scratch bytes)."""
+    from timetuning_tpu_torch.ops import propagation_cuda as prc
+
+    calls = []
+    entry = prc.propagate_labels_batch_cuda
+
+    def recording(features, first_seg, **kw):
+        out, overflow, scratch = prc.propagate_labels_batch_stats(features, first_seg, **kw)
+        B, T, N, _ = features.shape
+        calls.append((overflow.sum(), B * (T - 1) * N, scratch))
+        return out
+
+    prc.propagate_labels_batch_cuda = recording
+    try:
+        yield calls
+    finally:
+        prc.propagate_labels_batch_cuda = entry
+
+
+def dense_pass_line(label: str, calls: list) -> None:
+    rows = sum(n for _, n, _ in calls)
+    over = sum(int(o) for o, _, _ in calls)
+    scratch = max((b for _, _, b in calls), default=0)
+    print(f"K3 {label}: {len(calls)} calls, {over} of {rows} rows through the exact "
+          f"dense pass, scratch {scratch} bytes a call", flush=True)
 
 
 def check_flash_kernels(dev, results: dict) -> None:
@@ -503,7 +567,16 @@ def check_long_token_kernels(dev, results: dict) -> None:
     check_mlp_parts("mlp_rows", x, mlp)
 
     check_propagation(dev, report, np.random.default_rng(3136), (S8 // 8) ** 2,
-                      "propagation/s8", lattice=True)
+                      "propagation/s8", "lattice")
+    check_propagation(dev, report, np.random.default_rng(3136), (S8 // 8) ** 2,
+                      "propagation/s8/f32", "lattice", dtype=torch.float32)
+    # the TF32 split's lo products, its slack and its recomputed band at
+    # work: normal f32 features; then the exact dense pass on every row
+    check_propagation(dev, report, np.random.default_rng(S8_NORMAL_SEED),
+                      (S8 // 8) ** 2, "propagation/s8/f32/normal", "normal",
+                      dtype=torch.float32)
+    check_propagation(dev, report, np.random.default_rng(3), (S8 // 8) ** 2,
+                      "propagation/s8/ties", "ties")
 
 
 def check_kernels(dev, results: dict) -> None:
@@ -580,6 +653,8 @@ def check_kernels(dev, results: dict) -> None:
         del xb
 
     check_propagation(dev, report, rng, 196, "propagation")
+    check_propagation(dev, report, np.random.default_rng(196), 196, "propagation/f32",
+                      dtype=torch.float32)
 
     # K4: 50 frames of 480x854 uint8; bound: one bf16 ulp of the normalised
     # values (|x| < 4 -> 2^-6 = 1.6e-2), atol=2e-2
@@ -685,7 +760,7 @@ def check_train_kernels(dev, results: dict) -> None:
                 raise AssertionError(f"{key}: kernel disagrees with plain version")
 
     check_propagation(dev, report, np.random.default_rng(200), 196,
-                      "propagation/train", lattice=True,
+                      "propagation/train", "lattice",
                       shape=(TRAIN_B, TRAIN_F, 200),
                       kw=dict(n_last=7, radius=6, topk=5))
 
@@ -702,7 +777,7 @@ def check_vit(dev, arch: str, size: int, n: int) -> None:
     with torch.inference_mode():
         got = get_backbone(arch, dtype=torch.bfloat16, device=dev).module(
             x.to(dev))["tokens"].float().cpu()
-        want = get_backbone(arch, dtype=torch.bfloat16).module(
+        want = get_backbone(arch, dtype=torch.bfloat16, device="cpu").module(
             x)["tokens"].float()
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     print(f"{arch} at {size}, {got.shape[1]} tokens, 12 blocks (kernels on the "
@@ -767,9 +842,10 @@ def run_eval(dev, clips, arch: str, size: int, totals: dict) -> dict:
                           device=dev)
         prop.evaluate_clips(args, bb, clips[:1], dev)           # warm-up
         t0 = time.perf_counter()
-        res, counts = counted((arch, dtype),
-                              lambda: prop.evaluate_clips(args, bb, clips, dev),
-                              totals)
+        with dense_pass_rows() as k3:
+            res, counts = counted((arch, dtype),
+                                  lambda: prop.evaluate_clips(args, bb, clips, dev),
+                                  totals)
         wall = time.perf_counter() - t0
         scores[dtype] = res["jf"]
 
@@ -793,6 +869,7 @@ def run_eval(dev, clips, arch: str, size: int, totals: dict) -> dict:
               f"{wall * 1e3:.1f} ms = {n / wall:.1f} frames/s | device compute "
               f"{ms:.2f} ms per {CLIPS}-clip group = {n / ms * 1e3:.1f} frames/s "
               f"| launches {counts}", flush=True)
+        dense_pass_line(f"eval {arch}/{size} {dtype}", k3)
         trace(group, f"{arch}/{size} {dtype} group")
         del bb
     if not all(np.isfinite(v) for s in scores.values() for v in s.values()):
@@ -1055,7 +1132,9 @@ def run_train(dev, totals: dict) -> None:
                     losses.append(metrics["loss"])
                     times.append(ev)
 
-            _, counts = counted(("train", config), steps, totals)
+            with dense_pass_rows() as k3:
+                _, counts = counted(("train", config), steps, totals)
+            dense_pass_line(f"train {config} B={TRAIN_B} bf16", k3)
             losses = [float(v) for v in losses]
             ms = [a.elapsed_time(b) for a, b in times][2:]
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1162,7 +1241,9 @@ def run_train_f32_against_host(dev, totals: dict) -> None:
         before = dict(model.named_parameters())[leaf].detach().clone()
         run = lambda: step(state, clip.to(device))      # noqa: E731
         if where == "card":
-            (_, metrics), _ = counted(("train", "float32"), run, totals)
+            with dense_pass_rows() as k3:
+                (_, metrics), _ = counted(("train", "float32"), run, totals)
+            dense_pass_line("train f32 B=2", k3)
         else:
             _, metrics = run()
         out[where] = (float(metrics["loss"]),

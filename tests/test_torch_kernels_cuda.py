@@ -231,8 +231,8 @@ def test_propagation_kernel_matches_plain(dev, T, N, D, n_last, radius, topk):
 
 
 @pytest.mark.parametrize("T,N,radius,n_last", [
-    (25, 3136, 12, 4),            # ViT-S/8 at 448: window rows in shared memory
-    (4, 3136, 0, 7),              # dense rows in global memory
+    (25, 3136, 12, 4),            # ViT-S/8 at 448: 32x32 key boxes
+    (4, 3136, 0, 7),              # no neighbourhood: the whole frame a box
 ])
 def test_propagation_kernel_at_s8_patch_count(dev, T, N, radius, n_last):
     """56x56 patches; bound as above (f32 sums in another order)."""
@@ -243,6 +243,82 @@ def test_propagation_kernel_at_s8_patch_count(dev, T, N, radius, n_last):
     got = prc.propagate_labels_batch_cuda(feats, seg0, **kw)
     want = prc.propagate_labels_batch_plain(feats, seg0, **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_propagation_kernel_at_the_eval_shape_in_both_input_types(dev, dtype):
+    """ViT-S/16 at 224: two 25-frame clips of 14x14 patches, D 384, radius
+    12, n_last 4, top-k 5. bf16 features are read as bf16 (exact products,
+    f32 sums in another order), f32 ones through their TF32 split: bound as
+    above; every row's argmax channel agrees."""
+    rng = np.random.default_rng(196)
+    feats = _t(rng.standard_normal((2, 25, 196, 384)), dev, dtype)
+    seg0 = torch.softmax(_t(rng.standard_normal((2, 4, 196)), dev) * 3, dim=1)
+    kw = dict(n_last=4, radius=12, topk=5)
+    got = prc.propagate_labels_batch_cuda(feats, seg0, **kw)
+    want = prc.propagate_labels_batch_plain(feats, seg0, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert bool((got.argmax(2) == want.argmax(2)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_propagation_kernel_takes_tied_rows_through_the_dense_pass(dev, dtype):
+    """A clip whose patches are three lattice vectors (every dot product
+    exact): whole windows tie at the k-th value, more entries than a compact
+    row holds, so rows go through the exact dense pass; counted, and equal
+    to the plain version."""
+    rng = np.random.default_rng(3)
+    atoms = np.zeros((3, 64), np.float32)
+    for a in atoms:
+        a[rng.choice(64, 16, replace=False)] = rng.choice([-0.25, 0.25], 16)
+    feats = _t(atoms[rng.integers(0, 3, (1, 6, 196))], dev, dtype)
+    seg0 = torch.softmax(_t(rng.standard_normal((1, 4, 196)), dev) * 3, dim=1)
+    kw = dict(n_last=3, radius=2, topk=5)
+    got, overflow, _ = prc.propagate_labels_batch_stats(feats, seg0, **kw)
+    want = prc.propagate_labels_batch_plain(feats, seg0, **kw)
+    assert int(overflow.sum()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,h,w,D,radius,n_last,all_dense", [
+    (25, 56, 56, 64, 0, 7, False),    # 56x56, no neighbourhood, n_last 7: rows of 25,088
+    (4, 2, 130, 64, 0, 7, True),      # a box wider than a chunk of 128 keys
+    (3, 3, 140, 64, 61, 2, True),     # a 130-patch box at radius 61
+])
+def test_propagation_kernel_dense_pass_at_any_row_length(dev, dtype, T, h, w, D,
+                                                         radius, n_last, all_dense):
+    """The exact dense pass keeps its rows in device memory, so no row
+    length is refused: at 56x56 patches with no neighbourhood and 7 recent
+    frames (patches of three lattice vectors, as above: whole frames tie at
+    the k-th value) the tied rows take it; where the tile's key box is
+    wider than a chunk every row takes it. Counted, and equal to the plain
+    version (bound as above)."""
+    rng = np.random.default_rng(w + radius)
+    N = h * w
+    if all_dense:
+        f = rng.standard_normal((1, T, N, D))
+    else:
+        atoms = np.zeros((3, D), np.float32)
+        for a in atoms:
+            a[rng.choice(D, 16, replace=False)] = rng.choice([-0.25, 0.25], 16)
+        f = atoms[rng.integers(0, 3, (1, T, N))]
+    feats = _t(f, dev, dtype)
+    seg0 = torch.softmax(_t(rng.standard_normal((1, 4, N)), dev) * 3, dim=1)
+    kw = dict(n_last=n_last, radius=radius, topk=5, spatial_size=(h, w))
+    got, overflow, _ = prc.propagate_labels_batch_stats(feats, seg0, **kw)
+    want = prc.propagate_labels_batch_plain(feats, seg0, **kw)
+    n = int(overflow.sum())
+    assert n == (T - 1) * N if all_dense else n > 0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,radius", [(56, 56, 12), (14, 14, 12), (14, 14, 6),
+                                        (7, 7, 1), (4, 8, 1), (56, 56, 0), (33, 20, 5),
+                                        (2, 130, 0), (3, 140, 61)])
+def test_propagation_tile_plan_mirrors_the_kernels(dev, h, w, radius):
+    """``propagation_cuda.tile_plan`` is the C side's ``make_plan``."""
+    assert prc.device_plan(h, w, radius) == prc.tile_plan(h, w, radius)
 
 
 def _qkv(dev, dtype, Sq, Sk, seed=0, B=1, H=2):

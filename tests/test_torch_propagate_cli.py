@@ -121,6 +121,18 @@ def test_default_device_is_the_card_or_an_error(monkeypatch):
     assert lp_args.device is None and tcli.default_device(lp_args) == torch.device("cuda")
 
 
+def test_get_backbone_without_device_raises_where_there_is_no_card(monkeypatch):
+    """The public constructor builds on the card by default, as the CLIs do;
+    the host only when the caller names it."""
+    from timetuning_tpu_torch.models.registry import get_backbone
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_backbone("vit-tiny-test")
+    bb = get_backbone("vit-tiny-test", device="cpu")
+    assert next(bb.module.parameters()).device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("cli", ["propagate", "linear_probe"])
 def test_clis_without_device_raise_where_there_is_no_card(monkeypatch, davis_tree,
                                                           weights, cli):

@@ -116,15 +116,15 @@ def test_resize_bilinear_matches_jax(src, dst):
 def test_registry_seeded_init_and_shapes():
     """Same seed, same weights; the ViT names of the JAX registry; the
     patch grid of each."""
-    a = get_backbone("vit-tiny-test", seed=3).module.state_dict()
-    b = get_backbone("vit-tiny-test", seed=3).module.state_dict()
+    a = get_backbone("vit-tiny-test", seed=3, device="cpu").module.state_dict()
+    b = get_backbone("vit-tiny-test", seed=3, device="cpu").module.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    bb = get_backbone("vit-tiny-test-p4")
+    bb = get_backbone("vit-tiny-test-p4", device="cpu")
     assert bb.spatial_resolution(64) == 16 and bb.drop_cls
     feats, attn = bb.apply(torch.zeros(1, 64, 64, 3))
     assert feats.shape == (1, 256, 32) and attn is None
     with pytest.raises(ValueError, match="not yet ported"):
-        get_backbone("resnet50")
+        get_backbone("resnet50", device="cpu")
 
 
 def test_registry_loads_reference_pth(jax_params, tmp_path):
@@ -133,7 +133,7 @@ def test_registry_loads_reference_pth(jax_params, tmp_path):
           for k, v in vit_state_dict_from_jax(jax_params).items()}
     path = tmp_path / "w.pth"
     torch.save(sd, path)
-    bb = get_backbone("vit-tiny-test", model_path=str(path))
+    bb = get_backbone("vit-tiny-test", model_path=str(path), device="cpu")
     got = bb.module.state_dict()
     for k, v in vit_state_dict_from_jax(jax_params).items():
         assert torch.equal(got[k], v), k

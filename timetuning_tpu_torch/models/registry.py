@@ -87,15 +87,20 @@ def load_vit_state_dict(path: str) -> dict[str, torch.Tensor]:
 
 def get_backbone(name: str, model_path: str | None = None,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu", seed: int = 0) -> Backbone:
-    """Build a ViT backbone on ``device``. With ``model_path`` the
-    reference-layout weights load into the module with ``load_state_dict``;
-    without, the weights are a seeded random init."""
+                 device: torch.device | str = "cuda", seed: int = 0) -> Backbone:
+    """Build a ViT backbone on ``device``, the card unless the caller names
+    the host (``device="cpu"``); with no card a CUDA device raises. With
+    ``model_path`` the reference-layout weights load into the module with
+    ``load_state_dict``; without, the weights are a seeded random init."""
     cfgs = _configs(dtype)
     key = name.lower()
     if key not in cfgs:
         raise ValueError(f"unknown or not yet ported backbone {name!r}; the "
                          f"port has {sorted(cfgs)}")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "get_backbone: no CUDA device found (torch.cuda.is_available() is "
+            "false); pass device='cpu' to build on the host")
     cfg = cfgs[key]
     module = VisionTransformer(cfg)
     if model_path:

@@ -8,11 +8,12 @@ tensor-core, TMA and asynchronous-copy instructions its machine code holds
     python tools/cuda_kernel_info.py [source.cu ...]
 
 Without arguments: the sources that hold ``wgmma`` kernels, the two attention
-cores (``flash_attention.cu``, ``mha.cu``) and the three block sources built
+cores (``flash_attention.cu``, ``mha.cu``), the three block sources built
 on the GEMM tile of ``gemm_wgmma.cuh`` (``rows_block.cu``,
 ``attention_block.cu``, ``mlp_block.cu``; its kernels print as
 ``gemm_wgmma_kernel<LN prologue, 64-row groups, prologue chunks, epilogue>``
-and ``gemm_wide_kernel``). Needs the CUDA
+and ``gemm_wide_kernel``) and the propagation kernel (``propagation.cu``:
+``prop_rows_kernel<f32 split>``, ``prop_seg_kernel``). Needs the CUDA
 toolkit (``nvcc``, ``cuobjdump``), no card. Prints ptxas's warnings and its
 "Potential Performance Loss" remarks too (a ``wgmma`` that it had to
 serialise shows up as such a remark, C7510-C7520, under ``ptxas info``).
@@ -51,7 +52,7 @@ def short(mangled: str) -> str:
 
 def main(argv: list[str]) -> int:
     names = argv or ["flash_attention.cu", "mha.cu", "rows_block.cu",
-                     "attention_block.cu", "mlp_block.cu"]
+                     "attention_block.cu", "mlp_block.cu", "propagation.cu"]
     nvcc = kernel_lib._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     with tempfile.TemporaryDirectory() as tmp:
