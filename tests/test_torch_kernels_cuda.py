@@ -16,6 +16,7 @@ from timetuning_tpu_torch.ops import fused_block as fb
 from timetuning_tpu_torch.ops import kernel_lib
 from timetuning_tpu_torch.ops import preprocess_cuda as pc
 from timetuning_tpu_torch.ops import propagation_cuda as prc
+from timetuning_tpu_torch.ops import sinkhorn as skm
 from timetuning_tpu_torch.ops import sinkhorn_cuda as sk
 
 pytestmark = pytest.mark.cuda
@@ -509,6 +510,100 @@ def test_sinkhorn_kernel_matches_plain(dev, K, B, n_iters, with_valid):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-8)
 
 
+def _matvec_inputs(dev, K, B, seed, with_valid, zero_rows=False):
+    Q, valid = _sinkhorn_inputs(dev, K, B, seed, with_valid)
+    if zero_rows:
+        Q[3] = 0.0                      # two underflowed prototypes
+        Q[K - 1] = 0.0
+        valid = torch.ones(B, device=dev) if valid is None else valid
+        valid[5] = 0.0                  # a masked-out column
+    return Q, valid
+
+
+@pytest.mark.parametrize("world_size", [1, 2])
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("K,B", [(200, 6272), (200, 25088), (200, 22656), (200, 41472),
+                                 (8, 50), (300, 1000), (1024, 700)])
+def test_sinkhorn_entries_match_the_matvec_form(dev, K, B, with_valid, world_size):
+    """Kernel 11's two entries (Q [K, B]; the step's scores [B, K] with the
+    exponential in the load) against the matvec form, ops/sinkhorn.sinkhorn
+    with no group: the step's shapes (32 and 128 clips, 32 clips with the
+    queue, 128 clips with the queue: slabs in device memory), a tiny one, a
+    K above 256 (32 rows a lane), the largest K. f32 sums in another order
+    over 10 iterations."""
+    rng = np.random.default_rng(K + B + world_size)
+    scores = _t(rng.uniform(-1, 1, (B, K)), dev)
+    valid = _t(rng.uniform(size=B) > 0.3, dev) if with_valid else None
+    Q = torch.exp(scores / 0.05).t().contiguous()
+    want = skm.sinkhorn(Q, 10, world_size=world_size, valid=valid)
+    got_q = sk.sinkhorn_cuda(Q, 10, valid, world_size)
+    got_s = sk.sinkhorn_assignment_cuda(scores, 0.05, 10, valid, world_size)
+    for got in (got_q, got_s):
+        assert got.shape == (B, K) and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-8)
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 10])
+@pytest.mark.parametrize("K,B", [(200, 6272), (200, 41472), (40, 300)])
+def test_sinkhorn_kernel_pins_zero_marginals(dev, K, B, n_iters):
+    """Two all-zero rows of Q and a masked-out column: zeros there, no NaN,
+    equal to the matvec form."""
+    Q, valid = _matvec_inputs(dev, K, B, 7, False, zero_rows=True)
+    got = sk.sinkhorn_cuda(Q, n_iters, valid)
+    want = skm.sinkhorn(Q, n_iters, valid=valid)
+    assert torch.isfinite(got).all()
+    assert (got[:, 3] == 0).all() and (got[:, K - 1] == 0).all() and (got[5] == 0).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-8)
+
+
+@pytest.mark.parametrize("K,B", [(200, 6272), (200, 25088), (200, 22656), (200, 41472),
+                                 (8, 50), (1024, 700)])
+def test_sinkhorn_plan_mirrors_the_kernels(dev, K, B):
+    plan, clusters = sk.device_plan(K, B)
+    assert plan == sk.sinkhorn_plan(K, B, clusters)
+
+
+def test_train_step_launches_the_sinkhorn_kernel_once(dev):
+    """A small f32 step on the card: its assignment is kernel 11, once a
+    step, equal to the matvec form on the step's own scores."""
+    from timetuning_tpu_torch.core import timet as tt
+    from timetuning_tpu_torch.core.optimizer import swav_optimizer
+    from timetuning_tpu_torch.models.extractor import FeatureExtractor
+    from timetuning_tpu_torch.models.vit import ViTConfig, VisionTransformer
+
+    vit = VisionTransformer(ViTConfig(patch_size=8, embed_dim=64, depth=3, num_heads=1,
+                                      img_size=32))
+    model = tt.TimeT(FeatureExtractor(vit, 64, (48, 24)), 8)
+    model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    cfg = tt.TimeTConfig(n_prototypes=8, spatial_resolution=4, num_epochs=1,
+                         steps_per_epoch=10, frozen_trunk_blocks=1)
+    opt, mask = swav_optimizer(model, lr=1e-3, unfreeze_layers=("blocks.1", "blocks.2"),
+                               num_steps=10, opt_over_trainable=True)
+    state = tt.init_state(model, cfg, opt, trainable_mask=mask)
+    step = tt.make_train_step(model, cfg, opt, trainable_mask=mask,
+                              opt_over_trainable=True)
+    seen = []
+    assign = tt.sinkhorn_assignment
+
+    def recording(scores, *a, **kw):
+        seen.append((scores, assign(scores, *a, **kw)))
+        return seen[-1][1]
+
+    tt.sinkhorn_assignment = recording
+    try:
+        clip = torch.randn(2, 3, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+        kernel_lib.reset_launch_counts()
+        for _ in range(2):
+            _, metrics = step(state, clip.to(dev))
+        assert kernel_lib.launch_counts()["sinkhorn"] == 2
+        assert torch.isfinite(metrics["loss"])
+    finally:
+        tt.sinkhorn_assignment = assign
+    scores, q = seen[-1]
+    want = skm.sinkhorn(torch.exp(scores / cfg.epsilon).t(), cfg.sinkhorn_iterations)
+    torch.testing.assert_close(q, want, rtol=1e-4, atol=1e-8)
+
+
 def test_kernel_wrappers_raise_on_inputs_that_require_grad(dev):
     x, attn, mlp = _block_inputs(dev, 1, 10)
     q, k, v = _qkv(dev, torch.bfloat16, 8, 8)
@@ -553,14 +648,31 @@ def test_row_kernels_match_plain(dev, S):
         torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
-@pytest.mark.parametrize("h,w,s", [(480, 854, 224), (256, 256, 224), (60, 107, 28)])
-def test_preprocess_kernel_matches_plain(dev, h, w, s):
+@pytest.mark.parametrize("h,w,s,n", [
+    (480, 854, 224, 3), (256, 256, 224, 3), (60, 107, 28, 3),
+    (480, 854, 224, 50), (480, 854, 448, 50),        # the eval group's two outputs
+    (64, 64, 48, 3),
+    (61, 103, 48, 2),         # rows of 309 bytes: no multiple of 16
+    (33, 77, 17, 5),          # output rows of 51 values: no multiple of 8
+    (90, 1400, 40, 2),        # 35 W taps: the kernel's generic form
+])
+def test_preprocess_kernel_matches_plain(dev, h, w, s, n):
     frames = torch.from_numpy(np.random.default_rng(h).integers(
-        0, 256, (3, h, w, 3), dtype=np.uint8)).to(dev)
+        0, 256, (n, h, w, 3), dtype=np.uint8)).to(dev)
     got = pc.eval_preprocess_cuda(frames, s, IMAGENET_MEAN, REFERENCE_STD)
     want = pc.eval_preprocess_plain(frames, s, IMAGENET_MEAN, REFERENCE_STD,
                                     out_dtype=torch.float32)
-    assert got.dtype == torch.bfloat16 and got.shape == (3, s, s, 3)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, s, s, 3)
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
+
+
+def test_preprocess_kernel_reads_a_view_that_starts_off_16_bytes(dev):
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (3, 61, 103, 3), dtype=np.uint8)).to(dev)
+    view = frames[1:]                       # 18,849 bytes in
+    got = pc.eval_preprocess_cuda(view, 48, IMAGENET_MEAN, REFERENCE_STD)
+    want = pc.eval_preprocess_plain(view, 48, IMAGENET_MEAN, REFERENCE_STD,
+                                    out_dtype=torch.float32)
     torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
 
 
@@ -580,10 +692,13 @@ def test_each_wrapper_counts_its_launches(dev):
     at.attention(*_qkv(dev, torch.float32, 5, 5), impl="pallas")
     at.attention(*_qkv(dev, torch.float32, 5, 5))             # auto, f32: plain
     sk.sinkhorn_cuda(torch.rand(4, 9, device=dev), 2)
+    sk.sinkhorn_assignment_cuda(torch.rand(9, 4, device=dev))
+    skm.sinkhorn_assignment(torch.rand(9, 4, device=dev))    # no group: kernel 11
+    skm.sinkhorn(torch.rand(4, 9, device=dev), 2)            # the matvec form
     assert kernel_lib.launch_counts() == {
         "attention_block": 1, "mlp_block": 1, "propagation": 1, "preprocess": 1,
         "flash_attention": 2, "ln_dense": 1, "dense_residual": 1, "mlp_rows": 1,
-        "mha": 2, "sinkhorn": 1}
+        "mha": 2, "sinkhorn": 3}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -602,6 +717,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="uint8"):
         pc.eval_preprocess_cuda(torch.zeros(1, 8, 8, 3, device=dev), 4,
                                 IMAGENET_MEAN, REFERENCE_STD)
+    with pytest.raises(ValueError, match="K <= 1024"):
+        sk.sinkhorn_assignment_cuda(torch.zeros(10, 1025, device=dev))
     q = torch.zeros(1, 2, 8, 32, device=dev)
     with pytest.raises(ValueError, match="64-wide"):
         fa.flash_attention(q, q, q)

@@ -1,6 +1,6 @@
 """The port's Sinkhorn (timetuning_tpu_torch/ops/sinkhorn.py, the
-diagonal-scaling form, and ops/sinkhorn_cuda.py, the materialising form's
-plain version) against the JAX package's on the same numpy-seeded inputs:
+diagonal-scaling form and kernel 11's plain version, and ops/sinkhorn_cuda.py's
+``sinkhorn_plain``, the TPU kernel's materialising loop) against the JAX package's on the same numpy-seeded inputs:
 ``ops.sinkhorn.sinkhorn``, the numpy oracle, and the TPU kernel
 ``sinkhorn_pallas`` in interpret mode."""
 
@@ -99,8 +99,10 @@ def test_materialising_and_matvec_forms_agree_without_underflow():
 
 
 def test_kernel_wrapper_takes_plain_version_on_cpu_and_refuses_grad():
+    """Kernel 11 computes the matvec form with no process group: that is
+    its plain version on CPU tensors."""
     Q = torch.from_numpy(_Q(40, 8, seed=9))
-    assert torch.equal(sinkhorn_cuda(Q, 3), sinkhorn_plain(Q, 3))
+    assert torch.equal(sinkhorn_cuda(Q, 3), sinkhorn(Q, 3))
     with pytest.raises(RuntimeError, match="no backward"):
         sinkhorn_cuda(Q.clone().requires_grad_(True), 3)
     with torch.no_grad():

@@ -1,39 +1,61 @@
-// Sinkhorn-Knopp normalisation of one [K, B] f32 transport matrix, all
-// iterations in one launch, in the materialising form:
+// Sinkhorn-Knopp of one transport matrix, all iterations in one launch, in
+// the diagonal-scaling form of ops/sinkhorn.sinkhorn with no process group:
 //   Q = Q * valid / (sum Q + 1e-12)
-//   n_iters x { Q *= (1/K) / (rowsum + 1e-12);  Q *= c / (colsum + 1e-12) }
-//   Q /= colsum + 1e-12;   out[B, K] = Q^T
-// with c = 1/B, or 1 / (sum valid + 1e-12) when a validity mask is given.
+//   c = 1 / (B * world_size + 1e-12), or 1 / (sum valid + 1e-12)
+//   n_iters x { u = a * (Q b);  a = u > 0 ? a * (1/K) / (u + 1e-12) : 0
+//               col = b * (Q^T a);  b = col > 0 ? b * c / (col + 1e-12) : 0 }
+//   col = b * (Q^T a);  out[B, K] = (Q * a b^T / (col + 1e-12))^T
+// Q is never rewritten: an iteration is a sweep over the resident matrix
+// that reads it, with a zero marginal pinned to 0 (the materialising loop
+// of the TPU kernel divides by 1e-12 there; elsewhere the two agree within
+// rounding, as timetuning_tpu/ops/sinkhorn.py:75-84 notes). Two entries:
+// Q [K, B], or the step's scores [B, K] row-major with exp(s / epsilon)
+// taken as they load (torch's scores / epsilon, then exp).
 //
 // Replaces the TPU kernel timetuning_tpu/ops/sinkhorn_pallas.py:_kernel (:51)
-// and its dynamic-marginal twin kern_dyn (:91), both over _iterate_inplace
-// (:33), which keep the whole matrix resident in 16 MB of VMEM. It keeps
-// that kernel's arithmetic: every scaled matrix is materialised and rounded,
-// and a zero marginal divides by 1e-12 (it is not pinned as the
-// diagonal-scaling form of ops/sinkhorn.py pins it).
+// and its dynamic-marginal twin kern_dyn (:91), which keep the whole matrix
+// resident in 16 MB of VMEM; the train step dispatches it on the card when
+// no process group spans the batch (ops/sinkhorn.sinkhorn_assignment).
 //
-// What bounds it on the card: the bytes are tiny (read and write K*B*4:
-// 5 MB at [200, 6272], 20 MB at [200, 25088], a few microseconds at 3.35
-// TB/s) and the work per element is a handful of FMAs, so the time is set by
-// the dependency chain: each iteration's row sums span the whole matrix.
-// An SM's 227 KB of shared memory cannot hold the matrix, so "resident"
-// means spread over the SMs: a block owns a slab of Bc columns, [K, Bc], in
-// its shared memory for the whole run. Column sums are then local to a
-// block; row sums need one [K] vector summed over all blocks per iteration.
-// The blocks write their partial row sums to device memory, pass a grid-wide
-// barrier (a cooperative launch, so all blocks are co-resident), and each
-// block adds the partials up in a fixed order: the result does not depend on
-// block timing. Partials alternate between two buffers, so one barrier an
-// iteration is enough: 1 + n_iters barriers in all. The transposed [B, K]
-// result is written straight from the slab.
+// What bounds it on the card: neither bytes (5 MB at [200, 6,272], read once
+// into shared memory) nor operations, but the chain of n_iters reductions of
+// a [K] vector across the blocks that hold the matrix. The design cuts the
+// latency of each link:
+//   - One block an SM: a block keeps its slab of `cols` columns, [cols, K]
+//     with K contiguous (a sample's scores), in shared memory for the whole
+//     run, loaded once. A matrix too large for the SMs' shared memory
+//     together keeps its slabs in `out`, which the 50 MB L2 holds, and is
+//     overwritten in place by the result.
+//   - One sweep an iteration: a warp owns a column (its K values spread over
+//     the lanes, KPL a lane, four columns in flight), reduces Q^T a across
+//     the lanes, updates the column's b and adds Q[:, j] b_j into the lane's
+//     partial row sums for the next iteration, from the same registers. The
+//     last sweep writes the output instead. (K above 256: 32 rows a lane,
+//     one column in flight, the lane's partials in shared memory.)
+//   - Row partials summed in two levels, in a fixed order (results do not
+//     depend on block timing): the 16 warps' partials in shared memory; the
+//     blocks of a thread block cluster of 8 through distributed shared
+//     memory, each member summing a slice of the rows over its cluster;
+//     then one [K + 1] vector a cluster in device memory, one grid-wide
+//     barrier (a counter in device memory; the launch is cooperative, so
+//     every block is resident), and every block sums the clusters' vectors.
+//     Slot K carries the valid count on the first reduction, and the total
+//     mass is the sum of the first row sums: Q is scaled through a (a starts
+//     at 1 / (total + 1e-12)), never rewritten.
+// ops/sinkhorn_cuda.sinkhorn_plan mirrors the plan (tt_sinkhorn_plan); a
+// matrix that no plan places is refused, never run another way.
 //
-// A matrix too large for the SMs' shared memory together (or a K whose
-// narrowest slab does not fit) runs the same kernel with its slabs in a
-// device-memory work buffer (which the 50 MB L2 mostly holds): the block
-// then owns ceil(B / blocks) columns of that buffer.
+// TT_SINK_PHASES (tools/time_small_kernels.py --split): 1 = the load and the
+// store alone, 2 = + the n_iters grid barriers with no partials, 3 = + the
+// partials summed across the warps, the cluster and the grid (no sweep over
+// the slab), 4 = the kernel.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+
+#ifndef TT_SINK_PHASES
+#define TT_SINK_PHASES 4
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -41,225 +63,428 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;
+constexpr int kUnroll = 4;             // columns a warp has in flight (KPL 8,
+                                       // slab in shared memory)
+constexpr int kMinCols = 16;
 constexpr float kEps = 1e-12f;
 constexpr int kMaxSmem = 232448;       // bytes a block may use on sm_90
 
-__host__ __device__ inline int fixed_floats(int K) {
-  // fr [K rounded up to 32] | column partials [kThreads] | reduction [32]
-  return (K + 31) / 32 * 32 + kThreads + 32;
+struct Layout {                         // float offsets into dynamic smem
+  int red, pb, a, b, slab, floats;
+};
+
+// mirrored by ops/sinkhorn_cuda.sinkhorn_plan (smem_bytes)
+__host__ __device__ inline Layout layout(int K, int cols, int in_smem) {
+  Layout l;
+  const int K1 = K + 1;
+  l.red = 0;                            // [kWarps][K + 1] the warps' partials
+  l.pb = l.red + kWarps * K1;           // [K + 1] the block's, then the sums
+  l.a = l.pb + K1;                      // [K] row scaling
+  l.b = l.a + K;                        // [cols] column scaling
+  l.slab = l.b + cols;                  // [cols][K | 1]
+  l.floats = l.slab + (in_smem ? cols * (K | 1) : 0);
+  return l;
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// every block of the grid arrives once per call; `gen` counts the calls
+__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned gen) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    const unsigned target = gridDim.x * (gen + 1);
+    while (ld_acquire(counter) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// sum over the block of one value a thread, the same order in every block
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   v = tt::warp_sum(v);
-  __syncthreads();                     // red is free again
-  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
   __syncthreads();
   float s = 0.f;
-  for (int w = 0; w < kWarps; ++w) s += red[w];
+  for (int w = 0; w < kWarps; ++w) s += scratch[w];
+  __syncthreads();
   return s;
 }
 
-// sum of n floats at p, the same value in every lane, in a fixed order
-__device__ __forceinline__ float warp_strided_sum(const float* p, int n) {
-  float s = 0.f;
-  for (int i = threadIdx.x & 31; i < n; i += 32) s += p[i];
-  return tt::warp_sum(s);
-}
+enum Sweep { kPartials, kIterate, kLast, kOutputOnly };
 
-__global__ void __launch_bounds__(kThreads)
-sinkhorn_kernel(const float* __restrict__ Q, const float* __restrict__ valid,
-                float* __restrict__ out, float* work, float* part, int K, int B,
-                int Bc, int n_iters, int use_smem) {
-  cg::grid_group grid = cg::this_grid();
+template <int KPL, bool kScores, bool kSmemSlab>
+__global__ void __launch_bounds__(kThreads, 1)
+sinkhorn_kernel(const float* __restrict__ src, const float* __restrict__ valid,
+                float* out, float* part, int K, int B, int cols, int n_iters,
+                float epsilon, float c_marginal) {
   extern __shared__ __align__(16) float sm[];
-  float* fr = sm;                               // row factors
-  float* colpart = fr + (K + 31) / 32 * 32;     // [G][CW]
-  float* red = colpart + kThreads;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int nblk = gridDim.x, blk = blockIdx.x;
-  const int col0 = blk * Bc;
-  const int ncol = min(Bc, B - col0);
-  float* slab = use_smem ? red + 32 : work + col0;
-  const int ld = use_smem ? Bc + 1 : B;
-  // partial sums in device memory: two [K, nblk] row-sum buffers, then the
-  // blocks' total mass and valid counts
-  float* part_tot = part + 2 * (size_t)K * nblk;
-  float* part_val = part_tot + nblk;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K1 = K + 1;
+  const Layout L = layout(K, cols, kSmemSlab);
+  float* red = sm + L.red;
+  float* pb = sm + L.pb;
+  float* a = sm + L.a;
+  float* b = sm + L.b;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col0 = blockIdx.x * cols;
+  const int ncol = max(0, min(cols, B - col0));
+  const int ld = kSmemSlab ? (K | 1) : K;
+  float* slab = kSmemSlab ? sm + L.slab : out + (size_t)col0 * K;
+  const int n_cl = gridDim.x / kCluster;
+  const int cid = blockIdx.x / kCluster;
+  const unsigned rank = cluster.block_rank();
+  unsigned* counter = reinterpret_cast<unsigned*>(part + 2 * (size_t)n_cl * K1);
 
-  // column-pass roles: CW column lanes x G row groups
-  int CW = 32;
-  while (CW < ncol && CW < kThreads) CW <<= 1;
-  const int G = kThreads / CW;
-  const int jl = tid % CW, g = tid / CW;
-
-  // load the slab (masked), sum its mass and its valid count
-  float mass = 0.f, nval = 0.f;
-  for (int idx = tid; idx < K * ncol; idx += kThreads) {
-    const int k = idx / ncol, j = idx - k * ncol;
-    float v = Q[(size_t)k * B + col0 + j];
-    if (valid != nullptr) v *= valid[col0 + j];
-    slab[k * ld + j] = v;
-    mass += v;
+  // the slab, [ncol][K]: exp(s / epsilon) of the scores rows, or Q's
+  // columns; times the validity mask
+  float nval = 0.f;
+  if constexpr (kScores) {
+    for (int i = tid; i < ncol * K; i += kThreads) {
+      const int j = i / K, k = i - j * K;
+      float v = expf(src[(size_t)col0 * K + i] / epsilon);
+      if (valid != nullptr) v *= valid[col0 + j];
+      slab[j * ld + k] = v;
+    }
+  } else {
+    for (int i = tid; i < ncol * K; i += kThreads) {
+      const int k = i / ncol, j = i - k * ncol;
+      float v = src[(size_t)k * B + col0 + j];
+      if (valid != nullptr) v *= valid[col0 + j];
+      slab[j * ld + k] = v;
+    }
   }
   if (valid != nullptr)
     for (int j = tid; j < ncol; j += kThreads) nval += valid[col0 + j];
-  mass = block_sum(mass, red);
-  nval = block_sum(nval, red);
-  if (tid == 0) {
-    part_tot[blk] = mass;
-    part_val[blk] = nval;
-  }
-  grid.sync();
-  const float total = warp_strided_sum(part_tot, nblk);
-  const float c = valid != nullptr
-                      ? 1.f / (warp_strided_sum(part_val, nblk) + kEps)
-                      : 1.f / (float)B;
-  const float r = 1.f / (float)K;
-  const float denom = total + kEps;
-  for (int idx = tid; idx < K * ncol; idx += kThreads) {
-    const int k = idx / ncol, j = idx - k * ncol;
-    slab[k * ld + j] /= denom;
-  }
-  __syncthreads();
+  for (int j = tid; j < ncol; j += kThreads) b[j] = 1.f;
+  nval = block_sum(nval, red);          // syncs: the slab is in place
 
-  // this block's partial row sums into buffer `buf`
-  auto row_pass = [&](int buf) {
-    float* dst = part + (size_t)buf * K * nblk;
-    for (int k = warp; k < K; k += kWarps) {
-      float s = 0.f;
-      for (int j = lane; j < ncol; j += 32) s += slab[k * ld + j];
-      s = tt::warp_sum(s);
-      if (lane == 0) dst[(size_t)k * nblk + blk] = s;
+  // column j's value at row lane + 32 i (0 past K)
+  auto load_slab = [&](const float* col, int i) -> float {
+    const int k = lane + 32 * i;
+    if (k >= K) return 0.f;
+    return kSmemSlab ? col[k] : __ldcg(col + k);
+  };
+
+  // the row scaling of row lane + 32 i: in registers for 8 rows a lane,
+  // read from shared memory for 32 (the registers go to the columns)
+  constexpr int kAvRegs = KPL <= 8 ? KPL : 1;
+  float av[kAvRegs] = {};
+  auto a_of = [&](int i) -> float {
+    if constexpr (KPL <= 8) {
+      return av[i];
+    } else {
+      const int k = lane + 32 * i;
+      return k < K ? a[k] : 0.f;
     }
   };
 
-  // rows scaled by fr (iterations) or left alone (the last normalisation),
-  // then every column scaled to the marginal c, or to 1 when `last`
-  auto column_pass = [&](bool last) {
-    for (int j0 = 0; j0 < ncol; j0 += CW) {
-      const int j = j0 + jl;
-      const bool active = j < ncol;
-      float s = 0.f;
-      if (active) {
-        if (last) {
-          for (int k = g; k < K; k += G) s += slab[k * ld + j];
-        } else {
-          for (int k = g; k < K; k += G) {
-            const float v = slab[k * ld + j] * fr[k];
-            slab[k * ld + j] = v;
-            s += v;
+  // one sweep over the block's columns; the partials land in pb (+ slot K)
+  float c = c_marginal;
+  auto sweep = [&](Sweep mode, float slot_k) {
+    // the lane's partial row sums: registers for 8 rows a lane, its own
+    // slots of the warp's row of red for 32 (the registers go to the column)
+    constexpr int kPRegs = KPL <= 8 ? KPL : 1;
+    float p[kPRegs] = {};
+    float* pw = red + warp * K1;
+    if constexpr (KPL > 8) {
+#pragma unroll
+      for (int i = 0; i < KPL; ++i)
+        if (lane + 32 * i < K) pw[lane + 32 * i] = 0.f;
+    }
+    auto p_add = [&](int i, float q, float bj) {
+      if constexpr (KPL <= 8) {
+        p[i] = fmaf(q, bj, p[i]);
+      } else {
+        if (lane + 32 * i < K) pw[lane + 32 * i] = fmaf(q, bj, pw[lane + 32 * i]);
+      }
+    };
+    if (TT_SINK_PHASES == 3 && (mode == kPartials || mode == kIterate)) {
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) p_add(i, ncol > 0 ? 1.f : 0.f, 1.f);
+    } else {
+      // columns in flight: four with 8 rows a lane in shared memory, two
+      // when the slab's addresses are device memory's, one with 32 rows
+      constexpr int U = KPL > 8 ? 1 : kSmemSlab ? kUnroll : 2;
+      for (int j0 = warp; j0 < ncol; j0 += kWarps * U) {
+        // U columns at once, no branch between them: their loads, sums and
+        // shuffles interleave
+        float sv[U][KPL], bj[U], x[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + u * kWarps;
+          const bool live = j < ncol;
+          const float* col = slab + (size_t)(live ? j : 0) * ld;
+#pragma unroll
+          for (int i = 0; i < KPL; ++i) sv[u][i] = live ? load_slab(col, i) : 0.f;
+          bj[u] = live ? b[j] : 0.f;
+          x[u] = 0.f;
+        }
+        if (mode != kPartials) {
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int i = 0; i < KPL; ++i) x[u] = fmaf(sv[u][i], a_of(i), x[u]);
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int u = 0; u < U; ++u) x[u] += __shfl_xor_sync(0xffffffffu, x[u], o);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + u * kWarps;
+          if (mode == kIterate || mode == kLast) {
+            const float col = bj[u] * x[u];
+            bj[u] = col > 0.f ? bj[u] * (c / (col + kEps)) : 0.f;
+            if (lane == 0 && j < ncol) b[j] = bj[u];
+          }
+          if (mode == kLast || mode == kOutputOnly) {
+            if (j < ncol) {
+              const float scale = bj[u] / (bj[u] * x[u] + kEps);
+              float* o = out + (size_t)(col0 + j) * K;
+#pragma unroll
+              for (int i = 0; i < KPL; ++i) {
+                const int k = lane + 32 * i;
+                if (k < K) o[k] = sv[u][i] * a_of(i) * scale;
+              }
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < KPL; ++i) p_add(i, sv[u][i], bj[u]);
           }
         }
       }
-      colpart[g * CW + jl] = s;
-      __syncthreads();
-      float col = 0.f;
-      for (int gg = 0; gg < G; ++gg) col += colpart[gg * CW + jl];
-      if (active) {
-        if (last) {
-          const float d = col + kEps;
-          for (int k = g; k < K; k += G) slab[k * ld + j] /= d;
-        } else {
-          const float f = c / (col + kEps);
-          for (int k = g; k < K; k += G) slab[k * ld + j] *= f;
-        }
+    }
+    if (mode == kLast || mode == kOutputOnly) return;
+    if constexpr (KPL <= 8) {
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const int k = lane + 32 * i;
+        if (k < K) pw[k] = p[i];
       }
-      __syncthreads();
+    }
+    __syncthreads();
+    for (int k = tid; k < K; k += kThreads) {
+      float v = 0.f;
+      for (int w = 0; w < kWarps; ++w) v += red[w * K1 + k];
+      pb[k] = v;
+    }
+    if (tid == 0) pb[K] = slot_k;
+  };
+
+  // pb summed over the grid into pb: the cluster's blocks through
+  // distributed shared memory (member `rank` sums rows of its slice), one
+  // vector a cluster in device memory, a grid barrier, the clusters' vectors
+  // summed in order
+  auto reduce = [&](int gen) {
+    float* cp = part + (size_t)(gen & 1) * n_cl * K1;
+    cluster.sync();
+    const int per = (K1 + kCluster - 1) / kCluster;
+    const int k0 = (int)rank * per, k1 = min(K1, k0 + per);
+    for (int k = k0 + tid; k < k1; k += kThreads) {
+      float part_r[kCluster];           // every load in flight, then the sum
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) part_r[r] = cluster.map_shared_rank(pb, r)[k];
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) v += part_r[r];
+      cp[(size_t)cid * K1 + k] = v;
+    }
+    grid_barrier(counter, gen);
+    for (int k = tid; k < K1; k += kThreads) {
+      float v = 0.f;
+      for (int q0 = 0; q0 < n_cl; q0 += 16) {     // 16 loads in flight, then the sum
+        float part_q[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+          part_q[q] = q0 + q < n_cl ? __ldcg(cp + (size_t)(q0 + q) * K1 + k) : 0.f;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) v += part_q[q];
+      }
+      pb[k] = v;
+    }
+    __syncthreads();
+  };
+
+  auto load_a = [&]() {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kAvRegs; ++i) {
+      const int k = lane + 32 * i;
+      av[i] = k < K ? a[k] : 0.f;
     }
   };
 
-  if (n_iters > 0) {
-    row_pass(0);
-    grid.sync();
-  }
-  for (int it = 0; it < n_iters; ++it) {
-    const float* src = part + (size_t)(it & 1) * K * nblk;
-    for (int k = warp; k < K; k += kWarps) {
-      const float u = warp_strided_sum(src + (size_t)k * nblk, nblk);
-      if (lane == 0) fr[k] = r / (u + kEps);
-    }
-    __syncthreads();
-    column_pass(false);
-    if (it + 1 < n_iters) {
-      row_pass((it + 1) & 1);
-      grid.sync();
-    }
-  }
-  column_pass(true);
+#if TT_SINK_PHASES == 1
+  for (int k = tid; k < K; k += kThreads) a[k] = 1.f;
+  load_a();
+  sweep(kOutputOnly, 0.f);
+  return;
+#elif TT_SINK_PHASES == 2
+  for (int g = 0; g < max(n_iters, 1); ++g) grid_barrier(counter, g);
+  for (int k = tid; k < K; k += kThreads) a[k] = 1.f;
+  load_a();
+  sweep(kOutputOnly, 0.f);
+  return;
+#endif
 
-  // out[B, K]: the slab transposed, K fastest
-  for (int idx = tid; idx < K * ncol; idx += kThreads) {
-    const int j = idx / K, k = idx - j * K;
-    out[(size_t)(col0 + j) * K + k] = slab[k * ld + j];
+  // row sums (b = 1) and the valid count; the total mass; the marginal
+  sweep(kPartials, nval);
+  reduce(0);
+  float t = 0.f;
+  for (int k = lane; k < K; k += 32) t += pb[k];
+  t = tt::warp_sum(t);                  // every warp, every block: one order
+  if (valid != nullptr) c = 1.f / (pb[K] + kEps);
+  const float r = 1.f / (float)K;
+  const float a0 = 1.f / (t + kEps);
+  __syncthreads();
+  for (int k = tid; k < K; k += kThreads) a[k] = a0;
+  for (int it = 0; it < n_iters; ++it) {
+    if (it > 0) reduce(it);
+    for (int k = tid; k < K; k += kThreads) {
+      const float u = a[k] * pb[k];
+      a[k] = u > 0.f ? a[k] * (r / (u + kEps)) : 0.f;
+    }
+    load_a();
+    sweep(it + 1 == n_iters ? kLast : kIterate, 0.f);
+  }
+  if (n_iters == 0) {
+    load_a();
+    sweep(kOutputOnly, 0.f);
   }
 }
 
+template <int KPL, bool kScores, bool kSmemSlab>
+void* kernel_ptr() {
+  return reinterpret_cast<void*>(sinkhorn_kernel<KPL, kScores, kSmemSlab>);
+}
+
+void* pick(int K, bool scores, bool smem_slab) {
+  if (K <= 256)
+    return scores ? (smem_slab ? kernel_ptr<8, true, true>() : kernel_ptr<8, true, false>())
+                  : (smem_slab ? kernel_ptr<8, false, true>() : kernel_ptr<8, false, false>());
+  return scores ? (smem_slab ? kernel_ptr<32, true, true>() : kernel_ptr<32, true, false>())
+                : (smem_slab ? kernel_ptr<32, false, true>() : kernel_ptr<32, false, false>());
+}
+
+struct Plan {
+  int cols, in_smem, blocks, clusters_max, smem;
+};
+
 // the slab width and block count for a [K, B] matrix on the current device:
-// the narrowest shared-memory slab whose blocks are all co-resident, else
-// slabs in the device-memory work buffer
-cudaError_t plan(int K, int B, int* Bc, int* use_smem, int* nblk, int* smem) {
-  int dev = 0, sms = 0;
+// as many clusters of 8 as can be resident with one block an SM, each block
+// at least kMinCols columns; the slabs in shared memory where they fit, else
+// in `out`
+// the most clusters of 8 resident with one block an SM, by device and by
+// KPL form (0: not asked yet); the kernels' shared-memory limit is raised
+// when it is first asked
+int max_clusters[64][2];
+
+cudaError_t clusters_resident(int K, int* n) {
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(sinkhorn_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (e != cudaSuccess) return e;
-  for (int bc = 32; bc <= 256; bc *= 2) {
-    const long long bytes = ((long long)fixed_floats(K) + (long long)K * (bc + 1)) * 4;
-    if (bytes > kMaxSmem) break;
-    int occ = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, sinkhorn_kernel,
-                                                      kThreads, (size_t)bytes);
-    if (e != cudaSuccess) return e;
-    const int n = (B + bc - 1) / bc;
-    if ((long long)occ * sms >= n) {
-      *Bc = bc, *use_smem = 1, *nblk = n, *smem = (int)bytes;
-      return cudaSuccess;
-    }
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  int& cached = max_clusters[dev][K <= 256 ? 0 : 1];
+  if (cached > 0) {
+    *n = cached;
+    return cudaSuccess;
   }
-  const int bytes = fixed_floats(K) * 4;
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  int occ = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, sinkhorn_kernel,
-                                                    kThreads, (size_t)bytes);
+  for (int s = 0; s < 2; ++s)
+    for (int sm = 0; sm < 2; ++sm) {
+      e = cudaFuncSetAttribute(pick(K, s, sm),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (e != cudaSuccess) return e;
+    }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = kCluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kMaxSmem;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n_cl = 0;
+  e = cudaOccupancyMaxActiveClusters(&n_cl, pick(K, true, true), &cfg);
   if (e != cudaSuccess) return e;
-  if (occ < 1) return cudaErrorLaunchOutOfResources;
-  const int cap = occ * sms;
-  const int bc = ((B + cap - 1) / cap + 31) / 32 * 32;
-  *Bc = bc, *use_smem = 0, *nblk = (B + bc - 1) / bc, *smem = bytes;
+  if (n_cl < 1) return cudaErrorLaunchOutOfResources;
+  *n = cached = n_cl;
+  return cudaSuccess;
+}
+
+cudaError_t make_plan(int K, int B, Plan* p) {
+  if (K <= 0 || K > 1024 || B <= 0 || (long long)K * B > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  int n_cl = 0;
+  const cudaError_t e = clusters_resident(K, &n_cl);
+  if (e != cudaSuccess) return e;
+  const int cap = n_cl * kCluster;
+  const int cols = max(kMinCols, (B + cap - 1) / cap);
+  int in_smem = (long long)layout(K, cols, 1).floats * 4 <= kMaxSmem;
+  const long long bytes = (long long)layout(K, cols, in_smem).floats * 4;
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  const int blocks = ((B + cols - 1) / cols + kCluster - 1) / kCluster * kCluster;
+  *p = Plan{cols, in_smem, blocks, n_cl, (int)bytes};
   return cudaSuccess;
 }
 
 }  // namespace
 
-// plan_out[3]: slab width Bc, 1 if the slabs live in shared memory, number
-// of blocks. The caller sizes `part` ((2 K + 2) * blocks floats) and, for
-// slabs in device memory, `work` (K * B floats) from it.
+// plan_out[6]: columns a block, 1 if the slabs live in shared memory, blocks,
+// clusters of 8, the most clusters resident, dynamic shared-memory bytes.
+// The caller sizes `part` (2 x clusters x (K + 1) floats and one zeroed
+// barrier word) from it.
 extern "C" int tt_sinkhorn_plan(int K, int B, int* plan_out) {
-  if (K <= 0 || B <= 0 || (long long)K * B > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  int smem = 0;
-  return (int)plan(K, B, &plan_out[0], &plan_out[1], &plan_out[2], &smem);
+  Plan p;
+  const cudaError_t e = make_plan(K, B, &p);
+  if (e != cudaSuccess) return (int)e;
+  plan_out[0] = p.cols, plan_out[1] = p.in_smem, plan_out[2] = p.blocks;
+  plan_out[3] = p.blocks / kCluster, plan_out[4] = p.clusters_max;
+  plan_out[5] = p.smem;
+  return 0;
 }
 
-// Q [K, B] f32 contiguous, valid [B] f32 or null, out [B, K] f32.
-extern "C" int tt_sinkhorn(const float* Q, const float* valid, float* out,
-                           float* work, float* part, int K, int B, int n_iters,
+// src: Q [K, B] (from_scores 0) or scores [B, K] (1), f32 contiguous; valid
+// [B] f32 or null; out [B, K] f32; part as tt_sinkhorn_plan says, its last
+// word zero. c_marginal is the column marginal without a mask.
+extern "C" int tt_sinkhorn(const float* src, const float* valid, float* out,
+                           float* part, int K, int B, int n_iters,
+                           int from_scores, float epsilon, float c_marginal,
                            void* stream) {
-  if (K <= 0 || B <= 0 || (long long)K * B > 0x7fffffffLL || n_iters < 0)
+  if (n_iters < 0 || (from_scores && !(epsilon > 0.f)))
     return (int)cudaErrorInvalidValue;
-  int Bc = 0, use_smem = 0, nblk = 0, smem = 0;
-  cudaError_t e = plan(K, B, &Bc, &use_smem, &nblk, &smem);
+  Plan p;
+  cudaError_t e = make_plan(K, B, &p);
   if (e != cudaSuccess) return (int)e;
-  if (!use_smem && work == nullptr) return (int)cudaErrorInvalidValue;
-  void* args[] = {&Q, &valid, &out, &work, &part, &K, &B, &Bc, &n_iters, &use_smem};
-  e = cudaLaunchCooperativeKernel((void*)sinkhorn_kernel, dim3(nblk),
-                                  dim3(kThreads), args, (size_t)smem,
-                                  static_cast<cudaStream_t>(stream));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = kCluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  void* args[] = {&src, &valid, &out, &part, &K, &B, &p.cols, &n_iters,
+                  &epsilon, &c_marginal};
+  e = cudaLaunchKernelExC(&cfg, pick(K, from_scores != 0, p.in_smem != 0), args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -92,13 +92,13 @@ _SIGNATURES = {
     "tt_propagate_labels": [_P] * 10 + [_I] * 15 + [_F, _P],
     "tt_propagate_plan": [_I] * 3 + [_P],
     "tt_eval_preprocess": [_P, _P, _P, _I, _P, _P, _I] + [_F] * 6 + [_P]
-    + [_I] * 4 + [_P],
+    + [_I] * 8 + [_P],
     "tt_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
     "tt_ln_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 4 + [_P],
     "tt_gemm_route": [_I] * 6 + [_P],
     "tt_mha": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
-    "tt_sinkhorn": [_P] * 5 + [_I] * 3 + [_P],
+    "tt_sinkhorn": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P],
     "tt_sinkhorn_plan": [_I, _I, _P],
 }
 

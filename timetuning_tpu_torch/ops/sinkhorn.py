@@ -5,10 +5,19 @@ my_utils.py:246-274, the non-log-space Sinkhorn with its global,
 cross-process normalisation). The iteration is the diagonal-scaling form:
 Sinkhorn only rescales rows and columns, so Q_t = diag(a) Q_0 diag(b) and an
 iteration is two matrix-vector products against the unchanged Q_0, with no
-[K, B] matrix written per iteration. The JAX package computes this form
-outside any hand-written kernel, so here it is plain ``torch.mv``. The
-materialising form, which the TPU kernel of ``ops/sinkhorn_pallas.py``
-runs, is ``ops/sinkhorn_cuda.py``.
+[K, B] matrix written per iteration. Here it is plain ``torch.mv``.
+
+Dispatch (``sinkhorn_assignment``, ``sinkhorn_route``): scores on the card
+with no process group go to kernel 11 (``ops/sinkhorn_cuda.
+sinkhorn_assignment_cuda``), which computes this form with all iterations
+in one launch; with a process group, and on the CPU, the matvec form below
+runs. The JAX package retired its own kernel from dispatch because the
+matvec form beat it on v5e, and wrote the rule: "don't re-dispatch without
+beating the matvec numbers" (``timetuning_tpu/ops/sinkhorn_pallas.py:1-13``).
+On the H100 the kernel beats the matvec form (PERF.md §6), so it is
+dispatched where its semantics are the step's: one process. ``sinkhorn``
+itself stays the matvec form on every device: it is the kernel's plain
+version.
 
 Everything is f32. With a ``torch.distributed`` process group the three sums
 that span the global batch (the total mass, the valid-sample count, the
@@ -73,13 +82,25 @@ def sinkhorn(Q: torch.Tensor, n_iters: int = 3, group=None,
     return (Q * a[:, None] * (b / (col + _EPS))[None, :]).t()
 
 
+def sinkhorn_route(device: torch.device, group=None) -> str:
+    """"kernel" for scores on a CUDA device with no process group, else
+    "matvec"."""
+    return "kernel" if device.type == "cuda" and group is None else "matvec"
+
+
 @torch.no_grad()
 def sinkhorn_assignment(scores: torch.Tensor, epsilon: float = 0.05,
                         n_iters: int = 10, group=None, world_size: int = 1,
                         valid: torch.Tensor | None = None) -> torch.Tensor:
     """``find_optimal_assignment`` (reference time_tuning.py:157-168):
     scores [B, K] -> ``sinkhorn(exp(scores / eps).T)`` [B, K]. The assignment
-    is a soft label, not a differentiable path: no gradient."""
+    is a soft label, not a differentiable path: no gradient. On the card
+    with no ``group``: kernel 11, one launch (``sinkhorn_route``)."""
+    if sinkhorn_route(scores.device, group) == "kernel":
+        from timetuning_tpu_torch.ops import sinkhorn_cuda  # imports this module
+
+        return sinkhorn_cuda.sinkhorn_assignment_cuda(
+            scores, epsilon, n_iters, valid=valid, world_size=world_size)
     q = torch.exp(scores.detach() / epsilon).t()
     return sinkhorn(q, n_iters=n_iters, group=group, world_size=world_size,
                     valid=valid)

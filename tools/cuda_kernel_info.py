@@ -13,7 +13,10 @@ on the GEMM tile of ``gemm_wgmma.cuh`` (``rows_block.cu``,
 ``attention_block.cu``, ``mlp_block.cu``; its kernels print as
 ``gemm_wgmma_kernel<LN prologue, 64-row groups, prologue chunks, epilogue>``
 and ``gemm_wide_kernel``) and the propagation kernel (``propagation.cu``:
-``prop_rows_kernel<f32 split>``, ``prop_seg_kernel``). Needs the CUDA
+``prop_rows_kernel<f32 split>``, ``prop_seg_kernel``), the eval preprocess
+(``preprocess.cu``: ``preprocess_kernel<W taps bucket>``) and the Sinkhorn
+(``sinkhorn.cu``: ``sinkhorn_kernel<rows a lane, scores entry, slab in
+shared memory>``). Needs the CUDA
 toolkit (``nvcc``, ``cuobjdump``), no card. Prints ptxas's warnings and its
 "Potential Performance Loss" remarks too (a ``wgmma`` that it had to
 serialise shows up as such a remark, C7510-C7520, under ``ptxas info``).
@@ -52,7 +55,8 @@ def short(mangled: str) -> str:
 
 def main(argv: list[str]) -> int:
     names = argv or ["flash_attention.cu", "mha.cu", "rows_block.cu",
-                     "attention_block.cu", "mlp_block.cu", "propagation.cu"]
+                     "attention_block.cu", "mlp_block.cu", "propagation.cu",
+                     "preprocess.cu", "sinkhorn.cu"]
     nvcc = kernel_lib._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     with tempfile.TemporaryDirectory() as tmp:
