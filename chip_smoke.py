@@ -13,8 +13,10 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the evals below, with its error bound and the times of both (CUDA
    events): kernels 1-4 at ViT-S/16 (50 frames at 224, two 25-frame clips
-   of 480x854; kernel 4 also to ViT-S/8's 448), kernels 1 and 2 also at the
-   train step's 128 frames, kernel 1 at 8 x 577 tokens (its core's two
+   of 480x854; kernel 4 also to ViT-S/8's 448 and on the in-training eval's
+   60 Pascal images already at 224, 224 -> 224), kernels 1 and 2 also at the
+   train step's 128 frames, the eval's 60 and the 128-clip driver step's
+   512, kernel 1 at 8 x 577 tokens (its core's two
    passes), kernel 7 also at kernel 1's
    9,850 rows; the bf16 hidden of kernels 2 and 9 against the plain hidden,
    and their two launches (fc1 + GELU, fc2) timed apart;
@@ -58,7 +60,22 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
 8. the step's own assignment (kernel 11) on its score matrix, against the
    matvec form and the materialising loop, and the kernel relaunched there;
 9. one f32 step of the full model at 2 clips on the card (kernel 11's
-   assignment) against the same step on the host (the matvec form).
+   assignment) against the same step on the host (the matvec form);
+10. the training driver (``core/train.run_training``) at the same width on
+   a synthetic dataset registered with the real clip loader (the card's
+   machine may lack cv2 and PIL): 2 epochs of 4 steps at 32 clips, a resume
+   from the checkpoint for a third epoch, traced, and an epoch of 10 steps
+   at 128 clips: clips/s through loader, copy, augmentation and step over
+   the whole window of steady steps (with and without the epoch-top save)
+   and the median ms a step, the saves' ms, peak memory, the device's idle
+   share; the augmentation alone at 32
+   and 128 clips (device ms, launches: equal); the bare step at both sizes;
+11. the augmentation on the card against the host on the same draws;
+12. the in-training Pascal eval (``make_eval_feature_fn`` + ``Evaluator``)
+   at ViT-S/16 224, eval resolution 112, 21 clusters, on 120 synthetic
+   images in batches of 60, dataset-wise in memory and streaming: mIoU,
+   ms, k-means ms; before it, the feature function on one batch against
+   the plain preprocess and the plain blocks.
 
 Beside each kernel's time the script prints the least time the card could
 take for the same work (``bound_ms``: the larger of its bytes, each input
@@ -69,7 +86,8 @@ where PyTorch has library calls for the same function, their time
 library times are device times: the timed launches are queued behind a
 device-side sleep, so a slow host does not show in them.
 
-Launch counts are set to 0 just before each main-path run (phases 5 to 8)
+Launch counts are set to 0 just before each main-path run (phases 5 to 10
+and 12)
 and read just after; each run must launch the kernels of its path, and the
 sums over all runs are the ``launches`` of the kernels line. The last lines
 are a JSON object of per-kernel results, the card's ``nvidia-smi`` name and
@@ -80,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib.util
 import json
 import subprocess
 import sys
@@ -91,6 +110,7 @@ import torch
 CLIPS, FRAMES, H, W, S = 2, 25, 480, 854, 224
 S8 = 448                            # ViT-S/8 input: 56x56 patches, 3,137 tokens
 TRAIN_B, TRAIN_F = 32, 4            # the train step's clips and frames a clip
+EVAL_BATCH = 60                     # images a batch of the in-training Pascal eval
 S8_NORMAL_SEED = 33                 # K3's normal features at 3,136 patches
 
 # published dense peaks of one H100 SXM (NVIDIA's data sheet) at 700 W
@@ -160,6 +180,10 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20, queued: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+class NoDeviceEvents(AssertionError):
+    """A profiler trace with no device event inside its host window."""
+
+
 def trace(fn, label: str, reps: int = 3, top: int = 8) -> None:
     """Device idle share and kernel time by name over ``reps`` calls of
     ``fn`` under ``torch.profiler``. The window is a host range around the
@@ -172,15 +196,34 @@ def trace(fn, label: str, reps: int = 3, top: int = 8) -> None:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("chip_smoke.trace"):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    events = prof.profiler.kineto_results.events()
-    win = next(e for e in events if e.name() == "chip_smoke.trace"
-               and e.device_type() == DeviceType.CPU)
-    lo, hi = win.start_ns(), win.end_ns()
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("chip_smoke.trace"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        win = next(e for e in events if e.name() == "chip_smoke.trace"
+                   and e.device_type() == DeviceType.CPU)
+        try:
+            device_time(events, win.start_ns(), win.end_ns(), reps, label, top)
+            return
+        except NoDeviceEvents:
+            if attempt:
+                raise
+            # a short window's device events have gone missing from a trace
+            # once (the calls ran: their CUDA-event times were printed)
+            print(f"trace {label}: the profiler kept no device event in its "
+                  f"window; traced once more", flush=True)
+
+
+def device_time(events, lo: int, hi: int, reps: int, label: str, top: int = 8) -> dict:
+    """Print the device busy time, idle share and kernel time by name of the
+    profiler ``events`` inside the host window [lo, hi] ns, per one of its
+    ``reps`` calls; returns them (``busy_ms``, ``idle``, ``events``) per
+    call."""
+    from torch.autograd import DeviceType
+
     spans, by_name = [], {}
     for e in events:
         if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
@@ -191,18 +234,20 @@ def trace(fn, label: str, reps: int = 3, top: int = 8) -> None:
             n, t = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (n + 1, t + b - a)
     if not spans:
-        raise AssertionError(f"trace {label}: no device event in the window")
+        raise NoDeviceEvents(f"trace {label}: no device event in the window")
     busy, end = 0, lo
     for a, b in sorted(spans):
         busy += max(0, b - max(a, end))
         end = max(end, b)
     wall = hi - lo
+    idle = 1 - busy / wall
     print(f"trace {label}: {wall / reps / 1e6:.3f} ms per call under the "
           f"profiler, device busy {busy / reps / 1e6:.3f} ms, idle "
-          f"{100 * (1 - busy / wall):.2f} %, {len(spans) / reps:.0f} device "
+          f"{100 * idle:.2f} %, {len(spans) / reps:.0f} device "
           f"events per call", flush=True)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {t / reps / 1e6:9.3f} ms {n / reps:5.0f}x  {name[:90]}", flush=True)
+    return {"busy_ms": busy / reps / 1e6, "idle": idle, "events": len(spans) / reps}
 
 
 def synthetic_clips(seed: int = 0, textured: bool = False):
@@ -586,7 +631,11 @@ def check_long_token_kernels(dev, results: dict) -> None:
 
 
 def check_kernels(dev, results: dict) -> None:
-    from timetuning_tpu_torch.data.transforms import IMAGENET_MEAN, REFERENCE_STD
+    from timetuning_tpu_torch.data.transforms import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        REFERENCE_STD,
+    )
     from timetuning_tpu_torch.ops import fused_block as fb
     from timetuning_tpu_torch.ops import preprocess_cuda as pc
 
@@ -644,7 +693,10 @@ def check_kernels(dev, results: dict) -> None:
                 attn[:4], 2.0 * M * D * 3 * D,
                 library_block(x, ln_s, ln_b, [(attn[2], attn[3], False)]))
     more = np.random.default_rng(1)     # `rng` goes on to K3's features as it was
-    for b, s in ((TRAIN_B * TRAIN_F, T), (8, 577)):
+    # K1, K2 also at the in-training eval's batch of 60 frames and the
+    # 128-clip driver step's 512
+    for b, s in ((TRAIN_B * TRAIN_F, T), (8, 577), (EVAL_BATCH, T),
+                 (4 * TRAIN_B * TRAIN_F, T)):
         xb = t(more.standard_normal((b, s, D)), torch.bfloat16)
         check_block("attention_block", f"attention_block/{b}x{s}",
                     fb.attention_block_branch, fb.attention_block_xla, xb,
@@ -688,6 +740,30 @@ def check_kernels(dev, results: dict) -> None:
         if not ok:
             raise AssertionError(f"preprocess at {size}: kernel disagrees with plain version")
         del got, want
+
+    # K4 at the in-training eval's batch: 60 Pascal images already at 224
+    # (data/pascal.py resizes them to the input resolution), so a 224 -> 224
+    # pass at scale 1 with the eval's std; same bound
+    pascal = torch.from_numpy(
+        rng.integers(0, 256, (EVAL_BATCH, S, S, 3), dtype=np.uint8)).to(dev)
+    args = (S, IMAGENET_MEAN, IMAGENET_STD)
+    got = pc.eval_preprocess_cuda(pascal, *args)
+    want = pc.eval_preprocess_plain(pascal, *args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    ok = torch.allclose(got.float(), want, atol=2e-2, rtol=0)
+    plan = pc.band_plan(S, S, S, EVAL_BATCH,
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+    report("preprocess", got, want, "atol=2e-2 (one bf16 ulp below 4)",
+           cuda_ms(lambda: pc.eval_preprocess_cuda(pascal, *args)),
+           cuda_ms(lambda: pc.eval_preprocess_plain(pascal, *args)),
+           extra=f"[{EVAL_BATCH}, {S}, {S}, 3] u8 -> {S} (the in-training eval's), "
+                 f"bands of {plan.rows} rows, {EVAL_BATCH * plan.bands} blocks ",
+           key=f"preprocess/{S}from{S}",
+           work=(io_bytes(pascal, got),
+                 2.0 * EVAL_BATCH * 3 * (S * S * plan.w_taps + S * S * plan.h_taps),
+                 "f32"))
+    if not ok:
+        raise AssertionError("preprocess at 224 -> 224: kernel disagrees with plain version")
 
 
 def check_mha_kernels(dev, results: dict) -> None:
@@ -838,6 +914,8 @@ PATH_KERNELS = {
     ("train", "pallas"): ("mha", "propagation", "sinkhorn"),
     ("train", "float32"): ("propagation", "sinkhorn"),
     ("train", "sinkhorn on the step's scores"): ("sinkhorn",),
+    ("train", "driver"): ("attention_block", "mlp_block", "propagation", "sinkhorn"),
+    ("eval", "pascal"): ("preprocess", "attention_block", "mlp_block"),
 }
 
 
@@ -1311,6 +1389,503 @@ def run_train_f32_against_host(dev, totals: dict) -> None:
         raise AssertionError("the f32 step on the card disagrees with the host's")
 
 
+DRIVER_NATIVE = (480, 854)          # the synthetic clips' native size
+DRIVER_BANK = 8                     # distinct clips the synthetic dataset serves
+DRIVER_STEPS_128 = 10               # steps of the 128-clip driver epoch
+
+
+def synthetic_clip_bank(n: int, frames: int, size: int, seed: int = 5):
+    """[n, frames, size, size, 3] uint8 decode buffers: three coloured boxes
+    moving over a colour gradient, from ``seed``; and each frame's PIL gray
+    mean (``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``, averaged)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    bank = np.empty((n, frames, size, size, 3), np.uint8)
+    for c in range(n):
+        a, b = rng.uniform(30, 220, (2, 3))
+        base = a * yy[..., None] + b * xx[..., None]
+        boxes = [(rng.uniform(0.15, 0.85, 2), rng.uniform(-0.06, 0.06, 2),
+                  rng.uniform(0.06, 0.18), rng.integers(0, 256, 3)) for _ in range(3)]
+        for f in range(frames):
+            img = base.copy()
+            for pos, vel, half, color in boxes:
+                cy, cx = pos + vel * f
+                img[(np.abs(yy - cy) < half) & (np.abs(xx - cx) < half)] = color
+            bank[c, f] = np.clip(img, 0, 255).astype(np.uint8)
+    u = bank.astype(np.int64)
+    lum = (19595 * u[..., 0] + 38470 * u[..., 1] + 7471 * u[..., 2] + 32768) >> 16
+    return bank, lum.mean(axis=(-2, -1)).astype(np.float32)
+
+
+class SyntheticVideoDataset:
+    """A dataset for ``data/loader.ClipLoader`` that serves seeded clips in
+    place of decoded video (the card's machine may lack cv2 and PIL, the
+    decoders of the port's loaders): ``n_videos`` clips cycling through a
+    bank of ``DRIVER_BANK`` distinct ones, each with its native size and its
+    frames' gray means, in the item layout of ``data/datasets.VideoDataset``
+    (one clip a video)."""
+
+    def __init__(self, n_videos: int, num_frames: int, decode_size: int):
+        self.n = n_videos
+        self.bank, self.gray = synthetic_clip_bank(DRIVER_BANK, num_frames, decode_size)
+
+    def __len__(self):
+        return self.n
+
+    def get_item(self, index: int, epoch: int | None = None) -> dict:
+        c = index % DRIVER_BANK
+        F = self.bank.shape[1]
+        return {"frames": self.bank[c][None].copy(),
+                "annotations": np.zeros((1, F, 1, 1), np.uint8), "label": index,
+                "orig_size": np.asarray(DRIVER_NATIVE, np.int32),
+                "gray_means": self.gray[c][None].copy()}
+
+
+def register_synthetic_dataset() -> str:
+    from timetuning_tpu_torch.data.loader import register_dataset
+
+    name = "chip_smoke_synthetic"
+
+    @register_dataset(name)
+    def _build(_name, root, num_frames=4, decode_size=256, **_kw):
+        return SyntheticVideoDataset(int(root), num_frames, decode_size)
+
+    return name
+
+
+def driver_config(dev, log_dir: str, batch: int, **kw):
+    """The flagship's driver configuration (time_tuning.py:573-577 and the
+    reference's training flags): dino-s16 at 224, head [1024, 1024, 512,
+    256], 200 prototypes, bf16, 4-frame clips from a 256 buffer, 4 loader
+    workers; the data are the synthetic dataset's, as many clips as the
+    epoch's steps take."""
+    from timetuning_tpu_torch.core.train import TrainingConfig
+
+    steps = kw.get("max_steps_per_epoch", 4)
+    base = dict(architecture="dino-s16", dataset=register_synthetic_dataset(),
+                data_root=str(steps * batch), log_dir=log_dir, batch_size=batch,
+                num_frames=4, decode_size=256, num_workers=4, num_clusters=200,
+                input_resolution=224, compute_dtype="bfloat16", num_epochs=2,
+                max_steps_per_epoch=4, use_tensorboard=False, device=str(dev))
+    base.update(kw)
+    return TrainingConfig(**base)
+
+
+@contextlib.contextmanager
+def step_times(marker: str = "chip_smoke.driver_step"):
+    """While open, every full step of ``core/train.run_training`` is timed on
+    the host and marked in a profiler trace, and every checkpoint save is
+    timed; yields a namespace with ``steps``, the (entry, exit) times (s) of
+    each step, and ``saves``, each save's ms. Inside a step: the draw, the
+    augmentation's and the step's launches (and whatever of them waits for
+    the card); between two: the previous loss read back, the loader's next
+    batch, its pinned copy queued, and at an epoch's top its save."""
+    import types
+
+    from torch.profiler import record_function
+
+    from timetuning_tpu_torch.core import train as ttrain
+
+    rec = types.SimpleNamespace(steps=[], saves=[])
+    make, save = ttrain.make_full_step, ttrain.save_checkpoint
+
+    def timed_make(*a, **kw):
+        full = make(*a, **kw)
+
+        def step(*args, **kwargs):
+            t0 = time.perf_counter()
+            with record_function(marker):
+                out = full(*args, **kwargs)
+            rec.steps.append((t0, time.perf_counter()))
+            return out
+        return step
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = save(*a, **kw)
+        rec.saves.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ttrain.make_full_step, ttrain.save_checkpoint = timed_make, timed_save
+    try:
+        yield rec
+    finally:
+        ttrain.make_full_step, ttrain.save_checkpoint = make, save
+
+
+def driver_rates(rec, B: int, per_epoch: int, skip: int = 1) -> dict:
+    """The driver's rates from its step entries (host clock), the first
+    ``skip`` steps (the warm-up) left out: ``window`` = B x steps / the time
+    from the first steady entry to the last (all the work of the window,
+    epoch-top saves included), ``in_epoch`` the same over the steps whose
+    gap stays inside an epoch (no save, no loader restart), ``median`` the
+    median ms entry to entry; ``gaps`` each step's ms; ``inside`` /
+    ``between`` the median ms of a step's host time inside the full step
+    and between two."""
+    entry = np.array([a for a, _ in rec.steps])
+    inside = np.array([b - a for a, b in rec.steps])
+    gaps = np.diff(entry)[skip:]
+    k = np.arange(skip, len(entry) - 1)         # gap k: entry k -> k + 1
+    same = (k + 1) % per_epoch != 0
+    return {"steps": len(gaps), "window_ms": float(entry[-1] - entry[skip]) * 1e3,
+            "window": B * len(gaps) / float(entry[-1] - entry[skip]),
+            "in_epoch_steps": int(same.sum()),
+            "in_epoch": B * int(same.sum()) / float(gaps[same].sum()),
+            "median": float(np.median(gaps)) * 1e3,
+            "gaps": [round(float(g) * 1e3, 2) for g in gaps],
+            "inside": float(np.median(inside[skip + 1:])) * 1e3,
+            "between": float(np.median(gaps - inside[skip:-1])) * 1e3}
+
+
+def driver_losses(run_dir: str) -> dict:
+    import os
+
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    return {r["step"]: r["value"] for r in rows if r["tag"] == "Loss/train"}
+
+
+def loader_alone(dev, B: int, n: int = 6) -> float:
+    """ms a batch of the driver's loader and copy alone: ``make_loader`` over
+    the synthetic dataset at ``B`` clips, each batch put on the card as
+    ``run_training`` puts it (pinned, copied on a side stream)."""
+    from timetuning_tpu_torch.data.loader import (
+        device_prefetch,
+        host_batch_to_device,
+        make_loader,
+    )
+
+    loader = make_loader(register_synthetic_dataset(), num_clip_frames=4,
+                         batch_size=B, root=str((n + 1) * B), decode_size=256,
+                         num_workers=4, load_annotations=False)
+    side = torch.cuda.Stream(dev)
+    stamps = []
+    for frames, sizes, gmeans in device_prefetch(
+            loader, lambda b: tuple(host_batch_to_device(a, dev)
+                                    for a in (b[0], b.orig_sizes, b.gray_means)),
+            stream=side):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    return float(np.median(np.diff(stamps))) * 1e3
+
+
+def augment_launches(dev, B: int) -> dict:
+    """The augmentation alone at ``B`` clips of 4 frames, 256 -> 224, on the
+    card, traced over 3 calls: its device busy time and device events a call
+    (kernels only: the drawn values are uploaded before), and its host time
+    a call (the host enqueues ~320 launches); the host ms of a batch's draw
+    and its pinned upload."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from timetuning_tpu_torch.data import transforms as tf
+
+    cfg = tf.AugmentConfig()
+    bank, gray = synthetic_clip_bank(DRIVER_BANK, 4, 256)
+    idx = np.arange(B) % DRIVER_BANK
+    frames = torch.from_numpy(bank[idx]).to(dev)
+    sizes = torch.tensor([DRIVER_NATIVE] * B, device=dev)
+    gmeans = torch.from_numpy(gray[idx]).to(dev)
+    params = tf.draw_augment_params(torch.Generator().manual_seed(B), B, 4, cfg)
+    params = params.pin_memory().to(dev, non_blocking=True)
+
+    def run():
+        return tf.apply_augment(frames, params, cfg, sizes, gmeans)
+
+    wall_ms = cuda_ms(run, warmup=2, reps=10, queued=False)
+    # the driver's draw of a batch's values on the host and their upload,
+    # as make_full_step does them
+    t0 = time.perf_counter()
+    for s in range(10):
+        tf.draw_augment_params(torch.Generator().manual_seed(s), B, 4, cfg) \
+            .pin_memory().to(dev, non_blocking=True)
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.trace"):
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    win = next(e for e in events if e.name() == "chip_smoke.trace"
+               and e.device_type() == DeviceType.CPU)
+    out = device_time(events, win.start_ns(), win.end_ns(), 3,
+                      f"train augment B={B} (apply_augment alone)", top=4)
+    # launches as the host made them (the runtime's launch calls): the
+    # device events the profiler keeps of ~300 short kernels vary by call
+    launches = sum(1 for e in events if e.device_type() == DeviceType.CPU
+                   and "LaunchKernel" in e.name()) / 3
+    return {**out, "wall_ms": wall_ms, "launches": launches, "draw_ms": draw_ms}
+
+
+def run_train_driver(dev, totals: dict) -> None:
+    """Phase 10: ``core/train.run_training`` at the flagship's full width on
+    the synthetic dataset: 2 epochs of 4 steps at 32 clips, then a resume
+    (``load_checkpoint``) for a third epoch under the profiler; one epoch of
+    ``DRIVER_STEPS_128`` steps at 128 clips; the augmentation alone at 32 and 128 clips; the
+    bare step (pre-augmented clips on the card) at both sizes."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from timetuning_tpu_torch.core.train import run_training
+
+    print("decoders on this machine: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}" for m in ("cv2", "PIL"))
+        + " (the driver phases read the synthetic dataset either way)", flush=True)
+    with tempfile.TemporaryDirectory() as log_dir:
+        torch.cuda.reset_peak_memory_stats()
+        with step_times() as t32:
+            first, c1 = counted(("train", "driver"),
+                                lambda: run_training(driver_config(dev, log_dir, 32)),
+                                totals)
+        with step_times():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                resumed, c2 = counted(
+                    ("train", "driver"),
+                    lambda: run_training(driver_config(dev, log_dir, 32, num_epochs=3,
+                                                       load_checkpoint=True)),
+                    totals)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = driver_losses(resumed["run_dir"])
+    steps = sorted(losses)
+    vals = [losses[s] for s in steps]
+    print(f"train driver B=32: {first['global_step']} steps in 2 epochs, resumed at "
+          f"step {first['global_step']} to {resumed['global_step']} in "
+          f"{resumed['run_dir'] == first['run_dir'] and 'the same run dir'}; losses "
+          f"{[round(v, 5) for v in vals]} | launches {c1} then {c2}", flush=True)
+    if not (first["global_step"] == 8 and resumed["global_step"] == 12
+            and resumed["run_dir"] == first["run_dir"] and steps == list(range(1, 13))):
+        raise AssertionError("train driver: the run did not resume at its saved step")
+    if not (np.isfinite(vals).all() and np.mean(vals[-4:]) < np.mean(vals[:4])):
+        raise AssertionError(f"train driver: losses {vals} are not finite or did not fall")
+    for counts, n in ((c1, 8), (c2, 4)):
+        want = {"attention_block": 14 * n, "mlp_block": 14 * n, "propagation": n,
+                "sinkhorn": n}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"train driver: launches {counts}, expected {want}")
+
+    # the resumed epoch's steady steps under the profiler: from the start of
+    # its second step to the start of its last
+    events = prof.profiler.kineto_results.events()
+    marks = sorted(e.start_ns() for e in events if e.name() == "chip_smoke.driver_step"
+                   and e.device_type() == DeviceType.CPU)
+    idle = device_time(events, marks[1], marks[-1], len(marks) - 2,
+                       "train driver B=32 (loader + copy + augmentation + step)")["idle"]
+
+    r32 = driver_rates(t32, 32, per_epoch=4)
+    with tempfile.TemporaryDirectory() as log_dir:
+        with step_times() as t128:
+            big, _ = counted(("train", "driver"),
+                             lambda: run_training(driver_config(
+                                 dev, log_dir, 128, num_epochs=1,
+                                 max_steps_per_epoch=DRIVER_STEPS_128)), totals)
+        peak128 = torch.cuda.max_memory_allocated() / 2 ** 30
+    r128 = driver_rates(t128, 128, per_epoch=DRIVER_STEPS_128)
+    if big["global_step"] != DRIVER_STEPS_128:
+        raise AssertionError(f"train driver B=128: {big['global_step']} steps")
+
+    def rates(r, B):
+        return (f"B={B} {r['window']:.1f} clips/s over the window ({r['steps']} steps "
+                f"in {r['window_ms']:.3f} ms), {r['in_epoch']:.1f} clips/s over its "
+                f"{r['in_epoch_steps']} steps inside an epoch; median "
+                f"{r['median']:.3f} ms a step = {B / r['median'] * 1e3:.1f} clips/s "
+                f"(steps {r['gaps']})")
+
+    print(f"train driver wall, host clock entry to entry (warm-up step excluded; "
+          f"every step waits for the previous one's loss): {rates(r32, 32)}; "
+          f"{rates(r128, 128)}; checkpoint saves {[round(v, 1) for v in t32.saves]} ms "
+          f"at B=32 (the second is the epoch-top save inside the window); of a step, "
+          f"inside the full step {r32['inside']:.3f} / {r128['inside']:.3f} ms (draw "
+          f"+ augmentation + step launches), between steps {r32['between']:.3f} / "
+          f"{r128['between']:.3f} ms (previous loss read back, loader, pinned copy "
+          f"queued); peak memory {peak:.3f} GiB at B=32, {peak128:.3f} GiB at B=128; "
+          f"device idle {100 * idle:.2f} % at B=32", flush=True)
+    loader_ms = {B: loader_alone(dev, B) for B in (32, 128)}
+    print(f"train loader alone (ClipLoader over the synthetic dataset, 4 workers, "
+          f"batches pinned and copied to the card, 6 batches after one): B=32 "
+          f"{loader_ms[32]:.3f} ms a batch, B=128 {loader_ms[128]:.3f} ms", flush=True)
+    if not np.isfinite(big["final_loss"]):
+        raise AssertionError("train driver B=128: the loss is not finite")
+
+    aug = {B: augment_launches(dev, B) for B in (32, 128)}
+    print(f"train augment (apply_augment alone, 4 frames 256 -> 224): B=32 "
+          f"{aug[32]['launches']:.0f} kernel launches, device busy "
+          f"{aug[32]['busy_ms']:.4f} ms, {aug[32]['wall_ms']:.4f} ms a call unqueued "
+          f"(CUDA events, the host's enqueueing included); B=128 "
+          f"{aug[128]['launches']:.0f} launches, {aug[128]['busy_ms']:.4f} ms busy, "
+          f"{aug[128]['wall_ms']:.4f} ms unqueued; the draw and its pinned upload "
+          f"on the host {aug[32]['draw_ms']:.3f} / {aug[128]['draw_ms']:.3f} ms",
+          flush=True)
+    if aug[32]["launches"] != aug[128]["launches"]:
+        raise AssertionError("train augment: its launch count grows with the batch")
+
+    # the bare step on pre-augmented clips in the same call
+    bare = {}
+    for B in (32, 128):
+        model, cfg, mask, state, step = build_train(dev, torch.bfloat16)
+        clip = synthetic_train_clips(B, dev, seed=B)
+        step(state, clip)
+        bare[B] = cuda_ms(lambda: step(state, clip), warmup=1, reps=4, queued=False)
+        del model, state, step, clip
+    print(f"train bare step (pre-augmented clips on the card, CUDA events, same "
+          f"call): B=32 {bare[32]:.3f} ms = {32 / bare[32] * 1e3:.1f} clips/s; B=128 "
+          f"{bare[128]:.3f} ms = {128 / bare[128] * 1e3:.1f} clips/s; the driver "
+          f"adds {32e3 / r32['in_epoch'] - bare[32]:.3f} / "
+          f"{128e3 / r128['in_epoch'] - bare[128]:.3f} ms a step inside an epoch (the "
+          f"augmentation alone, unqueued: {aug[32]['wall_ms']:.3f} / "
+          f"{aug[128]['wall_ms']:.3f}; the loader and copy alone: "
+          f"{loader_ms[32]:.3f} / {loader_ms[128]:.3f}; the draw: "
+          f"{aug[32]['draw_ms']:.3f} / {aug[128]['draw_ms']:.3f})", flush=True)
+
+
+def run_augment_card_vs_host(dev) -> None:
+    """Phase 11: the same drawn values through ``apply_augment`` on the card
+    and on the host (8 clips, 4 frames, 256 -> 224, native 480 x 854), TF32
+    off: the products sum in another order; bound 1e-4 on the normalised
+    output."""
+    from timetuning_tpu_torch.data import transforms as tf
+
+    cfg = tf.AugmentConfig()
+    bank, gray = synthetic_clip_bank(DRIVER_BANK, 4, 256, seed=6)
+    frames = torch.from_numpy(bank)
+    sizes = torch.tensor([DRIVER_NATIVE] * DRIVER_BANK)
+    gmeans = torch.from_numpy(gray)
+    params = tf.draw_augment_params(torch.Generator().manual_seed(3), DRIVER_BANK, 4, cfg)
+    want, _ = tf.apply_augment(frames, params, cfg, sizes, gmeans)
+    got, _ = tf.apply_augment(frames.to(dev), params, cfg, sizes.to(dev), gmeans.to(dev))
+    err = (got.cpu() - want).abs().max().item()
+    ops = params.column("op")[params.column("jitter") > 0].long().tolist()
+    print(f"train augment, card vs host, {DRIVER_BANK} clips (jitter ops {ops}, "
+          f"blur {params.column('blur').long().tolist()}): max_abs_err {err:.3e} "
+          f"(bound 1e-4)", flush=True)
+    if not (got.is_cuda and err <= 1e-4):
+        raise AssertionError("the augmentation on the card disagrees with the host's")
+
+
+def synthetic_pascal_batches(n_batches: int = 2, n: int = EVAL_BATCH, size: int = S,
+                             mask_size: int = 112, seed: int = 7):
+    """Pascal-VOC-like batches as ``data/pascal.pascal_loader`` yields them
+    for the in-training eval: uint8 images [n, 224, 224, 3] of up to two
+    coloured boxes of a class colour on a gradient with noise, masks
+    [n, 112, 112] with the boxes' classes (1-20), background 0 and a 255
+    border."""
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(0, 256, (21, 3))
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    out = []
+    for _ in range(n_batches):
+        imgs = np.empty((n, size, size, 3), np.uint8)
+        masks = np.zeros((n, mask_size, mask_size), np.uint8)
+        for i in range(n):
+            a, b = rng.uniform(30, 120, (2, 3))
+            img = a * yy[..., None] + b * xx[..., None] + rng.normal(0, 8, (size, size, 3))
+            for _box in range(int(rng.integers(1, 3))):
+                cls = int(rng.integers(1, 21))
+                y, x = (int(v) for v in rng.integers(0, size - 80, 2))
+                h, w = (int(v) for v in rng.integers(48, 80, 2))
+                img[y:y + h, x:x + w] = colors[cls] + rng.normal(0, 8, (h, w, 3))
+                r = mask_size / size
+                masks[i, int(y * r):int((y + h) * r), int(x * r):int((x + w) * r)] = cls
+            imgs[i] = np.clip(img, 0, 255).astype(np.uint8)
+        masks[:, :2] = masks[:, -2:] = 255
+        out.append((imgs, masks))
+    return out
+
+
+def check_eval_features(dev, model, feature_fn, images) -> None:
+    """The in-training eval's feature function on one batch (K4 at 224 ->
+    224, then K1 and K2 in each of the 12 blocks) against the plain
+    preprocess and the plain blocks on the same model and images, both on
+    the card; the plain forward must launch no kernel. Bound: per-token
+    cosine >= 0.999 (bf16 rounding accumulated over 12 blocks, as
+    ``check_vit``)."""
+    from timetuning_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from timetuning_tpu_torch.ops import kernel_lib
+    from timetuning_tpu_torch.ops import preprocess_cuda as pc
+
+    x = torch.from_numpy(images).to(dev)
+    got = feature_fn(x)[0].float()
+    torch.cuda.synchronize()
+    kernel_lib.reset_launch_counts()
+    with torch.no_grad():
+        plain = pc.eval_preprocess_plain(x, S, IMAGENET_MEAN, IMAGENET_STD)
+        want = model(plain, use_head=False, attn_impl="xla")[0].float()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernel_lib.launch_counts().items() if v}
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    print(f"eval driver features ({images.shape[0]} images {list(images.shape[1:])} "
+          f"u8, feature function against plain preprocess + plain blocks): "
+          f"{list(got.shape)}, min per-token cosine {cos.min().item():.6f} "
+          f"(bound >= 0.999), max_abs_err {(got - want).abs().max().item():.3e}",
+          flush=True)
+    if launched:
+        raise AssertionError(f"eval driver: the plain forward launched {launched}")
+    if not torch.isfinite(got).all() or cos.min().item() < 0.999:
+        raise AssertionError("eval driver: the feature function disagrees with "
+                             "the plain preprocess and blocks")
+
+
+def run_eval_driver(dev, totals: dict) -> None:
+    """Phase 12: the in-training Pascal eval as ``core/train.run_training``
+    runs it (``make_eval_feature_fn`` + ``Evaluator``) at dino-s16 224, bf16,
+    eval resolution 112, 21 clusters, on 120 synthetic images in batches of
+    60: the dataset-wise protocol in memory and streaming."""
+    from timetuning_tpu_torch.core.train import build_model, make_eval_feature_fn
+    from timetuning_tpu_torch.eval.evaluator import Evaluator
+    from timetuning_tpu_torch.ops import kmeans as km
+
+    cfg = driver_config(dev, "unused", 32)
+    model, _, res = build_model(cfg, dev)
+    feature_fn = make_eval_feature_fn(model, cfg.input_resolution)
+    batches = synthetic_pascal_batches()
+    kmeans_ms = []
+    fit = km.kmeans
+
+    def timed_kmeans(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(*a, **kw)
+        torch.cuda.synchronize()
+        kmeans_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    km.kmeans = timed_kmeans
+    try:
+        # warm-up: the forward, and the native matcher's one-time build
+        # (a fresh checkout has none) outside the timed passes
+        from timetuning_tpu_torch import native
+
+        t0 = time.perf_counter()
+        native.hungarian(np.eye(3))
+        print(f"eval driver: native matcher ready in {time.perf_counter() - t0:.2f} s "
+              f"(built on first use where the checkout has no build)", flush=True)
+        feature_fn(batches[0][0][:2])
+        check_eval_features(dev, model, feature_fn, batches[0][0])
+        for streaming in (False, True):
+            ev = Evaluator(lambda: iter(batches), feature_fn, res, num_classes=21,
+                           involve_bg=True, ignore_index=255)
+            kmeans_ms.clear()
+            t0 = time.perf_counter()
+            score, counts = counted(("eval", "pascal"), lambda: ev.evaluate(
+                evaluation_protocol="dataset-wise", eval_resolution=112,
+                num_clusters=21, streaming=streaming), totals)
+            ms = (time.perf_counter() - t0) * 1e3
+            print(f"eval driver ({'streaming' if streaming else 'in memory'}, "
+                  f"dataset-wise, 120 images, k=21 at 112): mIoU {score:.6f} | "
+                  f"{ms:.1f} ms, of it k-means {sum(kmeans_ms):.1f} ms "
+                  f"({len(kmeans_ms)} fit) | launches {counts}", flush=True)
+            if not (np.isfinite(score) and 0.0 <= score <= 1.0):
+                raise AssertionError(f"eval driver: mIoU {score} is not in [0, 1]")
+            passes = 2 if streaming else 1
+            want = {"preprocess": 2 * passes, "attention_block": 24 * passes,
+                    "mlp_block": 24 * passes}
+            if {k: counts[k] for k in want} != want:
+                raise AssertionError(f"eval driver: launches {counts}, expected {want}")
+    finally:
+        km.kmeans = fit
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1346,6 +1921,9 @@ def main() -> int:
     run_linear_probe(dev, totals)
     run_train(dev, totals)
     run_train_f32_against_host(dev, totals)
+    run_train_driver(dev, totals)
+    run_augment_card_vs_host(dev)
+    run_eval_driver(dev, totals)
 
     missing = [k for k in kernel_lib.KERNELS if totals.get(k, 0) <= 0]
     if missing:

@@ -2,6 +2,8 @@
 original in the JAX package on the same inputs: the metrics, the native
 bindings, the clip loader and datasets, the Pascal loader, the exporter."""
 
+import os
+
 import cv2
 import jax
 import jax.numpy as jnp
@@ -144,3 +146,73 @@ def test_exporter_keys_and_arrays_match():
             "prototypes": np.ones((2, 4), np.float32)}
     fa, fb = jexport.timet_state_dict(full), texport.timet_state_dict(full)
     assert list(fa) == list(fb) and texport.exportable(full) == jexport.exportable(full)
+
+
+def test_metrics_writer_config_and_logger_match(tmp_path):
+    from timetuning_tpu.obs import logging as jlog
+    from timetuning_tpu_torch.obs import logging as tlog
+
+    outs = []
+    for name, mod in (("j", jlog), ("t", tlog)):
+        d = tmp_path / name
+        w = mod.MetricsWriter(str(d), use_tensorboard=False)
+        w.scalar("Loss/train", 0.5, 1)
+        w.scalar("Loss/train", float("nan"), 2)
+        w.histogram("h", np.arange(3), 3)
+        w.close()
+        mod.dump_config({"b": 2, "a": (1, 2)}, str(d))
+        log = mod.make_file_logger(f"copy_{name}", str(d))
+        log.info("x")
+        outs.append([open(d / f).read() for f in ("metrics.jsonl", "config.txt")])
+        assert os.path.exists(d / f"copy_{name}.log")
+    assert outs[0] == outs[1]
+
+
+def test_viz_matches(tmp_path):
+    from timetuning_tpu.obs import viz as jviz
+    from timetuning_tpu_torch.obs import viz as tviz
+
+    np.testing.assert_array_equal(jviz.davis_palette(), tviz.davis_palette())
+    seg = np.random.default_rng(0).integers(0, 300, (6, 5))
+    img = np.random.default_rng(1).uniform(0, 1, (6, 5, 3)).astype(np.float32)
+    np.testing.assert_array_equal(jviz.colorize_segmentation(seg), tviz.colorize_segmentation(seg))
+    np.testing.assert_array_equal(jviz.overlay_segmentation(img, seg), tviz.overlay_segmentation(img, seg))
+    np.testing.assert_array_equal(jviz.generate_colors(4), tviz.generate_colors(4))
+    np.testing.assert_array_equal(jviz.denormalize(img, (0.4,) * 3, (0.2,) * 3),
+                                  tviz.denormalize(img, (0.4,) * 3, (0.2,) * 3))
+    frames = np.asarray(jviz.clip_overlay_frames(img[None], seg[None] % 3, (0.4,) * 3, (0.2,) * 3))
+    np.testing.assert_array_equal(
+        frames, np.asarray(tviz.clip_overlay_frames(img[None], seg[None] % 3, (0.4,) * 3, (0.2,) * 3)))
+    for mod, name in ((jviz, "j.gif"), (tviz, "t.gif")):
+        mod.write_gif([tviz.colorize_segmentation(seg % 4)] * 2, str(tmp_path / name))
+    assert open(tmp_path / "j.gif", "rb").read() == open(tmp_path / "t.gif", "rb").read()
+
+
+def test_import_torch_matches(tmp_path):
+    import torch
+
+    from timetuning_tpu.models import import_torch as jimp
+    from timetuning_tpu_torch.models import import_torch as timp
+
+    cfg = JViTConfig(patch_size=8, embed_dim=32, depth=2, num_heads=2, img_size=32)
+    params = JVisionTransformer(cfg).init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))["params"]
+    head = {f"lin{i}": {"kernel": np.full((32 if i == 0 else 4, 4), i, np.float32),
+                        "bias": np.zeros(4, np.float32)} for i in range(2)}
+    full = {"feature_extractor": {"backbone": params, "head": head},
+            "prototypes": np.ones((3, 4), np.float32)}
+    path = str(tmp_path / "t.pth")
+    torch.save({"state_dict": {k: torch.from_numpy(np.array(v)) for k, v in
+                               jexport.timet_state_dict(full).items()}}, path)
+    a, b = jimp.load_torch_state_dict(path), timp.load_torch_state_dict(path)
+    assert list(a) == list(b)
+    ta, tb = jimp.timet_params_from_torch(a), timp.timet_params_from_torch(b)
+    la = jax.tree_util.tree_leaves_with_path(ta)
+    lb = jax.tree_util.tree_leaves_with_path(tb)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (_, x), (_, y) in zip(la, lb):
+        np.testing.assert_array_equal(x, y)
+    assert (jimp.head_dims_from_params(ta["feature_extractor"]["head"])
+            == timp.head_dims_from_params(tb["feature_extractor"]["head"]) == (4, 4))
+    sd = {"module.backbone.blocks.0.norm1.weight": np.ones(2)}
+    assert list(jimp.strip_prefixes(sd)) == list(timp.strip_prefixes(sd))

@@ -74,6 +74,20 @@ def test_mlp_block_kernel_matches_plain(dev, S):
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("B", [60, 128, 512])
+def test_blocks_at_the_driver_shapes(dev, B):
+    """Both branches at 197 tokens on the in-training eval's 60 frames and
+    the driver step's 128 (32 clips) and 512 (128 clips); bound: bf16
+    rounding at O(1) values."""
+    x, attn, mlp = _block_inputs(dev, B, 197, seed=2)
+    got = fb.attention_block_branch(x, *attn, num_heads=6)
+    want = fb.attention_block_xla(x, *attn, num_heads=6)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    got = fb.mlp_block_branch(x, *mlp)
+    want = fb.mlp_block_xla(x, *mlp)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
 @pytest.mark.parametrize("D,hidden", [(384, 1536), (768, 3072)])
 @pytest.mark.parametrize("B,S", [(3, 1), (3, 50), (3, 197), (2, 1024),      # K2's
                                  (1, 63), (1, 64), (1, 65), (1, 127), (1, 129),
@@ -655,6 +669,7 @@ def test_row_kernels_match_plain(dev, S):
     (61, 103, 48, 2),         # rows of 309 bytes: no multiple of 16
     (33, 77, 17, 5),          # output rows of 51 values: no multiple of 8
     (90, 1400, 40, 2),        # 35 W taps: the kernel's generic form
+    (224, 224, 224, 60),      # the in-training eval's Pascal batch: scale 1
 ])
 def test_preprocess_kernel_matches_plain(dev, h, w, s, n):
     frames = torch.from_numpy(np.random.default_rng(h).integers(
@@ -724,3 +739,60 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="bf16 or all f32"):
         fa.flash_attention(*(t.half() for t in _qkv(dev, torch.float32, 4, 4)))
+
+
+def test_apply_augment_card_against_host(dev):
+    """The training augmentation on the card against the same function on
+    the host, on the same drawn values (32 clips of 4 frames, a 256 buffer to
+    224, native 480 x 854): matrix products and blend in f32 without TF32.
+    Bound 3e-4 on the normalised output: the card's exp and sqrt may place
+    a crop box one ulp (1.5e-5 px at 200 px) from the host's, which on
+    noise frames (slope up to 1 a pixel) moves a value by 1.5e-5, times the
+    jitter factor (up to 1.8) and 1 / std (4.4): 1.2e-4; the products'
+    order adds a few ulps."""
+    from timetuning_tpu_torch.data import transforms as tf
+
+    cfg = tf.AugmentConfig()
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.integers(0, 256, (32, 4, 256, 256, 3), dtype=np.uint8))
+    sizes = torch.tensor([[480, 854]] * 32)
+    gmeans = torch.from_numpy(rng.uniform(40, 200, (32, 4)).astype(np.float32))
+    params = tf.draw_augment_params(torch.Generator().manual_seed(1), 32, 4, cfg)
+    want, _ = tf.apply_augment(frames, params, cfg, sizes, gmeans)
+    got, _ = tf.apply_augment(frames.to(dev), params, cfg, sizes.to(dev), gmeans.to(dev))
+    assert got.is_cuda and got.shape == (32, 4, 224, 224, 3)
+    assert (got.cpu() - want).abs().max().item() <= 3e-4
+
+
+def test_device_prefetch_keeps_order_and_values(dev):
+    """Batches copied on a side stream arrive in order and whole, also while
+    the consumer's stream is busy."""
+    from timetuning_tpu_torch.data.loader import device_prefetch, host_batch_to_device
+
+    host = [np.full((64, 1024), i, np.float32) for i in range(8)]
+    side = torch.cuda.Stream(dev)
+    seen = []
+    for i, x in enumerate(device_prefetch(host, lambda a: host_batch_to_device(a, dev),
+                                          depth=3, stream=side)):
+        torch.cuda._sleep(200_000)                 # the consumer is busy
+        seen.append(float((x * 1.0).mean()))
+        assert x.is_cuda
+    assert seen == [float(i) for i in range(8)]
+
+
+def test_kmeans_on_the_card(dev):
+    """k-means and PCA on the card against the host on the same draws:
+    well separated blobs, so the same assignments."""
+    from timetuning_tpu_torch.ops import kmeans as km
+
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(-6, 6, (5, 16))
+    x = torch.from_numpy((centers[rng.integers(0, 5, 20000)]
+                          + 0.3 * rng.standard_normal((20000, 16))).astype(np.float32))
+    draws = km.kmeans_draws(torch.Generator().manual_seed(0), x.shape[0], 5, 3)
+    want = km.kmeans(x, 5, draws=draws, n_iter=20, n_redo=3)
+    got = km.kmeans(x.to(dev), 5, draws=draws, n_iter=20, n_redo=3)
+    assert torch.equal(got.assignments.cpu(), want.assignments)
+    assert torch.allclose(got.centroids.cpu(), want.centroids, rtol=1e-4, atol=1e-4)
+    red = km.normalize_and_reduce(x.to(dev), 8)
+    assert red.shape == (20000, 8) and torch.isfinite(red).all()

@@ -162,8 +162,6 @@ def test_str2bool_copy_matches_original():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--metric", "miou"], "Clustering eval"),
-    (["--metric", "propagation"], "Clustering eval"),
     (["--use_optical_flow", "true"], "Remaining propagate CLI options"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(davis_tree, weights,
@@ -172,3 +170,51 @@ def test_unported_options_raise_naming_their_roadmap_item(davis_tree, weights,
     argv = [a for a in argv if a not in ("--metric", "jf")] + flags
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv)
+
+
+@pytest.mark.parametrize("metric,extra", [
+    ("miou", []),
+    ("miou", ["--evaluation_protocol", "sample-wise", "--many_to_one", "true"]),
+    ("propagation", []),
+])
+def test_miou_and_propagation_metrics_match_jax_cli(davis_tree, weights, capsys,
+                                                    metric, extra):
+    """``--metric miou`` (PredsmIoU(num_clusters, 10, involve_bg=False) under
+    the protocol) and ``--metric propagation`` (per-object J) on the same
+    propagated masks as the JAX CLI: equal to 1e-6."""
+    argv = [a for a in _argv(davis_tree, weights) if a not in ("--metric", "jf")]
+    argv += ["--metric", metric] + extra
+    assert jcli.main(argv) == 0
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    assert tcli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+    label = "propagation J: " if metric == "propagation" else "mIoU: "
+    assert got.startswith(label) and want.startswith(label), (got, want)
+    g, w = float(got[len(label):]), float(want[len(label):])
+    assert 0.0 < w <= 1.0 and abs(g - w) <= 1e-6, (g, w)
+
+
+@pytest.mark.parametrize("protocol", ["dataset-wise", "frame-wise"])
+def test_evaluate_cli_matches_jax_cli(davis_tree, weights, capsys, monkeypatch, protocol):
+    """``cli/evaluate`` against the JAX CLI on the same weights and tree: the
+    same score to 1e-6, k-means drawing JAX's values (mirrored keys: one fit
+    dataset-wise; frame-wise a fit a frame, per batch of 2 clips x 2 frames)."""
+    from test_torch_kmeans import mirror_keys
+    from timetuning_tpu.cli import evaluate as jev_cli
+    from timetuning_tpu_torch.cli import evaluate as tev_cli
+
+    argv = ["--architecture", "vit-tiny-test", "--model_path", weights,
+            "--dataset", "davis_val", "--data_root", davis_tree, "--batch_size", "2",
+            "--num_frames", "2", "--input_resolution", "32", "--eval_resolution", "16",
+            "--num_clusters", "2", "--evaluation_protocol", protocol,
+            "--num_workers", "2"]
+    assert jev_cli.main(argv) == 0
+    want = float(capsys.readouterr().out.split("score: ")[1].split()[0])
+    k1 = jax.random.PRNGKey(1)
+    mirror_keys(monkeypatch, [k1] if protocol == "dataset-wise" else list(jax.random.split(k1, 4)))
+    assert tev_cli.main(argv + ["--device", "cpu"]) == 0
+    got = float(capsys.readouterr().out.split("score: ")[1].split()[0])
+    assert 0.3 < want <= 1.0 and abs(got - want) <= 1e-6, (got, want)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device found"):
+        tev_cli.main(argv)

@@ -19,9 +19,10 @@ torch.set_num_threads(2)
 
 # (h, w, s, frames): the eval's two outputs, small shapes, odd widths whose
 # rows are no multiple of 16 bytes, an output size whose rows are no
-# multiple of 8 values
+# multiple of 8 values, the in-training eval's Pascal batch at scale 1
 SHAPES = [(480, 854, 224, 50), (480, 854, 448, 50), (64, 64, 48, 3),
-          (60, 107, 28, 3), (61, 103, 48, 2), (33, 77, 17, 2), (480, 854, 224, 1)]
+          (60, 107, 28, 3), (61, 103, 48, 2), (33, 77, 17, 2), (480, 854, 224, 1),
+          (224, 224, 224, 60)]
 
 
 @pytest.mark.parametrize("h,w,s,frames", SHAPES)
@@ -125,7 +126,8 @@ def _replay_kernel(frames: np.ndarray, s: int, plan) -> tuple[np.ndarray, np.nda
     return out.reshape(F, s, s, 3), writes
 
 
-@pytest.mark.parametrize("h,w,s", [(60, 107, 28), (64, 64, 48), (33, 77, 17), (40, 90, 32)])
+@pytest.mark.parametrize("h,w,s", [(60, 107, 28), (64, 64, 48), (33, 77, 17), (40, 90, 32),
+                                   (40, 40, 40)])
 def test_kernel_schedule_writes_each_value_once_and_matches_plain(h, w, s):
     frames = np.random.default_rng(h * w).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
     plan = pc.band_plan(h, w, s, 2)

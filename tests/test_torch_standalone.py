@@ -135,3 +135,37 @@ def test_no_source_file_of_the_port_names_the_jax_package_in_code():
                 assert mod.split(".")[0] not in ("timetuning_tpu", "jax", "flax", "optax"), (
                     f"{path}: imports {mod}")
     assert not os.path.exists(os.path.join(ROOT, "timetuning_tpu_torch", "_host.py"))
+
+
+def test_train_and_evaluate_clis_run_without_the_jax_package(trees, tmp_path):
+    """``cli/train`` (2 steps: 2 videos, batch 2, 2 epochs; the Pascal eval
+    at epoch 0 with the best model exported) and ``cli/evaluate`` in a fresh
+    interpreter. The metrics writer's TensorBoard mirror goes through torch's
+    SummaryWriter, which imports TensorFlow where it is installed, and
+    TensorFlow imports jax: TensorFlow is kept out, so what is checked is the
+    port's own imports."""
+    davis, voc = trees
+    out = _run(f"""
+import sys
+sys.modules['tensorflow'] = None
+from timetuning_tpu_torch.cli import evaluate, train
+assert train.main(['--device', 'cpu', '--architecture', 'vit-tiny-test',
+                   '--dataset', 'davis', '--data_root', {davis!r},
+                   '--pascal_root', {voc!r}, '--eval_num_clusters', '2',
+                   '--log_dir', {str(tmp_path)!r}, '--batch_size', '2',
+                   '--num_epochs', '2', '--num_frames', '3', '--num_workers', '2',
+                   '--num_clusters', '8', '--input_resolution', '32',
+                   '--n_last_frames', '2', '--size_mask_neighborhood', '1',
+                   '--compute_dtype', 'float32', '--unfreeze_layers', 'blocks.1',
+                   '--seed', '3']) == 0
+assert evaluate.main(['--device', 'cpu', '--architecture', 'vit-tiny-test',
+                      '--dataset', 'davis_val', '--data_root', {davis!r},
+                      '--batch_size', '2', '--num_frames', '2',
+                      '--input_resolution', '32', '--eval_resolution', '16',
+                      '--num_clusters', '2', '--evaluation_protocol', 'dataset-wise',
+                      '--num_workers', '2']) == 0
+""")
+    assert "done: run_dir=" in out and "score: " in out
+    best = float(out.split("best=")[1].split()[0])
+    assert 0.0 <= best <= 1.0
+    assert 0.0 <= float(out.split("score: ")[1].split()[0]) <= 1.0

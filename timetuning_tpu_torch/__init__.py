@@ -7,6 +7,8 @@ paths ported so far has a hand-written CUDA kernel for Hopper (``sm_90a``)
 under ``csrc/``, built at first use (ops/kernel_lib) and launched only for
 CUDA tensors; CPU tensors take each kernel's plain PyTorch version.
 
-Ported so far: the DAVIS mask-propagation eval (``cli/propagate``) and the
-dense ViT forward it runs on.
+Ported so far: the training driver (``cli/train``), the clustering eval
+(``cli/evaluate``), the DAVIS mask-propagation eval (``cli/propagate``), the
+Pascal VOC linear probe (``cli/linear_probe``), and the ViT forward, the
+TimeT train step, the augmentation and the loaders under them.
 """

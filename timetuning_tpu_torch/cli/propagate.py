@@ -16,7 +16,8 @@ bf16, the flash kernel in f32), each in either compute dtype.
 
 The per-group compute (preprocess -> ViT -> propagate -> upsample -> argmax)
 is ``propagate_clip_group``, which takes in-memory uint8 clips;
-``evaluate_clips`` adds the grouping and the J&F scoring, and
+``evaluate_clips`` adds the grouping and the scoring (J&F, mIoU under a
+clustering protocol, propagation J), and
 ``run_propagation`` feeds it from the dataset loader.
 """
 
@@ -28,23 +29,13 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from timetuning_tpu_torch.cli.train import str2bool
 from timetuning_tpu_torch.data.transforms import eval_preprocess_batch
 from timetuning_tpu_torch.eval.vos import evaluate_sequence, j_and_f
 from timetuning_tpu_torch.models.registry import Backbone, get_backbone
 from timetuning_tpu_torch.ops.propagation import propagate_labels_batch
 from timetuning_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from timetuning_tpu_torch.ops.util import pad_to_multiple
-
-
-def str2bool(v: str) -> bool:
-    """Copied from timetuning_tpu/cli/train.py:17-25 (that module imports
-    jax): garbage is rejected rather than read as False."""
-    s = str(v).lower()
-    if s in ("1", "true", "yes", "y", "t"):
-        return True
-    if s in ("0", "false", "no", "n", "f"):
-        return False
-    raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -116,20 +107,25 @@ def propagate_clip_group(bb: Backbone, frames: torch.Tensor,
 
 def evaluate_clips(args, bb: Backbone,
                    clips: Iterable[tuple[np.ndarray, np.ndarray]],
-                   device: torch.device | str) -> dict:
+                   device: torch.device | str, metrics: tuple = ("jf",)) -> dict:
     """Propagate the first-frame masks through ``clips`` ((frames [T, H, W, 3]
     uint8, annotations [T, h, w]) pairs) in groups of ``--clip_batch`` and
-    score J&F. Returns ``{"jf": {"J", "F", "J&F"}}``."""
+    score the requested metrics: ``{"jf": {"J", "F", "J&F"}, "miou": float,
+    "propagation": float}``."""
     S = args.input_resolution
     res = bb.spatial_resolution(S)
     CB = max(1, int(args.clip_batch))
     sequences: list[dict] = []
+    all_gt, all_pred = [], []
     group: list = []                                  # [(frames, ann, K)]
 
     def score_clip(ann: np.ndarray, preds: np.ndarray) -> None:
         # the official DAVIS semi-supervised protocol scores masks[1:-1]:
         # the GT-given first frame and the last frame are excluded; object
-        # ids come from the full ground truth
+        # ids come from the full ground truth. mIoU and propagation J keep
+        # every predicted frame, as the reference's evaluate_localizations
+        all_gt.append(ann[1:])
+        all_pred.append(preds)
         obj_ids = [int(i) for i in np.unique(ann) if i != 0]
         sequences.append(
             evaluate_sequence(preds[:-1], ann[1:-1], obj_ids=obj_ids))
@@ -164,33 +160,44 @@ def evaluate_clips(args, bb: Backbone,
         if len(group) == CB:
             flush_group()
     flush_group()
-    return {"jf": j_and_f(sequences)}
+    out = {}
+    if "jf" in metrics:
+        out["jf"] = j_and_f(sequences)
+    if "miou" in metrics or "propagation" in metrics:
+        from timetuning_tpu_torch.eval.evaluator import (
+            evaluate_localizations,
+            evaluate_propagation,
+        )
+        from timetuning_tpu_torch.eval.metrics import PredsmIoU
+
+        gts, preds = np.stack(all_gt), np.stack(all_pred)
+        if "miou" in metrics:
+            # the reference's scoring (mask_propagation.py:754, 841):
+            # PredsmIoU(num_clusters, 10, involve_bg=False) under the protocol
+            out["miou"] = evaluate_localizations(
+                PredsmIoU(args.num_clusters, 10, involve_bg=False), gts, preds,
+                args.evaluation_protocol, many_to_one=bool(args.many_to_one))
+        if "propagation" in metrics:
+            out["propagation"] = evaluate_propagation(
+                PredsmIoU(256, 256, involve_bg=True), gts, preds)
+    return out
 
 
 def default_device(args) -> torch.device:
     """``--device`` when given; else the card, and an error where there is
     none: the CLIs never take the CPU without being asked to."""
-    if args.device:
-        return torch.device(args.device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device found (torch.cuda.is_available() is false) and no "
-            "--device given; pass --device cpu to run on the host")
-    return torch.device("cuda")
+    from timetuning_tpu_torch.runtime import resolve_device
+
+    return resolve_device(args.device)
 
 
 def run_propagation(args, metrics: tuple = ("jf",)) -> dict:
     """Propagate GT first-frame masks through every clip of the dataset and
-    score J&F. Only ``metrics=("jf",)`` is ported so far."""
+    score the requested metrics (``jf``, ``miou``, ``propagation``)."""
     if args.use_optical_flow:
         raise NotImplementedError(
             "--use_optical_flow is not ported yet (ROADMAP.md queue 1, "
             "'Remaining propagate CLI options')")
-    other = [m for m in metrics if m != "jf"]
-    if other:
-        raise NotImplementedError(
-            f"metric(s) {other} need eval/evaluator.py, not ported yet "
-            "(ROADMAP.md queue 1, 'Clustering eval')")
     from timetuning_tpu_torch.data.loader import make_loader, sampling_mode
 
     device = default_device(args)
@@ -202,7 +209,7 @@ def run_propagation(args, metrics: tuple = ("jf",)) -> dict:
         num_workers=args.num_workers, root=args.data_root, drop_last=False,
     )
     clips = ((frames[0], annots[0]) for frames, annots, _ in loader)
-    return evaluate_clips(args, bb, clips, device)
+    return evaluate_clips(args, bb, clips, device, metrics)
 
 
 def main(argv=None) -> int:
@@ -211,7 +218,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = run_propagation(args, metrics=(args.metric,))
-    print(f"J&F: {results['jf']}")
+    if args.metric == "jf":
+        print(f"J&F: {results['jf']}")
+    elif args.metric == "propagation":
+        print(f"propagation J: {results['propagation']}")
+    else:
+        print("mIoU:", results["miou"])
     return 0
 
 

@@ -81,6 +81,7 @@ class SwavOptimizer:
                  use_cosine_lr: bool, opt_over_trainable: bool):
         groups, self.trainable_mask, decay = build_masks(named_params,
                                                          unfreeze_layers)
+        self.named_params = dict(named_params)
         self.lr = lr
         self.num_steps = num_steps
         self.use_cosine_lr = use_cosine_lr

@@ -1,6 +1,7 @@
 # The port's own copy of timetuning_tpu/data/loader.py (host code: numpy, no JAX), with its
-# imports of the package renamed and its two jax-facing helpers (device_prefetch,
-# host_batch_to_device) left out; tests/test_torch_host_copies.py pins it to the original.
+# imports of the package renamed; tests/test_torch_host_copies.py pins it to the original.
+# Its two device-facing helpers (device_prefetch, host_batch_to_device) are written for
+# torch and CUDA streams: pinned host buffers, copies on a side stream.
 """Batched, prefetching clip loader + the ``make_loader`` factory.
 
 Reference: ``make_loader`` (data_loader.py:1047-1110) — the central factory
@@ -360,6 +361,82 @@ class ClipLoader:
                     self._enqueued.add(k)
             for task in spec_todo:
                 self._tasks.put(task)
+
+
+def device_prefetch(iterable, transform, depth: int = 2, stream=None):
+    """Overlap the host-to-device copy with the device's work: keep
+    ``depth`` transformed items in flight ahead of the consumer.
+
+    ``transform(item)`` puts an item on the device (``host_batch_to_device``
+    and ``non_blocking`` copies from pinned memory return at once). With a
+    CUDA ``stream`` the transform runs on that side stream; before an item
+    is handed out, the consumer's current stream waits on an event recorded
+    after its copies, and each of its tensors is marked as used by the
+    consumer's stream, so the caching allocator does not hand its memory to
+    another copy while the consumer still reads it."""
+    import torch
+
+    it = iter(iterable)
+    from collections import deque
+
+    buf = deque()
+
+    def enqueue(k: int) -> None:
+        for _ in range(k):
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            if stream is None:
+                buf.append((transform(item), None))
+                continue
+            with torch.cuda.stream(stream):
+                out = transform(item)
+                done = torch.cuda.Event()
+                done.record(stream)
+            buf.append((out, done))
+
+    enqueue(depth)
+    while buf:
+        out, done = buf.popleft()
+        if done is not None:
+            consumer = torch.cuda.current_stream(stream.device)
+            consumer.wait_event(done)
+            for t in _tensors(out):
+                if t.is_cuda:
+                    t.record_stream(consumer)
+        enqueue(1)
+        yield out
+
+
+def _tensors(x):
+    import torch
+
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def host_batch_to_device(local_np, device):
+    """Put one host array on ``device``: pinned host memory, then an
+    asynchronous copy (``non_blocking``) that rides the copy engine while the
+    device computes. Single process: a run over several processes shards the
+    batch across them, which the port does not do yet (ROADMAP.md queue 1
+    item 11, 'Parallel axes')."""
+    import torch
+
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "host_batch_to_device: a batch sharded over processes is not ported "
+            "yet (ROADMAP.md queue 1 item 11, 'Parallel axes')")
+    t = torch.from_numpy(np.ascontiguousarray(local_np))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 _DATASET_FACTORIES = {}

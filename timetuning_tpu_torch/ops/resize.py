@@ -118,3 +118,21 @@ def resize_nearest(x, size: tuple[int, int]):
     ih = torch.from_numpy(_nearest_index(H, size[0])).to(x.device)
     iw = torch.from_numpy(_nearest_index(W, size[1])).to(x.device)
     return x.index_select(-2, ih).index_select(-1, iw)
+
+
+def patch_grid_to_image(feats, grid: tuple[int, int], size: tuple[int, int]):
+    """[..., N, D] patch features -> [..., h, w, D] bilinearly upsampled maps
+    (``timetuning_tpu/ops/resize.patch_grid_to_image``): two interpolation
+    products in f32 when both axes grow, the antialiased resize otherwise."""
+    *lead, N, D = feats.shape
+    gh, gw = grid
+    if gh * gw != N:
+        raise ValueError(f"patch_grid_to_image: grid {grid} does not hold {N} patches")
+    x = feats.reshape(*lead, gh, gw, D)
+    oh, ow = size
+    if oh < gh or ow < gw:
+        return resize_bilinear(x.movedim(-1, -3), size).movedim(-3, -1)
+    Wh = _mat(_bilinear_matrix(gh, oh), x)
+    Ww = _mat(_bilinear_matrix(gw, ow), x)
+    out = torch.einsum("...hwc,Hh,Ww->...HWc", x.float(), Wh, Ww)
+    return out.to(feats.dtype)
