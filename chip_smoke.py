@@ -34,7 +34,11 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    entries (Q, and the step's scores), against the matvec form and the
    materialising loop, and on a Q with two all-zero rows and a masked-out
    column; kernel 3 at the train step's 32 clips x 4 frames x 200 label
-   channels;
+   channels; the zoo's shapes: kernel 1 with twelve heads of 32 (MoCo-v3
+   ViT-S/16) at 8 x 197 and 8 x 785 tokens (its core's two passes), with six
+   heads of 64 at 8 x 785, kernels 1 and 2 at ViT-B's width (D 768, hidden
+   3,072) on 50 frames, kernel 10 in bf16 with heads of 32 at 197 and 785
+   tokens;
 4. 12 blocks of ViT-S/16 at 224 (4 frames) and of ViT-S/8 at 448 (1 frame,
    3,137 tokens) through the kernels against the plain bf16 forward on the
    host;
@@ -75,7 +79,18 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    at ViT-S/16 224, eval resolution 112, 21 clusters, on 120 synthetic
    images in batches of 60, dataset-wise in memory and streaming: mIoU,
    ms, k-means ms; before it, the feature function on one batch against
-   the plain preprocess and the plain blocks.
+   the plain preprocess and the plain blocks;
+13. the zoo: every name of ``models/registry`` at full width with seeded
+   weights on the eval feature path (8 uint8 480x854 frames -> the
+   preprocess -> the backbone at 224), in bf16 and f32: ms a frame and
+   launches; ViTs (STEGO and MAE too) bf16 against the f32 plain forward
+   (per-token cosine >= 0.999), CNNs f32 card against host;
+14. CBFE (``cli/cbfe.run_cbfe`` at its defaults: dino-s16 at 448, k = 300
+   at resolution 100, 21 eval clusters, f32) on a synthetic Pascal tree of
+   128 trainaug and 64 val images through the real loader: the five
+   numbers, each stage's ms, peak memory; before it the feature function
+   card against host and the boundary F card against host;
+15. ``cli/propagate --use_optical_flow`` on the two synthetic clips.
 
 Beside each kernel's time the script prints the least time the card could
 take for the same work (``bound_ms``: the larger of its bytes, each input
@@ -87,7 +102,7 @@ library times are device times: the timed launches are queued behind a
 device-side sleep, so a slow host does not show in them.
 
 Launch counts are set to 0 just before each main-path run (phases 5 to 10
-and 12)
+and 12 to 15)
 and read just after; each run must launch the kernels of its path, and the
 sums over all runs are the ``launches`` of the kernels line. The last lines
 are a JSON object of per-kernel results, the card's ``nvidia-smi`` name and
@@ -100,6 +115,7 @@ import contextlib
 import functools
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -111,6 +127,8 @@ CLIPS, FRAMES, H, W, S = 2, 25, 480, 854, 224
 S8 = 448                            # ViT-S/8 input: 56x56 patches, 3,137 tokens
 TRAIN_B, TRAIN_F = 32, 4            # the train step's clips and frames a clip
 EVAL_BATCH = 60                     # images a batch of the in-training Pascal eval
+EVAL_GROUP = CLIPS * FRAMES         # frames of one propagation eval group
+ZOO_FRAMES = 8                      # frames of the zoo's feature path a name
 S8_NORMAL_SEED = 33                 # K3's normal features at 3,136 patches
 
 # published dense peaks of one H100 SXM (NVIDIA's data sheet) at 700 W
@@ -630,6 +648,25 @@ def check_long_token_kernels(dev, results: dict) -> None:
                       "propagation/s8/ties", "ties")
 
 
+def check_block_kernel(report, name, key, kern, plain, x, wts, flops, lib) -> None:
+    """A block kernel (K1, K2, K7) on ``x`` and its weights against its plain
+    version, timed beside the library composition ``lib``; bound: bf16
+    rounding at O(1) values (the kernel adds the residual in f32, the plain
+    composition in bf16: one bf16 ulp apart)."""
+    got = kern(x, *wts)
+    want = plain(x, *wts)
+    torch.cuda.synchronize()
+    ok = torch.allclose(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    report(name, got, want, "atol=rtol=3e-2 (bf16 rounding at O(1))",
+           cuda_ms(lambda: kern(x, *wts)), cuda_ms(lambda: plain(x, *wts)),
+           extra=f"{list(x.shape)} ", key=key,
+           work=(io_bytes(x, *(a for a in wts if torch.is_tensor(a)), got),
+                 flops, "bf16"),
+           library_ms=cuda_ms(lib))
+    if not ok:
+        raise AssertionError(f"{key}: kernel disagrees with plain version")
+
+
 def check_kernels(dev, results: dict) -> None:
     from timetuning_tpu_torch.data.transforms import (
         IMAGENET_MEAN,
@@ -652,6 +689,7 @@ def check_kernels(dev, results: dict) -> None:
            t(0.1 * rng.standard_normal(D)))
 
     report = _reporter(results)
+    check_block = functools.partial(check_block_kernel, report)
 
     # K1, K2: one block's branch at B=50 frames x 197 tokens; bound: bf16
     # rounding at O(1) values (the kernel adds the residual in f32, the plain
@@ -659,20 +697,6 @@ def check_kernels(dev, results: dict) -> None:
     # step's 128 frames, K1 at a two-pass length of its core (8 x 577 tokens,
     # ViT-S/16 at 384); K7 at K1's own rows (9,850: 77 row blocks on the card's
     # SMs); K2's bf16 hidden against the plain hidden, its two launches apart
-    def check_block(name, key, kern, plain, x, wts, flops, lib):
-        got = kern(x, *wts)
-        want = plain(x, *wts)
-        torch.cuda.synchronize()
-        ok = torch.allclose(got.float(), want.float(), atol=3e-2, rtol=3e-2)
-        report(name, got, want, "atol=rtol=3e-2 (bf16 rounding at O(1))",
-               cuda_ms(lambda: kern(x, *wts)), cuda_ms(lambda: plain(x, *wts)),
-               extra=f"{list(x.shape)} ", key=key,
-               work=(io_bytes(x, *(a for a in wts if torch.is_tensor(a)), got),
-                     flops, "bf16"),
-               library_ms=cuda_ms(lib))
-        if not ok:
-            raise AssertionError(f"{key}: kernel disagrees with plain version")
-
     def attn_flops(b, s):
         return 2.0 * b * s * D * 4 * D + 4.0 * b * heads * s * s * 64
 
@@ -810,6 +834,77 @@ def check_mha_kernels(dev, results: dict) -> None:
         del qkv, q, k, v, got, want
 
 
+def check_zoo_kernels(dev, results: dict) -> None:
+    """The block kernels at the zoo's new shapes: K1 with twelve heads of 32
+    (MoCo-v3 ViT-S/16) at 197 tokens and at 785 (its core's two passes:
+    ViT-S/8 at 224, STEGO, or any S/16 at 448), K1 at 785 with six heads of
+    64, K1 and K2 at ViT-B's width (D 768, 12 heads, hidden 3,072: dino-b16,
+    vit, mocov3-b16) on the eval group's 50 frames; K10 bf16 on the strided
+    views of a qkv buffer with heads of 32 at 197 and 785 tokens. Inputs
+    from a generator of their own."""
+    from timetuning_tpu_torch.ops import attention as at
+    from timetuning_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(32)
+    t, w = _tensor_maker(dev, rng)
+    report = _reporter(results)
+
+    def branches(D, hidden):
+        ln_s, ln_b = t(1 + 0.1 * rng.standard_normal(D)), t(0.1 * rng.standard_normal(D))
+        attn = (ln_s, ln_b, w(D, 3 * D), t(0.1 * rng.standard_normal(3 * D)),
+                w(D, D), t(0.1 * rng.standard_normal(D)))
+        mlp = (ln_s, ln_b, w(D, hidden), t(0.1 * rng.standard_normal(hidden)),
+               w(hidden, D), t(0.1 * rng.standard_normal(D)))
+        return attn, mlp
+
+    def attn_lib(xb, attn, heads):
+        return library_block(xb, attn[0], attn[1], [(attn[2], attn[3], False),
+                                                    (attn[4], attn[5], False)],
+                             residual=xb, heads=heads)
+
+    for D, hidden, shapes in ((384, 1536, ((8, 197, 12), (8, 785, 12), (8, 785, 6))),
+                              (768, 3072, ((EVAL_GROUP, 197, 12),))):
+        attn, mlp = branches(D, hidden)
+        for b, s_tok, heads in shapes:
+            xb = t(rng.standard_normal((b, s_tok, D)), torch.bfloat16)
+            tag = f"{b}x{s_tok}/h{D // heads}" + ("/d768" if D == 768 else "")
+            check_block_kernel(
+                report, "attention_block", f"attention_block/{tag}",
+                fb.attention_block_branch, fb.attention_block_xla, xb, attn + (heads,),
+                2.0 * b * s_tok * D * 4 * D + 4.0 * b * s_tok * s_tok * D,
+                attn_lib(xb, attn, heads))
+            if D == 768:
+                check_block_kernel(
+                    report, "mlp_block", f"mlp_block/{tag}", fb.mlp_block_branch,
+                    fb.mlp_block_xla, xb, mlp, 4.0 * b * s_tok * D * hidden,
+                    library_block(xb, mlp[0], mlp[1], [(mlp[2], mlp[3], True),
+                                                       (mlp[4], mlp[5], False)],
+                                  residual=xb))
+            del xb
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for s_tok in (197, 785):
+        qkv = t(rng.standard_normal((8, s_tok, 3, 12, 32)), torch.bfloat16)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        got = at.attention_mha(q, k, v)
+        want = at.attention_mha_plain(q, k, v)
+        torch.cuda.synchronize()
+        ok = torch.allclose(got.float(), want.float(), atol=4e-3, rtol=1e-2)
+        key = f"mha/bf16/{s_tok}/h32"
+        n_exp = float(8 * 12 * s_tok * s_tok)
+        report("mha", got, want, "atol=4e-3 rtol=1e-2 (one bf16 ulp of the output, "
+               "a p that rounds the other way)",
+               cuda_ms(lambda: at.attention_mha(q, k, v)),
+               cuda_ms(lambda: at.attention_mha_plain(q, k, v), warmup=1, reps=5),
+               extra=f"bf16 [8 x 12, {s_tok}, 32] plan {at.mha_plan(s_tok)} ", key=key,
+               work=(io_bytes(q, k, v, got), 4.0 * n_exp * 32, "bf16"),
+               library_ms=cuda_ms(lambda: sdpa(q, k, v)))
+        exp_line(key, n_exp, results[key]["bound_ms"])
+        if not ok:
+            raise AssertionError(f"{key}: kernel disagrees with plain version")
+        del qkv, q, k, v, got, want
+
+
 def check_train_kernels(dev, results: dict) -> None:
     """Kernel 11 and kernel 3 at the train step's shapes."""
     from timetuning_tpu_torch.ops import sinkhorn as sk_matvec
@@ -916,7 +1011,9 @@ PATH_KERNELS = {
     ("train", "sinkhorn on the step's scores"): ("sinkhorn",),
     ("train", "driver"): ("attention_block", "mlp_block", "propagation", "sinkhorn"),
     ("eval", "pascal"): ("preprocess", "attention_block", "mlp_block"),
-}
+    ("cbfe", "float32"): (),
+    ("propagate", "flow"): (),
+}   # the zoo's paths are added by run_zoo (zoo_path_kernels)
 
 
 def counted(path: tuple, fn, totals: dict):
@@ -1886,6 +1983,255 @@ def run_eval_driver(dev, totals: dict) -> None:
         km.kmeans = fit
 
 
+def zoo_frames(n: int | None = None, seed: int = 11) -> np.ndarray:
+    """``n`` (default ``ZOO_FRAMES``) uint8 DAVIS-size frames [n, 480, 854,
+    3]: noise and a textured box, so the features vary from patch to
+    patch."""
+    n = ZOO_FRAMES if n is None else n
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 60, (n, H, W, 3), dtype=np.uint8)
+    tex = rng.integers(100, 256, (160, 220, 3), dtype=np.uint8)
+    for t in range(n):
+        frames[t, 100 + 8 * t:260 + 8 * t, 200 + 12 * t:420 + 12 * t] = tex
+    return frames
+
+
+def zoo_path_kernels(name: str, dtype: torch.dtype) -> tuple:
+    """The kernels the zoo's feature path must launch for ``name``: in bf16
+    the preprocess (uint8 shrunk to bf16) and, for the ViTs whose blocks the
+    kernels take, the two block kernels (at 785 tokens K1 runs its core's
+    two passes); the test ViTs and MAE run the plain blocks and the CNNs
+    have none, as in JAX; f32 launches nothing."""
+    from timetuning_tpu_torch.models.registry import VIT_NAMES
+
+    if dtype != torch.bfloat16:
+        return ()
+    if name in VIT_NAMES[2:] or name == "stego":
+        return ("preprocess", "attention_block", "mlp_block")
+    return ("preprocess",)
+
+
+def run_zoo(dev, totals: dict) -> None:
+    """Every name of the registry, at full width with seeded weights, on the
+    eval feature path (uint8 frames -> ``eval_preprocess_batch`` -> the
+    backbone) for 8 DAVIS-size frames at 224, in bf16 and in f32. ViTs (and
+    STEGO, MAE): the bf16 tokens against the f32 plain forward on the card
+    (the same weights; f32 launches no kernel at 785 tokens or fewer),
+    per-token cosine >= 0.999. CNNs: the f32 tokens on the card against the
+    host's on 2 frames (TF32 off in convolutions too), within 1e-4 of the
+    output's scale. ms a frame and launches for each."""
+    from timetuning_tpu_torch.data.transforms import eval_preprocess_batch
+    from timetuning_tpu_torch.models.registry import ARCHITECTURES, VIT_NAMES, get_backbone
+
+    frames = torch.from_numpy(zoo_frames()).to(dev)
+    cnns = ("resnet18", "resnet50", "swav", "dul", "motion_grouping")
+    for name in ARCHITECTURES:
+        feats, ms = {}, {}
+        for dtype in (torch.bfloat16, torch.float32):
+            bb = get_backbone(name, dtype=dtype, device=dev)
+
+            def fwd(x=frames, bb=bb, dtype=dtype):
+                with torch.inference_mode():
+                    return bb.apply(eval_preprocess_batch(x, out_size=S,
+                                                          compute_dtype=dtype))[0]
+
+            fwd()
+            PATH_KERNELS[("zoo", name, str(dtype))] = zoo_path_kernels(name, dtype)
+            out, counts = counted(("zoo", name, str(dtype)), fwd, totals)
+            if name == "mae" or name in VIT_NAMES[:2] or name in cnns:
+                blocks = {k: counts[k] for k in ("attention_block", "mlp_block", "mha")}
+                if any(blocks.values()):
+                    raise AssertionError(f"zoo {name}: launched block kernels {blocks}")
+            ms[dtype] = cuda_ms(fwd, warmup=1, reps=3, queued=False) / ZOO_FRAMES
+            feats[dtype] = out.float()
+            launched = {k: v for k, v in counts.items() if v}
+            print(f"zoo {name} {str(dtype)[6:]}: tokens {list(out.shape)}, "
+                  f"{ms[dtype]:.3f} ms a frame, launches {launched}", flush=True)
+            if not torch.isfinite(feats[dtype]).all():
+                raise AssertionError(f"zoo {name} {dtype}: non-finite tokens")
+            if name in cnns and dtype == torch.float32:
+                host = get_backbone(name, dtype=dtype, device="cpu")
+                with torch.inference_mode():
+                    want = host.apply(eval_preprocess_batch(frames[:2].cpu(), out_size=S))[0]
+                err = (out[:2].cpu() - want).abs().max().item()
+                scale = want.abs().max().item()
+                print(f"zoo {name} f32 card vs host (2 frames): max_abs_err {err:.3e} "
+                      f"of scale {scale:.3e} (bound 1e-4 of it)", flush=True)
+                if err > 1e-4 * scale:
+                    raise AssertionError(f"zoo {name}: card disagrees with host")
+            del bb
+        if name not in cnns:
+            cos = torch.nn.functional.cosine_similarity(
+                feats[torch.bfloat16], feats[torch.float32], dim=-1)
+            print(f"zoo {name}: bf16 against the f32 plain forward, min per-token "
+                  f"cosine {cos.min().item():.6f} (bound >= 0.999)", flush=True)
+            if cos.min().item() < 0.999:
+                raise AssertionError(f"zoo {name}: bf16 forward disagrees with plain")
+
+
+def write_pascal_tree(root: str, n_train: int = 128, n_val: int = 64,
+                      seed: int = 13) -> None:
+    """A synthetic Pascal VOC tree in the loader's layout (``images/``,
+    ``SegmentationClass[Aug]/``, ``sets/{trainaug,val}.txt``): 500 x 375
+    images of one or two class-coloured boxes on a noisy gradient, masks
+    with the boxes' classes and a 255 band around each box."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(0, 256, (21, 3))
+    for sub in ("images", "SegmentationClass", "SegmentationClassAug", "sets"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    h, w = 375, 500
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    names = [f"{i:06d}" for i in range(n_train + n_val)]
+    for n in names:
+        a, b = rng.uniform(30, 120, (2, 3))
+        img = a * yy[..., None] + b * xx[..., None] + rng.normal(0, 8, (h, w, 3))
+        mask = np.zeros((h, w), np.uint8)
+        for _ in range(int(rng.integers(1, 3))):
+            cls = int(rng.integers(1, 21))
+            y, x = int(rng.integers(0, h - 150)), int(rng.integers(0, w - 180))
+            bh, bw = int(rng.integers(90, 150)), int(rng.integers(110, 180))
+            mask[max(y - 3, 0):y + bh + 3, max(x - 3, 0):x + bw + 3] = 255
+            img[y:y + bh, x:x + bw] = colors[cls] + rng.normal(0, 8, (bh, bw, 3))
+            mask[y:y + bh, x:x + bw] = cls
+        cv2.imwrite(os.path.join(root, "images", f"{n}.jpg"),
+                    np.clip(img, 0, 255).astype(np.uint8)[..., ::-1])
+        for sub in ("SegmentationClass", "SegmentationClassAug"):
+            cv2.imwrite(os.path.join(root, sub, f"{n}.png"), mask)
+    with open(os.path.join(root, "sets", "trainaug.txt"), "w") as f:
+        f.write("\n".join(names[:n_train]))
+    with open(os.path.join(root, "sets", "val.txt"), "w") as f:
+        f.write("\n".join(names[n_train:]))
+
+
+@contextlib.contextmanager
+def stage_times(patches):
+    """While the block runs, each (owner, attribute, stage) of ``patches`` is
+    wrapped so that its calls add their host-clock ms, the card drained
+    before and after, to the yielded dict's ``stage``."""
+    times: dict = {}
+
+    def wrap(fn, stage):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                times[stage] = times.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+        return run
+
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
+    for owner, attr, stage in patches:
+        setattr(owner, attr, wrap(getattr(owner, attr), stage))
+    try:
+        yield times
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def run_cbfe(dev, totals: dict) -> None:
+    """``cli/cbfe.run_cbfe`` at its defaults (dino-s16, input 448: 785 tokens,
+    k = 300 at resolution 100, 21 eval clusters, f32, batches of 32) on a
+    synthetic Pascal tree of 128 trainaug and 64 val images through the real
+    ``pascal_loader``: the five numbers, each stage's ms and the peak
+    memory. f32 as in JAX: the path launches no kernel. Before it, the
+    feature function on one batch on the card against the host's (cosine
+    >= 0.9999), and ``evaluate_bf_score`` on the card against the host's on
+    the same masks."""
+    import tempfile
+
+    from timetuning_tpu_torch.cli import cbfe
+    from timetuning_tpu_torch.data.pascal import pascal_loader
+    from timetuning_tpu_torch.eval import cbfe as ecbfe
+    from timetuning_tpu_torch.eval.bfscore import evaluate_bf_score
+    from timetuning_tpu_torch.eval.evaluator import Evaluator
+    from timetuning_tpu_torch.models.registry import get_backbone
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_pascal_tree(root)
+        print(f"cbfe: synthetic Pascal tree (128 trainaug, 64 val, 500 x 375) "
+              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+        args = cbfe.build_parser().parse_args(["--pascal_root", root, "--device", dev.type])
+
+        imgs, masks = next(iter(pascal_loader(4, root, "val", args.resolution,
+                                              args.input_resolution)))
+        got = cbfe.make_feature_fn(get_backbone(args.architecture, device=dev),
+                                   args.input_resolution, dev)(imgs)
+        want = cbfe.make_feature_fn(get_backbone(args.architecture, device="cpu"),
+                                    args.input_resolution, "cpu")(imgs)
+        cos = torch.nn.functional.cosine_similarity(got[0].cpu(), want[0], dim=-1)
+        same_fg = (got[1].cpu() == want[1]).float().mean().item()
+        print(f"cbfe features (4 val images at {args.input_resolution}, card vs host, "
+              f"f32): {list(got[0].shape)}, min per-token cosine {cos.min().item():.6f} "
+              f"(bound >= 0.9999), attention masks equal at {same_fg:.4f} of pixels",
+              flush=True)
+        if cos.min().item() < 0.9999:
+            raise AssertionError("cbfe: the feature function disagrees with the host's")
+        gt = torch.from_numpy(np.stack([m > 0 for m in masks]))
+        fg = torch.nn.functional.interpolate(
+            got[1][:, None].float(), size=gt.shape[-2:])[:, 0].cpu() > 0.5
+        bf_card = evaluate_bf_score(gt.to(dev), fg.to(dev))
+        bf_host = evaluate_bf_score(gt.numpy(), fg.numpy())
+        print(f"cbfe boundary F on the card {bf_card:.6f}, on the host {bf_host:.6f}",
+              flush=True)
+        if abs(bf_card - bf_host) > 1e-6:
+            raise AssertionError("cbfe: evaluate_bf_score differs between card and host")
+
+        stages = [(ecbfe.ClusterBasedForegroundExtraction, "_collect", "features"),
+                  (ecbfe, "overcluster", "overcluster")]
+        stages += [(ecbfe, fn, "sweep") for fn in (
+            "cluster_precisions", "find_good_threshold", "masks_from_threshold")]
+        stages += [(ecbfe, "evaluate_bf_score", "bf"), (Evaluator, "evaluate", "evaluator")]
+        torch.cuda.reset_peak_memory_stats()
+        with stage_times(stages) as timings:
+            t0 = time.perf_counter()
+            res, counts = counted(("cbfe", "float32"),
+                                  lambda: cbfe.run_cbfe(args, log=lambda m: None), totals)
+            wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"cbfe dino-s16/448 f32 (128 + 64 images, k=300 at 100, 21 eval clusters): "
+          f"threshold={res['threshold']} train_j={res['train_jaccard']:.6f} "
+          f"val_j={res['val_jaccard']:.6f} val_bf={res['val_bf']:.6f} "
+          f"masked_miou={res['masked_miou']:.6f} | {wall * 1e3:.1f} ms: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in timings.items())
+          + f" | peak memory {peak:.2f} GiB | launches {launched}", flush=True)
+    if launched:
+        raise AssertionError(f"cbfe: the f32 path launched kernels {launched}")
+    vals = [res[k] for k in ("threshold", "train_jaccard", "val_jaccard", "val_bf",
+                             "masked_miou")]
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals):
+        raise AssertionError(f"cbfe: results outside [0, 1]: {res}")
+    if abs(res["threshold"] * 20 - round(res["threshold"] * 20)) > 1e-9:
+        raise AssertionError(f"cbfe: threshold {res['threshold']} is not on the 0.05 grid")
+
+
+def run_propagate_flow(dev, totals: dict) -> None:
+    """``cli/propagate --use_optical_flow`` on the two synthetic clips:
+    OpenCV's Farneback flow on the host, no backbone forward; J&F and ms."""
+    from timetuning_tpu_torch.cli import propagate as prop
+    from timetuning_tpu_torch.models.registry import get_backbone
+
+    args = prop.build_parser().parse_args(["--use_optical_flow", "true"])
+    clips = synthetic_clips(textured=True)
+    bb = get_backbone(args.architecture, device=dev)
+    t0 = time.perf_counter()
+    res, counts = counted(("propagate", "flow"),
+                          lambda: prop.evaluate_clips(args, bb, clips, dev), totals)
+    ms = (time.perf_counter() - t0) * 1e3
+    jf = res["jf"]
+    print(f"propagate flow (2 clips of 25 frames at {S}): J={jf['J']:.6f} "
+          f"F={jf['F']:.6f} J&F={jf['J&F']:.6f} | {ms:.1f} ms | launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in jf.values()):
+        raise AssertionError(f"propagate flow: scores {jf}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1911,6 +2257,7 @@ def main() -> int:
     check_flash_kernels(dev, results)
     check_long_token_kernels(dev, results)
     check_mha_kernels(dev, results)
+    check_zoo_kernels(dev, results)
     check_train_kernels(dev, results)
     check_vit(dev, "dino-s16", S, 4)
     check_vit(dev, "dino-s8", S8, 1)
@@ -1924,6 +2271,9 @@ def main() -> int:
     run_train_driver(dev, totals)
     run_augment_card_vs_host(dev)
     run_eval_driver(dev, totals)
+    run_zoo(dev, totals)
+    run_cbfe(dev, totals)
+    run_propagate_flow(dev, totals)
 
     missing = [k for k in kernel_lib.KERNELS if totals.get(k, 0) <= 0]
     if missing:

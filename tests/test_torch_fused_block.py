@@ -69,6 +69,37 @@ def test_attention_branch_matches_pallas_kernel_interpret():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_branch_at_32_wide_heads_matches_pallas_kernel_interpret(dtype):
+    """Kernel 1's plain version at heads of 32 (D = 64, two heads: MoCo-v3
+    ViT-S/16's head width) against the TPU kernel, which takes any
+    ``Dh = D // num_heads``, in interpret mode. f32 as the 64-wide case;
+    bf16 to one bf16 ulp of outputs of order 1 (2^-6) plus a p rounded the
+    other way."""
+    rng = np.random.default_rng(32)
+    D = 64
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    attn = [(1 + 0.1 * rng.standard_normal(D)).astype(np.float32),
+            (0.1 * rng.standard_normal(D)).astype(np.float32),
+            (rng.standard_normal((D, 3 * D)) * D ** -0.5).astype(np.float32),
+            (0.1 * rng.standard_normal(3 * D)).astype(np.float32),
+            (rng.standard_normal((D, D)) * D ** -0.5).astype(np.float32),
+            (0.1 * rng.standard_normal(D)).astype(np.float32)]
+    if dtype == "float32":
+        want = jfb._attn_pallas(*_j([x, *attn]), num_heads=2, block_b=1, interpret=True)
+        got = tfb.attention_block_branch(*_t([x, *attn]), num_heads=2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+        return
+    jx = jnp.asarray(x, jnp.bfloat16)
+    jw = [jnp.asarray(a, jnp.bfloat16 if a.ndim == 2 else jnp.float32) for a in attn]
+    want = jfb._attn_pallas(jx, *jw, num_heads=2, block_b=1, interpret=True)
+    tw = [torch.from_numpy(a).to(torch.bfloat16 if a.ndim == 2 else torch.float32)
+          for a in attn]
+    got = tfb.attention_block_branch(torch.from_numpy(x).bfloat16(), *tw, num_heads=2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=3e-2)
+
+
 def test_mlp_branch_matches_pallas_kernel_interpret():
     x, _, mlp = _inputs(4)
     want = jfb._mlp_pallas(*_j([x, *mlp]), block_b=1, interpret=True)

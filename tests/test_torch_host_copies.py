@@ -188,6 +188,63 @@ def test_viz_matches(tmp_path):
     assert open(tmp_path / "j.gif", "rb").read() == open(tmp_path / "t.gif", "rb").read()
 
 
+def test_optical_flow_matches():
+    """The Farneback baseline on a moving textured box: the flows and the
+    propagated masks equal."""
+    from timetuning_tpu.eval import optical_flow as jof
+    from timetuning_tpu_torch.eval import optical_flow as tof
+
+    rng = np.random.default_rng(3)
+    tex = rng.integers(60, 255, (16, 20, 3), dtype=np.uint8)
+    frames = np.full((4, 48, 64, 3), 30, np.uint8)
+    mask = np.zeros((48, 64), np.uint8)
+    for t in range(4):
+        frames[t, 10 + 2 * t:26 + 2 * t, 12 + 3 * t:32 + 3 * t] = tex
+    mask[10:26, 12:32] = 1
+    np.testing.assert_array_equal(tof.dense_optical_flow(frames),
+                                  jof.dense_optical_flow(frames))
+    np.testing.assert_array_equal(tof.propagate_flow(frames, mask),
+                                  jof.propagate_flow(frames, mask))
+
+
+def test_visor_conversion_matches(tmp_path):
+    """Zips extracted and flat VISOR frames regrouped into the same DAVIS
+    trees by both copies."""
+    import zipfile
+
+    from timetuning_tpu.data import visor as jvisor
+    from timetuning_tpu_torch.data import visor as tvisor
+
+    src = tmp_path / "zips"
+    src.mkdir()
+    with zipfile.ZipFile(src / "a.zip", "w") as zf:
+        for sub in ("images", "annotations"):
+            for v, f in (("P01_01", 3), ("P01_01", 7), ("P02_05", 1)):
+                zf.writestr(f"rel/{sub}/{v}_frame_{f:010d}.jpg", f"{sub}{v}{f}")
+    trees = {}
+    for mod, name in ((jvisor, "j"), (tvisor, "t")):
+        out = tmp_path / name
+        tops = mod.extract_zips(str(src), str(out / "x"))
+        assert [os.path.basename(t) for t in tops] == ["rel"]
+        mod.visor_to_davis(str(out / "x" / "rel"), str(out / "davis"))
+        assert mod.group_frames_by_video(str(out / "x" / "rel" / "images"),
+                                         str(out / "again")) == 2
+        trees[name] = sorted(
+            (os.path.relpath(os.path.join(d, f), out / "davis"),
+             open(os.path.join(d, f)).read())
+            for d, _, fs in os.walk(out / "davis") for f in fs)
+    assert trees["j"] == trees["t"] and len(trees["t"]) == 6
+
+
+@pytest.mark.parametrize("dim,grid,cls", [(16, 4, True), (64, 14, False), (768, 14, True)])
+def test_sincos_embeds_match(dim, grid, cls):
+    from timetuning_tpu.models import embeds as jemb
+    from timetuning_tpu_torch.models import embeds as temb
+
+    np.testing.assert_array_equal(temb.get_2d_sincos_pos_embed(dim, grid, cls),
+                                  jemb.get_2d_sincos_pos_embed(dim, grid, cls))
+
+
 def test_import_torch_matches(tmp_path):
     import torch
 

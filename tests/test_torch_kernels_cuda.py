@@ -450,6 +450,62 @@ def test_mha_kernel_matches_plain(dev, dtype, S):
     torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("S", [1, 197, 256, 257, 785, 1024])
+def test_mha_kernel_at_32_wide_heads(dev, S, B):
+    """Kernel 10 in bf16 at MoCo-v3 ViT-S/16's twelve heads of 32 (64-byte
+    rows in a 64-byte swizzle, p @ v as m64n32k16) on the strided views of
+    a qkv buffer: one pass (1, 197, 256), both sides of its limit, and two
+    passes (257, 785 = STEGO's ViT-S/8 at 224 or any S/16 at 448, 1,024);
+    one frame (a block owns a query tile) and eight (a head). Bound as the
+    64-wide rows."""
+    qkv = _t(np.random.default_rng(S + B).standard_normal((B, S, 3, 12, 32)), dev,
+             torch.bfloat16)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    got = at.attention_mha(q, k, v)
+    want = at.attention_mha_plain(q, k, v)
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("S", [1, 197, 256, 257, 785, 1024])
+def test_attention_block_kernel_at_32_wide_heads(dev, S):
+    """K1 at D = 384 with 12 heads of 32 (MoCo-v3 ViT-S/16): its core at
+    Dh = 32 in one and two passes; bound: bf16 rounding at O(1) values."""
+    x, attn, _ = _block_inputs(dev, 2, S, seed=S)
+    got = fb.attention_block_branch(x, *attn, num_heads=12)
+    want = fb.attention_block_xla(x, *attn, num_heads=12)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("B,S", [(2, 1), (50, 197), (2, 785)])
+def test_blocks_at_vit_base_width(dev, B, S):
+    """K1 and K2 at ViT-B's width (D 768, 12 heads of 64, hidden 3,072):
+    dino-b16, vit and mocov3-b16; the eval group's 50 frames and a two-pass
+    length. Bound: bf16 rounding at O(1) values."""
+    x, attn, mlp = _block_inputs(dev, B, S, D=768, hidden=3072, seed=B + S)
+    got = fb.attention_block_branch(x, *attn, num_heads=12)
+    want = fb.attention_block_xla(x, *attn, num_heads=12)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    got = fb.mlp_block_branch(x, *mlp)
+    want = fb.mlp_block_xla(x, *mlp)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+def test_mha_wrappers_raise_on_other_head_widths(dev):
+    """Heads of 32 or 64 in bf16, 64 in f32: anything else raises on the
+    card, never routed to the plain version."""
+    for dh, dtype in ((48, torch.bfloat16), (16, torch.bfloat16), (32, torch.float32)):
+        q = torch.zeros(1, 2, 8, dh, device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="64-wide heads"):
+            at.attention_mha(q, q, q)
+    x, attn, _ = _block_inputs(dev, 1, 10)
+    for heads in (4, 24):
+        with pytest.raises(ValueError, match="64-wide"):
+            fb.attention_block_branch(x, *attn, num_heads=heads)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mha_kernel_reads_strided_qkv_views_in_place(dev, dtype):
     """The q, k, v views that ``models/vit.Attention`` makes of its qkv rows:

@@ -70,6 +70,35 @@ def test_plain_matches_tpu_kernel_bf16():
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2 ** -7)
 
 
+@pytest.mark.parametrize("S", [37, 197])
+def test_plain_matches_tpu_kernel_bf16_at_32_wide_heads(S):
+    """MoCo-v3 ViT-S/16's twelve heads of 32 (the TPU kernel takes any
+    head width, ``Dh = D // num_heads``): kernel 10's plain version against
+    ``_mha_kernel`` in interpret mode, in bf16 at the bound above, and in
+    f32 at 2e-6."""
+    q, k, v = _qkv(1, 12, S, 32, seed=S + 32)
+    got = tattn.attention_mha_plain(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)))
+    want = _mha_kernel_interpret(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=0, atol=2 ** -7)
+    got = tattn.attention_mha_plain(*(torch.from_numpy(a) for a in (q, k, v)))
+    want = _mha_kernel_interpret(*(jnp.asarray(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)
+
+
+def test_kernel_wrapper_takes_32_wide_heads_in_bf16_only():
+    """bf16 heads of 32 pass the wrapper's width check (a meta tensor then
+    stops at the device check); f32 heads of 32 and bf16 heads of 48 raise
+    the width error before it."""
+    m = torch.zeros(1, 12, 8, 32, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        tattn.attention_mha(m, m, m)
+    for dh, dt in ((32, torch.float32), (48, torch.bfloat16)):
+        m = torch.zeros(1, 2, 8, dh, device="meta", dtype=dt)
+        with pytest.raises(ValueError, match="64-wide heads"):
+            tattn.attention_mha(m, m, m)
+
+
 @pytest.mark.parametrize("S,plan", [
     (1, (1, 64)), (64, (1, 64)), (65, (1, 128)), (128, (1, 128)), (129, (1, 208)),
     (197, (1, 208)), (208, (1, 208)), (209, (1, 256)), (256, (1, 256)),

@@ -164,12 +164,21 @@ def test_str2bool_copy_matches_original():
 @pytest.mark.parametrize("flags,item", [
     (["--use_optical_flow", "true"], "Remaining propagate CLI options"),
 ])
-def test_unported_options_raise_naming_their_roadmap_item(davis_tree, weights,
+def test_unported_options_raise_naming_their_roadmap_item(davis_tree, weights, capsys,
                                                           flags, item):
-    argv = _argv(davis_tree, weights) + ["--device", "cpu"]
-    argv = [a for a in argv if a not in ("--metric", "jf")] + flags
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(argv)
+    """The options that once raised naming their ROADMAP item (``item``, the
+    optical-flow baseline of queue 1 item 7) are ported: each now runs and
+    prints the JAX CLI's scores (the JAX test is tests/test_cli.py's
+    ``test_propagate_cli_optical_flow``), to 1e-6."""
+    argv = _argv(davis_tree, weights)
+    argv = [a for a in argv if a not in ("--metric", "jf")] + flags + ["--metric", "jf"]
+    assert jcli.main(argv) == 0
+    want = _jf(capsys.readouterr().out)
+    assert tcli.main(argv + ["--device", "cpu"]) == 0
+    got = _jf(capsys.readouterr().out)
+    assert want["J"] > 0.3, want          # the flow follows the box
+    for key in ("J", "F", "J&F"):
+        assert abs(got[key] - want[key]) <= 1e-6, (got, want, item)
 
 
 @pytest.mark.parametrize("metric,extra", [

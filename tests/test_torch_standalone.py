@@ -89,6 +89,33 @@ assert linear_probe.main(['--device', 'cpu', '--architecture', 'vit-tiny-test',
     assert "J&F: " in out and "val mIoU" in out
 
 
+def test_cbfe_and_the_whole_zoo_run_without_the_jax_package(trees):
+    """``cli/cbfe --device cpu`` on the VOC tree, ``cli/propagate
+    --use_optical_flow`` on the DAVIS tree, and every name of the zoo built
+    (seeded, full width) and applied to one small image."""
+    davis, voc = trees
+    out = _run(f"""
+import torch
+from timetuning_tpu_torch.cli import cbfe, propagate
+from timetuning_tpu_torch.models.registry import ARCHITECTURES, get_backbone
+assert cbfe.main(['--device', 'cpu', '--architecture', 'vit-tiny-test',
+                  '--pascal_root', {voc!r}, '--batch_size', '3', '--num_clusters', '6',
+                  '--input_resolution', '32', '--resolution', '16',
+                  '--eval_resolution', '16', '--num_eval_clusters', '2']) == 0
+assert propagate.main(['--device', 'cpu', '--architecture', 'vit-tiny-test',
+                       '--data_root', {davis!r}, '--num_frames', '4',
+                       '--input_resolution', '64', '--num_workers', '2',
+                       '--use_optical_flow', 'true']) == 0
+with torch.inference_mode():
+    for name in ARCHITECTURES:
+        bb = get_backbone(name, device='cpu')
+        feats, _ = bb.apply(torch.zeros(1, 32, 32, 3))
+        assert feats.shape[-1] == bb.feature_dim, name
+print('zoo', len(ARCHITECTURES))
+""")
+    assert "threshold=" in out and "J&F: " in out and "zoo 18" in out
+
+
 def test_a_train_step_runs_without_the_jax_package():
     out = _run("""
 import torch

@@ -114,8 +114,9 @@ def test_resize_bilinear_matches_jax(src, dst):
 
 
 def test_registry_seeded_init_and_shapes():
-    """Same seed, same weights; the ViT names of the JAX registry; the
-    patch grid of each."""
+    """Same seed, same weights; the patch grid of a test ViT; a name the
+    zoo does not have raises (every name of the JAX registry is built in
+    tests/test_torch_backbone_zoo.py)."""
     a = get_backbone("vit-tiny-test", seed=3, device="cpu").module.state_dict()
     b = get_backbone("vit-tiny-test", seed=3, device="cpu").module.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
@@ -123,8 +124,8 @@ def test_registry_seeded_init_and_shapes():
     assert bb.spatial_resolution(64) == 16 and bb.drop_cls
     feats, attn = bb.apply(torch.zeros(1, 64, 64, 3))
     assert feats.shape == (1, 256, 32) and attn is None
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_backbone("resnet50", device="cpu")
+    with pytest.raises(ValueError, match="unknown backbone"):
+        get_backbone("resnet101", device="cpu")
 
 
 def test_registry_loads_reference_pth(jax_params, tmp_path):

@@ -14,6 +14,10 @@ Supported runs include ``--architecture dino-s16`` at 224 and
 tokens: the ViT's long-token path, the flash kernel and the row kernels in
 bf16, the flash kernel in f32), each in either compute dtype.
 
+``--use_optical_flow`` scores the Farneback flow baseline instead
+(``eval/optical_flow``, OpenCV on the host): the first mask warped from
+frame to frame at S x S, no backbone forward.
+
 The per-group compute (preprocess -> ViT -> propagate -> upsample -> argmax)
 is ``propagate_clip_group``, which takes in-memory uint8 clips;
 ``evaluate_clips`` adds the grouping and the scoring (J&F, mIoU under a
@@ -156,6 +160,17 @@ def evaluate_clips(args, bb: Backbone,
                              (S, S)).numpy().astype(np.int64)
         # K rounded up to a multiple of 4, as the JAX CLI (one program per K)
         K = pad_to_multiple(max(int(ann.max()) + 1, 2), 4)
+        if args.use_optical_flow:
+            # the Farneback baseline on the host (timetuning_tpu/cli/propagate.py:171-181):
+            # frames resized INTER_LINEAR to S x S, the first mask warped along
+            import cv2
+
+            from timetuning_tpu_torch.eval.optical_flow import propagate_flow
+
+            frames_s = np.stack([cv2.resize(f, (S, S), interpolation=cv2.INTER_LINEAR)
+                                 for f in frames])
+            score_clip(ann, propagate_flow(frames_s, ann[0]))
+            continue
         group.append((frames, ann, K))
         if len(group) == CB:
             flush_group()
@@ -194,10 +209,6 @@ def default_device(args) -> torch.device:
 def run_propagation(args, metrics: tuple = ("jf",)) -> dict:
     """Propagate GT first-frame masks through every clip of the dataset and
     score the requested metrics (``jf``, ``miou``, ``propagation``)."""
-    if args.use_optical_flow:
-        raise NotImplementedError(
-            "--use_optical_flow is not ported yet (ROADMAP.md queue 1, "
-            "'Remaining propagate CLI options')")
     from timetuning_tpu_torch.data.loader import make_loader, sampling_mode
 
     device = default_device(args)

@@ -19,14 +19,15 @@
 //       -> qkv [B*S, 3D] bf16 (the ln_dense kernel of rows_block.cu);
 //   (b) the whole-sequence attention core of mha.cu (wgmma, the score strip
 //       in registers, Q, K and V by TMA), which reads q, k and v in place as
-//       strided views of the qkv rows (batch stride S*3D, head stride 64, row
+//       strided views of the qkv rows (batch stride S*3D, head stride Dh, row
 //       stride 3D) and writes merged [B*S, D]: one pass up to 256 tokens, two
 //       up to 1,024, by the caller's plan (ops/attention.mha_plan), the same
 //       code and the same plan check as kernel 10;
 //   (c) the same GEMM tile with bias + residual summed in f32.
 // bf16 rounding points match the plain composition (attention_block_xla):
 // LN output, qkv, the normalised p, the per-head output, and the final sum.
-// Dh is fixed at 64 (every ViT-S/B configuration of the repo).
+// Dh = D / H is 64 (DINO, MSN, iBOT, LeoPART, ViT-B) or 32 (MoCo-v3 ViT-S/16:
+// 12 heads of 32); the TPU kernel takes any Dh.
 #include "gemm_wgmma.cuh"
 #include "mha_core.cuh"
 
@@ -41,8 +42,10 @@ extern "C" int tt_attention_block(const void* x, const float* ln_s,
                                   int slices_qkv, int slices_proj, int passes,
                                   int keys, void* stream) {
   using tt::bf16;
-  if (H <= 0 || D != H * 64 || S <= 0 || B <= 0 || (long long)B * S > 0x7fffffffLL)
+  if (H <= 0 || D % H != 0 || (D / H != 64 && D / H != 32) || S <= 0 || B <= 0 ||
+      (long long)B * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const int Dh = D / H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * S;
   cudaError_t e = tt::launch_gemm<true, tt::kBias>(
@@ -51,8 +54,8 @@ extern "C" int tt_attention_block(const void* x, const float* ln_s,
   if (e != cudaSuccess) return (int)e;
   const bf16* q = static_cast<const bf16*>(qkv);
   const long long sb = (long long)S * 3 * D, ss = 3 * D;
-  e = tt::launch_mha_bf16(q, q + D, q + 2 * D, merged, B, H, S, passes, keys, sb, 64,
-                          ss, sb, 64, ss, sb, 64, ss, (long long)S * D, 64, D, st);
+  e = tt::launch_mha_bf16(q, q + D, q + 2 * D, merged, B, H, S, Dh, passes, keys, sb,
+                          Dh, ss, sb, Dh, ss, sb, Dh, ss, (long long)S * D, Dh, D, st);
   if (e != cudaSuccess) return (int)e;
   return (int)tt::launch_gemm<false, tt::kBiasResidual>(
       static_cast<const bf16*>(merged), nullptr, nullptr,

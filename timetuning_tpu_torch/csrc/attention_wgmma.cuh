@@ -6,7 +6,7 @@
 // What is here:
 //   * mbarrier, named-barrier and TMA (cp.async.bulk.tensor) wrappers, loads
 //     and stores, and the host functions that encode a 4-D tensor map over a
-//     strided [B, H, S, 64] bf16 view and a 2-D one over a [rows, cols] matrix
+//     strided [B, H, S, Dh] bf16 view (Dh 64 or 32) and a 2-D one over a [rows, cols] matrix
 //     in boxes 64 columns wide (cuTensorMapEncodeTiled, found through
 //     cudaGetDriverEntryPoint: the library links no libcuda);
 //   * the shared-memory matrix descriptor of wgmma for the one layout all
@@ -15,10 +15,13 @@
 //     CU_TENSOR_MAP_SWIZZLE_128B into a 1,024-byte aligned tile. A K tile
 //     [keys, 64] read this way is K-major for q k^T, as are the GEMM tile's
 //     A and W panels; a V tile [keys, 64] is MN-major for p v (the transpose
-//     bit of the instruction);
+//     bit of the instruction). The whole-sequence core (mha.cu) also takes
+//     heads of 32: rows of 32 bf16 are 64 bytes, one 64-byte swizzle atom,
+//     eight rows a 512-byte group (CU_TENSOR_MAP_SWIZZLE_64B, layout type 2
+//     of the descriptor): head_desc<Dh> gives either;
 //   * wgmma.mma_async wrappers (m64nNk16, f32 accumulators in registers):
 //     A and B from shared memory at N = 64, 128, 208 and 256,
-//     A from registers for p v at N = 64 head features;
+//     A from registers for p v at N = 64 or 32 head features;
 //   * the softmax pieces in the accumulator's own register layout.
 //
 // Register layout of a [64 x N] accumulator (one warpgroup): warp w of the
@@ -142,6 +145,21 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
 constexpr uint64_t kDescKStep = 2;        // K-major operand, one k16 step
 constexpr uint64_t kDescRowStep = 128;    // MN-major operand, one k16 step
 
+// The descriptor of a tile of Dh-wide bf16 rows (Dh = 64: smem_desc above;
+// Dh = 32: 64-byte rows, 64-byte swizzle, a group of eight rows 512 bytes,
+// the tile 512-byte aligned). A k16 step along a K-major operand is 32
+// bytes either way; along an MN-major one 16 rows, 32 Dh bytes.
+template <int Dh>
+__device__ __forceinline__ uint64_t head_desc(uint32_t addr) {
+  static_assert(Dh == 32 || Dh == 64, "heads of 32 or 64 bf16");
+  constexpr uint64_t group = 8 * Dh * 2 / 16;     // eight rows, 16-byte units
+  constexpr uint64_t layout = Dh == 64 ? 1 : 2;   // 128- or 64-byte swizzle
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (group << 16) |
+         (group << 32) | (layout << 62);
+}
+template <int Dh>
+__host__ __device__ constexpr uint64_t head_row_step() { return 16 * Dh * 2 / 16; }
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -184,6 +202,28 @@ template <int N>
 __device__ __forceinline__ void pin(uint32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[16] (+)= A[64 x 16] B[16 x 32], A from registers (a warp's 16 x 16
+// fragment), B MN-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b_desc), "r"(accumulate));
 }
 
 // d[32] (+)= A[64 x 16] B[16 x 64], A from registers (a warp's 16 x 16
@@ -393,34 +433,35 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a_desc,
       : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-// d[N / 2] = Q[64 x 64] K[N x 64]^T: four k16 steps, committed and awaited
-template <int R>
+// d[N / 2] = Q[64 x Dh] K[N x Dh]^T: Dh / 16 k16 steps, committed and awaited
+template <int Dh = kHeadDim, int R>
 __device__ __forceinline__ void qk_product(float (&d)[R], uint32_t q_addr,
                                            uint32_t k_addr) {
-  const uint64_t qd = smem_desc(q_addr), kd = smem_desc(k_addr);
+  const uint64_t qd = head_desc<Dh>(q_addr), kd = head_desc<Dh>(k_addr);
   pin(d);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk)
+  for (int kk = 0; kk < Dh / 16; ++kk)
     wgmma_ss(d, qd + kk * kDescKStep, kd + kk * kDescKStep, kk > 0);
   wgmma_commit();
   wgmma_wait_all();
   pin(d);
 }
 
-// o[64 x 64] (+)= P[64 x 16 KS] V[16 KS x 64] with P in registers (pa, four
-// a k16 step) and V at v_addr; committed and awaited
-template <int KS>
-__device__ __forceinline__ void pv_product(float (&o)[32], uint32_t (&pa)[4 * KS],
+// o[64 x Dh] (+)= P[64 x 16 KS] V[16 KS x Dh] with P in registers (pa, four
+// a k16 step) and V at v_addr; Dh = 2 R (64 or 32); committed and awaited
+template <int KS, int R>
+__device__ __forceinline__ void pv_product(float (&o)[R], uint32_t (&pa)[4 * KS],
                                            uint32_t v_addr, bool accumulate) {
-  const uint64_t vd = smem_desc(v_addr);
+  constexpr int Dh = 2 * R;
+  const uint64_t vd = head_desc<Dh>(v_addr);
   pin(pa);
   pin(o);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
     wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-             vd + kk * kDescRowStep, accumulate || kk > 0);
+             vd + kk * head_row_step<Dh>(), accumulate || kk > 0);
   wgmma_commit();
   wgmma_wait_all();
   pin(o);
@@ -503,14 +544,15 @@ __device__ __forceinline__ void pack_rows(const float (&p)[R], float f0, float f
   }
 }
 
-// o (this lane's two rows of a [64 x 64] accumulator, each value divided by
-// its row's d0 or d1) to rows r0 and r0 + 8 of a [rows, 64] bf16 slice with
+// o (this lane's two rows of a [64 x 2 R] accumulator, each value divided by
+// its row's d0 or d1) to rows r0 and r0 + 8 of a [rows, 2 R] bf16 slice with
 // row stride `stride`; rows at or beyond n_rows are not written
-__device__ __forceinline__ void store_rows(const float (&o)[32], float d0, float d1,
+template <int R>
+__device__ __forceinline__ void store_rows(const float (&o)[R], float d0, float d1,
                                            __nv_bfloat16* dst, long long stride,
                                            int r0, int n_rows, int lane) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     const int c = 8 * j + 2 * (lane & 3);
     if (r0 < n_rows)
       *reinterpret_cast<uint32_t*>(dst + r0 * stride + c) =
@@ -541,28 +583,32 @@ inline EncodeTiled tensor_map_encoder() {
   return encode;
 }
 
-// A tensor map over a [B, H, S, 64] bf16 view with strides sb, sh, ss (in
-// elements; the 64 head features contiguous, every stride a multiple of 8
-// and the base 16-byte aligned) whose box is [box_rows, 64] of one (batch,
-// head), 128-byte swizzled. Returns cudaSuccess or an error.
+// A tensor map over a [B, H, S, Dh] bf16 view with strides sb, sh, ss (in
+// elements; the Dh head features contiguous, every stride a multiple of 8
+// and the base 16-byte aligned) whose box is [box_rows, Dh] of one (batch,
+// head): Dh = 64 128-byte swizzled, Dh = 32 64-byte swizzled (one row a
+// swizzle atom either way, as head_desc<Dh> reads it). Returns cudaSuccess
+// or an error.
 inline cudaError_t make_qkv_map(CUtensorMap* map, const void* base, int B, int H,
                                 int S, long long sb, long long sh, long long ss,
-                                int box_rows) {
+                                int box_rows, int head_dim = kHeadDim) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (box_rows < 1 || box_rows > 256 || ss <= 0 || (H > 1 && sh <= 0) ||
-      (B > 1 && sb <= 0))
+      (B > 1 && sb <= 0) || (head_dim != 64 && head_dim != 32))
     return cudaErrorInvalidValue;
   // a dimension of one element never uses its stride: give it a valid one
   const cuuint64_t row = static_cast<cuuint64_t>(ss) * 2;
-  const cuuint64_t dims[4] = {kHeadDim, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
   const cuuint64_t strides[3] = {row, H > 1 ? (cuuint64_t)sh * 2 : row,
                                  B > 1 ? (cuuint64_t)sb * 2 : row};
-  const cuuint32_t box[4] = {kHeadDim, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)head_dim, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      head_dim == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

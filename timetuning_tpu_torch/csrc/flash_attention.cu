@@ -51,7 +51,8 @@
 //   the scores and of acc with float4 operand reads, the softmax in
 //   registers over the 16 lanes of a row, K/V tiles of 64 keys by cp.async
 //   into two buffers, the next tile's copies under this one's arithmetic.
-// Dh is fixed at 64 (every ViT-S/B configuration of the repo).
+// Dh is fixed at 64: the wrapper refuses MoCo-v3 ViT-S/16's heads of 32,
+// which only reach this core above 1,024 tokens (ViT-S/16 above 512 px).
 #include "attention_f32.cuh"
 #include "attention_wgmma.cuh"
 #include "common.cuh"

@@ -1,9 +1,11 @@
 // Whole-sequence multi-head softmax attention, forward:
 //   o = softmax(q k^T * scale) v          per (batch, head)
-// q, k, v, o [B, H, S, 64], all bf16 or all f32, S <= 1024, each with its
-// own strides on B, H and S (the 64 head features contiguous), so the q, k, v
+// q, k, v, o [B, H, S, Dh], all bf16 or all f32, S <= 1024, each with its
+// own strides on B, H and S (the Dh head features contiguous), so the q, k, v
 // views of a qkv projection are read in place and the output lands in the
-// merged [B, S, H*64] layout.
+// merged [B, S, H*Dh] layout. Dh is 64 (DINO, MSN, iBOT, LeoPART, ViT-B) or,
+// in bf16, 32 (MoCo-v3 ViT-S/16's twelve heads of 32); f32 takes 64.
+// The TPU kernel takes any Dh = D / heads (fused_block.py:86).
 //
 // Replaces the TPU kernel timetuning_tpu/ops/attention.py:_mha_kernel (:53,
 // reached through attention_pallas / _attention_fused), which holds the
@@ -51,9 +53,13 @@
 //   256 tokens one pass: the block's [64, S] scores stay in shared memory
 //   (52 KB at S = 197) and q k^T runs once; up to 1,024 two passes (K, then
 //   K and V), the row statistics in registers.
-// Dh is fixed at 64 (every ViT of the repo). The bf16 core is also the
-// attention core of the attention-block kernel (attention_block.cu, through
-// mha_core.cuh).
+// Heads of 32 in bf16: the same kernels at Dh = 32 (a template parameter):
+// 64-byte rows in a 64-byte swizzle (one row an atom, eight rows a 512-byte
+// group: attention_wgmma.cuh's head_desc<32> and make_qkv_map), two k16
+// steps of q k^T and p @ v as m64n32k16, a [64 x 32] accumulator of 16
+// registers a lane. Every offset into shared memory stays a multiple of 512
+// bytes. The bf16 core is also the attention core of the attention-block
+// kernel (attention_block.cu, through mha_core.cuh).
 #include "attention_f32.cuh"
 #include "attention_wgmma.cuh"
 #include "common.cuh"
@@ -64,8 +70,11 @@ namespace {
 using tt::bf16;
 namespace hp = tt::hopper;
 
-constexpr int kDh = 64;
+constexpr int kDh = 64;                   // the f32 kernels' head width
 constexpr float kNeg = -1e30f;
+
+template <int Dh>
+__host__ __device__ constexpr int row_bytes() { return Dh * 2; }   // one bf16 row: a swizzle atom
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
@@ -76,13 +85,13 @@ constexpr int kOneMaxKeys = 256;          // the widest wgmma: the strip's limit
 constexpr int kOneThreads = 128;          // one warpgroup
 
 // shared memory of a block that owns q_rows query rows and a strip of `keys`
-constexpr int one_pass_smem(int q_rows, int keys) {
-  return (q_rows + 2 * keys) * hp::kRowBytes + 2 * 8 + 1024;
+constexpr int one_pass_smem(int q_rows, int keys, int dh) {
+  return (q_rows + 2 * keys) * dh * 2 + 2 * 8 + 1024;
 }
 
 // N: the key count the strip is padded to; q_rows: the query rows a block
-// owns, the rows of the Q box (64 a query tile)
-template <int N>
+// owns, the rows of the Q box (64 a query tile); Dh: the head width
+template <int N, int Dh>
 __global__ void __launch_bounds__(kOneThreads, 2)
 mha_one_pass_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -91,10 +100,11 @@ mha_one_pass_kernel(const __grid_constant__ CUtensorMap map_q,
                     long long os) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  constexpr int kRow = row_bytes<Dh>();
   const uint32_t q_s = base;
-  const uint32_t k_s = q_s + q_rows * hp::kRowBytes;
-  const uint32_t v_s = k_s + N * hp::kRowBytes;
-  const uint32_t bar_qk = v_s + N * hp::kRowBytes;
+  const uint32_t k_s = q_s + q_rows * kRow;
+  const uint32_t v_s = k_s + N * kRow;
+  const uint32_t bar_qk = v_s + N * kRow;
   const uint32_t bar_v = bar_qk + 8;
 
   const int b = blockIdx.y;
@@ -113,10 +123,10 @@ mha_one_pass_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
   if (tid == 0) {
     // V on a barrier of its own: q k^T and the softmax start without it
-    hp::mbar_arrive_expect_tx(bar_qk, (q_rows + N) * hp::kRowBytes);
+    hp::mbar_arrive_expect_tx(bar_qk, (q_rows + N) * kRow);
     hp::tma_load(k_s, &map_k, bar_qk, 0, h, b);
     hp::tma_load(q_s, &map_q, bar_qk, q0, h, b);
-    hp::mbar_arrive_expect_tx(bar_v, N * hp::kRowBytes);
+    hp::mbar_arrive_expect_tx(bar_v, N * kRow);
     hp::tma_load(v_s, &map_v, bar_v, 0, h, b);
   }
 
@@ -124,7 +134,7 @@ mha_one_pass_kernel(const __grid_constant__ CUtensorMap map_q,
   hp::mbar_wait(bar_qk, 0);
   for (int t = 0; q0 + t * 64 < q_end; ++t) {
     float sc[N / 2];
-    hp::qk_product(sc, q_s + t * 64 * hp::kRowBytes, k_s);
+    hp::qk_product<Dh>(sc, q_s + t * 64 * kRow, k_s);
     if (S < N) hp::mask_keys(sc, 0, S, lane);
 
     float mx0, mx1, sum0, sum1;
@@ -135,9 +145,9 @@ mha_one_pass_kernel(const __grid_constant__ CUtensorMap map_q,
     uint32_t pa[N / 4];
     hp::pack_rows(sc, 1.f / sum0, 1.f / sum1, pa);
 
-    float acc[32];
+    float acc[Dh / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int i = 0; i < Dh / 2; ++i) acc[i] = 0.f;
     hp::mbar_wait(bar_v, 0);
     hp::pv_product<N / 16>(acc, pa, v_s, false);
     hp::store_rows(acc, 1.f, 1.f, out, os,
@@ -152,18 +162,25 @@ constexpr int kTwoMaxChunks = 8;          // S <= 1,024
 constexpr int kTwoStages = 3;             // V tiles in flight
 constexpr int kTwoConsumerWarps = 8;
 constexpr int kTwoThreads = (kTwoConsumerWarps + 1) * 32;
-constexpr int kTwoQBytes = kTwoQ * hp::kRowBytes;
-constexpr int kTwoChunkBytes = kTwoK * hp::kRowBytes;
-constexpr int kTwoBarOffset =
-    kTwoQBytes + (kTwoMaxChunks + kTwoStages) * kTwoChunkBytes;
 constexpr int kTwoBars = 1 + kTwoMaxChunks + 2 * kTwoStages;
+template <int Dh>
+struct TwoPass {
+  static constexpr int kQBytes = kTwoQ * row_bytes<Dh>();
+  static constexpr int kChunkBytes = kTwoK * row_bytes<Dh>();
+  static constexpr int kBarOffset = kQBytes + (kTwoMaxChunks + kTwoStages) * kChunkBytes;
+  static constexpr int kSmem = kBarOffset + kTwoBars * 8 + 1024;
+};
 
+template <int Dh>
 __global__ void __launch_bounds__(kTwoThreads, 1)
 mha_two_pass_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
                     int S, float scale_log2, long long ob, long long oh,
                     long long os) {
+  constexpr int kTwoQBytes = TwoPass<Dh>::kQBytes;
+  constexpr int kTwoChunkBytes = TwoPass<Dh>::kChunkBytes;
+  constexpr int kTwoBarOffset = TwoPass<Dh>::kBarOffset;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
@@ -213,7 +230,7 @@ mha_two_pass_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   const int wg = warp >> 2;
-  const uint32_t q_wg = q_s + wg * 64 * hp::kRowBytes;
+  const uint32_t q_wg = q_s + wg * 64 * row_bytes<Dh>();
   const bool ragged = S % kTwoK != 0;
   hp::mbar_wait(bar_q, 0);
 
@@ -222,7 +239,7 @@ mha_two_pass_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int c = 0; c < n_chunks; ++c) {
     hp::mbar_wait(bar_k + 8 * c, 0);
     float sc[kTwoK / 2];
-    hp::qk_product(sc, q_wg, k_s + c * kTwoChunkBytes);
+    hp::qk_product<Dh>(sc, q_wg, k_s + c * kTwoChunkBytes);
     if (ragged && c == n_chunks - 1) hp::mask_keys(sc, c * kTwoK, S, lane);
     float mx0, mx1, sum0, sum1;
     hp::row_max(sc, mx0, mx1);
@@ -239,14 +256,14 @@ mha_two_pass_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // pass 2: p = exp(s - max) / sum rounded to bf16, acc += p @ v; K's
   // barriers have completed their only phase, so the waits pass at once
-  float acc[32];
+  float acc[Dh / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < Dh / 2; ++i) acc[i] = 0.f;
   for (int c = 0; c < n_chunks; ++c) {
     const int s = c % kTwoStages;
     const uint32_t round = (c / kTwoStages) & 1;
     float sc[kTwoK / 2];
-    hp::qk_product(sc, q_wg, k_s + c * kTwoChunkBytes);
+    hp::qk_product<Dh>(sc, q_wg, k_s + c * kTwoChunkBytes);
     if (ragged && c == n_chunks - 1) hp::mask_keys(sc, c * kTwoK, S, lane);
     float sum0, sum1;
     hp::exp_rows(sc, scale_log2, m0, m1, sum0, sum1);
@@ -260,19 +277,46 @@ mha_two_pass_kernel(const __grid_constant__ CUtensorMap map_q,
                  q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2), S, lane);
 }
 
-template <int N>
+template <int N, int Dh>
 cudaError_t launch_one_pass(const CUtensorMap& mq, const CUtensorMap& mk,
                             const CUtensorMap& mv, bf16* o, int B, int H, int S,
                             int q_rows, float scale_log2, long long ob,
                             long long oh, long long os, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
-      mha_one_pass_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      one_pass_smem(kOneMaxKeys, N));
+      mha_one_pass_kernel<N, Dh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      one_pass_smem(kOneMaxKeys, N, Dh));
   if (e != cudaSuccess) return e;
-  mha_one_pass_kernel<N><<<dim3(H, B, (S + q_rows - 1) / q_rows), kOneThreads,
-                           one_pass_smem(q_rows, N), s>>>(
+  mha_one_pass_kernel<N, Dh><<<dim3(H, B, (S + q_rows - 1) / q_rows), kOneThreads,
+                               one_pass_smem(q_rows, N, Dh), s>>>(
       mq, mk, mv, o, S, q_rows, scale_log2, ob, oh, os);
   return cudaGetLastError();
+}
+
+template <int Dh>
+cudaError_t launch_two_pass(const CUtensorMap& mq, const CUtensorMap& mk,
+                            const CUtensorMap& mv, bf16* o, int B, int H, int S,
+                            float scale_log2, long long ob, long long oh,
+                            long long os, cudaStream_t s) {
+  constexpr int smem = TwoPass<Dh>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      mha_two_pass_kernel<Dh>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  mha_two_pass_kernel<Dh><<<dim3((S + kTwoQ - 1) / kTwoQ, H, B), kTwoThreads, smem, s>>>(
+      mq, mk, mv, o, S, scale_log2, ob, oh, os);
+  return cudaGetLastError();
+}
+
+template <int Dh>
+cudaError_t launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk,
+                        const CUtensorMap& mv, bf16* o, int B, int H, int S,
+                        bool one, int keys, int q_rows, float scale_log2,
+                        long long ob, long long oh, long long os, cudaStream_t s) {
+  if (!one) return launch_two_pass<Dh>(mq, mk, mv, o, B, H, S, scale_log2, ob, oh, os, s);
+  auto launch = keys == 64 ? launch_one_pass<64, Dh>
+                : keys == 128 ? launch_one_pass<128, Dh>
+                : keys == 208 ? launch_one_pass<208, Dh>
+                              : launch_one_pass<256, Dh>;
+  return launch(mq, mk, mv, o, B, H, S, q_rows, scale_log2, ob, oh, os, s);
 }
 
 // ----------------------------------------------------------------- f32 --
@@ -494,20 +538,21 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
-// The bf16 core on strided [B, H, S, 64] views (strides in elements): the
-// caller's plan (ops/attention.mha_plan) is checked here, for tt_mha below
-// and for the attention-block kernel (attention_block.cu), which runs this
-// core on the q, k, v thirds of its qkv rows.
+// The bf16 core on strided [B, H, S, Dh] views (strides in elements, Dh 32
+// or 64): the caller's plan (ops/attention.mha_plan) is checked here, for
+// tt_mha below and for the attention-block kernel (attention_block.cu),
+// which runs this core on the q, k, v thirds of its qkv rows.
 cudaError_t tt::launch_mha_bf16(const void* q, const void* k, const void* v, void* o,
-                                int B, int H, int S, int passes, int keys,
+                                int B, int H, int S, int Dh, int passes, int keys,
                                 long long qb, long long qh, long long qs,
                                 long long kb, long long kh, long long ks,
                                 long long vb, long long vh, long long vs,
                                 long long ob, long long oh, long long os,
                                 cudaStream_t s) {
-  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S > 1024)
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S > 1024 ||
+      (Dh != 32 && Dh != 64))
     return cudaErrorInvalidValue;
-  const float scale_log2 = 1.f / sqrtf((float)kDh) * hp::kLog2e;
+  const float scale_log2 = 1.f / sqrtf((float)Dh) * hp::kLog2e;
   bf16* out = static_cast<bf16*>(o);
   const bool one = passes == 1;
   if (one ? (keys < S || (keys != 64 && keys != 128 && keys != 208 && keys != 256))
@@ -532,35 +577,23 @@ cudaError_t tt::launch_mha_bf16(const void* q, const void* k, const void* v, voi
   const int q_rows = !one ? kTwoQ : whole <= tiled ? q_tiles * 64 : 64;
   const int kv_rows = one ? keys : kTwoK;
   CUtensorMap mq, mk, mv;
-  if ((e = hp::make_qkv_map(&mq, q, B, H, S, qb, qh, qs, q_rows)) != cudaSuccess ||
-      (e = hp::make_qkv_map(&mk, k, B, H, S, kb, kh, ks, kv_rows)) != cudaSuccess ||
-      (e = hp::make_qkv_map(&mv, v, B, H, S, vb, vh, vs, kv_rows)) != cudaSuccess)
+  if ((e = hp::make_qkv_map(&mq, q, B, H, S, qb, qh, qs, q_rows, Dh)) != cudaSuccess ||
+      (e = hp::make_qkv_map(&mk, k, B, H, S, kb, kh, ks, kv_rows, Dh)) != cudaSuccess ||
+      (e = hp::make_qkv_map(&mv, v, B, H, S, vb, vh, vs, kv_rows, Dh)) != cudaSuccess)
     return e;
-  if (one) {
-    auto launch = keys == 64 ? launch_one_pass<64>
-                  : keys == 128 ? launch_one_pass<128>
-                  : keys == 208 ? launch_one_pass<208>
-                                : launch_one_pass<256>;
-    return launch(mq, mk, mv, out, B, H, S, q_rows, scale_log2, ob, oh, os, s);
-  }
-  constexpr int smem = kTwoBarOffset + kTwoBars * 8 + 1024;
-  e = cudaFuncSetAttribute(mha_two_pass_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  mha_two_pass_kernel<<<dim3((S + kTwoQ - 1) / kTwoQ, H, B), kTwoThreads, smem, s>>>(
-      mq, mk, mv, out, S, scale_log2, ob, oh, os);
-  return cudaGetLastError();
+  return (Dh == 64 ? launch_bf16<64> : launch_bf16<32>)(
+      mq, mk, mv, out, B, H, S, one, keys, q_rows, scale_log2, ob, oh, os, s);
 }
 
 // q, k, v, o: device pointers of bf16 (is_bf16 = 1) or f32 values; strides
-// in elements. 1 <= S <= 1024. bf16: `passes` and `keys` are the caller's
+// in elements. 1 <= S <= 1024; Dh 64, or 32 in bf16. bf16: `passes` and `keys` are the caller's
 // plan (ops/attention.mha_plan): one pass over a strip of keys = 64, 128,
 // 208 or 256 >= S, or two passes over keys = S rounded up to 128-key chunks;
 // the head features contiguous, every stride a multiple of 8 elements and
 // every base 16-byte aligned (TMA). f32 takes the plan's passes: one keeps
 // the scores of S <= 256 keys in shared memory, two recompute them.
 extern "C" int tt_mha(const void* q, const void* k, const void* v, void* o,
-                      int is_bf16, int B, int H, int S, int passes, int keys,
+                      int is_bf16, int B, int H, int S, int Dh, int passes, int keys,
                       long long qb, long long qh, long long qs, long long kb,
                       long long kh, long long ks, long long vb, long long vh,
                       long long vs, long long ob, long long oh, long long os,
@@ -569,9 +602,9 @@ extern "C" int tt_mha(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)tt::launch_mha_bf16(q, k, v, o, B, H, S, passes, keys, qb, qh, qs, kb,
-                                    kh, ks, vb, vh, vs, ob, oh, os, s);
-  if (passes != 2 && (passes != 1 || S > kStripMaxKeys))
+    return (int)tt::launch_mha_bf16(q, k, v, o, B, H, S, Dh, passes, keys, qb, qh, qs,
+                                    kb, kh, ks, vb, vh, vs, ob, oh, os, s);
+  if (Dh != kDh || (passes != 2 && (passes != 1 || S > kStripMaxKeys)))
     return (int)cudaErrorInvalidValue;
   const float scale = 1.f / sqrtf((float)kDh);
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};

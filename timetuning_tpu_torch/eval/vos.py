@@ -18,22 +18,22 @@ from timetuning_tpu_torch.ops.morphology import dilate
 
 
 def boundary_map(mask: torch.Tensor) -> torch.Tensor:
-    """Binary boundary of a [H, W] mask, as the reference ``_seg2bmap``
+    """Binary boundary of [..., H, W] masks, as the reference ``_seg2bmap``
     (mask_propagation.py:614-627, the equal-size case): XOR against the
     east/south/southeast neighbours (zero-padded), then the last row and
     column are overridden to the east-/south-difference only and the corner
     to 0, so a full-frame mask has (almost) no boundary pixels."""
     m = mask.bool()
     e = torch.zeros_like(m)
-    e[:, :-1] = m[:, 1:]
+    e[..., :, :-1] = m[..., :, 1:]
     s = torch.zeros_like(m)
-    s[:-1, :] = m[1:, :]
+    s[..., :-1, :] = m[..., 1:, :]
     se = torch.zeros_like(m)
-    se[:-1, :-1] = m[1:, 1:]
+    se[..., :-1, :-1] = m[..., 1:, 1:]
     b = (m ^ e) | (m ^ s) | (m ^ se)
-    b[-1, :] = m[-1, :] ^ e[-1, :]
-    b[:, -1] = m[:, -1] ^ s[:, -1]
-    b[-1, -1] = False
+    b[..., -1, :] = m[..., -1, :] ^ e[..., -1, :]
+    b[..., :, -1] = m[..., :, -1] ^ s[..., :, -1]
+    b[..., -1, -1] = False
     return b
 
 
@@ -41,8 +41,10 @@ def boundary_f_measure(pred: torch.Tensor, gt: torch.Tensor,
                        bound_th: float = 0.008) -> torch.Tensor:
     """F-measure of boundary alignment within a pixel tolerance (reference
     ``db_eval_boundary`` / ``f_measure``, mask_propagation.py:501-557).
-    pred/gt: binary [H, W]. Returns a 0-d f32 tensor."""
-    H, W = pred.shape
+    pred/gt: binary [..., H, W], each leading index a frame of its own,
+    computed together on their device. Returns f32 [...] (0-d for one
+    frame)."""
+    H, W = pred.shape[-2:]
     bound_pix = (bound_th if bound_th >= 1
                  else math.ceil(bound_th * math.hypot(H, W)))
     fg = boundary_map(pred)
@@ -50,12 +52,13 @@ def boundary_f_measure(pred: torch.Tensor, gt: torch.Tensor,
     fg_dil = dilate(fg, int(bound_pix)).bool()
     gt_dil = dilate(gtb, int(bound_pix)).bool()
 
-    n_fg = fg.sum().float()
-    n_gt = gtb.sum().float()
-    one, zero = torch.ones(()), torch.zeros(())
-    precision = torch.where(n_fg > 0, (fg & gt_dil).sum() / n_fg.clamp(min=1),
+    n_fg = fg.sum(dim=(-2, -1)).float()
+    n_gt = gtb.sum(dim=(-2, -1)).float()
+    one = torch.ones((), device=pred.device)
+    zero = torch.zeros((), device=pred.device)
+    precision = torch.where(n_fg > 0, (fg & gt_dil).sum(dim=(-2, -1)) / n_fg.clamp(min=1),
                             torch.where(n_gt > 0, zero, one))
-    recall = torch.where(n_gt > 0, (gtb & fg_dil).sum() / n_gt.clamp(min=1),
+    recall = torch.where(n_gt > 0, (gtb & fg_dil).sum(dim=(-2, -1)) / n_gt.clamp(min=1),
                          torch.where(n_fg > 0, zero, one))
     denom = precision + recall
     return torch.where(denom > 0,

@@ -9,11 +9,20 @@ Flax ``LinearProbeHead``. ``timet_state_dict_from_jax`` carries a whole
 ``TimeT`` module, and ``timet_params_to_jax`` takes a state dict of that
 module back to numpy arrays in the JAX tree's layout, so two trees can be
 compared leaf by leaf.
+
+The zoo's other families go through ``flax_state_dict``, one Flax variables
+tree (``params`` and ``batch_stats``) to the port module's state dict by
+name: ``resnet_state_dict_from_jax``, ``dul_state_dict_from_jax``,
+``motion_grouping_state_dict_from_jax`` (the zoo's encoder or the whole
+autoencoder), ``mae_state_dict_from_jax`` (encoder and decoder),
+``stego_state_dict_from_jax``, ``moco_predictor_state_dict_from_jax`` and
+``conv_stem_state_dict_from_jax``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import re
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -89,3 +98,102 @@ def timet_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, Any
             segs[-1] = "scale" if is_norm else "kernel"
         put(segs, np.ascontiguousarray(a))
     return tree
+
+
+_LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping[str, Any], prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def flax_state_dict(variables: Mapping[str, Any],
+                    rename: Callable[[list], list] = lambda segs: segs
+                    ) -> dict[str, torch.Tensor]:
+    """Flax variables (``params``, and ``batch_stats`` where there are
+    BatchNorms) -> a state dict: a ``kernel`` becomes ``weight`` (dense [in,
+    out] -> [out, in]; convolution HWIO -> OIHW), ``scale`` ``weight``,
+    ``mean`` / ``var`` ``running_mean`` / ``running_var``; ``rename`` maps
+    the module path's segments to the port's."""
+    sd = {}
+    for col in ("params", "batch_stats"):
+        for path, a in _leaves(variables.get(col, {})):
+            a = np.asarray(a, dtype=np.float32)
+            *mods, leaf = path
+            if leaf == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                leaf = "weight"
+            else:
+                leaf = _LEAF.get(leaf, leaf)
+            sd[".".join(rename(list(mods)) + [leaf])] = torch.tensor(a)
+    return sd
+
+
+def _resnet_names(segs: list) -> list:
+    out = []
+    for s in segs:
+        if s == "bn":                     # the JAX _BN wrapper's inner module
+            continue
+        m = re.fullmatch(r"layer(\d)_(\d+)", s)
+        out += ([f"layer{m[1]}", m[2]] if m else
+                ["downsample", "0"] if s == "ds_conv" else
+                ["downsample", "1"] if s == "ds_bn" else [s])
+    return out
+
+
+def _block_names(segs: list) -> list:
+    out = []
+    for s in segs:
+        m = re.fullmatch(r"(decoder_blocks|blocks)_(\d+)", s)
+        out += [m[1], m[2]] if m else ["in_"] if s == "in" and out[-1:] == ["gru"] else [s]
+    return out
+
+
+def resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``timetuning_tpu/models/resnet.ResNet`` variables (with their
+    ``batch_stats``) -> ``models/resnet.ResNet``'s torchvision-named state dict."""
+    return flax_state_dict(variables, _resnet_names)
+
+
+def dul_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``DulBackbone`` variables (``net`` a stride-8 ResNet18) -> the port's."""
+    return flax_state_dict(variables, _resnet_names)
+
+
+def motion_grouping_state_dict_from_jax(
+        variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``MotionGroupingBackbone`` or ``SlotAttentionAutoEncoder`` variables
+    -> the port module's state dict (the same names; GRU ``in`` -> ``in_``)."""
+    return flax_state_dict(variables, _block_names)
+
+
+def mae_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``MAEViT`` variables (encoder and decoder) -> ``models/mae.MAEViT``'s
+    state dict (the MAE release's names)."""
+    return flax_state_dict(variables, lambda segs: ["patch_embed", "proj"]
+                           if segs == ["patch_embed"] else _block_names(segs))
+
+
+def stego_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``StegoFeaturizer`` variables -> the port's: the ViT through the
+    exporter, the three dense heads by name."""
+    params = variables["params"]
+    sd = {f"backbone.{k}": v for k, v in vit_state_dict_from_jax(params["backbone"]).items()}
+    sd.update(flax_state_dict({"params": {k: v for k, v in params.items()
+                                          if k != "backbone"}}))
+    return sd
+
+
+def moco_predictor_state_dict_from_jax(
+        variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``MoCoPredictor`` variables -> ``models/moco.MoCoPredictor``'s."""
+    return flax_state_dict(variables)
+
+
+def conv_stem_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``ConvStem`` variables -> ``models/moco.ConvStem``'s."""
+    return flax_state_dict(variables)

@@ -1,9 +1,14 @@
-"""Backbone registry for the ViT architectures of the propagation eval.
+"""Backbone zoo: ``get_backbone`` over every architecture of the JAX
+registry, each one's weight import, and the released-weight table.
 
 Counterpart of ``timetuning_tpu/models/registry.py`` (reference
-models.py:773-900), for the ViT names only: ``vit-tiny-test``,
-``vit-tiny-test-p4``, ``dino-s16``, ``dino-s8`` and ``dino-b16``. The other
-backbones of the JAX registry are still to port (ROADMAP queue 1).
+models.py:773-900 ``get_backbone``, models.py:76 ``spatial_resolutions``,
+leopart.py:151-230 the released-weight URLs): the 13 reference
+architectures and the two test ViTs, with the JAX package's feature dims,
+patch sizes, ``drop_cls`` and fixed grids. There is no download: every
+entry takes a local ``model_path`` in the reference layout, and without one
+the weights are a seeded random init. A module's ``forward(x [B, H, W, 3])``
+returns the ViT's dict (``tokens``, ``attention``, ``grid``).
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn as nn
 
 from timetuning_tpu_torch.models.vit import (
     ViTConfig,
@@ -32,37 +38,86 @@ _PREFIXES = (
 _CONTAINERS = ("state_dict", "model_state_dict", "model", "teacher",
                "target_encoder", "encoder", "student", "model_state")
 
+# The reference's table (models.py:76); the resnet values describe its
+# 448-input CBFE configuration. ``Backbone.spatial_resolution`` computes the
+# grid from the architecture instead.
+REFERENCE_SPATIAL_RESOLUTIONS = {
+    "resnet18": 14, "resnet50": 14, "dino": 14, "stego": 28, "leopart": 14,
+    "vit": 14,
+}
+
+# Released weights (leopart.py:151-216): provenance only, nothing is fetched.
+PRETRAINED_URLS = {
+    "dino-s16": "https://dl.fbaipublicfiles.com/dino/dino_deitsmall16_pretrain/dino_deitsmall16_pretrain.pth",
+    "dino-s8": "https://dl.fbaipublicfiles.com/dino/dino_deitsmall8_pretrain/dino_deitsmall8_pretrain.pth",
+    "dino-b16": "https://dl.fbaipublicfiles.com/dino/dino_vitbase16_pretrain/dino_vitbase16_pretrain.pth",
+    "mocov3-s16": "https://dl.fbaipublicfiles.com/moco-v3/vit-s-300ep/vit-s-300ep.pth.tar",
+    "mocov3-b16": "https://dl.fbaipublicfiles.com/moco-v3/vit-b-300ep/vit-b-300ep.pth.tar",
+    "mae": "https://dl.fbaipublicfiles.com/mae/pretrain/mae_pretrain_vit_base.pth",
+    "msn-s16": "https://dl.fbaipublicfiles.com/msn/vits16_800ep.pth.tar",
+    "swav": "https://dl.fbaipublicfiles.com/deepcluster/swav_800ep_pretrain.pth.tar",
+    "resnet18": "https://download.pytorch.org/models/resnet18-5c106cde.pth",
+    "resnet50": "https://download.pytorch.org/models/resnet50-19c8e357.pth",
+}
+
+ARCHITECTURES = (
+    "resnet18", "resnet50", "swav", "vit-tiny-test", "vit-tiny-test-p4",
+    "dino-s16", "msn-s16", "ibot-s16", "leopart", "dino-s8", "dino-b16", "vit",
+    "mocov3-s16", "mocov3-b16", "mae", "motion_grouping", "dul", "stego",
+)
+VIT_NAMES = ("vit-tiny-test", "vit-tiny-test-p4", "dino-s16", "msn-s16", "ibot-s16",
+             "leopart", "dino-s8", "dino-b16", "vit", "mocov3-s16", "mocov3-b16")
+
 
 @dataclasses.dataclass
 class Backbone:
-    """A ready-to-apply backbone: module + metadata."""
+    """A ready-to-apply backbone: module + metadata. ``fixed_resolution``:
+    the token grid the reference recipe pins whatever the input size
+    (motion_grouping 56, dul 28; models.py:1055-1068)."""
 
-    module: VisionTransformer
-    patch_size: int
+    module: nn.Module
+    patch_size: int | None
     feature_dim: int
     drop_cls: bool
     name: str
+    fixed_resolution: int | None = None
 
     def spatial_resolution(self, input_size: int = 224) -> int:
-        return input_size // self.patch_size
+        if self.fixed_resolution is not None:
+            return self.fixed_resolution
+        if self.patch_size is not None:
+            return input_size // self.patch_size
+        return input_size // 32  # a ResNet's output stride
 
     def apply(self, frames, want_attention: bool = False):
         out = self.module(frames, want_attention=want_attention)
         feats = out["tokens"]
         if self.drop_cls:
             feats = feats[:, 1:]
-        return feats, out["attention"]
+        return feats, out.get("attention")
 
 
-def _configs(dtype: torch.dtype) -> dict[str, ViTConfig]:
-    tiny = dict(embed_dim=32, depth=2, num_heads=2, img_size=32, dtype=dtype)
-    return {
-        "vit-tiny-test": ViTConfig(patch_size=8, **tiny),
-        "vit-tiny-test-p4": ViTConfig(patch_size=4, **tiny),
-        "dino-s16": vit_small(16, dtype=dtype),
-        "dino-s8": vit_small(8, dtype=dtype),
-        "dino-b16": vit_base(16, dtype=dtype),
-    }
+def _vit_config(name: str, dtype: torch.dtype) -> ViTConfig:
+    from timetuning_tpu_torch.models.moco import moco_vit_base, moco_vit_small
+
+    # the test ViTs run the plain blocks in either dtype, as the JAX
+    # registry builds them (attn_impl="xla"): 16-wide heads and D = 32
+    # are below what the block kernels take
+    tiny = dict(embed_dim=32, depth=2, num_heads=2, img_size=32, dtype=dtype,
+                attn_impl="xla")
+    if name == "vit-tiny-test":
+        return ViTConfig(patch_size=8, **tiny)
+    if name == "vit-tiny-test-p4":
+        return ViTConfig(patch_size=4, **tiny)
+    if name in ("dino-s16", "msn-s16", "ibot-s16", "leopart"):
+        return vit_small(16, dtype=dtype)
+    if name == "dino-s8":
+        return vit_small(8, dtype=dtype)
+    if name in ("dino-b16", "vit"):
+        return vit_base(16, dtype=dtype)
+    if name == "mocov3-s16":
+        return moco_vit_small(dtype=dtype)
+    return moco_vit_base(dtype=dtype)
 
 
 def load_vit_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -85,30 +140,162 @@ def load_vit_state_dict(path: str) -> dict[str, torch.Tensor]:
     return sd
 
 
+def load_checked(module: nn.Module, sd: dict, only_known: bool = False) -> None:
+    """``module.load_state_dict(sd)``, where BatchNorm's
+    ``num_batches_tracked`` may be absent; ``only_known`` drops keys the
+    module does not have (a checkpoint's heads and probes) first."""
+    own = module.state_dict()
+    if only_known:
+        sd = {k: v for k, v in sd.items() if k in own}
+    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
+    unexpected = [k for k in sd if k not in own]
+    if missing or unexpected:
+        raise KeyError(f"checkpoint does not fit {type(module).__name__}: missing "
+                       f"{missing[:8]}, unexpected {unexpected[:8]}")
+    module.load_state_dict(sd, strict=False)
+
+
+def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights for the zoo's non-ViT modules: LeCun-normal
+    (truncated at two deviations) convolution and dense weights, zero
+    biases, unit norm scales; BatchNorm running mean 0 and variance 1; any
+    other parameter normal with std 0.02."""
+    with torch.no_grad():
+        done = set()
+        for mod in module.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                std = mod.weight[0].numel() ** -0.5
+                nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                if mod.bias is not None:
+                    nn.init.zeros_(mod.bias)
+            elif isinstance(mod, (nn.BatchNorm2d, nn.BatchNorm1d, nn.LayerNorm,
+                                  nn.GroupNorm)):
+                if getattr(mod, "weight", None) is not None:
+                    nn.init.ones_(mod.weight)
+                    nn.init.zeros_(mod.bias)
+                if getattr(mod, "running_mean", None) is not None:
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+            else:
+                continue
+            done.update(id(p) for p in mod.parameters(recurse=False))
+        for p in module.parameters():
+            if id(p) not in done:
+                nn.init.normal_(p, std=0.02, generator=generator)
+    return module
+
+
+def _build(name: str, model_path: str | None, dtype: torch.dtype, seed: int) -> Backbone:
+    from timetuning_tpu_torch.models.import_torch import load_torch_state_dict, strip_prefixes
+
+    gen = torch.Generator().manual_seed(seed)
+    if name in ("resnet18", "resnet50", "swav"):
+        from timetuning_tpu_torch.models import resnet
+
+        module = resnet.resnet18(dtype) if name == "resnet18" else resnet.resnet50(dtype)
+        if model_path:
+            load_checked(module, resnet.resnet_state_dict_from_torch(
+                load_torch_state_dict(model_path)))
+        else:
+            seeded_init(module, gen)
+        return Backbone(module, None, module.out_dim, False, name)
+
+    if name in VIT_NAMES:
+        cfg = _vit_config(name, dtype)
+        module = VisionTransformer(cfg)
+        if model_path:
+            # head weights of a TimeT.pth share the file and are not the ViT's
+            load_checked(module, load_vit_state_dict(model_path), only_known=True)
+        else:
+            module.init_weights(gen)
+        return Backbone(module, cfg.patch_size, cfg.embed_dim, True, name)
+
+    if name == "mae":
+        from timetuning_tpu_torch.models.mae import mae_vit_base
+
+        module = seeded_init(mae_vit_base(dtype=dtype), gen)
+        if model_path:
+            # the encoder's keys (timm layout) onto the seeded module: the
+            # released file's fixed sin-cos tables and the decoder stay out
+            sd = strip_prefixes(load_torch_state_dict(model_path))
+            own = module.state_dict()
+            enc = {k: torch.as_tensor(v) for k, v in sd.items()
+                   if not k.startswith("decoder") and k != "mask_token" and k in own}
+            module.load_state_dict(enc, strict=False)
+        return Backbone(module, 16, 768, True, name)
+
+    if name == "motion_grouping":
+        from timetuning_tpu_torch.models.slot_attention import (
+            MotionGroupingBackbone,
+            motion_grouping_encoder_from_torch,
+        )
+
+        module = seeded_init(MotionGroupingBackbone(), gen)
+        if model_path:
+            # reference models.py:876-884: the autoencoder's checkpoint; the
+            # features read its encoder_cnn
+            load_checked(module, motion_grouping_encoder_from_torch(
+                load_torch_state_dict(model_path)))
+        return Backbone(module, None, 256, False, name, fixed_resolution=56)
+
+    if name == "dul":
+        from timetuning_tpu_torch.models.dul import DulBackbone, dul_state_dict_from_torch
+
+        module = DulBackbone(dtype)
+        if model_path:
+            # reference models.py:885-894: torch.load(path)['model'], module.
+            # stripped; the features are fast_net.backbone's
+            load_checked(module, dul_state_dict_from_torch(load_torch_state_dict(model_path)))
+        else:
+            seeded_init(module, gen)
+        return Backbone(module, None, 512, False, name, fixed_resolution=28)
+
+    if name == "stego":
+        # STEGO's featurizer (ViT-S/8 + the cluster projection); the
+        # reference wrapped the external release (models.py:872-875)
+        from timetuning_tpu_torch.models.stego import StegoFeaturizer, stego_state_dict_from_torch
+
+        dim, sd = 70, None
+        if model_path:
+            sd = stego_state_dict_from_torch(load_torch_state_dict(model_path))
+            dim = sd["cluster1.weight"].shape[0]
+        module = StegoFeaturizer(VisionTransformer(vit_small(8, dtype=dtype)), dim)
+        if sd is not None:
+            load_checked(module, sd, only_known=True)
+        else:
+            module.backbone.init_weights(gen)
+            seeded_init(module.cluster1, gen)
+            seeded_init(module.cluster2_fc1, gen)
+            seeded_init(module.cluster2_fc2, gen)
+        # patch 8: grid 28 at 224 (models.py:76); the tokens are CLS-free
+        return Backbone(module, 8, dim, False, name)
+
+    raise ValueError(f"unknown backbone {name!r}; the zoo has {list(ARCHITECTURES)}")
+
+
 def get_backbone(name: str, model_path: str | None = None,
                  dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda", seed: int = 0) -> Backbone:
-    """Build a ViT backbone on ``device``, the card unless the caller names
-    the host (``device="cpu"``); with no card a CUDA device raises. With
-    ``model_path`` the reference-layout weights load into the module with
-    ``load_state_dict``; without, the weights are a seeded random init."""
-    cfgs = _configs(dtype)
+    """Build backbone ``name`` on ``device``, the card unless the caller
+    names the host (``device="cpu"``); with no card a CUDA device raises.
+    With ``model_path`` the reference-layout weights load as the JAX
+    registry reads them; without, the weights are a seeded random init."""
     key = name.lower()
-    if key not in cfgs:
-        raise ValueError(f"unknown or not yet ported backbone {name!r}; the "
-                         f"port has {sorted(cfgs)}")
+    if key not in ARCHITECTURES:
+        raise ValueError(f"unknown backbone {name!r}; the zoo has {list(ARCHITECTURES)}")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "get_backbone: no CUDA device found (torch.cuda.is_available() is "
             "false); pass device='cpu' to build on the host")
-    cfg = cfgs[key]
-    module = VisionTransformer(cfg)
-    if model_path:
-        sd = load_vit_state_dict(model_path)
-        # head weights of a TimeT.pth share the file and are not the ViT's
-        sd = {k: v for k, v in sd.items() if k in module.state_dict()}
-        module.load_state_dict(sd, strict=True)
-    else:
-        module.init_weights(torch.Generator().manual_seed(seed))
-    module = module.to(device).eval()
-    return Backbone(module, cfg.patch_size, cfg.embed_dim, True, key)
+    bb = _build(key, model_path, dtype, seed)
+    bb.module = bb.module.to(device).eval()
+    return bb
+
+
+def get_backbone_weights(arch: str) -> str:
+    """The released weights' URL (reference leopart.py:151-216); download it
+    elsewhere and pass the local path to ``get_backbone``."""
+    if arch not in PRETRAINED_URLS:
+        raise KeyError(f"no released weights recorded for {arch!r}")
+    return PRETRAINED_URLS[arch]

@@ -104,12 +104,17 @@ def mha_plan(seq_len: int) -> tuple[int, int]:
     return 2, -(-seq_len // TWO_PASS_CHUNK) * TWO_PASS_CHUNK
 
 
+# The head widths kernel 10 takes: 64 in bf16 and f32, 32 in bf16 only
+# (MoCo-v3 ViT-S/16). Any other width raises on the card.
+MHA_HEAD_DIMS = {torch.bfloat16: (32, 64), torch.float32: (64,)}
+
+
 def attention_mha(q, k, v):
-    """Kernel 10 (csrc/mha.cu). q, k, v: [B, H, S, 64] with S <= 1024, all
-    bf16 or all f32, read as the strided views they are. Returns
-    [B, H, S, 64] in q's dtype, a view of a [B, S, H, 64] buffer, so merging
-    the heads afterwards is free. Forward only: ``attention(...,
-    impl="pallas")`` wraps it with its backward."""
+    """Kernel 10 (csrc/mha.cu). q, k, v: [B, H, S, Dh] with S <= 1024, all
+    bf16 (Dh 32 or 64) or all f32 (Dh 64), read as the strided views they
+    are. Returns [B, H, S, Dh] in q's dtype, a view of a [B, S, H, Dh]
+    buffer, so merging the heads afterwards is free. Forward only:
+    ``attention(..., impl="pallas")`` wraps it with its backward."""
     kernel_lib.require_no_grad("attention_mha", q, k, v)
     if q.device.type == "cpu":
         return attention_mha_plain(q, k, v)
@@ -118,14 +123,15 @@ def attention_mha(q, k, v):
                          f"[B, H, S, Dh], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, Dh = q.shape
-    if Dh != 64:
-        raise ValueError(f"attention_mha: the kernel takes 64-wide heads, got "
-                         f"Dh={Dh}")
     passes, keys = mha_plan(S)
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             q.dtype == k.dtype == v.dtype):
         raise ValueError(f"attention_mha: expected q, k, v all bf16 or all "
                          f"f32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if Dh not in MHA_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"attention_mha: the kernel takes 32- or 64-wide "
+                         f"heads in bf16 and 64-wide heads in f32, got Dh={Dh} "
+                         f"in {q.dtype}")
     kernel_lib.require_cuda("attention_mha", q, k, v)
     q, k, v = _aligned(q.detach()), _aligned(k.detach()), _aligned(v.detach())
     out = torch.empty((B, S, H, Dh), dtype=q.dtype,
@@ -133,7 +139,7 @@ def attention_mha(q, k, v):
     kernel_lib.launch(
         "mha", "tt_mha", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, S, passes, keys,
+        int(q.dtype == torch.bfloat16), B, H, S, Dh, passes, keys,
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     return out
 

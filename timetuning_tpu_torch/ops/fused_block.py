@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from timetuning_tpu_torch.ops import kernel_lib
-from timetuning_tpu_torch.ops.attention import mha_plan
+from timetuning_tpu_torch.ops.attention import MHA_HEAD_DIMS, mha_plan
 from timetuning_tpu_torch.ops.flash_attention import flash_attention
 
 _LN_EPS = 1e-6   # the reference LayerNorm eps (torch's default is 1e-5)
@@ -254,9 +254,9 @@ def attention_block_branch(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                                    num_heads)
     _check_x("attention_block_branch", x)
     B, S, D = x.shape
-    if D % num_heads or D // num_heads != 64:
-        raise ValueError(f"attention_block_branch: the kernel takes 64-wide "
-                         f"heads, got D={D}, heads={num_heads}")
+    if D % num_heads or D // num_heads not in MHA_HEAD_DIMS[torch.bfloat16]:
+        raise ValueError(f"attention_block_branch: the kernel takes 32- or "
+                         f"64-wide heads, got D={D}, heads={num_heads}")
     if tuple(w_qkv.shape) != (D, 3 * D) or tuple(w_proj.shape) != (D, D):
         raise ValueError("attention_block_branch: weight shapes "
                          f"{tuple(w_qkv.shape)}, {tuple(w_proj.shape)} for D={D}")

@@ -97,7 +97,7 @@ _SIGNATURES = {
     "tt_ln_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 4 + [_P],
     "tt_gemm_route": [_I] * 6 + [_P],
-    "tt_mha": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
+    "tt_mha": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
     "tt_sinkhorn": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P],
     "tt_sinkhorn_plan": [_I, _I, _P],
 }

@@ -73,12 +73,13 @@ def remove_small_components(mask: torch.Tensor, min_size: int = 3) -> torch.Tens
 
 
 def dilate(mask: torch.Tensor, radius: int) -> torch.Tensor:
-    """Dilate a binary [H, W] mask with a disk of ``radius``; same dtype out.
-    The disk count is a small integer sum, exact in f32 and in TF32."""
+    """Dilate binary [..., H, W] masks with a disk of ``radius``; same dtype
+    out. The disk count is a small integer sum, exact in f32 and in TF32."""
     if radius <= 0:
         return mask
     yy, xx = np.mgrid[-radius: radius + 1, -radius: radius + 1]
     disk = torch.from_numpy(((yy ** 2 + xx ** 2) <= radius ** 2).astype(np.float32))
-    x = mask.float()[None, None]
-    out = F.conv2d(x, disk.to(mask.device)[None, None], padding=radius)[0, 0]
-    return (out > 0).to(mask.dtype)
+    H, W = mask.shape[-2:]
+    x = mask.float().reshape(-1, 1, H, W)
+    out = F.conv2d(x, disk.to(mask.device)[None, None], padding=radius)
+    return (out > 0).reshape(mask.shape).to(mask.dtype)
