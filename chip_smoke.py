@@ -90,7 +90,30 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    128 trainaug and 64 val images through the real loader: the five
    numbers, each stage's ms, peak memory; before it the feature function
    card against host and the boundary F card against host;
-15. ``cli/propagate --use_optical_flow`` on the two synthetic clips.
+15. ``cli/propagate --use_optical_flow`` on the two synthetic clips;
+16. heads of 32: kernels 5/6 in bf16 and f32 at 4 frames x 12 heads, 1,025
+   and 3,137 keys with a key mask, kernel 10 in f32 at 8 x 12 x 197 and
+   785, each against its plain version with the library's time beside it;
+   ``mocov3-s16`` at 576 px (1,297 tokens) through the registry, bf16
+   against f32 (per-token cosine >= 0.999);
+17. the serving export (``cli/export.main``): dino-s16 at 224, bf16, batch
+   64 written to a temporary ``.pt2`` and loaded with ``load_exported``:
+   export s, MB, the round trip against the live forward (<= 1e-3),
+   frames/s of both, their host ms a call and traces, one call launching
+   exactly the preprocess once and K1, K2 twelve times each; the
+   symbolic-batch program called at 65 and 7; dino-s8 at 448, batch 4
+   (K4, K7, K5/6, K8, K9). Before it, K1's host us a call through the
+   direct wrapper, ``kernel_entry`` and the custom op;
+18. ``cli/parity`` stages 1-4 on a made-up full-size dino-s16 TimeT.pth,
+   the synthetic DAVIS tree of the two clips and a synthetic Pascal tree:
+   every report row, stage 1 within its atols, the metrics in [0, 1].
+
+After phase 3 the kernels' backward (K1, K2 at 50 x 197; K7, K8, K9, K5/6
+at 4 x 3,137) against autograd through the plain versions, and after
+phase 7 the flagship step with ``grad_attn_impl=None`` (the block kernels
+and their backward on the grad path: 16 launches of K1 and K2 a step,
+first loss within 2e-3 of the default's) and the same step with
+``ViTConfig.remat`` (the same loss, 18 launches, peak memory of both).
 
 Beside each kernel's time the script prints the least time the card could
 take for the same work (``bound_ms``: the larger of its bytes, each input
@@ -102,7 +125,7 @@ library times are device times: the timed launches are queued behind a
 device-side sleep, so a slow host does not show in them.
 
 Launch counts are set to 0 just before each main-path run (phases 5 to 10
-and 12 to 15)
+and 12 to 18)
 and read just after; each run must launch the kernels of its path, and the
 sums over all runs are the ``launches`` of the kernels line. The last lines
 are a JSON object of per-kernel results, the card's ``nvidia-smi`` name and
@@ -1013,6 +1036,17 @@ PATH_KERNELS = {
     ("eval", "pascal"): ("preprocess", "attention_block", "mlp_block"),
     ("cbfe", "float32"): (),
     ("propagate", "flow"): (),
+    ("train", "kernels on the grad path"): ("attention_block", "mlp_block",
+                                            "propagation", "sinkhorn"),
+    ("train", "kernels on the grad path, remat"): ("attention_block", "mlp_block",
+                                                   "propagation", "sinkhorn"),
+    ("heads32", "mocov3-s16"): ("flash_attention", "ln_dense", "dense_residual",
+                                "mlp_rows"),
+    ("export", "dino-s16"): ("preprocess", "attention_block", "mlp_block"),
+    ("export", "dino-s16 symbolic"): ("preprocess", "attention_block", "mlp_block"),
+    ("export", "dino-s8"): ("preprocess", "ln_dense", "flash_attention",
+                            "dense_residual", "mlp_rows"),
+    ("parity", "float32"): ("propagation",),
 }   # the zoo's paths are added by run_zoo (zoo_path_kernels)
 
 
@@ -1170,12 +1204,14 @@ def synthetic_train_clips(n_clips: int, dev, seed: int = 0) -> torch.Tensor:
     return clips
 
 
-def build_train(dev, dtype, attn_impl: str = "auto", seed: int = 0):
+def build_train(dev, dtype, attn_impl: str = "auto", seed: int = 0,
+                remat: bool = False, **cfg_kw):
     """The reference's flagship at full width (time_tuning.py:573-577): DINO
     ViT-S/16 at 224, head [1024, 1024, 512, 256], 200 prototypes, seeded
     random weights; blocks 10 and 11, the head and the prototypes trainable
     over a shared frozen trunk of 10 blocks, AdamW over the trainable
-    subtree."""
+    subtree. ``remat``: ``ViTConfig.remat``; ``cfg_kw``: more
+    ``TimeTConfig`` fields."""
     from timetuning_tpu_torch.core.optimizer import swav_optimizer
     from timetuning_tpu_torch.core.timet import (
         TimeT,
@@ -1186,12 +1222,14 @@ def build_train(dev, dtype, attn_impl: str = "auto", seed: int = 0):
     from timetuning_tpu_torch.models.extractor import FeatureExtractor
     from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
 
-    vit = VisionTransformer(vit_small(16, img_size=S, dtype=dtype, attn_impl=attn_impl))
+    vit = VisionTransformer(vit_small(16, img_size=S, dtype=dtype, attn_impl=attn_impl,
+                                      remat=remat))
     model = TimeT(FeatureExtractor(vit, 384, (1024, 1024, 512, 256)), 200)
     model.init_weights(torch.Generator().manual_seed(seed)).to(dev)
     cfg = TimeTConfig(n_prototypes=200, use_teacher=True, frozen_trunk_blocks=10,
                       n_last_frames=7, size_mask_neighborhood=6, topk=5,
-                      num_epochs=1, steps_per_epoch=100, spatial_resolution=S // 16)
+                      num_epochs=1, steps_per_epoch=100, spatial_resolution=S // 16,
+                      **cfg_kw)
     opt, mask = swav_optimizer(model, lr=1e-4, num_epochs=1, steps_per_epoch=100,
                                opt_over_trainable=True)
     state = init_state(model, cfg, opt, trainable_mask=mask)
@@ -1309,9 +1347,10 @@ def train_split(model, cfg, state, clip) -> None:
     state.opt.zero_grad()
 
 
-def run_train(dev, totals: dict) -> None:
+def run_train(dev, totals: dict) -> dict:
     """Phases 7 and 8: the train step in its two configurations at full
-    width, and kernel 11 on a real step's scores."""
+    width, and kernel 11 on a real step's scores. Returns the default
+    configuration's first loss and first update of two leaves."""
     from timetuning_tpu_torch.core import timet
     from timetuning_tpu_torch.ops import sinkhorn as sk_matvec
     from timetuning_tpu_torch.ops import sinkhorn_cuda as sk
@@ -1452,6 +1491,7 @@ def run_train(dev, totals: dict) -> None:
                              "the default one's")
     if float(first_updates["pallas"][probe].abs().max()) == 0:
         raise AssertionError("no gradient reached block 10's qkv through kernel 10")
+    return {"loss": first_losses["default"], "update": first_updates["default"]}
 
 
 def run_train_f32_against_host(dev, totals: dict) -> None:
@@ -2232,6 +2272,375 @@ def run_propagate_flow(dev, totals: dict) -> None:
         raise AssertionError(f"propagate flow: scores {jf}")
 
 
+def check_heads32(dev, results: dict, totals: dict) -> None:
+    """Heads of 32 (MoCo-v3 ViT-S/16's twelve) in the cores that took only
+    64 before: kernels 5/6 in bf16 and f32 at 4 frames x 12 heads, Sk 1,025
+    and 3,137 with a key mask (kv_len = Sk - 17), kernel 10 in f32 at 8 x 12
+    x 197 and 785; then ``mocov3-s16`` at 576 px (1,297 tokens: the row
+    kernels and the flash core) through the registry, bf16 against the f32
+    forward. Inputs from a generator of their own."""
+    from timetuning_tpu_torch.models.registry import get_backbone
+    from timetuning_tpu_torch.ops import attention as at
+    from timetuning_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(3232)
+    t, _ = _tensor_maker(dev, rng)
+    report = _reporter(results)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tols = {torch.bfloat16: (4e-3, 1e-2, "atol=4e-3 rtol=1e-2 (one bf16 ulp of the "
+                             "output, p rounds to bf16 against another max)"),
+            torch.float32: (1e-5, 1e-4, "atol=1e-5 rtol=1e-4 (f32 sums in another "
+                            "order)")}
+    for s_k in (1025, 3137):
+        base = [rng.standard_normal((4, 12, s_k, 32)) for _ in range(3)]
+        kv_len = s_k - 17
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t(a, dtype) for a in base)
+            kind = "bf16" if dtype == torch.bfloat16 else "f32"
+            key = f"flash_attention/{kind}/{s_k}/h32"
+            got = fa.flash_attention(q, k, v, kv_len=kv_len)
+            want = fa.flash_attention_xla(q, k, v, kv_len=kv_len)
+            torch.cuda.synchronize()
+            atol, rtol, tol = tols[dtype]
+            ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
+            n_exp = float(4 * 12 * s_k * kv_len)
+            report("flash_attention", got, want, tol,
+                   cuda_ms(lambda: fa.flash_attention(q, k, v, kv_len=kv_len)),
+                   cuda_ms(lambda: fa.flash_attention_xla(q, k, v, kv_len=kv_len),
+                           warmup=1, reps=3),
+                   extra=f"{kind} [4 x 12, {s_k}, 32] kv_len={kv_len} ", key=key,
+                   work=(io_bytes(q, k[:, :, :kv_len], v[:, :, :kv_len], got),
+                         4.0 * n_exp * 32, kind),
+                   library_ms=cuda_ms(lambda: sdpa(q, k[:, :, :kv_len], v[:, :, :kv_len])))
+            exp_line(key, n_exp, results[key]["bound_ms"])
+            if not ok:
+                raise AssertionError(f"{key}: kernel disagrees with plain version")
+            del q, k, v, got, want
+    for s_tok in (197, 785):
+        qkv = t(rng.standard_normal((8, s_tok, 3, 12, 32)))
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        got = at.attention_mha(q, k, v)
+        want = at.attention_mha_plain(q, k, v)
+        torch.cuda.synchronize()
+        atol, rtol, tol = tols[torch.float32]
+        ok = torch.allclose(got, want, atol=atol, rtol=rtol)
+        key = f"mha/f32/{s_tok}/h32"
+        n_exp = float(8 * 12 * s_tok * s_tok)
+        report("mha", got, want, tol, cuda_ms(lambda: at.attention_mha(q, k, v)),
+               cuda_ms(lambda: at.attention_mha_plain(q, k, v), warmup=1, reps=5),
+               extra=f"f32 [8 x 12, {s_tok}, 32] passes {at.mha_plan(s_tok)[0]} ", key=key,
+               work=(io_bytes(q, k, v, got), 4.0 * n_exp * 32, "f32"),
+               library_ms=cuda_ms(lambda: sdpa(q, k, v)))
+        exp_line(key, n_exp, results[key]["bound_ms"])
+        if not ok:
+            raise AssertionError(f"{key}: kernel disagrees with plain version")
+        del qkv, q, k, v, got, want
+
+    # MoCo-v3 ViT-S/16 above 512 px: 36 x 36 patches, 1,297 tokens
+    size = 576
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, size, size, 3)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        f32 = get_backbone("mocov3-s16", dtype=torch.float32, device=dev).module(x)[
+            "tokens"].float()
+        bb = get_backbone("mocov3-s16", dtype=torch.bfloat16, device=dev)
+        out, counts = counted(("heads32", "mocov3-s16"),
+                              lambda: bb.module(x)["tokens"].float(), totals)
+    cos = torch.nn.functional.cosine_similarity(out, f32, dim=-1)
+    print(f"heads32 mocov3-s16 at {size}, {out.shape[1]} tokens, 12 heads of 32: bf16 "
+          f"(kernels) against f32: min per-token cosine {cos.min().item():.6f} (bound "
+          f">= 0.999) | launches {counts}", flush=True)
+    if not torch.isfinite(out).all() or cos.min().item() < 0.999:
+        raise AssertionError("mocov3-s16 at 576 px: bf16 disagrees with f32")
+
+
+def check_grad(dev, results: dict) -> None:
+    """The backward of the kernels JAX differentiates through, on the card:
+    for K1 and K2 at 50 x 197 tokens and K7, K8, K9 and K5/6 at 4 x 3,137,
+    the gradients of every input through the kernel's autograd Function
+    (the kernel forward, JAX's backward: the plain version's VJP, or the
+    flash core's streamed analytic gradient) against autograd through the
+    plain version; fwd + bwd ms of both. Bound: 2 % of the largest gradient
+    of the input (the backward runs in f32 from bf16 inputs; the plain
+    version's autograd rounds the probabilities' gradient to bf16 where the
+    flash backward does not)."""
+    from timetuning_tpu_torch.ops import flash_attention as fa
+    from timetuning_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(77)
+    t, w = _tensor_maker(dev, rng)
+    D, Hd = 384, 1536
+    T8 = (S8 // 8) ** 2 + 1
+
+    def vec(n, base=0.0):
+        return t(base + 0.1 * rng.standard_normal(n))
+
+    ln = (vec(D, 1.0), vec(D))
+    attn = (*ln, w(D, 3 * D), vec(3 * D), w(D, D), vec(D))
+    mlp = (*ln, w(D, Hd), vec(Hd), w(Hd, D), vec(D))
+    x197 = t(rng.standard_normal((CLIPS * FRAMES, 197, D)), torch.bfloat16)
+    xr = t(rng.standard_normal((4, T8, D)), torch.bfloat16)
+    q, k, v = (t(rng.standard_normal((4, 6, T8, 64)), torch.bfloat16) for _ in range(3))
+    cases = (
+        ("attention_block", fb.attention_block_branch, fb.attention_block_xla,
+         (x197, *attn, 6)),
+        ("mlp_block", fb.mlp_block_branch, fb.mlp_block_xla, (x197, *mlp)),
+        ("ln_dense", fb.ln_dense_rows, fb.ln_dense_xla, (xr, *attn[:4])),
+        ("dense_residual", fb.dense_residual_rows, fb.dense_residual_xla,
+         (xr, xr, attn[4], attn[5])),
+        ("mlp_rows", fb.mlp_rows, fb.mlp_block_xla, (xr, *mlp)),
+        ("flash_attention", fa.flash_attention, fa.flash_attention_xla, (q, k, v)),
+    )
+    for name, kern, plain, args in cases:
+        def grads(fn):
+            leaves = [a.detach().clone().requires_grad_(True) if torch.is_tensor(a) else a
+                      for a in args]
+            out = fn(*leaves)
+            g = torch.ones_like(out) / out.numel() ** 0.5
+            return torch.autograd.grad(out, [a for a in leaves if torch.is_tensor(a)], g)
+
+        got, want = grads(kern), grads(plain)
+        torch.cuda.synchronize()
+        errs, ok = [], True
+        for a, b in zip(got, want):
+            scale = b.float().abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            errs.append(err / max(scale, 1e-30))
+            ok = ok and bool(torch.isfinite(a).all()) and err <= 2e-2 * scale
+        ms = cuda_ms(lambda: grads(kern), warmup=1, reps=3, queued=False)
+        plain_ms = cuda_ms(lambda: grads(plain), warmup=1, reps=3, queued=False)
+        shape = "x".join(str(d) for d in args[0].shape)
+        print(f"grad {name} [{shape}] bf16: {len(got)} inputs, max |Δ| / max |grad| "
+              f"{max(errs):.3e} (bound 2e-2) | fwd + bwd through the kernel's Function "
+              f"{ms:.3f} ms, through the plain version {plain_ms:.3f} ms", flush=True)
+        if not ok:
+            raise AssertionError(f"grad {name}: the Function's gradients disagree with "
+                                 "autograd through the plain version")
+        del got, want
+
+
+def run_train_grad_paths(dev, totals: dict, default: dict) -> None:
+    """The flagship step with ``TimeTConfig(grad_attn_impl=None)``: the
+    differentiated pass through the block kernels and their backward (16
+    launches of K1 and K2 a step instead of 14); its first loss within 2e-3
+    of the default step's (relative, the forced step's gate). Then the same
+    step with ``ViTConfig.remat``: the same loss, the grad path's blocks run
+    again in the backward (2 launches more of K1 and K2), and the peak
+    memory of both."""
+    clip = synthetic_train_clips(TRAIN_B, dev)
+    probe = "feature_extractor.backbone.blocks.10.attn.qkv.weight"
+    got = {}
+    for label, remat in (("kernels on the grad path", False),
+                         ("kernels on the grad path, remat", True)):
+        model, cfg, mask, state, step = build_train(dev, torch.bfloat16, remat=remat,
+                                                    grad_attn_impl=None)
+        before = dict(model.named_parameters())[probe].detach().clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (_, metrics), counts = counted(("train", label), lambda: step(state, clip), totals)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        update = dict(model.named_parameters())[probe].detach() - before
+        got[remat] = (float(metrics["loss"]), update)
+        want = 18 if remat else 16
+        print(f"train {label} B={TRAIN_B} bf16: loss {got[remat][0]:.6f} (default "
+              f"{default['loss']:.6f}), peak memory {peak:.3f} GiB | launches {counts}",
+              flush=True)
+        if counts["attention_block"] != want or counts["mlp_block"] != want:
+            raise AssertionError(f"train {label}: K1/K2 launched {counts['attention_block']}"
+                                 f"/{counts['mlp_block']} times, expected {want}")
+        del model, state, step
+    rel = abs(got[False][0] - default["loss"]) / default["loss"]
+    agree = float((torch.sign(got[False][1]) == torch.sign(default["update"][probe]))
+                  .float().mean())
+    remat_agree = float((torch.sign(got[True][1]) == torch.sign(got[False][1])).float().mean())
+    print(f"train kernels on the grad path vs default, step 1: loss relative "
+          f"{rel:.3e} (gate 2e-3), block 10 qkv update sign agreement {agree:.4f} | "
+          f"remat: loss {got[True][0]:.6f} vs {got[False][0]:.6f} (gate: equal), update "
+          f"sign agreement {remat_agree:.4f}", flush=True)
+    if not np.isfinite(got[False][0]) or rel > 2e-3:
+        raise AssertionError("the step with the kernels on the grad path disagrees with "
+                             "the default one")
+    if got[True][0] != got[False][0] or remat_agree < 0.99:
+        raise AssertionError("remat changed the step")
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn``, no synchronise in the loop (best
+    of 5 rounds of ``calls``)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return best * 1e6
+
+
+def run_export(dev, totals: dict) -> None:
+    """``cli/export``: the serving program of ``dino-s16`` at 224 in bf16,
+    batch 64, written by ``cli/export.main`` and loaded with
+    ``load_exported``; export s, MB, the round trip against the live forward
+    (gate max |Δ| <= 1e-3), frames/s of both (CUDA events, after warm-up),
+    and one call of the program launching exactly the preprocess once and
+    K1 and K2 twelve times. Then the symbolic-batch program (called at 65
+    and at 7) and ``dino-s8`` at 448, batch 4 (the row kernels and the flash
+    core). Before it: K1's host us a call on the eager path through the
+    direct wrapper (before the custom ops), through ``kernel_entry`` (now)
+    and through the custom op (what a loaded program calls)."""
+    import tempfile
+
+    from timetuning_tpu_torch.cli import export as cli_export
+    from timetuning_tpu_torch.models.registry import get_backbone
+    from timetuning_tpu_torch.ops import fused_block as fb
+
+    t, w = _tensor_maker(dev, np.random.default_rng(16))
+    D = 384
+    x = t(np.random.default_rng(17).standard_normal((1, 16, D)), torch.bfloat16)
+    attn = (t(np.ones(D)), t(np.zeros(D)), w(D, 3 * D), t(np.zeros(3 * D)), w(D, D),
+            t(np.zeros(D)), 6)
+    entry = fb.attention_block_branch
+    us = {name: host_us(lambda f=f: f(x, *attn))
+          for name, f in (("direct", entry.kernel), ("entry", entry), ("op", entry.op))}
+    print(f"host us a call of K1 at [1, 16, {D}], no synchronise: eager before this "
+          f"port's custom ops (the wrapper, direct) {us['direct']:.1f}, eager now "
+          f"(kernel_entry) {us['entry']:.1f}, the custom op (a loaded program's call) "
+          f"{us['op']:.1f}", flush=True)
+
+    want_counts = {"dino-s16": {"preprocess": 1, "attention_block": 12, "mlp_block": 12},
+                   "dino-s8": {"preprocess": 1, "ln_dense": 12, "flash_attention": 12,
+                               "dense_residual": 12, "mlp_rows": 12}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, size, batch, symbolic in (("dino-s16", S, 64, False),
+                                            ("dino-s16", S, 64, True),
+                                            ("dino-s8", S8, 4, False)):
+            label = arch + (" symbolic" if symbolic else "")
+            out = os.path.join(tmp, f"{arch}-{int(symbolic)}.pt2")
+            t0 = time.perf_counter()
+            rc = cli_export.main(["--architecture", arch, "--input_resolution", str(size),
+                                  "--batch_size", str(batch), "--out", out,
+                                  "--check", "false", "--device", dev.type,
+                                  "--symbolic_batch", str(symbolic).lower()])
+            export_s = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"export {label}: cli/export.main returned {rc}")
+            fn = cli_export.load_exported(out)
+            live = cli_export.FeatureForward(
+                get_backbone(arch, dtype=torch.bfloat16, device=dev), size,
+                torch.bfloat16).eval()
+            frames = torch.from_numpy(np.random.default_rng(0).integers(
+                0, 256, (batch, size, size, 3), np.uint8)).to(dev)
+            with torch.no_grad():
+                (got,), counts = counted(("export", label), lambda: (fn(frames),), totals)
+                want = live(frames)
+                err = (got.float() - want.float()).abs().max().item()
+                launched = {k: n for k, n in counts.items() if n}
+                prog_ms = cuda_ms(lambda: fn(frames), warmup=2, reps=5, queued=False)
+                live_ms = cuda_ms(lambda: live(frames), warmup=2, reps=5, queued=False)
+                if not symbolic:
+                    prog_us = host_us(lambda: fn(frames), calls=3)
+                    live_us = host_us(lambda: live(frames), calls=3)
+                    print(f"export {label}: host ms a call, no synchronise: program "
+                          f"{prog_us / 1e3:.3f}, live forward {live_us / 1e3:.3f}",
+                          flush=True)
+                    trace(lambda: fn(frames), f"export {label} program")
+                    trace(lambda: live(frames), f"export {label} live forward")
+                extra = ""
+                if symbolic:
+                    for b in (65, 7):
+                        xb = torch.from_numpy(np.random.default_rng(b).integers(
+                            0, 256, (b, size, size, 3), np.uint8)).to(dev)
+                        gb, wb = fn(xb), live(xb)
+                        eb = (gb.float() - wb.float()).abs().max().item()
+                        extra += f", batch {b}: features {tuple(gb.shape)} max|Δ| {eb:.2e}"
+                        if gb.shape[0] != b or eb > 1e-3:
+                            raise AssertionError(f"export {label}: batch {b} fails")
+            print(f"export {label} at {size} bf16 batch {batch}: export "
+                  f"{export_s:.2f} s, program {os.path.getsize(out) / 1e6:.1f} MB, "
+                  f"round trip max|Δ| {err:.2e} (gate 1e-3), program "
+                  f"{batch / prog_ms * 1e3:.1f} frames/s ({prog_ms:.3f} ms), live forward "
+                  f"{batch / live_ms * 1e3:.1f} frames/s ({live_ms:.3f} ms) | one call's "
+                  f"launches {launched}{extra}", flush=True)
+            if err > 1e-3 or not torch.isfinite(got).all():
+                raise AssertionError(f"export {label}: the program disagrees with the "
+                                     "live forward")
+            if launched != want_counts[arch]:
+                raise AssertionError(f"export {label}: one call launched {launched}, "
+                                     f"expected {want_counts[arch]}")
+            del fn, live, frames, got, want
+
+
+def write_davis_tree(root: str) -> None:
+    """The two synthetic 25-frame 480 x 854 clips (textured box) as a DAVIS
+    tree: ``JPEGImages/480p/<video>/%05d.jpg`` and the box's annotation in
+    ``Annotations/480p/<video>/%05d.png``."""
+    import cv2
+
+    for v, (frames, annots) in enumerate(synthetic_clips(textured=True)):
+        fdir = os.path.join(root, "JPEGImages", "480p", f"video{v}")
+        adir = os.path.join(root, "Annotations", "480p", f"video{v}")
+        os.makedirs(fdir)
+        os.makedirs(adir)
+        for i, (img, ann) in enumerate(zip(frames, annots)):
+            cv2.imwrite(os.path.join(fdir, f"{i:05d}.jpg"), img[..., ::-1])
+            cv2.imwrite(os.path.join(adir, f"{i:05d}.png"), ann)
+
+
+def run_parity(dev, totals: dict) -> None:
+    """``cli/parity`` on the card, stages 1-4: a made-up full-size
+    ``dino-s16`` TimeT.pth in the reference layout (the oracle's seeded
+    weights under ``feature_extractor.backbone.<timm key>``, a head [1024,
+    1024, 512, 256] as ``nn.Sequential`` indices, 200 unit prototypes), the
+    synthetic DAVIS tree of the two clips and a synthetic Pascal tree (64
+    val images). Gates: the exit code, stage 1 within the CLI's atols, the
+    metrics finite in [0, 1] (agreement, not quality)."""
+    import json
+    import tempfile
+
+    from timetuning_tpu_torch.cli import parity as cli_parity
+    from timetuning_tpu_torch.eval.parity_oracle import build_oracle, build_oracle_head
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        torch.manual_seed(0)
+        sd = {f"feature_extractor.backbone.{k}": v for k, v in
+              build_oracle(S, 16, 384, 12, 6).state_dict().items()}
+        sd.update({f"feature_extractor.head.{k}": v for k, v in
+                   build_oracle_head((1024, 1024, 512, 256), 384).state_dict().items()})
+        sd["prototypes"] = torch.nn.functional.normalize(torch.randn(200, 256), dim=-1)
+        pth = os.path.join(tmp, "TimeT.pth")
+        torch.save(sd, pth)
+        write_davis_tree(os.path.join(tmp, "davis"))
+        write_pascal_tree(os.path.join(tmp, "voc"), n_train=0, n_val=64)
+        print(f"parity: checkpoint and trees written in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        report = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        rc, counts = counted(("parity", "float32"), lambda: cli_parity.main([
+            "--timet_pth", pth, "--architecture", "dino-s16",
+            "--davis_root", os.path.join(tmp, "davis"),
+            "--pascal_root", os.path.join(tmp, "voc"), "--proto_clustering", "true",
+            "--num_workers", "2", "--report_json", report, "--device", dev.type]),
+            totals)
+        wall = time.perf_counter() - t0
+        with open(report) as f:
+            rows = json.load(f)["rows"]
+    for r in rows:
+        print(f"parity row: {r}", flush=True)
+    print(f"parity: exit code {rc}, {wall:.1f} s for stages 1-4 | launches "
+          f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+    gated = [r for r in rows if r["expected"] is not None]
+    metrics = [r for r in rows if r["expected"] is None]
+    if rc != 0 or len(gated) != 3 or not all(r["pass"] for r in gated):
+        raise AssertionError("parity: stage 1 failed its gates")
+    if len(metrics) != 5 or not all(np.isfinite(r["value"]) and 0 <= r["value"] <= 1
+                                    for r in metrics):
+        raise AssertionError("parity: a stage 2-4 metric is not finite in [0, 1]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2258,6 +2667,7 @@ def main() -> int:
     check_long_token_kernels(dev, results)
     check_mha_kernels(dev, results)
     check_zoo_kernels(dev, results)
+    check_grad(dev, results)
     check_train_kernels(dev, results)
     check_vit(dev, "dino-s16", S, 4)
     check_vit(dev, "dino-s8", S8, 1)
@@ -2266,7 +2676,8 @@ def main() -> int:
     run_eval(dev, synthetic_clips(textured=True), "dino-s16", S, totals)
     run_eval(dev, synthetic_clips(textured=True), "dino-s8", S8, totals)
     run_linear_probe(dev, totals)
-    run_train(dev, totals)
+    default_step = run_train(dev, totals)
+    run_train_grad_paths(dev, totals, default_step)
     run_train_f32_against_host(dev, totals)
     run_train_driver(dev, totals)
     run_augment_card_vs_host(dev)
@@ -2274,6 +2685,9 @@ def main() -> int:
     run_zoo(dev, totals)
     run_cbfe(dev, totals)
     run_propagate_flow(dev, totals)
+    check_heads32(dev, results, totals)
+    run_export(dev, totals)
+    run_parity(dev, totals)
 
     missing = [k for k in kernel_lib.KERNELS if totals.get(k, 0) <= 0]
     if missing:

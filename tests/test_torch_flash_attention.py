@@ -95,13 +95,36 @@ def test_wrapper_matches_tpu_kernel_at_block_and_tile_edges(Sq, Sk, kv_len):
                                    np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("Sq,Sk,kv_len", [(1025, 1025, 1000), (130, 300, 211)])
+def test_wrapper_matches_tpu_kernel_at_32_wide_heads(Sq, Sk, kv_len):
+    """MoCo-v3 ViT-S/16's heads of 32 (the TPU kernel pads any Dh to 128
+    lanes): the wrapper's CPU path against the single-pass TPU kernel in
+    interpret mode, past 1,024 keys with a key mask, tolerances as above;
+    its output in the kernel's layout (a view of [B, Sq, H, Dh])."""
+    arrs = _qkv(Sq, Sk, seed=Sq + 32, Dh=32)
+    for jdt, tdt, tol in ((jnp.float32, torch.float32, 1e-5),
+                          (jnp.bfloat16, torch.bfloat16, 2e-2)):
+        want = jfa.flash_attention_fwd_pallas(*(jnp.asarray(a, jdt) for a in arrs),
+                                              kv_len=kv_len, interpret=True)
+        got = tfa.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                                  kv_len=kv_len)
+        assert got.dtype == tdt and got.shape == (1, 2, Sq, 32)
+        assert got.permute(0, 2, 1, 3).is_contiguous()
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     """A non-CPU tensor never reaches the plain version: a head width other
-    than 64, or mixed dtypes, raise before any launch (meta tensors stand in
-    for a device here)."""
-    q = torch.zeros(1, 2, 8, 32, device="meta")
-    with pytest.raises(ValueError, match="64-wide"):
+    than 32 or 64, or mixed dtypes, raise before any launch (meta tensors
+    stand in for a device here); heads of 32 pass to the device check."""
+    q = torch.zeros(1, 2, 8, 48, device="meta")
+    with pytest.raises(ValueError, match="32- or 64-wide"):
         tfa.flash_attention(q, q, q)
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 2, 8, 32, device="meta", dtype=dt)
+        with pytest.raises(ValueError, match="expected CUDA tensors"):
+            tfa.flash_attention(q, q, q)
     q = torch.zeros(1, 2, 8, 64, device="meta")
     with pytest.raises(ValueError, match="bf16 or all f32"):
         tfa.flash_attention(q, q, q.half())

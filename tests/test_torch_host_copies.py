@@ -1,6 +1,7 @@
 """Each host module that the port keeps its own copy of, pinned to its
 original in the JAX package on the same inputs: the metrics, the native
-bindings, the clip loader and datasets, the Pascal loader, the exporter."""
+bindings, the clip loader and datasets, the Pascal loader, the exporter,
+the parity oracle."""
 
 import os
 
@@ -9,12 +10,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from timetuning_tpu import native as jnative
 from timetuning_tpu.data import datasets as jdatasets
 from timetuning_tpu.data import loader as jloader
 from timetuning_tpu.data import pascal as jpascal
 from timetuning_tpu.eval import metrics as jmetrics
+from timetuning_tpu.eval import parity_oracle as joracle
 from timetuning_tpu.models import export_torch as jexport
 from timetuning_tpu.models.vit import ViTConfig as JViTConfig
 from timetuning_tpu.models.vit import VisionTransformer as JVisionTransformer
@@ -23,6 +26,7 @@ from timetuning_tpu_torch.data import datasets as tdatasets
 from timetuning_tpu_torch.data import loader as tloader
 from timetuning_tpu_torch.data import pascal as tpascal
 from timetuning_tpu_torch.eval import metrics as tmetrics
+from timetuning_tpu_torch.eval import parity_oracle as toracle
 from timetuning_tpu_torch.models import export_torch as texport
 
 
@@ -273,3 +277,22 @@ def test_import_torch_matches(tmp_path):
             == timp.head_dims_from_params(tb["feature_extractor"]["head"]) == (4, 4))
     sd = {"module.backbone.blocks.0.norm1.weight": np.ones(2)}
     assert list(jimp.strip_prefixes(sd)) == list(timp.strip_prefixes(sd))
+
+
+def test_parity_oracle_matches():
+    """The port's copy of eval/parity_oracle builds the same module (same
+    keys, same outputs on the same weights), the same head, and loads a
+    state dict as the original does."""
+    torch.manual_seed(3)
+    a = joracle.build_oracle(img_size=32, patch_size=8, dim=32, depth=2, heads=2)
+    b = toracle.oracle_from_state_dict(a.state_dict(), 32, 2)
+    x = torch.randn(2, 3, 48, 48)
+    with torch.no_grad():
+        ta, pa = a(x, return_probs=True)
+        tb, pb = b(x, return_probs=True)
+        torch.testing.assert_close(tb, ta, rtol=0, atol=0)
+        torch.testing.assert_close(pb, pa, rtol=0, atol=0)
+        torch.testing.assert_close(b.embed(x), a.embed(x), rtol=0, atol=0)
+    ha, hb = joracle.build_oracle_head((48, 24), 32), toracle.build_oracle_head((48, 24), 32)
+    assert list(ha.state_dict()) == list(hb.state_dict())
+    assert [type(m) for m in ha] == [type(m) for m in hb]

@@ -468,6 +468,59 @@ def test_mha_kernel_at_32_wide_heads(dev, S, B):
     torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,Sk,kv_len", [(1025, 1025, None), (1090, 1090, 1025),
+                                          (3137, 3137, 3120), (700, 1090, 1025),
+                                          (129, 500, 1)])
+def test_flash_attention_kernel_at_32_wide_heads(dev, dtype, Sq, Sk, kv_len):
+    """Kernels 5/6 at MoCo-v3 ViT-S/16's twelve heads of 32 (bf16: 64-byte
+    rows in a 64-byte swizzle, p @ v as m64n32k16; f32: the register tiles
+    at Dh 32) on the strided views of a qkv buffer where Sq = Sk, with and
+    without a key mask, queries != keys once, one valid key. Bound as the
+    64-wide rows."""
+    rng = np.random.default_rng(Sq + Sk)
+    if Sq == Sk:
+        qkv = _t(rng.standard_normal((2, Sq, 3, 12, 32)), dev, dtype)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    else:
+        q = _t(rng.standard_normal((2, 12, Sq, 32)), dev, dtype)
+        k, v = (_t(rng.standard_normal((2, 12, Sk, 32)), dev, dtype) for _ in range(2))
+    got = fa.flash_attention(q, k, v, kv_len=kv_len)
+    want = fa.flash_attention_xla(q, k, v, kv_len=kv_len)
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("S", [1, 197, 256, 257, 785, 1024])
+def test_mha_kernel_at_32_wide_heads_in_f32(dev, S):
+    """Kernel 10's f32 form at heads of 32 (the register tiles at Dh 32, a
+    thread's output columns a float2): one pass up to 256 tokens, two
+    above; bound as the 64-wide f32 rows."""
+    qkv = _t(np.random.default_rng(S).standard_normal((8, S, 3, 12, 32)), dev)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    got = at.attention_mha(q, k, v)
+    want = at.attention_mha_plain(q, k, v)
+    torch.testing.assert_close(got, want, **_FLASH_TOL[torch.float32])
+
+
+def test_custom_ops_launch_the_kernels_on_the_card(dev):
+    """A kernel's custom op (what an exported program calls) on CUDA tensors
+    launches the kernel, counted as the wrapper counts it, and returns what
+    the eager wrapper returns, with the fake's strides."""
+    x, attn, mlp = _block_inputs(dev, 2, 197)
+    q, k, v = _qkv(dev, torch.bfloat16, 1030, 1030)
+    for entry, args, name in (
+            (fb.attention_block_branch, (x, *attn, 6), "attention_block"),
+            (fb.mlp_block_branch, (x, *mlp), "mlp_block"),
+            (fa.flash_attention, (q, k, v, 1000), "flash_attention")):
+        kernel_lib.reset_launch_counts()
+        got = entry.op(*args)
+        assert kernel_lib.launch_counts()[name] == 1
+        want = entry(*args)
+        assert got.stride() == want.stride()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("S", [1, 197, 256, 257, 785, 1024])
 def test_attention_block_kernel_at_32_wide_heads(dev, S):
     """K1 at D = 384 with 12 heads of 32 (MoCo-v3 ViT-S/16): its core at
@@ -494,11 +547,12 @@ def test_blocks_at_vit_base_width(dev, B, S):
 
 
 def test_mha_wrappers_raise_on_other_head_widths(dev):
-    """Heads of 32 or 64 in bf16, 64 in f32: anything else raises on the
-    card, never routed to the plain version."""
-    for dh, dtype in ((48, torch.bfloat16), (16, torch.bfloat16), (32, torch.float32)):
+    """Heads of 32 or 64 in bf16 and (since the f32 core took heads of 32)
+    in f32: anything else raises on the card, never routed to the plain
+    version."""
+    for dh, dtype in ((48, torch.bfloat16), (16, torch.bfloat16), (48, torch.float32)):
         q = torch.zeros(1, 2, 8, dh, device=dev, dtype=dtype)
-        with pytest.raises(ValueError, match="64-wide heads"):
+        with pytest.raises(ValueError, match="32- or 64-wide heads"):
             at.attention_mha(q, q, q)
     x, attn, _ = _block_inputs(dev, 1, 10)
     for heads in (4, 24):
@@ -675,15 +729,16 @@ def test_train_step_launches_the_sinkhorn_kernel_once(dev):
 
 
 def test_kernel_wrappers_raise_on_inputs_that_require_grad(dev):
+    """The wrappers of the kernels JAX never differentiates (K3, K11) raise
+    on an input that requires grad and run under no_grad; the others (K1,
+    K2, K5/6, K7, K8, K9, K10), which raised here before they had JAX's
+    backward, now differentiate: their gradients equal autograd through the
+    plain versions at bf16's bound (the backward recomputes the plain
+    version; only the forward is the kernel's)."""
     x, attn, mlp = _block_inputs(dev, 1, 10)
     q, k, v = _qkv(dev, torch.bfloat16, 8, 8)
     Q, _ = _sinkhorn_inputs(dev, 8, 50, 0, False)
     calls = [
-        lambda: fb.attention_block_branch(x.clone().requires_grad_(True), *attn,
-                                          num_heads=6),
-        lambda: fb.mlp_block_branch(x, mlp[0].clone().requires_grad_(True), *mlp[1:]),
-        lambda: fa.flash_attention(q.clone().requires_grad_(True), k, v),
-        lambda: at.attention_mha(q, k.clone().requires_grad_(True), v),
         lambda: sk.sinkhorn_cuda(Q.clone().requires_grad_(True), 3),
         lambda: prc.propagate_labels_batch_cuda(
             torch.randn(1, 3, 16, 32, device=dev, requires_grad=True),
@@ -694,6 +749,26 @@ def test_kernel_wrappers_raise_on_inputs_that_require_grad(dev):
             call()
         with torch.no_grad():
             call()
+    xr, xs = _block_inputs(dev, 1, 1030)[0], x
+    w_qkv, w_proj = attn[2].to(torch.bfloat16), attn[4].to(torch.bfloat16)
+    cases = [
+        (fb.attention_block_branch, fb.attention_block_xla, (xs, *attn), {"num_heads": 6}),
+        (fb.mlp_block_branch, fb.mlp_block_xla, (xs, *mlp), {}),
+        (fb.mlp_rows, fb.mlp_block_xla, (xr, *mlp), {}),
+        (fb.ln_dense_rows, fb.ln_dense_xla, (xr, attn[0], attn[1], w_qkv, attn[3]), {}),
+        (fb.dense_residual_rows, fb.dense_residual_xla, (xr, xr, w_proj, attn[5]), {}),
+        (fa.flash_attention, fa.flash_attention_xla, (q, k, v), {}),
+        (at.attention_mha, at.attention_mha_plain, (q, k, v), {}),
+    ]
+    for kern, plain, args, kw in cases:
+        got_in = [a.clone().requires_grad_(True) for a in args]
+        want_in = [a.clone().requires_grad_(True) for a in args]
+        out = kern(*got_in, **kw)
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(dev).manual_seed(3))
+        got = torch.autograd.grad(out, got_in, g.to(out.dtype))
+        want = torch.autograd.grad(plain(*want_in, **kw), want_in, g.to(out.dtype))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=4e-3, rtol=1e-2)
 
 
 @pytest.mark.parametrize("S", [1025, 3137])
@@ -790,8 +865,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                                 IMAGENET_MEAN, REFERENCE_STD)
     with pytest.raises(ValueError, match="K <= 1024"):
         sk.sinkhorn_assignment_cuda(torch.zeros(10, 1025, device=dev))
-    q = torch.zeros(1, 2, 8, 32, device=dev)
-    with pytest.raises(ValueError, match="64-wide"):
+    q = torch.zeros(1, 2, 8, 48, device=dev)
+    with pytest.raises(ValueError, match="32- or 64-wide"):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="bf16 or all f32"):
         fa.flash_attention(*(t.half() for t in _qkv(dev, torch.float32, 4, 4)))

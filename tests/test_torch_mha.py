@@ -86,16 +86,35 @@ def test_plain_matches_tpu_kernel_bf16_at_32_wide_heads(S):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)
 
 
+def test_forced_dispatch_takes_f32_32_wide_heads():
+    """``attention(..., impl="pallas")`` in f32 at heads of 32 (kernel 10's
+    f32 form, refused before it took Dh 32): on CPU tensors the wrapper's
+    plain version, against ``_mha_kernel`` in interpret mode at 2e-6; its
+    gradient is ``_AttentionFused``'s, equal to autograd through the plain
+    version at 1e-5."""
+    q, k, v = _qkv(2, 12, 50, 32, seed=50)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out, _ = tattn.attention(*leaves, impl="pallas")
+    want = _mha_kernel_interpret(*(jnp.asarray(a) for a in (q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=0, atol=2e-6)
+    g = torch.from_numpy(np.random.default_rng(51).standard_normal(q.shape).astype(np.float32))
+    got = torch.autograd.grad(out, leaves, g)
+    plain = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    ref = torch.autograd.grad(tattn.attention_mha_plain(*plain), plain, g)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+
+
 def test_kernel_wrapper_takes_32_wide_heads_in_bf16_only():
-    """bf16 heads of 32 pass the wrapper's width check (a meta tensor then
-    stops at the device check); f32 heads of 32 and bf16 heads of 48 raise
-    the width error before it."""
-    m = torch.zeros(1, 12, 8, 32, device="meta", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="expected CUDA tensors"):
-        tattn.attention_mha(m, m, m)
-    for dh, dt in ((32, torch.float32), (48, torch.bfloat16)):
-        m = torch.zeros(1, 2, 8, dh, device="meta", dtype=dt)
-        with pytest.raises(ValueError, match="64-wide heads"):
+    """Heads of 32 pass the wrapper's width check in bf16 and, since the f32
+    core took heads of 32 too, in f32 (a meta tensor then stops at the device
+    check); heads of 48 raise the width error before it in either dtype."""
+    for dt in (torch.bfloat16, torch.float32):
+        m = torch.zeros(1, 12, 8, 32, device="meta", dtype=dt)
+        with pytest.raises(ValueError, match="expected CUDA tensors"):
+            tattn.attention_mha(m, m, m)
+        m = torch.zeros(1, 2, 8, 48, device="meta", dtype=dt)
+        with pytest.raises(ValueError, match="32- or 64-wide heads"):
             tattn.attention_mha(m, m, m)
 
 
@@ -202,11 +221,20 @@ def test_forced_impl_runs_the_plain_version_on_cpu_tensors():
 
 
 def test_kernel_wrapper_refuses_grad_and_bad_shapes():
-    q = torch.zeros(1, 2, 8, 64)
-    with pytest.raises(RuntimeError, match="no backward"):
-        tattn.attention_mha(q.clone().requires_grad_(True), q, q)
-    m = torch.zeros(1, 2, 8, 32, device="meta")
-    with pytest.raises(ValueError, match="64-wide heads"):
+    """The wrapper differentiates (``_AttentionFused``: the analytic
+    gradient, equal to autograd through the plain version) where it once
+    refused an input that requires grad; it still refuses shapes and types
+    the kernel does not take."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 8, 64, seed=9))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    g = torch.from_numpy(np.random.default_rng(10).normal(size=q.shape).astype(np.float32))
+    got = torch.autograd.grad(tattn.attention_mha(*leaves), leaves, g)
+    ref = torch.autograd.grad(tattn.attention_mha_plain(*want), want, g)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+    m = torch.zeros(1, 2, 8, 48, device="meta")
+    with pytest.raises(ValueError, match="32- or 64-wide heads"):
         tattn.attention_mha(m, m, m)
     m = torch.zeros(1, 2, 1025, 64, device="meta")
     with pytest.raises(ValueError, match="at most 1024 tokens"):

@@ -116,6 +116,44 @@ print('zoo', len(ARCHITECTURES))
     assert "threshold=" in out and "J&F: " in out and "zoo 18" in out
 
 
+def test_export_and_parity_run_without_the_jax_package(tmp_path):
+    """``cli/export --device cpu`` writes a symbolic-batch program of
+    vit-tiny-test and checks it; a second fresh interpreter loads it with
+    ``load_exported`` alone (no model module gets imported) and runs it;
+    ``cli/parity --device cpu`` runs stage 1 on a made-up reference-layout
+    checkpoint."""
+    program, pth = str(tmp_path / "f.pt2"), str(tmp_path / "TimeT.pth")
+    out = _run(f"""
+import torch
+from timetuning_tpu_torch.cli import export, parity
+from timetuning_tpu_torch.eval.parity_oracle import build_oracle, build_oracle_head
+assert export.main(['--device', 'cpu', '--architecture', 'vit-tiny-test',
+                    '--input_resolution', '32', '--batch_size', '2',
+                    '--compute_dtype', 'float32', '--symbolic_batch', 'true',
+                    '--out', {program!r}]) == 0
+torch.manual_seed(0)
+sd = {{f'feature_extractor.backbone.{{k}}': v for k, v in
+      build_oracle(img_size=32, patch_size=8, dim=32, depth=2, heads=2).state_dict().items()}}
+sd.update({{f'feature_extractor.head.{{k}}': v
+           for k, v in build_oracle_head((48, 24), 32).state_dict().items()}})
+sd['prototypes'] = torch.nn.functional.normalize(torch.randn(8, 24), dim=-1)
+torch.save(sd, {pth!r})
+assert parity.main(['--device', 'cpu', '--architecture', 'vit-tiny-test',
+                    '--input_resolution', '32', '--timet_pth', {pth!r}]) == 0
+""")
+    assert "symbolic-batch check: batch 3 ok" in out
+    assert "prototype scores max|Δ|" in out and "FAIL" not in out
+    out = _run(f"""
+import sys, torch
+from timetuning_tpu_torch.cli.export import load_exported
+fn = load_exported({program!r})
+print('features', tuple(fn(torch.zeros(5, 32, 32, 3, dtype=torch.uint8)).shape))
+models = sorted(m for m in sys.modules if m.startswith('timetuning_tpu_torch.models'))
+assert not models, models
+""")
+    assert "features (5, 16, 32)" in out
+
+
 def test_a_train_step_runs_without_the_jax_package():
     out = _run("""
 import torch

@@ -312,14 +312,18 @@ def test_forced_kernel_impl_refuses_the_attention_probabilities():
 
 
 def test_bf16_step_routes_the_grad_path_around_the_block_kernels():
-    """A bf16 ``auto`` model: the block kernels' wrappers refuse an input
-    that requires grad, so a differentiated call through them raises; the
-    step reroutes its differentiated pass to plain attention and trains. A
-    model forced to "pallas" differentiates through kernel 10's Function."""
+    """A bf16 ``auto`` model: a differentiated call through the block
+    kernels' wrappers (once refused) now differentiates, the kernels' own
+    Functions giving the plain composition's gradient; the step reroutes its
+    differentiated pass to plain attention by default and trains. A model
+    forced to "pallas" differentiates through kernel 10's Function."""
     x = torch.from_numpy(_clips(1)[0])
     model = _torch_model(torch.bfloat16).init_weights(torch.Generator().manual_seed(0))
-    with pytest.raises(RuntimeError, match="no backward"):
-        model(x[:, 0])
+    feats, _ = model(x[:, 0])
+    feats.float().square().sum().backward()
+    grads = [p.grad for p in model.feature_extractor.backbone.blocks[2].parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    assert any(g.abs().sum() > 0 for g in grads)
     for impl in ("auto", "pallas"):
         model = _torch_model(torch.bfloat16, impl).init_weights(
             torch.Generator().manual_seed(0))

@@ -23,9 +23,12 @@ What a step computes is the JAX step's, pass for pass:
     student * m`` with m going 0.995 -> 1.0 (time_tuning.py:113-115).
 
 The no-grad passes run the model's own attention implementation (in bf16 on
-the card: the hand-written block kernels, which have no backward). The
-differentiated pass of an ``attn_impl="auto"`` model runs plain attention
-(``TimeTConfig.grad_attn_impl``), per call, on the same module; a forced
+the card: the hand-written block kernels). The differentiated pass of an
+``attn_impl="auto"`` model runs plain attention by default
+(``TimeTConfig.grad_attn_impl="xla"``), per call, on the same module; with
+``grad_attn_impl=None`` or ``"auto"`` it runs the model's own
+implementation, the block kernels included, whose backward is the JAX
+package's (the VJP of the plain composition, ops/fused_block). A forced
 implementation is kept on the grad path too.
 """
 

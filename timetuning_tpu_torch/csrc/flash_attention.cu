@@ -1,10 +1,12 @@
 // Exact softmax attention for long sequences, in the online-softmax (flash)
 // form:
 //   o = softmax(q k^T * scale, keys at or beyond kv_len masked) v
-// q [B, H, Sq, 64], k and v [B, H, Sk, 64], o [B, H, Sq, 64], all bf16 or
-// all f32, each with its own strides on B, H and S (the 64 head features
-// contiguous), so the views that a qkv projection gives are read in place
-// and the output is written straight into the merged [B, S, H*64] layout.
+// q [B, H, Sq, Dh], k and v [B, H, Sk, Dh], o [B, H, Sq, Dh], Dh 64 or 32,
+// all bf16 or all f32, each with its own strides on B, H and S (the Dh head
+// features contiguous), so the views that a qkv projection gives are read
+// in place and the output is written straight into the merged [B, S, H*Dh]
+// layout. The TPU kernels pad any Dh to 128 lanes (flash_attention.py:109,
+// :221); here Dh is a template parameter of both forms.
 //
 // Replaces both TPU kernels of timetuning_tpu/ops/flash_attention.py:
 // _flash_kernel (:47, K/V of one head resident in VMEM, the key loop inside
@@ -51,8 +53,14 @@
 //   the scores and of acc with float4 operand reads, the softmax in
 //   registers over the 16 lanes of a row, K/V tiles of 64 keys by cp.async
 //   into two buffers, the next tile's copies under this one's arithmetic.
-// Dh is fixed at 64: the wrapper refuses MoCo-v3 ViT-S/16's heads of 32,
-// which only reach this core above 1,024 tokens (ViT-S/16 above 512 px).
+// Heads of 32 (MoCo-v3 ViT-S/16's twelve, which reach this core above
+// 1,024 tokens: ViT-S/16 above 512 px): bf16 as mha.cu's heads of 32,
+// 64-byte rows in a 64-byte swizzle (attention_wgmma.cuh's head_desc<32>,
+// make_qkv_map(..., 32)), two k16 steps of q k^T, p @ v as m64n32k16
+// (wgmma_rs from registers) into a [64 x 32] accumulator of 16 registers a
+// lane; every tile offset in shared memory a multiple of 1,024 bytes (the
+// 64-byte swizzle needs 512). f32: the tiles of attention_f32.cuh at
+// Dh = 32, a thread's output columns a float2.
 #include "attention_f32.cuh"
 #include "attention_wgmma.cuh"
 #include "common.cuh"
@@ -62,7 +70,6 @@ namespace {
 using tt::bf16;
 namespace hp = tt::hopper;
 
-constexpr int kDh = 64;
 constexpr float kNeg = -1e30f;
 
 struct Strides {
@@ -72,35 +79,43 @@ struct Strides {
 // ---------------------------------------------------------------- bf16 --
 constexpr int kBK = 128;                 // keys per tile
 constexpr int kStages = 4;               // K/V tiles in flight
-constexpr int kTileBytes = kBK * hp::kRowBytes;
 
-// kWG consumer warpgroups of 64 query rows each, and the producer's
-template <int kWG>
+// kWG consumer warpgroups of 64 query rows each, and the producer's; rows
+// of Dh bf16 (one swizzle atom a row)
+template <int kWG, int Dh>
 struct FlashBlock {
+  static constexpr int kRowBytes = Dh * 2;
+  static constexpr int kTileBytes = kBK * kRowBytes;  // a K or V tile
   static constexpr int kBQ = 64 * kWG;                // queries per block
   static constexpr int kConsumerWarps = 4 * kWG;
   static constexpr int kThreads = (kWG + 1) * 128;
-  static constexpr int kQBytes = kBQ * hp::kRowBytes;
+  static constexpr int kQBytes = kBQ * kRowBytes;
   static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
   // 1,024 bytes of slack: the tiles start at the next 1,024-byte boundary
   static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0,
+                "swizzled tiles start on 1,024-byte boundaries");
 };
 
-template <int kWG>
-__global__ void __launch_bounds__(FlashBlock<kWG>::kThreads, 1)
+// one block an SM: 384 or 512 threads whose consumers take 232 or 160
+// registers (setmaxnreg) leave no room for a second
+template <int kWG, int Dh>
+__global__ void __launch_bounds__(FlashBlock<kWG, Dh>::kThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
                   int Sq, int kv_len, float scale_log2, long long ob,
                   long long oh, long long os) {
-  constexpr int kBQ = FlashBlock<kWG>::kBQ;
-  constexpr int kConsumerWarps = FlashBlock<kWG>::kConsumerWarps;
-  constexpr int kQBytes = FlashBlock<kWG>::kQBytes;
+  using Blk = FlashBlock<kWG, Dh>;
+  constexpr int kBQ = Blk::kBQ;
+  constexpr int kConsumerWarps = Blk::kConsumerWarps;
+  constexpr int kQBytes = Blk::kQBytes;
+  constexpr int kTileBytes = Blk::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
   const uint32_t kv_s = base + kQBytes;            // stage s: K then V
-  const uint32_t bar_q = base + FlashBlock<kWG>::kBarOffset;
+  const uint32_t bar_q = base + Blk::kBarOffset;
   const uint32_t bar_full = bar_q + 8;             // [kStages]
   const uint32_t bar_empty = bar_full + 8 * kStages;
 
@@ -148,10 +163,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 160;");
   const int wg = warp >> 2;
   const int r0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);   // and r0 + 8
-  const uint32_t q_wg = q_s + wg * 64 * hp::kRowBytes;
-  float acc[32];
+  const uint32_t q_wg = q_s + wg * 64 * Blk::kRowBytes;
+  float acc[Dh / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < Dh / 2; ++i) acc[i] = 0.f;
   float m0 = kNeg, m1 = kNeg;          // running row max, in log2 units
   float l0 = 0.f, l1 = 0.f;            // this lane's share of the row sums
 
@@ -163,7 +178,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     hp::mbar_wait(bar_full + 8 * s, round);
 
     float sc[kBK / 2];
-    hp::qk_product(sc, q_wg, k_s);
+    hp::qk_product<Dh>(sc, q_wg, k_s);
     if (it == n_tiles - 1 && kv_len % kBK != 0)
       hp::mask_keys(sc, it * kBK, kv_len, lane);
 
@@ -179,7 +194,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < Dh / 8; ++j) {
       acc[4 * j] *= corr0;
       acc[4 * j + 1] *= corr0;
       acc[4 * j + 2] *= corr1;
@@ -198,41 +213,47 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ----------------------------------------------------------------- f32 --
 namespace f32 = tt::f32attn;
-constexpr int kFSmem =
-    (4 * f32::kTile + 2 * f32::kVTile) * (int)sizeof(float);   // Q, 2 K, P; 2 V
+template <int Dh>
+constexpr int f32_smem() {   // Q, 2 K, 2 V, P
+  return (3 * f32::Tiles<Dh>::kTile + 2 * f32::Tiles<Dh>::kVTile + f32::kPTile) *
+         (int)sizeof(float);
+}
 
+// two blocks an SM (87 KB of shared memory a block at Dh = 64)
+template <int Dh>
 __global__ void __launch_bounds__(f32::kThreads, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Sq,
                  int Sk, int kv_len, float scale, Strides st) {
+  using T = f32::Tiles<Dh>;
   extern __shared__ __align__(16) float fsm[];
   float* Qs = fsm;                       // [64][kLd]
-  float* Ks = Qs + f32::kTile;           // [2][64][kLd]
-  float* Vs = Ks + 2 * f32::kTile;       // [2][64][64]
-  float* Ps = Vs + 2 * f32::kVTile;      // [64][kLd]
+  float* Ks = Qs + T::kTile;             // [2][64][kLd]
+  float* Vs = Ks + 2 * T::kTile;         // [2][64][Dh]
+  float* Ps = Vs + 2 * T::kVTile;        // [64][kLdP]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * f32::kBQ;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;               // rows ty + 8 i
-  const int tx = tid & 15;               // keys tx + 16 j, head features 4 tx + c
+  const int tx = tid & 15;               // keys tx + 16 j, head features Dh / 16 tx + c
   const float* qp = q + b * st.qb + h * st.qh;
   const float* kp = k + b * st.kb + h * st.kh;
   const float* vp = v + b * st.vb + h * st.vh;
 
-  f32::load_tile_async(Ks, f32::kLd, kp, st.ks, 0, Sk, tid);
-  f32::load_tile_async(Vs, f32::kDh, vp, st.vs, 0, Sk, tid);
+  f32::load_tile_async<Dh>(Ks, T::kLd, kp, st.ks, 0, Sk, tid);
+  f32::load_tile_async<Dh>(Vs, Dh, vp, st.vs, 0, Sk, tid);
   f32::async_commit();
-  f32::load_tile(Qs, f32::kLd, qp, st.qs, q0, Sq, tid);
+  f32::load_tile<Dh>(Qs, T::kLd, qp, st.qs, q0, Sq, tid);
 
-  float m_run[8], l_run[8], acc[8][4];   // l_run: this lane's share of the row sum
+  float m_run[8], l_run[8], acc[8][T::kCols];   // l_run: this lane's share of the row sum
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     m_run[i] = kNeg;
     l_run[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < T::kCols; ++c) acc[i][c] = 0.f;
   }
 
   const int n_tiles = (kv_len + f32::kBK - 1) / f32::kBK;
@@ -244,15 +265,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     f32::async_wait<0>();
     __syncthreads();
     if (kt + 1 < n_tiles) {
-      f32::load_tile_async(Ks + (buf ^ 1) * f32::kTile, f32::kLd, kp, st.ks,
-                           k0 + f32::kBK, Sk, tid);
-      f32::load_tile_async(Vs + (buf ^ 1) * f32::kVTile, f32::kDh, vp, st.vs,
-                           k0 + f32::kBK, Sk, tid);
+      f32::load_tile_async<Dh>(Ks + (buf ^ 1) * T::kTile, T::kLd, kp, st.ks,
+                               k0 + f32::kBK, Sk, tid);
+      f32::load_tile_async<Dh>(Vs + (buf ^ 1) * T::kVTile, Dh, vp, st.vs,
+                               k0 + f32::kBK, Sk, tid);
       f32::async_commit();
     }
 
     float s[8][4];
-    f32::qk_tile(s, Qs, Ks + buf * f32::kTile, scale, ty, tx);
+    f32::qk_tile<Dh>(s, Qs, Ks + buf * T::kTile, scale, ty, tx);
     if (k0 + f32::kBK > kv_len) f32::mask_keys(s, k0, kv_len, tx);
 
     // online softmax in registers; masked keys give exp(-1e30 - m) = 0
@@ -270,35 +291,64 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l_run[i] = l_run[i] * corr + sum;
       m_run[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < T::kCols; ++c) acc[i][c] *= corr;
     }
     f32::store_p(Ps, s, ty, tx);
     __syncthreads();
-    f32::pv_tile(acc, Ps, f32::kLd, Vs + buf * f32::kVTile, f32::kBK, ty, tx);
+    f32::pv_tile<Dh>(acc, Ps, f32::kLdP, Vs + buf * T::kVTile, f32::kBK, ty, tx);
   }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) l_run[i] = fmaxf(f32::row_sum16(l_run[i]), 1e-20f);
-  f32::store_rows(acc, l_run, o + b * st.ob + h * st.oh, st.os, q0, Sq, ty, tx);
+  f32::store_rows<Dh>(acc, l_run, o + b * st.ob + h * st.oh, st.os, q0, Sq, ty, tx);
+}
+
+template <int kWG, int Dh>
+cudaError_t launch_bf16_form(const CUtensorMap& mq, const CUtensorMap& mk,
+                             const CUtensorMap& mv, bf16* o, int B, int H, int Sq,
+                             int kv_len, float scale_log2, long long ob, long long oh,
+                             long long os, cudaStream_t s) {
+  using Blk = FlashBlock<kWG, Dh>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16_kernel<kWG, Dh>, cudaFuncAttributeMaxDynamicSharedMemorySize, Blk::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + Blk::kBQ - 1) / Blk::kBQ, H, B);
+  flash_bf16_kernel<kWG, Dh><<<grid, Blk::kThreads, Blk::kSmem, s>>>(
+      mq, mk, mv, o, Sq, kv_len, scale_log2, ob, oh, os);
+  return cudaGetLastError();
+}
+
+template <int Dh>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
+                       int B, int H, int Sq, int Sk, int kv_len, float scale,
+                       const Strides& st, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_f32_kernel<Dh>, cudaFuncAttributeMaxDynamicSharedMemorySize, f32_smem<Dh>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + f32::kBQ - 1) / f32::kBQ, H, B);
+  flash_f32_kernel<Dh><<<grid, f32::kThreads, f32_smem<Dh>(), s>>>(
+      q, k, v, o, Sq, Sk, kv_len, scale, st);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: device pointers of bf16 (is_bf16 = 1) or f32 values; strides
-// in elements. 1 <= kv_len <= Sk. bf16: the head features contiguous, every
-// stride a multiple of 8 elements and every base 16-byte aligned (TMA).
+// in elements; Dh 64 or 32. 1 <= kv_len <= Sk. bf16: the head features
+// contiguous, every stride a multiple of 8 elements and every base 16-byte
+// aligned (TMA).
 extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int is_bf16, int B, int H, int Sq,
-                                  int Sk, int kv_len, long long qb, long long qh,
-                                  long long qs, long long kb, long long kh,
-                                  long long ks, long long vb, long long vh,
-                                  long long vs, long long ob, long long oh,
-                                  long long os, void* stream) {
+                                  int Sk, int kv_len, int Dh, long long qb,
+                                  long long qh, long long qs, long long kb,
+                                  long long kh, long long ks, long long vb,
+                                  long long vh, long long vs, long long ob,
+                                  long long oh, long long os, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Sq <= 0 || Sk <= 0 ||
-      kv_len < 1 || kv_len > Sk)
+      kv_len < 1 || kv_len > Sk || (Dh != 32 && Dh != 64))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale = 1.f / sqrtf((float)kDh);
+  const float scale = 1.f / sqrtf((float)Dh);
   cudaError_t e;
   if (is_bf16) {
     CUtensorMap map_q, map_k, map_v;
@@ -315,28 +365,19 @@ extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
     };
     const bool three = 0.91 * waves(192) < waves(128);
     const int q_rows = three ? 192 : 128;
-    if ((e = hp::make_qkv_map(&map_q, q, B, H, Sq, qb, qh, qs, q_rows)) != cudaSuccess ||
-        (e = hp::make_qkv_map(&map_k, k, B, H, Sk, kb, kh, ks, kBK)) != cudaSuccess ||
-        (e = hp::make_qkv_map(&map_v, v, B, H, Sk, vb, vh, vs, kBK)) != cudaSuccess)
+    if ((e = hp::make_qkv_map(&map_q, q, B, H, Sq, qb, qh, qs, q_rows, Dh)) !=
+            cudaSuccess ||
+        (e = hp::make_qkv_map(&map_k, k, B, H, Sk, kb, kh, ks, kBK, Dh)) != cudaSuccess ||
+        (e = hp::make_qkv_map(&map_v, v, B, H, Sk, vb, vh, vs, kBK, Dh)) != cudaSuccess)
       return (int)e;
-    const auto kernel = three ? flash_bf16_kernel<3> : flash_bf16_kernel<2>;
-    const int smem = three ? FlashBlock<3>::kSmem : FlashBlock<2>::kSmem;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((Sq + q_rows - 1) / q_rows, H, B);
-    kernel<<<grid, three ? FlashBlock<3>::kThreads : FlashBlock<2>::kThreads, smem, s>>>(
-        map_q, map_k, map_v, static_cast<bf16*>(o), Sq, kv_len, scale * hp::kLog2e,
-        ob, oh, os);
-  } else {
-    const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-    e = cudaFuncSetAttribute(flash_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((Sq + f32::kBQ - 1) / f32::kBQ, H, B);
-    flash_f32_kernel<<<grid, f32::kThreads, kFSmem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, kv_len,
-        scale, st);
+    const auto launch = three ? (Dh == 64 ? launch_bf16_form<3, 64> : launch_bf16_form<3, 32>)
+                              : (Dh == 64 ? launch_bf16_form<2, 64> : launch_bf16_form<2, 32>);
+    return (int)launch(map_q, map_k, map_v, static_cast<bf16*>(o), B, H, Sq, kv_len,
+                       scale * hp::kLog2e, ob, oh, os, s);
   }
-  return (int)cudaGetLastError();
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  return (int)(Dh == 64 ? launch_f32<64> : launch_f32<32>)(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), B, H, Sq, Sk, kv_len, scale,
+      st, s);
 }

@@ -3,8 +3,8 @@
 // q, k, v, o [B, H, S, Dh], all bf16 or all f32, S <= 1024, each with its
 // own strides on B, H and S (the Dh head features contiguous), so the q, k, v
 // views of a qkv projection are read in place and the output lands in the
-// merged [B, S, H*Dh] layout. Dh is 64 (DINO, MSN, iBOT, LeoPART, ViT-B) or,
-// in bf16, 32 (MoCo-v3 ViT-S/16's twelve heads of 32); f32 takes 64.
+// merged [B, S, H*Dh] layout. Dh is 64 (DINO, MSN, iBOT, LeoPART, ViT-B) or
+// 32 (MoCo-v3 ViT-S/16's twelve heads of 32), in bf16 and in f32.
 // The TPU kernel takes any Dh = D / heads (fused_block.py:86).
 //
 // Replaces the TPU kernel timetuning_tpu/ops/attention.py:_mha_kernel (:53,
@@ -47,12 +47,13 @@
 //   does not fit a warpgroup's registers, so q k^T runs twice; K is fetched
 //   once a block.
 //   f32: CUDA-core FMAs (no TF32, so an f32 model stays f32) on the tiles
-//   of attention_f32.cuh: a block of 128 threads owns 64 query rows, a
-//   thread 8 rows x 4 columns of the scores and of the output with float4
-//   operand reads; 64-key tiles arrive by cp.async into two buffers. Up to
-//   256 tokens one pass: the block's [64, S] scores stay in shared memory
-//   (52 KB at S = 197) and q k^T runs once; up to 1,024 two passes (K, then
-//   K and V), the row statistics in registers.
+//   of attention_f32.cuh, templated over Dh: a block of 128 threads owns 64
+//   query rows, a thread 8 rows x 4 columns of the scores and 8 rows x
+//   Dh / 16 of the output with float4 (float2) operand reads; 64-key tiles
+//   arrive by cp.async into two buffers. Up to 256 tokens one pass: the
+//   block's [64, S] scores stay in shared memory (52 KB at S = 197) and
+//   q k^T runs once; up to 1,024 two passes (K, then K and V), the row
+//   statistics in registers.
 // Heads of 32 in bf16: the same kernels at Dh = 32 (a template parameter):
 // 64-byte rows in a 64-byte swizzle (one row an atom, eight rows a 512-byte
 // group: attention_wgmma.cuh's head_desc<32> and make_qkv_map), two k16
@@ -70,7 +71,6 @@ namespace {
 using tt::bf16;
 namespace hp = tt::hopper;
 
-constexpr int kDh = 64;                   // the f32 kernels' head width
 constexpr float kNeg = -1e30f;
 
 template <int Dh>
@@ -321,8 +321,11 @@ cudaError_t launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk,
 
 // ----------------------------------------------------------------- f32 --
 namespace f32 = tt::f32attn;
-constexpr int kFSmem =
-    (4 * f32::kTile + 2 * f32::kVTile) * (int)sizeof(float);   // Q, 2 K, P; 2 V
+template <int Dh>
+constexpr int two_pass_smem() {   // Q, 2 K, 2 V, P
+  return (3 * f32::Tiles<Dh>::kTile + 2 * f32::Tiles<Dh>::kVTile + f32::kPTile) *
+         (int)sizeof(float);
+}
 
 // S <= 256: one pass. The block's [64, S] strip of scaled scores stays in
 // shared memory (rows of S rounded up to 4, plus 4: 52 KB at S = 197, two
@@ -332,18 +335,22 @@ constexpr int kFSmem =
 // tiles, then V tiles, arrive through the same two buffers.
 constexpr int kStripMaxKeys = 256;
 __host__ __device__ constexpr int strip_ld(int S) { return (S + 3) / 4 * 4 + 4; }
+template <int Dh>
 constexpr int strip_smem(int S) {
-  return (3 * f32::kTile + f32::kBQ * strip_ld(S)) * (int)sizeof(float);
+  return (3 * f32::Tiles<Dh>::kTile + f32::kBQ * strip_ld(S)) * (int)sizeof(float);
 }
 
+// two blocks an SM (87 KB of shared memory a block at S = 256, Dh = 64)
+template <int Dh>
 __global__ void __launch_bounds__(f32::kThreads, 2)
 mha_f32_strip_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int S,
                      float scale, Strides st) {
+  using T = f32::Tiles<Dh>;
   extern __shared__ __align__(16) float fsm[];
   float* Qs = fsm;                       // [64][kLd]
-  float* KVs = Qs + f32::kTile;          // [2][64][kLd] for K, [64][64] of each for V
-  float* Ss = KVs + 2 * f32::kTile;      // [64][ld]: scores, then p
+  float* KVs = Qs + T::kTile;            // [2][64][kLd] for K, [64][Dh] of each for V
+  float* Ss = KVs + 2 * T::kTile;        // [64][ld]: scores, then p
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -358,9 +365,9 @@ mha_f32_strip_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ld = strip_ld(S);
   const int cols = ld - 4;               // S rounded up to 4: the strip's live width
 
-  f32::load_tile_async(KVs, f32::kLd, kp, st.ks, 0, S, tid);
+  f32::load_tile_async<Dh>(KVs, T::kLd, kp, st.ks, 0, S, tid);
   f32::async_commit();
-  f32::load_tile(Qs, f32::kLd, qp, st.qs, q0, S, tid);
+  f32::load_tile<Dh>(Qs, T::kLd, qp, st.qs, q0, S, tid);
 
   // pass 1: the scaled scores into the strip (-1e30 at keys past S), and
   // this lane's share of each row's max
@@ -373,12 +380,12 @@ mha_f32_strip_kernel(const float* __restrict__ q, const float* __restrict__ k,
     f32::async_wait<0>();
     __syncthreads();                     // tile kt landed; the other buffer is free
     if (kt + 1 < n_tiles) {
-      f32::load_tile_async(KVs + (buf ^ 1) * f32::kTile, f32::kLd, kp, st.ks,
-                           k0 + f32::kBK, S, tid);
+      f32::load_tile_async<Dh>(KVs + (buf ^ 1) * T::kTile, T::kLd, kp, st.ks,
+                               k0 + f32::kBK, S, tid);
       f32::async_commit();
     }
     float s[8][4];
-    f32::qk_tile(s, Qs, KVs + buf * f32::kTile, scale, ty, tx);
+    f32::qk_tile<Dh>(s, Qs, KVs + buf * T::kTile, scale, ty, tx);
     if (k0 + f32::kBK > S) f32::mask_keys(s, k0, S, tx);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -392,7 +399,7 @@ mha_f32_strip_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();                       // pass 1's reads of both K buffers are done
-  f32::load_tile_async(KVs, f32::kDh, vp, st.vs, 0, S, tid);
+  f32::load_tile_async<Dh>(KVs, Dh, vp, st.vs, 0, S, tid);
   f32::async_commit();
 
   // this thread's own entries of the strip: exp(s - max), their sum, p
@@ -411,41 +418,44 @@ mha_f32_strip_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // pass 2: acc += p @ v over the strip
-  float acc[8][4];
+  float acc[8][T::kCols];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < T::kCols; ++c) acc[i][c] = 0.f;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * f32::kBK;
     const int buf = kt & 1;
     f32::async_wait<0>();
     __syncthreads();                     // V tile kt landed; p is whole (kt = 0)
     if (kt + 1 < n_tiles) {
-      f32::load_tile_async(KVs + (buf ^ 1) * f32::kTile, f32::kDh, vp, st.vs,
-                           k0 + f32::kBK, S, tid);
+      f32::load_tile_async<Dh>(KVs + (buf ^ 1) * T::kTile, Dh, vp, st.vs,
+                               k0 + f32::kBK, S, tid);
       f32::async_commit();
     }
-    f32::pv_tile(acc, Ss + k0, ld, KVs + buf * f32::kTile, min(f32::kBK, cols - k0),
-                 ty, tx);
+    f32::pv_tile<Dh>(acc, Ss + k0, ld, KVs + buf * T::kTile, min(f32::kBK, cols - k0),
+                     ty, tx);
   }
 
   float one[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) one[i] = 1.f;
-  f32::store_rows(acc, one, o + b * st.ob + h * st.oh, st.os, q0, S, ty, tx);
+  f32::store_rows<Dh>(acc, one, o + b * st.ob + h * st.oh, st.os, q0, S, ty, tx);
 }
 
-// S <= 1,024: two passes
+// S <= 1,024: two passes; two blocks an SM (87 KB of shared memory a block
+// at Dh = 64)
+template <int Dh>
 __global__ void __launch_bounds__(f32::kThreads, 2)
 mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, int S,
                float scale, Strides st) {
+  using T = f32::Tiles<Dh>;
   extern __shared__ __align__(16) float fsm[];
   float* Qs = fsm;                       // [64][kLd]
-  float* Ks = Qs + f32::kTile;           // [2][64][kLd]
-  float* Vs = Ks + 2 * f32::kTile;       // [2][64][64]
-  float* Ps = Vs + 2 * f32::kVTile;      // [64][kLd]
+  float* Ks = Qs + T::kTile;             // [2][64][kLd]
+  float* Vs = Ks + 2 * T::kTile;         // [2][64][Dh]
+  float* Ps = Vs + 2 * T::kVTile;        // [64][kLdP]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -458,9 +468,9 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vp = v + b * st.vb + h * st.vh;
   const int n_tiles = (S + f32::kBK - 1) / f32::kBK;
 
-  f32::load_tile_async(Ks, f32::kLd, kp, st.ks, 0, S, tid);
+  f32::load_tile_async<Dh>(Ks, T::kLd, kp, st.ks, 0, S, tid);
   f32::async_commit();
-  f32::load_tile(Qs, f32::kLd, qp, st.qs, q0, S, tid);
+  f32::load_tile<Dh>(Qs, T::kLd, qp, st.qs, q0, S, tid);
 
   // pass 1: each row's max and softmax denominator (this lane's share of it)
   float m_run[8], l_run[8];
@@ -475,12 +485,12 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     f32::async_wait<0>();
     __syncthreads();                     // tile kt landed; the other buffer is free
     if (kt + 1 < n_tiles) {
-      f32::load_tile_async(Ks + (buf ^ 1) * f32::kTile, f32::kLd, kp, st.ks,
-                           k0 + f32::kBK, S, tid);
+      f32::load_tile_async<Dh>(Ks + (buf ^ 1) * T::kTile, T::kLd, kp, st.ks,
+                               k0 + f32::kBK, S, tid);
       f32::async_commit();
     }
     float s[8][4];
-    f32::qk_tile(s, Qs, Ks + buf * f32::kTile, scale, ty, tx);
+    f32::qk_tile<Dh>(s, Qs, Ks + buf * T::kTile, scale, ty, tx);
     if (k0 + f32::kBK > S) f32::mask_keys(s, k0, S, tx);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -497,14 +507,14 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 8; ++i) l_run[i] = f32::row_sum16(l_run[i]);
 
   // pass 2: p = exp(s - max) / sum, acc += p @ v
-  float acc[8][4];
+  float acc[8][T::kCols];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < T::kCols; ++c) acc[i][c] = 0.f;
   __syncthreads();                       // pass 1's reads of both K buffers are done
-  f32::load_tile_async(Ks, f32::kLd, kp, st.ks, 0, S, tid);
-  f32::load_tile_async(Vs, f32::kDh, vp, st.vs, 0, S, tid);
+  f32::load_tile_async<Dh>(Ks, T::kLd, kp, st.ks, 0, S, tid);
+  f32::load_tile_async<Dh>(Vs, Dh, vp, st.vs, 0, S, tid);
   f32::async_commit();
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * f32::kBK;
@@ -512,14 +522,14 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     f32::async_wait<0>();
     __syncthreads();                     // and the last tile's reads of P are done
     if (kt + 1 < n_tiles) {
-      f32::load_tile_async(Ks + (buf ^ 1) * f32::kTile, f32::kLd, kp, st.ks,
-                           k0 + f32::kBK, S, tid);
-      f32::load_tile_async(Vs + (buf ^ 1) * f32::kVTile, f32::kDh, vp, st.vs,
-                           k0 + f32::kBK, S, tid);
+      f32::load_tile_async<Dh>(Ks + (buf ^ 1) * T::kTile, T::kLd, kp, st.ks,
+                               k0 + f32::kBK, S, tid);
+      f32::load_tile_async<Dh>(Vs + (buf ^ 1) * T::kVTile, Dh, vp, st.vs,
+                               k0 + f32::kBK, S, tid);
       f32::async_commit();
     }
     float s[8][4];
-    f32::qk_tile(s, Qs, Ks + buf * f32::kTile, scale, ty, tx);
+    f32::qk_tile<Dh>(s, Qs, Ks + buf * T::kTile, scale, ty, tx);
     if (k0 + f32::kBK > S) f32::mask_keys(s, k0, S, tx);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -527,13 +537,28 @@ mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) s[i][j] = expf(s[i][j] - m_run[i]) / l_run[i];
     f32::store_p(Ps, s, ty, tx);
     __syncthreads();
-    f32::pv_tile(acc, Ps, f32::kLd, Vs + buf * f32::kVTile, f32::kBK, ty, tx);
+    f32::pv_tile<Dh>(acc, Ps, f32::kLdP, Vs + buf * T::kVTile, f32::kBK, ty, tx);
   }
 
   float one[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) one[i] = 1.f;
-  f32::store_rows(acc, one, o + b * st.ob + h * st.oh, st.os, q0, S, ty, tx);
+  f32::store_rows<Dh>(acc, one, o + b * st.ob + h * st.oh, st.os, q0, S, ty, tx);
+}
+
+template <int Dh>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
+                       int B, int H, int S, int passes, float scale, const Strides& st,
+                       cudaStream_t s) {
+  const auto kernel = passes == 1 ? mha_f32_strip_kernel<Dh> : mha_f32_kernel<Dh>;
+  const int smem = passes == 1 ? strip_smem<Dh>(S) : two_pass_smem<Dh>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      passes == 1 ? strip_smem<Dh>(kStripMaxKeys) : two_pass_smem<Dh>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + f32::kBQ - 1) / f32::kBQ, H, B);
+  kernel<<<grid, f32::kThreads, smem, s>>>(q, k, v, o, S, scale, st);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -586,7 +611,7 @@ cudaError_t tt::launch_mha_bf16(const void* q, const void* k, const void* v, voi
 }
 
 // q, k, v, o: device pointers of bf16 (is_bf16 = 1) or f32 values; strides
-// in elements. 1 <= S <= 1024; Dh 64, or 32 in bf16. bf16: `passes` and `keys` are the caller's
+// in elements. 1 <= S <= 1024; Dh 64 or 32. bf16: `passes` and `keys` are the caller's
 // plan (ops/attention.mha_plan): one pass over a strip of keys = 64, 128,
 // 208 or 256 >= S, or two passes over keys = S rounded up to 128-key chunks;
 // the head features contiguous, every stride a multiple of 8 elements and
@@ -604,19 +629,11 @@ extern "C" int tt_mha(const void* q, const void* k, const void* v, void* o,
   if (is_bf16)
     return (int)tt::launch_mha_bf16(q, k, v, o, B, H, S, Dh, passes, keys, qb, qh, qs,
                                     kb, kh, ks, vb, vh, vs, ob, oh, os, s);
-  if (Dh != kDh || (passes != 2 && (passes != 1 || S > kStripMaxKeys)))
+  if ((Dh != 32 && Dh != 64) || (passes != 2 && (passes != 1 || S > kStripMaxKeys)))
     return (int)cudaErrorInvalidValue;
-  const float scale = 1.f / sqrtf((float)kDh);
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
-  const auto kernel = passes == 1 ? mha_f32_strip_kernel : mha_f32_kernel;
-  const int smem = passes == 1 ? strip_smem(S) : kFSmem;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      passes == 1 ? strip_smem(kStripMaxKeys) : kFSmem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + f32::kBQ - 1) / f32::kBQ, H, B);
-  kernel<<<grid, f32::kThreads, smem, s>>>(
+  return (int)(Dh == 64 ? launch_f32<64> : launch_f32<32>)(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, scale, st);
-  return (int)cudaGetLastError();
+      static_cast<const float*>(v), static_cast<float*>(o), B, H, S, passes,
+      1.f / sqrtf((float)Dh), st, s);
 }

@@ -17,11 +17,14 @@ the dispatcher (ops/attention.attention), so an f32 block over 1024 tokens
 on the card runs the flash kernel in f32. ``fused`` forces the block
 kernels whatever the dtype; ``xla`` and ``pallas`` always run the
 composition, with the plain attention core or with the attention kernels
-(kernel 10 up to 1024 tokens, differentiable; flash above). The block
-kernels have no backward, so a differentiated pass of an ``auto`` model
-passes ``attn_impl="xla"`` per call (core/timet.py), the counterpart of the
-JAX step's grad-path clone. Parameters stay f32 and are cast to the compute
-dtype where they are used.
+(kernel 10 up to 1024 tokens; flash above). Every kernel route is
+differentiable, with the JAX package's backward (the kernels' wrappers,
+ops/fused_block and ops/attention); the train step's differentiated pass of
+an ``auto`` model passes ``attn_impl="xla"`` per call by default
+(core/timet.py), the counterpart of the JAX step's grad-path clone. With
+``ViTConfig.remat`` each block is recomputed in the backward
+(``torch.utils.checkpoint``), as the JAX ``nn.remat(Block)``. Parameters
+stay f32 and are cast to the compute dtype where they are used.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from timetuning_tpu_torch.ops.attention import WHOLE_SEQUENCE_TOKENS, attention
 from timetuning_tpu_torch.ops.fused_block import (
@@ -53,6 +57,7 @@ class ViTConfig:
     img_size: int = 224
     dtype: torch.dtype = torch.float32   # compute dtype; params stay f32
     attn_impl: str = "auto"              # auto | xla | pallas | fused
+    remat: bool = False                  # recompute blocks in the backward
 
 
 def vit_tiny(patch_size: int = 16, **kw) -> ViTConfig:
@@ -244,8 +249,16 @@ class VisionTransformer(nn.Module):
         probs = None
         for i in range(start_block, stop):
             is_last = i == c.depth - 1
-            x, p_i = self.blocks[i](x, return_probs=want_attention and is_last,
-                                    attn_impl=attn_impl)
+            block = self.blocks[i]
+            if c.remat and torch.is_grad_enabled():
+                # JAX's nn.remat(Block) (timetuning_tpu/models/vit.py:344):
+                # the block's activations are recomputed in the backward
+                x, p_i = torch.utils.checkpoint.checkpoint(
+                    block, x, want_attention and is_last, attn_impl,
+                    use_reentrant=False)
+            else:
+                x, p_i = block(x, return_probs=want_attention and is_last,
+                               attn_impl=attn_impl)
             if p_i is not None:
                 probs = p_i
             if i >= c.depth - n_intermediates:

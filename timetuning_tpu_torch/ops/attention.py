@@ -4,11 +4,11 @@ and the dispatcher.
 Counterpart of ``timetuning_tpu/ops/attention.py``. ``attention_xla`` is the
 plain version, the path of every block asked for its probabilities and of
 f32 blocks up to 1024 tokens. ``attention_mha`` is kernel 10
-(csrc/mha.cu), the whole-sequence kernel of up to 1024 tokens, forward only
-(``mha_plan`` says how it walks a sequence of S tokens);
-``_AttentionFused`` gives it the JAX package's custom VJP (the forward is
-the kernel, the backward the analytic softmax-attention gradient recomputed
-in plain torch: the JAX package has no backward kernel either).
+(csrc/mha.cu), the whole-sequence kernel of up to 1024 tokens (``mha_plan``
+says how it walks a sequence of S tokens); under grad it runs inside
+``_AttentionFused``, the JAX package's custom VJP (the forward is the
+kernel, the backward the analytic softmax-attention gradient recomputed in
+plain torch: the JAX package has no backward kernel either).
 
 ``attention`` routes as the JAX dispatcher (:156-200), by ``impl``:
 
@@ -68,6 +68,19 @@ def attention_mha_plain(q, k, v):
     return attention_xla(q, k, v)[0]
 
 
+def _heads_view(out: torch.Tensor) -> torch.Tensor:
+    """A [B, H, S, Dh] result as the kernels lay theirs out: a view of a
+    [B, S, H, Dh] buffer."""
+    return out.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+
+
+def _heads_fake(q: torch.Tensor) -> torch.Tensor:
+    """The custom ops' fake of an attention output: ``_heads_view``'s
+    layout, q's shape and dtype."""
+    B, H, S, Dh = q.shape
+    return q.new_empty((B, S, H, Dh)).permute(0, 2, 1, 3)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` if the kernel can read it in place (head features contiguous,
     16-byte aligned rows), else a contiguous copy."""
@@ -104,20 +117,22 @@ def mha_plan(seq_len: int) -> tuple[int, int]:
     return 2, -(-seq_len // TWO_PASS_CHUNK) * TWO_PASS_CHUNK
 
 
-# The head widths kernel 10 takes: 64 in bf16 and f32, 32 in bf16 only
-# (MoCo-v3 ViT-S/16). Any other width raises on the card.
-MHA_HEAD_DIMS = {torch.bfloat16: (32, 64), torch.float32: (64,)}
+# The head widths kernel 10 takes, in bf16 and f32: 64 and 32 (MoCo-v3
+# ViT-S/16). Any other width raises on the card.
+MHA_HEAD_DIMS = {torch.bfloat16: (32, 64), torch.float32: (32, 64)}
 
 
+@kernel_lib.kernel_entry(
+    "attention_mha", "(Tensor q, Tensor k, Tensor v) -> Tensor",
+    lambda q, k, v: _heads_fake(q), lambda kernel, *a: _AttentionFused.apply(kernel, *a))
 def attention_mha(q, k, v):
-    """Kernel 10 (csrc/mha.cu). q, k, v: [B, H, S, Dh] with S <= 1024, all
-    bf16 (Dh 32 or 64) or all f32 (Dh 64), read as the strided views they
+    """Kernel 10 (csrc/mha.cu). q, k, v: [B, H, S, Dh] with S <= 1024 and
+    Dh 32 or 64, all bf16 or all f32, read as the strided views they
     are. Returns [B, H, S, Dh] in q's dtype, a view of a [B, S, H, Dh]
-    buffer, so merging the heads afterwards is free. Forward only:
-    ``attention(..., impl="pallas")`` wraps it with its backward."""
-    kernel_lib.require_no_grad("attention_mha", q, k, v)
+    buffer, so merging the heads afterwards is free (on CPU tensors too).
+    Differentiable through ``_AttentionFused``."""
     if q.device.type == "cpu":
-        return attention_mha_plain(q, k, v)
+        return _heads_view(attention_mha_plain(q, k, v))
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"attention_mha: expected q, k, v of one shape "
                          f"[B, H, S, Dh], got {tuple(q.shape)}, "
@@ -130,8 +145,7 @@ def attention_mha(q, k, v):
                          f"f32, got {q.dtype}, {k.dtype}, {v.dtype}")
     if Dh not in MHA_HEAD_DIMS[q.dtype]:
         raise ValueError(f"attention_mha: the kernel takes 32- or 64-wide "
-                         f"heads in bf16 and 64-wide heads in f32, got Dh={Dh} "
-                         f"in {q.dtype}")
+                         f"heads, got Dh={Dh} in {q.dtype}")
     kernel_lib.require_cuda("attention_mha", q, k, v)
     q, k, v = _aligned(q.detach()), _aligned(k.detach()), _aligned(v.detach())
     out = torch.empty((B, S, H, Dh), dtype=q.dtype,
@@ -151,9 +165,9 @@ class _AttentionFused(torch.autograd.Function):
     and the four gradient products are plain torch."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, kernel, q, k, v):
         ctx.save_for_backward(q, k, v)
-        return attention_mha(q, k, v)
+        return kernel(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
@@ -167,7 +181,7 @@ class _AttentionFused(torch.autograd.Function):
         ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
         dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
         dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+        return None, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_route(dtype: torch.dtype, seq_len: int, return_probs: bool,
@@ -194,8 +208,8 @@ def attention_route(dtype: torch.dtype, seq_len: int, return_probs: bool,
 
 def attention(q, k, v, return_probs: bool = False, impl: str = "auto"):
     """q, k, v: [B, H, S, Dh] -> ([B, H, S, Dh], probs or None), routed by
-    ``attention_route``. The kernel-10 route is differentiable
-    (``_AttentionFused``); the flash route is forward only."""
+    ``attention_route``. Every route is differentiable: kernel 10 through
+    ``_AttentionFused``, the flash kernel through ``flash_attention_bwd``."""
     route = attention_route(q.dtype, q.shape[2], return_probs,
                             q.device.type == "cuda", impl)
     if route == "flash":
@@ -203,5 +217,5 @@ def attention(q, k, v, return_probs: bool = False, impl: str = "auto"):
 
         return flash_attention(q, k, v), None
     if route == "mha":
-        return _AttentionFused.apply(q, k, v), None
+        return attention_mha(q, k, v), None
     return attention_xla(q, k, v, return_probs=return_probs)

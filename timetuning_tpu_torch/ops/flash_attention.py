@@ -4,8 +4,10 @@ Counterpart of ``timetuning_tpu/ops/flash_attention.py``. One CUDA kernel
 (csrc/flash_attention.cu) replaces both of its TPU kernels, the K/V-resident
 ``_flash_kernel`` (:47) and the K/V-streamed ``_flash_kernel_stream``
 (:154): a Hopper SM's shared memory holds a few key tiles, not a head's
-whole K/V, so the kernel always streams them. The forward only: the port
-runs no backward through it.
+whole K/V, so the kernel always streams them. Heads of 64 or 32, in bf16 or
+f32. Its backward is JAX's (``_chunked_bwd``, :274-327), plain torch:
+``flash_attention_bwd``, the analytic softmax-attention gradient streamed
+over query chunks.
 
 Layout is JAX's, q ``[B, H, Sq, Dh]`` and k, v ``[B, H, Sk, Dh]``, and the
 kernel reads strided views in place (the q, k, v slices of a qkv projection
@@ -18,11 +20,15 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from timetuning_tpu_torch.ops import kernel_lib
-from timetuning_tpu_torch.ops.attention import _aligned, attention_xla
+from timetuning_tpu_torch.ops.attention import _aligned, _heads_fake, _heads_view, attention_xla
 
 _NEG = -1e30
+
+# the head widths the kernel takes, in bf16 and f32; any other raises
+FLASH_HEAD_DIMS = (32, 64)
 
 
 def flash_attention_xla(q, k, v, kv_len: int | None = None):
@@ -41,13 +47,67 @@ def flash_attention_xla(q, k, v, kv_len: int | None = None):
                         v.float()).to(q.dtype)
 
 
+def flash_attention_bwd(q, k, v, g, kv_len: int | None = None,
+                        block_q: int = 256):
+    """The gradient of ``flash_attention`` in q, k and v, as JAX's
+    ``_chunked_bwd`` (``timetuning_tpu/ops/flash_attention.py:274-327``):
+    the analytic softmax-attention gradient in f32, over query chunks of
+    ``block_q`` (the queries padded with zero rows, whose terms are zeros),
+    keys at or beyond ``kv_len`` at -1e30, dk and dv summed over the chunks,
+    so the peak is O(block_q * Sk) a head and never O(Sq * Sk)."""
+    B, H, S, Dh = q.shape
+    Sk = k.shape[2]
+    scale = 1.0 / math.sqrt(Dh)
+    Sqp = -(-S // block_q) * block_q
+    qf = F.pad(q.float(), (0, 0, 0, Sqp - S))
+    gf = F.pad(g.float(), (0, 0, 0, Sqp - S))
+    kf, vf = k.float(), v.float()
+    key_ok = (None if kv_len is None or kv_len == Sk
+              else torch.arange(Sk, device=q.device) < kv_len)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for c in range(0, Sqp, block_q):
+        q_c, g_c = qf[:, :, c:c + block_q], gf[:, :, c:c + block_q]
+        s = torch.einsum("bhqd,bhkd->bhqk", q_c, kf) * scale
+        if key_ok is not None:
+            s = torch.where(key_ok, s, torch.tensor(_NEG, dtype=s.dtype,
+                                                     device=s.device))
+        p = torch.softmax(s, dim=-1)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, g_c)
+        dp = torch.einsum("bhqd,bhkd->bhqk", g_c, vf)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq[:, :, c:c + block_q] = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, q_c) * scale
+    return dq[:, :, :S].to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashVJP(torch.autograd.Function):
+    """The flash kernel forward, ``flash_attention_bwd`` backward (JAX's
+    ``_flash_core`` custom VJP, :329-341)."""
+
+    @staticmethod
+    def forward(ctx, kernel, q, k, v, kv_len):
+        ctx.kv_len = kv_len
+        ctx.save_for_backward(q, k, v)
+        return kernel(q, k, v, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (None, *flash_attention_bwd(q, k, v, g, ctx.kv_len), None)
+
+
+@kernel_lib.kernel_entry(
+    "flash_attention", "(Tensor q, Tensor k, Tensor v, int? kv_len=None) -> Tensor",
+    lambda q, k, v, kv_len=None: _heads_fake(q), lambda kernel, *a: _FlashVJP.apply(kernel, *a))
 def flash_attention(q, k, v, kv_len: int | None = None):
-    """Kernels 5 and 6 (csrc/flash_attention.cu). q [B, H, Sq, 64], k and v
-    [B, H, Sk, 64], bf16 or f32; ``kv_len`` masks keys at or beyond it.
-    Returns [B, H, Sq, 64] in q's dtype."""
-    kernel_lib.require_no_grad("flash_attention", q, k, v)
+    """Kernels 5 and 6 (csrc/flash_attention.cu). q [B, H, Sq, Dh], k and v
+    [B, H, Sk, Dh], Dh 32 or 64, bf16 or f32; ``kv_len`` masks keys at or
+    beyond it. Returns [B, H, Sq, Dh] in q's dtype, a view of a [B, Sq, H,
+    Dh] buffer (on CPU tensors too: the custom op's fake has one layout)."""
     if q.device.type == "cpu":
-        return flash_attention_xla(q, k, v, kv_len)
+        return _heads_view(flash_attention_xla(q, k, v, kv_len))
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: expected q [B, H, Sq, Dh] and k, v "
                          f"[B, H, Sk, Dh], got {tuple(q.shape)}, "
@@ -57,9 +117,9 @@ def flash_attention(q, k, v, kv_len: int | None = None):
     if k.shape[:2] != (B, H) or k.shape[3] != Dh:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} differ in batch, heads or width")
-    if Dh != 64:
-        raise ValueError(f"flash_attention: the kernel takes 64-wide heads, "
-                         f"got Dh={Dh}")
+    if Dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes 32- or 64-wide "
+                         f"heads, got Dh={Dh}")
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention: expected q, k, v all bf16 or all "
@@ -74,6 +134,6 @@ def flash_attention(q, k, v, kv_len: int | None = None):
     kernel_lib.launch(
         "flash_attention", "tt_flash_attention", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, Sq, Sk, valid,
+        int(q.dtype == torch.bfloat16), B, H, Sq, Sk, valid, Dh,
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     return out

@@ -20,6 +20,10 @@ composition beside it (``attention_block_xla``, ``mlp_block_xla``,
 ``ln_dense_xla``, ``dense_residual_xla``, named after their JAX
 counterparts). Every product of the plain versions is taken in f32 from its
 operands' values, as the JAX compositions' ``preferred_element_type=f32``.
+Each wrapper is a ``kernel_lib.kernel_entry``: under grad its backward is
+JAX's custom VJP, the VJP of its plain version recomputed from the saved
+inputs (``kernel_lib.plain_vjp``), and while ``torch.export`` traces it is
+the custom op ``timetuning_tpu_torch::<name>``.
 
 Every product of the kernels is one launch of the GEMM tile of
 csrc/gemm_wgmma.cuh; ``gemm_plan`` says how the tile lays a product out on
@@ -236,6 +240,20 @@ def _slices(device, M, N, K, ln, gelu=False) -> int:
     return gemm_plan(M, N, K, ln, _sm_count(index), gelu).n_slices
 
 
+# The fakes of the custom ops (kernel_lib.kernel_entry): each output is a
+# new contiguous tensor in x's dtype, as the kernels' and the plain versions'.
+def _like_x(x, *_):
+    return x.new_empty(x.shape)
+
+
+def _rows_fake(y, x, w, b):
+    return x.new_empty(x.shape)
+
+
+def _dense_fake(x, ln_s, ln_b, w, b):
+    return x.new_empty(x.shape[:-1] + (w.shape[1],))
+
+
 def _check_dense(name, D, w):
     """``w`` [D, E]: the GEMM tile takes D % 64 == 0 and E % 8 == 0."""
     if w.dim() != 2 or w.shape[0] != D or D % GEMM_K_STEP or w.shape[1] % 8:
@@ -244,11 +262,14 @@ def _check_dense(name, D, w):
                          "of 8)")
 
 
+@kernel_lib.kernel_entry(
+    "attention_block_branch",
+    "(Tensor x, Tensor ln_s, Tensor ln_b, Tensor w_qkv, "
+    "Tensor? b_qkv, Tensor w_proj, Tensor? b_proj, int num_heads) -> Tensor",
+    _like_x, kernel_lib.plain_vjp(attention_block_xla))
 def attention_block_branch(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                            num_heads: int):
     """Kernel 1 (csrc/attention_block.cu). ``x``: [B, S, D] bf16."""
-    kernel_lib.require_no_grad("attention_block_branch", x, ln_s, ln_b, w_qkv,
-                               b_qkv, w_proj, b_proj)
     if x.device.type == "cpu":
         return attention_block_xla(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
                                    num_heads)
@@ -356,31 +377,42 @@ def mlp_out_rows(hidden, x, w2, b2):
     return out
 
 
+@kernel_lib.kernel_entry(
+    "mlp_block_branch",
+    "(Tensor x, Tensor ln_s, Tensor ln_b, Tensor w1, Tensor? b1, "
+    "Tensor w2, Tensor? b2) -> Tensor",
+    _like_x, kernel_lib.plain_vjp(mlp_block_xla))
 def mlp_block_branch(x, ln_s, ln_b, w1, b1, w2, b2):
     """Kernel 2 (csrc/mlp_block.cu). ``x``: [B, S, D] bf16."""
-    kernel_lib.require_no_grad("mlp_block_branch", x, ln_s, ln_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return mlp_block_xla(x, ln_s, ln_b, w1, b1, w2, b2)
     return _mlp_launch("mlp_block", x, ln_s, ln_b, w1, b1, w2, b2)
 
 
+@kernel_lib.kernel_entry(
+    "mlp_rows",
+    "(Tensor x, Tensor ln_s, Tensor ln_b, Tensor w1, Tensor? b1, "
+    "Tensor w2, Tensor? b2) -> Tensor",
+    _like_x, kernel_lib.plain_vjp(mlp_block_xla))
 def mlp_rows(x, ln_s, ln_b, w1, b1, w2, b2):
     """Kernel 9, the row-chunked LN2 + MLP + residual of sequences over 1024
     tokens (``_mlp_rows_pallas``, ``timetuning_tpu/ops/fused_block.py:350``).
     csrc/mlp_block.cu's GEMM tile is row-tiled already, so this launches it,
     counted as ``mlp_rows``. ``x``: [B, S, D] bf16."""
-    kernel_lib.require_no_grad("mlp_rows", x, ln_s, ln_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return mlp_block_xla(x, ln_s, ln_b, w1, b1, w2, b2)
     return _mlp_launch("mlp_rows", x, ln_s, ln_b, w1, b1, w2, b2)
 
 
+@kernel_lib.kernel_entry(
+    "ln_dense_rows",
+    "(Tensor x, Tensor ln_s, Tensor ln_b, Tensor w, Tensor? b) -> Tensor",
+    _dense_fake, kernel_lib.plain_vjp(ln_dense_xla))
 def ln_dense_rows(x, ln_s, ln_b, w, b):
     """Kernel 7 (csrc/rows_block.cu ``tt_ln_dense``): ``LN(x) @ w + b`` over
     the token rows (``_ln_dense_pallas``,
     ``timetuning_tpu/ops/fused_block.py:364``). ``x``: [B, S, D] bf16,
     ``w``: [D, E]."""
-    kernel_lib.require_no_grad("ln_dense_rows", x, ln_s, ln_b, w, b)
     if x.device.type == "cpu":
         return ln_dense_xla(x, ln_s, ln_b, w, b)
     _check_x("ln_dense_rows", x)
@@ -400,12 +432,15 @@ def ln_dense_rows(x, ln_s, ln_b, w, b):
     return out
 
 
+@kernel_lib.kernel_entry(
+    "dense_residual_rows",
+    "(Tensor y, Tensor x, Tensor w, Tensor? b) -> Tensor",
+    _rows_fake, kernel_lib.plain_vjp(dense_residual_xla))
 def dense_residual_rows(y, x, w, b):
     """Kernel 8 (csrc/rows_block.cu ``tt_dense_residual``):
     ``x + (y @ w + b)``, the sum in f32, over the token rows
     (``_dense_residual_pallas``, ``timetuning_tpu/ops/fused_block.py:376``).
     ``y``: [B, S, K] bf16, ``x``: [B, S, E] bf16, ``w``: [K, E]."""
-    kernel_lib.require_no_grad("dense_residual_rows", y, x, w, b)
     if y.device.type == "cpu":
         return dense_residual_xla(y, x, w, b)
     _check_x("dense_residual_rows", y)

@@ -13,13 +13,26 @@ Nothing here runs at import: the CPU tests import every module, and neither
 
 Each kernel has a plain-integer launch count, raised by its wrapper once per
 launch, so a run can show that its main path went through the kernels.
+
+``kernel_entry`` makes a wrapper's public function. Eagerly it calls the
+wrapper itself, or, where an input requires grad, the wrapper inside an
+autograd Function with the JAX package's backward (``plain_vjp``: the VJP
+of the plain version, as every block kernel's ``custom_vjp`` there). While
+``torch.export`` traces, it calls the wrapper registered as a
+``torch.library`` custom op (namespace ``timetuning_tpu_torch``), whose fake
+gives the output's shape, dtype and strides: FakeTensors have no
+``data_ptr()``. An exported program holds the ops by name, so loading one
+needs this registration, which ``register_ops`` makes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
+import importlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -93,7 +106,7 @@ _SIGNATURES = {
     "tt_propagate_plan": [_I] * 3 + [_P],
     "tt_eval_preprocess": [_P, _P, _P, _I, _P, _P, _I] + [_F] * 6 + [_P]
     + [_I] * 8 + [_P],
-    "tt_flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
+    "tt_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
     "tt_ln_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 4 + [_P],
     "tt_gemm_route": [_I] * 6 + [_P],
@@ -203,16 +216,122 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
                 f"(first input on {dev})")
 
 
+def requires_grad(*args) -> bool:
+    """Grad mode is on and a tensor among ``args`` requires grad (a plain
+    loop: it runs on every eager kernel call)."""
+    if not torch.is_grad_enabled():
+        return False
+    for t in args:
+        if getattr(t, "requires_grad", False):
+            return True
+    return False
+
+
 def require_no_grad(name: str, *tensors: torch.Tensor | None) -> None:
-    """The input check of a wrapper whose kernel has no backward: a launch
+    """The input check of a wrapper whose kernel JAX never differentiates
+    (kernels 3, 4 and 11, which have no ``custom_vjp`` there): a launch
     returns a tensor with no ``grad_fn``, so an input that requires grad
     while grad mode is on would have its gradient dropped in silence. Raise
-    instead; the caller runs the no-grad passes under ``torch.no_grad()``
-    and the differentiated pass through a path that has a backward."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    instead; the caller runs these passes under ``torch.no_grad()``."""
+    if requires_grad(*tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, and this kernel has no backward "
             "(its result would carry no grad_fn); call it under "
-            "torch.no_grad(), or route the differentiated pass through plain "
-            "attention (attn_impl='xla') or impl='pallas'")
+            "torch.no_grad()")
+
+
+class _PlainVJP(torch.autograd.Function):
+    """The kernel's forward with the backward of its plain version: the
+    inputs are saved, and the backward recomputes the plain version from
+    them and takes its VJP, the cotangent cast first to the first input's
+    dtype (``_attn_bwd``, ``_mlp_bwd``, ``_ld_bwd``, ``_dr_bwd``,
+    ``timetuning_tpu/ops/fused_block.py:404-491``). Non-tensor arguments
+    (a head count) pass through."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
+        ctx.consts = [None if t else a for a, t in zip(args, ctx.is_tensor)]
+        ctx.save_for_backward(*(a for a in args if isinstance(a, torch.Tensor)))
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = iter(ctx.saved_tensors)
+        needs = ctx.needs_input_grad[2:]
+        args, wrt = [], []
+        with torch.enable_grad():
+            for is_t, const, need in zip(ctx.is_tensor, ctx.consts, needs):
+                if not is_t:
+                    args.append(const)
+                    continue
+                t = next(saved).detach().requires_grad_(need)
+                args.append(t)
+                if need:
+                    wrt.append(t)
+            first = next(a for a, t in zip(args, ctx.is_tensor) if t)
+            out = ctx.plain(*args)
+        grads = iter(torch.autograd.grad(out, wrt, g.to(first.dtype),
+                                         allow_unused=True))
+        return (None, None, *(next(grads) if n else None for n in needs))
+
+
+def plain_vjp(plain):
+    """``grad`` of ``kernel_entry``: the kernel forward, the VJP of
+    ``plain`` (same arguments) backward."""
+    return lambda kernel, *args: _PlainVJP.apply(kernel, plain, *args)
+
+
+NAMESPACE = "timetuning_tpu_torch"
+
+# the modules whose import registers the custom ops of their wrappers
+OP_MODULES = ("timetuning_tpu_torch.ops.fused_block",
+              "timetuning_tpu_torch.ops.flash_attention",
+              "timetuning_tpu_torch.ops.attention",
+              "timetuning_tpu_torch.ops.preprocess_cuda")
+
+
+def register_ops() -> None:
+    """Register every kernel's custom op (importing the wrapper modules
+    does it): what loading an exported program needs."""
+    for name in OP_MODULES:
+        importlib.import_module(name)
+
+
+def kernel_entry(name: str, schema: str, fake, grad=None):
+    """Decorate a kernel wrapper (CPU tensors: the plain version, CUDA
+    tensors: the launch) into its public function, which calls
+
+      * while ``torch.export`` traces: the custom op ``timetuning_tpu_torch::
+        <name>`` (``schema``, the wrapper as its body, ``fake`` its fake);
+      * where an input requires grad in grad mode: ``grad(wrapper, *args)``
+        (``plain_vjp(plain)``, or a Function of the wrapper's own); with no
+        ``grad`` (a kernel JAX never differentiates) the wrapper;
+      * else the wrapper, directly.
+
+    The wrapper stays reachable as ``.kernel`` and the op as ``.op``."""
+
+    def wrap(kernel):
+        op = torch.library.custom_op(f"{NAMESPACE}::{name}", kernel,
+                                     mutates_args=(), schema=schema)
+        op.register_fake(fake)
+        sig = inspect.signature(kernel)
+
+        def positional(args, kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            return bound.args
+
+        @functools.wraps(kernel)
+        def entry(*args, **kwargs):
+            if torch.compiler.is_exporting():
+                return op(*positional(args, kwargs))
+            if grad is not None and requires_grad(*args, *kwargs.values()):
+                return grad(kernel, *positional(args, kwargs))
+            return kernel(*args, **kwargs)
+
+        entry.kernel, entry.op = kernel, op
+        return entry
+
+    return wrap

@@ -184,12 +184,18 @@ def eval_preprocess_plain(frames, out_size: int, mean: tuple, std: tuple,
     return ((x - mean_t) / std_t).to(out_dtype)
 
 
+@kernel_lib.kernel_entry(
+    "eval_preprocess",
+    "(Tensor frames, int out_size, float[] mean, float[] std, "
+    "ScalarType out_dtype) -> Tensor",
+    lambda frames, out_size, mean, std, out_dtype: frames.new_empty(
+        frames.shape[:-3] + (out_size, out_size, 3), dtype=out_dtype))
 def eval_preprocess_cuda(frames, out_size: int, mean: tuple, std: tuple,
                          out_dtype=torch.bfloat16):
     """Kernel 4. [..., H, W, 3] uint8 -> [..., S, S, 3] bf16; callers gate
     with ``preprocess_cuda_available``."""
-    if frames.device.type == "cpu":
-        return eval_preprocess_plain(frames, out_size, mean, std, out_dtype)
+    if frames.device.type == "cpu":      # laid out as the kernel's output
+        return eval_preprocess_plain(frames, out_size, mean, std, out_dtype).contiguous()
     lead = frames.shape[:-3]
     h, w, c = frames.shape[-3:]
     s = out_size
