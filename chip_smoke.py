@@ -106,7 +106,20 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    direct wrapper, ``kernel_entry`` and the custom op;
 18. ``cli/parity`` stages 1-4 on a made-up full-size dino-s16 TimeT.pth,
    the synthetic DAVIS tree of the two clips and a synthetic Pascal tree:
-   every report row, stage 1 within its atols, the metrics in [0, 1].
+   every report row, stage 1 within its atols, the metrics in [0, 1];
+19. ``dp``: data parallelism, 2 ranks over gloo in two processes that
+   share the card (NCCL refuses two ranks on one device; they show
+   agreement and the cost of the collectives, not the speed of two cards):
+   which collectives gloo takes on CUDA tensors; the flagship step at 32
+   clips a rank, default then ZeRO-1 (losses, ms a rank step, peak memory a
+   rank, optimizer elements a rank, the all-reduces of one step timed, the
+   replicated state bit-identical across the ranks, kernel 11's cross-rank
+   form launched 11 times a step and neither the one-process form nor the
+   matvec form at all); the cross-rank kernel 11 on the step's own scores
+   [6,272, 200] a rank against the plain group form and, together, against
+   the one-launch kernel 11 on the concatenated [12,544, 200]; 2 f32 steps
+   at 2 x 4 clips against one process on the 8; ``run_training`` at 2 ranks
+   for 2 epochs and a resume, clips/s over the window.
 
 After phase 3 the kernels' backward (K1, K2 at 50 x 197; K7, K8, K9, K5/6
 at 4 x 3,137) against autograd through the plain versions, and after
@@ -125,7 +138,7 @@ library times are device times: the timed launches are queued behind a
 device-side sleep, so a slow host does not show in them.
 
 Launch counts are set to 0 just before each main-path run (phases 5 to 10
-and 12 to 18)
+and 12 to 18, and in each rank of phase 19)
 and read just after; each run must launch the kernels of its path, and the
 sums over all runs are the ``launches`` of the kernels line. The last lines
 are a JSON object of per-kernel results, the card's ``nvidia-smi`` name and
@@ -1205,14 +1218,15 @@ def synthetic_train_clips(n_clips: int, dev, seed: int = 0) -> torch.Tensor:
 
 
 def build_train(dev, dtype, attn_impl: str = "auto", seed: int = 0,
-                remat: bool = False, **cfg_kw):
+                remat: bool = False, zero1: bool = False, **cfg_kw):
     """The reference's flagship at full width (time_tuning.py:573-577): DINO
     ViT-S/16 at 224, head [1024, 1024, 512, 256], 200 prototypes, seeded
     random weights; blocks 10 and 11, the head and the prototypes trainable
     over a shared frozen trunk of 10 blocks, AdamW over the trainable
     subtree. ``remat``: ``ViTConfig.remat``; ``cfg_kw``: more
-    ``TimeTConfig`` fields."""
-    from timetuning_tpu_torch.core.optimizer import swav_optimizer
+    ``TimeTConfig`` fields (``axis_name`` and ``world_size`` for the data
+    axis); ``zero1``: the optimizer state split over its ranks."""
+    from timetuning_tpu_torch.core.optimizer import swav_optimizer, swav_optimizer_zero1
     from timetuning_tpu_torch.core.timet import (
         TimeT,
         TimeTConfig,
@@ -1230,8 +1244,15 @@ def build_train(dev, dtype, attn_impl: str = "auto", seed: int = 0,
                       n_last_frames=7, size_mask_neighborhood=6, topk=5,
                       num_epochs=1, steps_per_epoch=100, spatial_resolution=S // 16,
                       **cfg_kw)
-    opt, mask = swav_optimizer(model, lr=1e-4, num_epochs=1, steps_per_epoch=100,
-                               opt_over_trainable=True)
+    if zero1:
+        from timetuning_tpu_torch.parallel.mesh import data_rank
+
+        opt, mask, _ = swav_optimizer_zero1(
+            model, world_size=cfg.world_size, rank=data_rank(), lr=1e-4, num_epochs=1,
+            steps_per_epoch=100)
+    else:
+        opt, mask = swav_optimizer(model, lr=1e-4, num_epochs=1, steps_per_epoch=100,
+                                   opt_over_trainable=True)
     state = init_state(model, cfg, opt, trainable_mask=mask)
     step = make_train_step(model, cfg, opt, trainable_mask=mask,
                            opt_over_trainable=True)
@@ -2641,6 +2662,403 @@ def run_parity(dev, totals: dict) -> None:
         raise AssertionError("parity: a stage 2-4 metric is not finite in [0, 1]")
 
 
+DP_WORLD = 2                        # ranks of the dp phase, on the one card
+DP_STEPS = 6                        # default dp steps (the first one warms up)
+DP_F32_B = 4                        # clips a rank of the f32 agreement check
+DP_TIMEOUT = 600                    # s the dp phase's ranks may take together
+
+
+def dp_probe_collectives(dev, group) -> dict:
+    """Which collectives the group's backend takes on CUDA tensors (the
+    port uses all_reduce and broadcast only)."""
+    import torch.distributed as dist
+
+    x = torch.arange(4, dtype=torch.float32, device=dev)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty(4 * DP_WORLD), x, group=group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty(4 // DP_WORLD), x, group=group),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:          # a backend's refusal is the finding
+            out[name] = f"{type(e).__name__}: {str(e)[:80]}"
+    return out
+
+
+def dp_replica_mismatches(state, group) -> int:
+    """Tensors of the replicated state that differ from rank 0's, bit for
+    bit, summed over the ranks (rank 0's broadcast to every rank)."""
+    import torch.distributed as dist
+
+    from timetuning_tpu_torch.core.timet import replicated_tensors
+    from timetuning_tpu_torch.parallel.mesh import all_reduce_sum
+
+    bad = 0
+    for t in replicated_tensors(state).values():
+        ref = t.detach().clone()
+        dist.broadcast(ref, 0, group=group)
+        bad += int(not torch.equal(ref, t))
+    dev = state.model.prototypes.device
+    return int(all_reduce_sum(torch.tensor([float(bad)], device=dev), group).item())
+
+
+@contextlib.contextmanager
+def dp_collective_times():
+    """While open, every ``torch.distributed.all_reduce`` is timed on the
+    host between two synchronisations; yields the list of (elements, ms)."""
+    import torch.distributed as dist
+
+    rec, real = [], dist.all_reduce
+
+    def timed(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *a, **kw)
+        torch.cuda.synchronize()
+        rec.append((t.numel(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield rec
+    finally:
+        dist.all_reduce = real
+
+
+def dp_steps(dev, group, zero1: bool, n_steps: int, seed: int) -> dict:
+    """``n_steps`` flagship bf16 steps at TRAIN_B clips a rank on the data
+    axis (host clock between synchronisations: a rank's step includes its
+    collectives), the launches of the run, the plain Sinkhorn's calls, peak
+    memory, one more step with its all-reduces timed, the replica check."""
+    from timetuning_tpu_torch.core import timet
+    from timetuning_tpu_torch.ops import kernel_lib
+    from timetuning_tpu_torch.ops import sinkhorn as skm
+    from timetuning_tpu_torch.parallel.mesh import data_rank
+
+    rank = data_rank(group)
+    clip = synthetic_train_clips(TRAIN_B, dev, seed=seed + rank)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, cfg, mask, state, step = build_train(
+        dev, torch.bfloat16, zero1=zero1, axis_name="data", world_size=DP_WORLD)
+    seen, plain_calls = {}, [0]
+    assign, plain = timet.sinkhorn_assignment, skm.sinkhorn
+
+    def recording(scores, *a, **kw):
+        seen["scores"] = scores
+        return assign(scores, *a, **kw)
+
+    def counting_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    timet.sinkhorn_assignment, skm.sinkhorn = recording, counting_plain
+    losses, ms = [], []
+    try:
+        torch.cuda.synchronize()
+        kernel_lib.reset_launch_counts()
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            _, metrics = step(state, clip)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernel_lib.launch_counts()
+    finally:
+        timet.sinkhorn_assignment, skm.sinkhorn = assign, plain
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with dp_collective_times() as coll:
+        t0 = time.perf_counter()
+        step(state, clip)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"dp {'zero1' if zero1 else 'default'}: losses {losses} "
+                             "are not finite or did not fall on a repeated batch")
+    return {"losses": losses, "ms": ms, "counts": counts, "plain_calls": plain_calls[0],
+            "peak_gib": peak, "collectives": coll, "timed_step_ms": timed_ms,
+            "mismatches": dp_replica_mismatches(state, group),
+            "partition": timet.state_partition_specs(state),
+            "opt_elements": (state.opt.mu.numel() if zero1 else sum(
+                v.numel() for st in state.opt.adamw.state.values()
+                for v in st.values() if torch.is_tensor(v) and v.dim()) // 2),
+            "scores": seen["scores"].detach().clone()}
+
+
+def dp_sinkhorn(dev, group, scores) -> dict:
+    """Kernel 11's cross-rank form on a dp step's own scores [6,272, 200] a
+    rank against the plain group form (the matvec form with the
+    all-reduces), both timed over 20 calls in step on both ranks (host
+    clock between synchronisations: the all-reduces are host round trips);
+    the 2-rank result against the one-launch kernel 11 on the concatenated
+    [12,544, 200] (on rank 0)."""
+    from timetuning_tpu_torch.ops import sinkhorn as skm
+    from timetuning_tpu_torch.ops import sinkhorn_cuda as sk
+    from timetuning_tpu_torch.parallel.mesh import all_gather_rows, data_rank
+
+    eps, iters = 0.05, 10
+    kern = sk.sinkhorn_assignment_dp_cuda(scores, eps, iters, group=group,
+                                          world_size=DP_WORLD)
+    plain = skm.sinkhorn(torch.exp(scores / eps).t(), iters, group=group,
+                         world_size=DP_WORLD)
+    err = float((kern - plain).abs().max())
+
+    def timed(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    ms = timed(lambda: sk.sinkhorn_assignment_dp_cuda(scores, eps, iters, group=group,
+                                                     world_size=DP_WORLD))
+    plain_ms = timed(lambda: skm.sinkhorn(torch.exp(scores / eps).t(), iters,
+                                          group=group, world_size=DP_WORLD))
+    s_all, k_all = all_gather_rows(scores, group), all_gather_rows(kern, group)
+    err_global = None
+    if data_rank(group) == 0:
+        one = sk.sinkhorn_assignment_cuda(s_all, eps, iters)
+        err_global = float((one - k_all).abs().max())
+    B, K = scores.shape
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "err_global": err_global,
+            "shape": (B, K), "bound": bound(io_bytes(scores, kern),
+                                            (1 + 4 * iters) * B * K, "f32")}
+
+
+def dp_f32(dev, group) -> dict:
+    """2 f32 steps at DP_F32_B clips a rank; rank 0 keeps the losses and the
+    trainable parameters."""
+    from timetuning_tpu_torch.parallel.mesh import data_rank
+
+    model, _, mask, state, step = build_train(dev, torch.float32, axis_name="data",
+                                              world_size=DP_WORLD)
+    clip = synthetic_train_clips(DP_F32_B, dev, seed=200 + data_rank(group))
+    losses = [float(step(state, clip)[1]["loss"]) for _ in range(2)]
+    return {"losses": losses, "params": {n: p.detach().cpu().clone()
+                                         for n, p in model.named_parameters() if mask[n]}}
+
+
+def dp_driver(dev, group, log_dir: str) -> dict:
+    """``run_training`` on the data axis: 2 epochs of 4 steps at TRAIN_B clips
+    a rank, then a resume for a third epoch; the launches of both runs, the
+    step entries' host clock."""
+    from timetuning_tpu_torch.core.train import run_training
+    from timetuning_tpu_torch.ops import kernel_lib
+    from timetuning_tpu_torch.parallel.mesh import data_rank
+
+    root = str(4 * TRAIN_B * DP_WORLD)
+    kernel_lib.reset_launch_counts()
+    with step_times() as rec:
+        first = run_training(driver_config(dev, log_dir, TRAIN_B, data_root=root))
+    with step_times() as rec2:
+        resumed = run_training(driver_config(dev, log_dir, TRAIN_B, data_root=root,
+                                             num_epochs=3, load_checkpoint=True))
+    torch.cuda.synchronize()
+    return {"counts": kernel_lib.launch_counts(), "steps": rec.steps,
+            "resumed_steps": rec2.steps, "first": first["global_step"],
+            "resumed": resumed["global_step"], "run_dirs": (first["run_dir"],
+                                                            resumed["run_dir"]),
+            "mismatches": dp_replica_mismatches(resumed["state"], group),
+            "losses": driver_losses(resumed["run_dir"]) if data_rank(group) == 0 else {}}
+
+
+def _dp_group():
+    from timetuning_tpu_torch.parallel.mesh import DATA_AXIS, data_group
+
+    return data_group(DATA_AXIS)
+
+
+def dp_rank(rank: int, port: int, out_dir: str, log_dir: str) -> None:
+    """One rank of the dp phase (a process of ``torch.multiprocessing``):
+    gloo on the one card, then the phase's parts in step with the other
+    rank; its results to ``out_dir/rank{rank}.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=DP_WORLD, timeout=datetime.timedelta(seconds=120))
+    group = _dp_group()
+    out = {"collectives": dp_probe_collectives(dev, group)}
+    out["default"] = dp_steps(dev, group, False, DP_STEPS, seed=100)
+    out["sinkhorn"] = dp_sinkhorn(dev, group, out["default"].pop("scores"))
+    out["zero1"] = dp_steps(dev, group, True, 3, seed=100)
+    out["zero1"].pop("scores")
+    out["f32"] = dp_f32(dev, group)
+    if rank != 0:
+        out["f32"].pop("params")
+    out["driver"] = dp_driver(dev, group, log_dir)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_dp(dev, results: dict, totals: dict) -> None:
+    """Phase 19: data parallelism on the card, 2 ranks over gloo in two
+    processes that share it (NCCL refuses two ranks on one device); they
+    show agreement and the cost of the collectives, not the speed of two
+    cards. The kernels were built before; the ranks load the library."""
+    import socket
+    import tempfile
+    import types
+
+    import torch.multiprocessing as mp
+
+    from timetuning_tpu_torch.ops import sinkhorn_cuda as sk
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir, \
+            tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(dp_rank, args=(port, out_dir, log_dir),
+                                 nprocs=DP_WORLD, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > DP_TIMEOUT:
+                    raise AssertionError(f"dp: the ranks did not finish in {DP_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    r0 = ranks[0]
+    print(f"dp: {DP_WORLD} ranks over gloo on one card (two processes share it: "
+          f"agreement and the cost of the collectives, not the speed of two cards), "
+          f"{wall:.1f} s in all; gloo on CUDA tensors: {r0['collectives']}", flush=True)
+
+    per_step = sk.dp_launches(10)
+    for name in ("default", "zero1"):
+        runs = [r[name] for r in ranks]
+        for r, run in enumerate(runs):
+            c = run["counts"]
+            missing = [k for k in ("attention_block", "mlp_block", "propagation",
+                                   "sinkhorn_dp") if c[k] <= 0]
+            n = len(run["losses"])
+            if missing or c["sinkhorn"] or run["plain_calls"] or c["sinkhorn_dp"] != per_step * n:
+                raise AssertionError(
+                    f"dp {name} rank {r}: launches {c}, plain Sinkhorn calls "
+                    f"{run['plain_calls']} (want the cross-rank K11, {per_step} launches a "
+                    f"step, no one-process K11, no matvec form; missing {missing})")
+            for k, v in c.items():
+                totals[k] = totals.get(k, 0) + v
+        if runs[0]["losses"] != runs[1]["losses"]:
+            raise AssertionError(f"dp {name}: the ranks' mean losses differ")
+        if runs[0]["mismatches"]:
+            raise AssertionError(f"dp {name}: {runs[0]['mismatches']} replicated tensors "
+                                 "differ between the ranks")
+        steady = [float(np.mean(run["ms"][1:])) for run in runs]
+        coll = runs[0]["collectives"]
+        parts = {}
+        for numel, ms in coll:
+            parts.setdefault(numel, []).append(ms)
+        print(f"dp {name} B={TRAIN_B} a rank bf16: losses "
+              f"{[round(v, 5) for v in runs[0]['losses']]} (both ranks equal), step "
+              f"{steady[0]:.3f} / {steady[1]:.3f} ms a rank (host clock, steps 2-"
+              f"{len(runs[0]['ms'])}) = {DP_WORLD * TRAIN_B / max(steady) * 1e3:.1f} "
+              f"clips/s over both ranks; peak memory "
+              f"{[round(run['peak_gib'], 3) for run in runs]} GiB a rank; optimizer "
+              f"state {[run['opt_elements'] for run in runs]} elements a rank "
+              f"({runs[0]['partition']['opt']}); replicated state bit-identical; "
+              f"launches {runs[0]['counts']} ({per_step} cross-rank K11 launches a "
+              f"step, 0 one-process K11, 0 matvec Sinkhorn calls)", flush=True)
+        print(f"dp {name} all-reduce a step (rank 0, each between two "
+              f"synchronisations): {sum(ms for _, ms in coll):.3f} ms of a "
+              f"{runs[0]['timed_step_ms']:.3f} ms step; by size: " + ", ".join(
+                  f"[{n}] x {len(v)}: {sum(v):.3f} ms" for n, v in sorted(parts.items())),
+              flush=True)
+
+    sk_r = [r["sinkhorn"] for r in ranks]
+    err = max(x["err"] for x in sk_r)
+    B, K = sk_r[0]["shape"]
+    print(f"dp sinkhorn: cross-rank K11 on the step's scores [{B}, {K}] a rank vs the "
+          f"plain group form: max |err| {err:.3e} (gate 1e-6); the 2 ranks vs the "
+          f"one-launch K11 on the concatenated [{DP_WORLD * B}, {K}]: max |err| "
+          f"{sk_r[0]['err_global']:.3e} (gate 1e-6); kernel {sk_r[0]['ms']:.4f} ms a call "
+          f"({per_step} launches, {per_step - 1} all-reduces of [{K + 1}]), plain "
+          f"{sk_r[0]['plain_ms']:.4f} ms (host clock, both ranks in step); bound "
+          f"{sk_r[0]['bound']['bound_ms']:.5f} ms ({sk_r[0]['bound']['bound_by']}; the "
+          f"matrix reread from L2 once an iteration: "
+          f"{10 * B * K * 4 / MEM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s)", flush=True)
+    if not (err <= 1e-6 and sk_r[0]["err_global"] <= 1e-6):
+        raise AssertionError("dp sinkhorn: the cross-rank K11 disagrees")
+    # the chain's device time alone: one process, no group, no all-reduce
+    s = torch.from_numpy(np.random.default_rng(6272).uniform(-1, 1, (B, K))
+                         .astype(np.float32)).to(dev)
+    chain = cuda_ms(lambda: sk.sinkhorn_assignment_dp_cuda(s, 0.05, 10))
+    one = cuda_ms(lambda: sk.sinkhorn_assignment_cuda(s, 0.05, 10))
+    print(f"dp sinkhorn launches alone at [{B}, {K}] (one process, no all-reduce; CUDA "
+          f"events behind a device-side sleep): the cross-rank chain {chain:.4f} ms "
+          f"({per_step} launches), the one-launch K11 {one:.4f} ms", flush=True)
+    results["sinkhorn_dp"] = {"max_abs_err": err, "ms": sk_r[0]["ms"],
+                              "plain_ms": sk_r[0]["plain_ms"], "library_ms": None,
+                              **sk_r[0]["bound"]}
+
+    # the 2-rank f32 steps against one process on the concatenated batch
+    model, _, mask, state, step = build_train(dev, torch.float32)
+    clip = torch.cat([synthetic_train_clips(DP_F32_B, dev, seed=200 + r)
+                      for r in range(DP_WORLD)])
+    losses = [float(step(state, clip)[1]["loss"]) for _ in range(2)]
+    got = ranks[0]["f32"]
+    rel = abs(got["losses"][0] - losses[0]) / abs(losses[0])
+    diffs = torch.cat([(got["params"][n] - p.detach().cpu()).abs().reshape(-1)
+                       for n, p in model.named_parameters() if mask[n]])
+    close = float(torch.cat([torch.isclose(got["params"][n], p.detach().cpu(),
+                                           rtol=1e-3, atol=1e-6).reshape(-1)
+                             for n, p in model.named_parameters() if mask[n]])
+                  .float().mean())
+    print(f"dp f32 {DP_WORLD} x {DP_F32_B} clips vs one process on the {DP_WORLD * DP_F32_B}: "
+          f"first loss {got['losses'][0]:.7f} vs {losses[0]:.7f} (relative {rel:.3e}, "
+          f"gate 1e-4); trainable parameters after 2 steps: max |diff| "
+          f"{float(diffs.max()):.3e} (gate 4e-4: two Adam steps of lr 1e-4), "
+          f"{close:.5f} of the entries equal to rtol 1e-3 (gate 0.99)", flush=True)
+    if not (rel <= 1e-4 and float(diffs.max()) <= 4e-4 and close >= 0.99):
+        raise AssertionError("dp f32: the 2-rank step disagrees with one process")
+
+    drv = [r["driver"] for r in ranks]
+    d0 = drv[0]
+    if not (d0["first"] == 8 and d0["resumed"] == 12 and drv[1]["resumed"] == 12
+            and d0["run_dirs"][0] == d0["run_dirs"][1] == drv[1]["run_dirs"][0]
+            and not d0["mismatches"]):
+        raise AssertionError(f"dp driver: steps {d0['first']} -> {d0['resumed']}, run "
+                             f"dirs {d0['run_dirs']}, {d0['mismatches']} replicas differ")
+    missing = [k for k in ("attention_block", "mlp_block", "propagation", "sinkhorn_dp")
+               if d0["counts"][k] <= 0]
+    if missing or d0["counts"]["sinkhorn"]:
+        raise AssertionError(f"dp driver: launches {d0['counts']}")
+    for d in drv:
+        for k, v in d["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+    rates = driver_rates(types.SimpleNamespace(steps=d0["steps"]), DP_WORLD * TRAIN_B, 4)
+    losses = [d0["losses"][k] for k in sorted(d0["losses"])]
+    print(f"dp driver: run_training at {DP_WORLD} ranks x {TRAIN_B} clips, 2 epochs of 4 "
+          f"steps then resumed at step 8 to 12 in the same run dir; losses "
+          f"{[round(v, 5) for v in losses]}; {rates['window']:.1f} clips/s over both "
+          f"ranks across the window of {rates['steps']} steady steps (host clock, rank 0, "
+          f"epoch-top saves included), median {rates['median']:.1f} ms a step; launches "
+          f"{d0['counts']}", flush=True)
+    if not (np.isfinite(losses).all() and len(losses) == 12):
+        raise AssertionError(f"dp driver: losses {losses}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2688,6 +3106,7 @@ def main() -> int:
     check_heads32(dev, results, totals)
     run_export(dev, totals)
     run_parity(dev, totals)
+    run_dp(dev, results, totals)
 
     missing = [k for k in kernel_lib.KERNELS if totals.get(k, 0) <= 0]
     if missing:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from test_torch_kmeans import mirror_keys
+from torch_dp_worker import single_rank_group
 from timetuning_tpu.models import registry as jreg
 from timetuning_tpu_torch.models import convert
 from timetuning_tpu_torch.models import registry as treg
@@ -221,8 +222,15 @@ def test_moco_predictor_import_and_contrastive_loss_match_jax():
         lw = float(jmoco.contrastive_loss(jnp.asarray(q), jnp.asarray(k)))
         lt = float(tmoco.contrastive_loss(torch.from_numpy(np.array(q)), torch.from_numpy(k)))
         assert abs(lt - lw) <= 1e-5 * max(1.0, abs(lw)), (lt, lw)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # over a group: the keys gathered over the ranks (here a group of one,
+    # where the gathered keys are the rank's own; 2 ranks: tests/test_torch_dp.py)
+    with pytest.raises(RuntimeError, match="initialized torch.distributed"):
         tmoco.contrastive_loss(torch.from_numpy(k), torch.from_numpy(k), axis_name="data")
+    with single_rank_group():
+        lg = float(tmoco.contrastive_loss(torch.from_numpy(k[::-1].copy()),
+                                          torch.from_numpy(k), axis_name="data"))
+    lw = float(jmoco.contrastive_loss(jnp.asarray(k[::-1].copy()), jnp.asarray(k)))
+    assert abs(lg - lw) <= 1e-5 * max(1.0, abs(lw)), (lg, lw)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

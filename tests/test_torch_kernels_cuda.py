@@ -687,6 +687,77 @@ def test_sinkhorn_plan_mirrors_the_kernels(dev, K, B):
     assert plan == sk.sinkhorn_plan(K, B, clusters)
 
 
+@pytest.mark.parametrize("n_iters", [0, 1, 10])
+@pytest.mark.parametrize("K,B,with_valid", [
+    (200, 6272, False), (200, 6272, True), (200, 1, True), (200, 17, True),
+    (200, 1000, True), (8, 50, True), (300, 1000, True), (1024, 700, False)])
+def test_sinkhorn_cross_rank_form_on_one_process_matches_the_matvec_form(
+        dev, K, B, n_iters, with_valid):
+    """Kernel 11's cross-rank chain with no group (no all-reduce between its
+    launches) on scores [B, K] against the matvec form: the step's shape a
+    rank, 1 to 1,000 columns with a mask, K above 256 (32 rows a lane), the
+    largest K; and its launches, 1 + max(n_iters, 1)."""
+    rng = np.random.default_rng(K + B + n_iters)
+    scores = _t(rng.uniform(-1, 1, (B, K)), dev)
+    valid = _t(rng.uniform(size=B) > 0.3, dev) if with_valid else None
+    if valid is not None:
+        valid[0] = 1.0
+    Q = torch.exp(scores / 0.05).t().contiguous()
+    want = skm.sinkhorn(Q, n_iters, valid=valid)
+    kernel_lib.reset_launch_counts()
+    got = sk.sinkhorn_assignment_dp_cuda(scores, 0.05, n_iters, valid=valid)
+    torch.cuda.synchronize()
+    assert kernel_lib.launch_counts()["sinkhorn_dp"] == sk.dp_launches(n_iters)
+    assert got.shape == (B, K) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-8)
+
+
+def test_sinkhorn_cross_rank_form_pins_zero_marginals(dev):
+    """Two prototypes whose scores underflow exp(s / eps) to 0 and a
+    masked-out column: zeros there, no NaN, equal to the matvec form."""
+    rng = np.random.default_rng(7)
+    scores = _t(rng.uniform(-1, 1, (6272, 200)), dev)
+    scores[:, 3] = scores[:, 199] = -100.0
+    valid = torch.ones(6272, device=dev)
+    valid[5] = 0.0
+    got = sk.sinkhorn_assignment_dp_cuda(scores, 0.05, 10, valid=valid)
+    want = skm.sinkhorn(torch.exp(scores / 0.05).t(), 10, valid=valid)
+    assert (got[:, 3] == 0).all() and (got[:, 199] == 0).all() and (got[5] == 0).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-8)
+
+
+def test_sinkhorn_cross_rank_form_at_two_ranks_on_one_card(dev, tmp_path):
+    """2 gloo ranks on this card: each rank's kernel 11 cross-rank form, and
+    ``sinkhorn_assignment`` with the group (which routes to it: 11 launches
+    a call, none of the one-process form), against the plain group form
+    (the matvec form with the all-reduces) on the rank's columns: the
+    step's [6,272, 200] a rank, with and without a mask, and 1 to 1,000
+    columns a rank with a mask (K 8, 200, 300)."""
+    from torch_dp_worker import spawn
+
+    kernel_lib.library()                       # one build, before the ranks
+    rng = np.random.default_rng(5)
+    inputs = {}
+    for key, (K, B, masked) in {"step": (200, 6272, False), "step/valid": (200, 6272, True),
+                                "1": (200, 1, True), "17": (8, 17, True),
+                                "1000": (300, 1000, True)}.items():
+        s = rng.uniform(-1, 1, (2 * B, K)).astype(np.float32)
+        v = (rng.uniform(size=2 * B) > 0.3).astype(np.float32) if masked else None
+        if v is not None:
+            v[0] = v[B] = 1.0
+        inputs[key] = (s, v)
+    ranks = spawn([dict(kind="sinkhorn", name="sk", inputs=inputs, device="cuda:0")],
+                  str(tmp_path), 2, timeout=300, device="cuda:0")
+    for r in ranks:
+        assert not r["foreign_modules"]
+        for key in inputs:
+            got, want = r["sk"][key + "/kernel"], r["sk"][key]
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-8)
+            assert torch.equal(r["sk"][key + "/route"], got)
+            counts = r["sk"][key + "/launches"]
+            assert counts["sinkhorn_dp"] == 2 * sk.dp_launches(10) and counts["sinkhorn"] == 0
+
+
 def test_train_step_launches_the_sinkhorn_kernel_once(dev):
     """A small f32 step on the card: its assignment is kernel 11, once a
     step, equal to the matvec form on the step's own scores."""
@@ -841,10 +912,11 @@ def test_each_wrapper_counts_its_launches(dev):
     sk.sinkhorn_assignment_cuda(torch.rand(9, 4, device=dev))
     skm.sinkhorn_assignment(torch.rand(9, 4, device=dev))    # no group: kernel 11
     skm.sinkhorn(torch.rand(4, 9, device=dev), 2)            # the matvec form
+    sk.sinkhorn_assignment_dp_cuda(torch.rand(9, 4, device=dev), 0.05, 2)  # 1 + 2
     assert kernel_lib.launch_counts() == {
         "attention_block": 1, "mlp_block": 1, "propagation": 1, "preprocess": 1,
         "flash_attention": 2, "ln_dense": 1, "dense_residual": 1, "mlp_rows": 1,
-        "mha": 2, "sinkhorn": 3}
+        "mha": 2, "sinkhorn": 3, "sinkhorn_dp": 3}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

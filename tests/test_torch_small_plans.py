@@ -185,7 +185,8 @@ def test_sinkhorn_plan_refuses_what_no_slab_takes():
 
 def test_sinkhorn_route():
     assert skm.sinkhorn_route(torch.device("cuda", 0)) == "kernel"
-    assert skm.sinkhorn_route(torch.device("cuda", 0), group=object()) == "matvec"
+    assert skm.sinkhorn_route(torch.device("cuda", 0), group=object()) == "kernel_dp"
+    assert skm.sinkhorn_route(torch.device("cpu"), group=object()) == "matvec"
     assert skm.sinkhorn_route(torch.device("cpu")) == "matvec"
 
 

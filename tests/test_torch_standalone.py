@@ -234,3 +234,34 @@ assert evaluate.main(['--device', 'cpu', '--architecture', 'vit-tiny-test',
     best = float(out.split("best=")[1].split()[0])
     assert 0.0 <= best <= 1.0
     assert 0.0 <= float(out.split("score: ")[1].split()[0]) <= 1.0
+
+
+def test_the_data_parallel_step_runs_without_the_jax_package(tmp_path):
+    """A fresh interpreter imports ``parallel/*`` and runs 2 gloo ranks
+    (tests/torch_dp_worker.py) of 2 steps with the queue and of 2 with
+    ZeRO-1 on seeded weights; neither it nor the ranks load jax, flax, optax
+    or the JAX package."""
+    out = _run(f"""
+import sys
+sys.path.insert(0, 'tests')
+import numpy as np
+import torch
+import timetuning_tpu_torch.parallel
+from timetuning_tpu_torch.parallel import mesh
+from torch_dp_worker import spawn, torch_model
+model = torch_model()
+model.init_weights(torch.Generator().manual_seed(0))
+sd = model.state_dict()
+clips = np.random.default_rng(0).standard_normal((2, 4, 3, 32, 32, 3)).astype(np.float32)
+job = [dict(kind='step', name='queue', state_dict=sd, cfg=dict(use_queue=True, queue_size=40),
+            clips=clips),
+       dict(kind='step', name='zero1', state_dict=sd, cfg={{}}, clips=clips, zero1=True)]
+ranks = spawn(job, {str(tmp_path)!r}, 2, timeout=180)
+for name in ('queue', 'zero1'):
+    a, b = (r[name] for r in ranks)
+    assert a['losses'] == b['losses'] and np.isfinite(a['losses']).all()
+    assert all(torch.equal(a['replicated'][k], b['replicated'][k]) for k in a['replicated'])
+assert not any(r['foreign_modules'] for r in ranks), [r['foreign_modules'] for r in ranks]
+print('ranks', len(ranks), mesh.DATA_AXIS)
+""")
+    assert "ranks 2 data" in out

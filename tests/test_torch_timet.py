@@ -28,6 +28,7 @@ from timetuning_tpu_torch.models.convert import (
 from timetuning_tpu_torch.models.extractor import FeatureExtractor
 from timetuning_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from timetuning_tpu_torch.ops import kernel_lib
+from torch_dp_worker import single_rank_group
 
 torch.set_num_threads(2)
 
@@ -290,11 +291,19 @@ def test_trainable_leaf_inside_the_trunk_is_refused():
 
 
 def test_unported_config_fields_raise():
+    """``axis_name`` names the default process group: without one it is
+    refused, with one (here of one rank; 2 ranks: tests/test_torch_dp.py)
+    the step builds, and a ``world_size`` other than the group's is
+    refused. ``moe_aux_weight`` raises, naming its slice."""
     model = _torch_model()
     opt, _ = swav_optimizer(model, num_steps=10)
-    with pytest.raises(NotImplementedError, match="axis_name"):
+    with pytest.raises(RuntimeError, match="axis_name='data' needs an initialized"):
         tt.make_train_step(model, tt.TimeTConfig(axis_name="data"), opt)
-    with pytest.raises(NotImplementedError, match="moe_aux_weight"):
+    with single_rank_group():
+        tt.make_train_step(model, tt.TimeTConfig(axis_name="data"), opt)
+        with pytest.raises(ValueError, match="world_size=2 but the process group has 1"):
+            tt.make_train_step(model, tt.TimeTConfig(axis_name="data", world_size=2), opt)
+    with pytest.raises(NotImplementedError, match="moe_aux_weight.*item 11b"):
         tt.make_train_step(model, tt.TimeTConfig(moe_aux_weight=0.01), opt)
     with pytest.raises(ValueError, match="requires trainable_mask"):
         tt.make_train_step(model, tt.TimeTConfig(), opt, opt_over_trainable=True)

@@ -231,8 +231,8 @@ def test_resume_after_sigterm_equals_uninterrupted_run(davis_tree, tmp_path,
     and ends bit for bit where the uninterrupted run ended."""
     orig_save = ttrain.save_checkpoint
 
-    def spy(state, run_dir, epoch, meta=None):
-        path = orig_save(state, run_dir, epoch, meta=meta)
+    def spy(state, run_dir, epoch, meta=None, **kw):
+        path = orig_save(state, run_dir, epoch, meta=meta, **kw)
         if state.step == 3:
             signal.raise_signal(signal.SIGTERM)
         return path
@@ -287,15 +287,47 @@ def test_training_with_pascal_eval_exports_best(davis_tree, voc_tree, tmp_path):
     (dict(tensor_parallel=2), "tensor_parallel"),
 ])
 def test_multi_device_options_raise(davis_tree, tmp_path, kw, flag):
-    with pytest.raises(NotImplementedError, match=f"{flag}.*queue 1 item 11"):
+    """In one process: ``num_devices`` other than the ranks that run is
+    refused (a process a device); ``zero1`` is disabled with a warning and
+    the run trains in the subtree layout (JAX's behaviour on one device);
+    ``tensor_parallel`` above 1 raises, naming its slice. (2 ranks:
+    tests/test_torch_dp.py.)"""
+    if flag == "zero1":
+        r = ttrain.run_training(_cfg(davis_tree, tmp_path, num_epochs=1, **kw))
+        assert np.isfinite(r["final_loss"])
+        assert "zero1 requested but disabled" in open(
+            os.path.join(r["run_dir"], "train.log")).read()
+        meta = json.load(open(os.path.join(r["run_dir"], "checkpoint_meta.json")))
+        assert meta["opt_layout"] == "trainable-subtree" and meta["world_size"] == 1
+        return
+    err, match = {"num_devices": (ValueError, "num_devices=2 but 1 process"),
+                  "tensor_parallel": (NotImplementedError,
+                                      "tensor_parallel > 1.*queue 1 item 11c")}[flag]
+    with pytest.raises(err, match=match):
         ttrain.run_training(_cfg(davis_tree, tmp_path, **kw))
 
 
-def test_cli_multihost_raises_and_no_card_raises(davis_tree, tmp_path, monkeypatch):
+def test_cli_multihost_raises_and_no_card_raises(davis_tree, tmp_path, monkeypatch, capsys):
+    """``--multihost true`` initializes the group from torchrun's environment
+    (here one rank: RANK 0, WORLD_SIZE 1; 2 ranks: tests/test_torch_dp.py),
+    trains and takes the group down; without a card and without
+    ``--device cpu`` the CLI and the driver raise."""
+    import torch.distributed as dist
+    from torch_dp_worker import free_port
+
     argv = ["--architecture", "vit-tiny-test", "--dataset", "davis", "--data_root",
             davis_tree, "--log_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tcli.main(argv + ["--multihost", "true", "--device", "cpu"])
+    for k, v in dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(k, v)
+    assert tcli.main(argv + ["--multihost", "true", "--device", "cpu", "--batch_size", "2",
+                             "--num_epochs", "1", "--num_frames", "3", "--num_workers", "0",
+                             "--num_clusters", "8", "--input_resolution", "32",
+                             "--n_last_frames", "2", "--size_mask_neighborhood", "1",
+                             "--compute_dtype", "float32",
+                             "--unfreeze_layers", "blocks.1"]) == 0
+    assert "done: run_dir=" in capsys.readouterr().out
+    assert not dist.is_initialized()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device found"):
         tcli.main(argv)

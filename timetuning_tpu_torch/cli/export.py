@@ -24,8 +24,9 @@ imports it); JAX's StableHLO artifact carries its custom calls itself.
 attention there, because its Pallas grids are batch-static; the custom ops
 take any batch, so this program keeps the kernels. The flags of JAX's
 multi-device and mixture-of-experts artifacts are checked as JAX checks
-them and then raise: the parallel axes are not ported yet (ROADMAP.md queue
-1 item 11). ``--device`` picks the device (the card unless ``cpu``).
+them and then raise: mixture-of-experts blocks are ROADMAP.md queue 1 item
+11b, the multi-device artifacts item 11c. ``--device`` picks the device (the
+card unless ``cpu``).
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ import torch.nn as nn
 
 from timetuning_tpu_torch.cli.train import str2bool
 
-_UNPORTED = ("is not ported yet: the port's parallel axes and mixture-of-"
-             "experts blocks are ROADMAP.md queue 1 item 11")
+_UNPORTED_MOE = ("is not ported yet: mixture-of-experts blocks are ROADMAP.md "
+                 "queue 1 item 11b")
+_UNPORTED_MESH = ("is not ported yet: the artifacts of the tp, sp, pp, ep and "
+                  "data axes are ROADMAP.md queue 1 item 11c")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,7 +100,7 @@ def _check_unported(bb, batch_size, symbolic_batch, tensor_parallel,
             raise ValueError("--moe_every_k supports ViT backbones only")
         if not (moe_every_k and moe_experts):
             raise ValueError("set BOTH --moe_every_k and --moe_experts")
-        raise NotImplementedError(f"--moe_every_k/--moe_experts {_UNPORTED}")
+        raise NotImplementedError(f"--moe_every_k/--moe_experts {_UNPORTED_MOE}")
     n_mesh = (tensor_parallel * data_parallel * sequence_parallel
               * pipeline_parallel * expert_parallel)
     if n_mesh > 1:
@@ -107,7 +110,7 @@ def _check_unported(bb, batch_size, symbolic_batch, tensor_parallel,
         if batch_size % data_parallel:
             raise ValueError(f"batch_size {batch_size} must divide over "
                              f"data_parallel={data_parallel}")
-        raise NotImplementedError(f"a multi-device artifact {_UNPORTED}")
+        raise NotImplementedError(f"a multi-device artifact {_UNPORTED_MESH}")
 
 
 class FeatureForward(nn.Module):

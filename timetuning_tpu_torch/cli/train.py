@@ -3,13 +3,19 @@
 Counterpart of ``timetuning_tpu/cli/train.py``: the same flags and defaults
 (the reference parser, time_tuning.py:673-714, with booleans that parse:
 ``--use_queue true/false``), plus ``--device``. It runs on the card unless
-given ``--device cpu``, and raises where there is no card. The multi-device
-flags (``--zero1``, ``--tensor_parallel`` above 1, ``--multihost``) raise:
-the port's driver runs one process on one device so far (ROADMAP.md queue 1
-item 11).
+given ``--device cpu``, and raises where there is no card.
+
+``--multihost true`` makes the process a rank of a data-parallel run: it
+initializes ``torch.distributed`` from ``torchrun``'s environment (the
+counterpart of ``jax.distributed.initialize()``; NCCL on the card, gloo with
+``--device cpu``) and runs on ``cuda:LOCAL_RANK``. ``--batch_size`` is per
+rank; ``--zero1 true`` splits the optimizer state over the ranks.
+``--tensor_parallel`` above 1 raises (ROADMAP.md queue 1 item 11c).
 
     python -m timetuning_tpu_torch.cli.train --data_root DAVIS --dataset davis \\
         --pascal_root VOC --batch_size 32
+    torchrun --nproc_per_node 8 -m timetuning_tpu_torch.cli.train \\
+        --multihost true --data_root DAVIS --dataset davis --batch_size 16
 """
 
 from __future__ import annotations
@@ -87,7 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--debug_nans", type=str2bool, default=False)
     p.add_argument("--zero1", type=str2bool, default=False,
-                   help="ZeRO-1 optimizer-state sharding: not ported yet")
+                   help="ZeRO-1 optimizer-state sharding across the data "
+                        "ranks (more than one rank; requires "
+                        "opt_over_trainable)")
     p.add_argument("--pack_path", type=str, default=None,
                    help="decode-once packed clip cache (.clippack); built "
                         "here on first use")
@@ -98,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model-axis size of a (data, model) mesh: not ported "
                         "yet above 1")
     p.add_argument("--multihost", type=str2bool, default=False,
-                   help="multi-host runs: not ported yet")
+                   help="initialize torch.distributed from torchrun's "
+                        "environment: one data-parallel rank a process")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda, and an error where there "
                         "is no card; pass cpu to run on the host)")
@@ -108,15 +117,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from timetuning_tpu_torch.cli.propagate import default_device
-    from timetuning_tpu_torch.core.train import (
-        PARALLEL_ITEM,
-        TrainingConfig,
-        run_training,
-    )
+    from timetuning_tpu_torch.core.train import TrainingConfig, run_training
 
     if args.multihost:
-        raise NotImplementedError(f"--multihost is not ported yet ({PARALLEL_ITEM})")
-    device = default_device(args)
+        from timetuning_tpu_torch.parallel.mesh import init_from_env
+
+        device = init_from_env(args.device)
+    else:
+        device = default_device(args)
     if args.debug_nans:
         from timetuning_tpu_torch.runtime import enable_debug_nans
 
@@ -151,7 +159,13 @@ def main(argv=None) -> int:
         tensor_parallel=args.tensor_parallel, fast_decode=args.fast_decode,
         device=str(device),
     )
-    result = run_training(cfg)
+    try:
+        result = run_training(cfg)
+    finally:
+        if args.multihost:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(f"done: run_dir={result['run_dir']} best={result['best_score']}")
     return 0
 

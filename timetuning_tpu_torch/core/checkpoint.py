@@ -15,7 +15,15 @@ and back: a frozen leaf gets no gradient and so no AdamW state), the EMA
 teacher, the feature queue and its fill, the step and the
 epoch. The ``checkpoint_meta.json`` sidecar has the JAX package's keys.
 No generator state is saved: every step's randomness is a function of
-(seed, step) (core/train.step_generator).
+(seed, step, rank) (core/train.step_generator).
+
+Over a process group (the data axis) every rank calls ``save_checkpoint``:
+the per-rank parts are gathered (each rank's queue into the [world x rows]
+queue JAX saves; ZeRO-1's moment chunks into the padded flat vectors, in
+the port's parameter order), rank 0 alone writes, and every rank returns
+after the file is whole. Every rank reads a checkpoint; the optimizer state
+is converted on load to the run's layout (by name or ZeRO-1, at any world
+size: ``core/optimizer.migrate_*``).
 """
 
 from __future__ import annotations
@@ -62,8 +70,27 @@ def _cpu(t):
     return None if t is None else t.detach().to("cpu", copy=True)
 
 
-def _opt_payload(opt) -> dict:
-    """The optimizer's step count and its AdamW state by parameter name."""
+def _gather_chunks(v: torch.Tensor, opt, group) -> torch.Tensor:
+    """A ZeRO-1 chunk of every rank as the [padded] vector, on the CPU."""
+    from timetuning_tpu_torch.parallel.mesh import all_reduce_sum
+
+    full = torch.zeros(opt.plan.padded, dtype=v.dtype, device=v.device)
+    opt.chunk_of(full).copy_(v)
+    if group is not None:
+        full = all_reduce_sum(full, group)
+    return full.cpu()
+
+
+def _opt_payload(opt, group=None) -> dict:
+    """The optimizer's step count and its AdamW state by parameter name, or
+    ZeRO-1's padded flat moments gathered over the group."""
+    from timetuning_tpu_torch.core.optimizer import Zero1Optimizer
+
+    if isinstance(opt, Zero1Optimizer):
+        return {"layout": "zero1", "count": opt.count,
+                "mu": _gather_chunks(opt.mu, opt, group),
+                "nu": _gather_chunks(opt.nu, opt, group),
+                "decay_vec": opt.plan.decay_vec.clone()}
     state = {}
     for name, p in opt.named_params.items():
         st = opt.adamw.state.get(p)
@@ -74,6 +101,30 @@ def _opt_payload(opt) -> dict:
 
 
 def _load_opt(opt, payload: dict) -> None:
+    """Load an optimizer payload of either layout into ``opt``'s."""
+    from timetuning_tpu_torch.core.optimizer import (
+        Zero1Optimizer,
+        migrate_subtree_to_zero1,
+        migrate_zero1_to_subtree,
+        validate_zero1_fingerprint,
+    )
+
+    zero1 = payload.get("layout") == "zero1"
+    if isinstance(opt, Zero1Optimizer):
+        if zero1 and payload["mu"].shape[0] == opt.plan.padded:
+            validate_zero1_fingerprint(payload["decay_vec"], opt.plan)
+        else:
+            if zero1:       # another world size: through the by-name layout
+                payload = migrate_zero1_to_subtree(payload, opt.named_params,
+                                                   opt.trainable_mask)
+            payload = migrate_subtree_to_zero1(payload, opt.plan)
+        opt.count = int(payload["count"])
+        dev = opt.mu.device
+        opt.mu = opt.chunk_of(payload["mu"]).to(dev, copy=True)
+        opt.nu = opt.chunk_of(payload["nu"]).to(dev, copy=True)
+        return
+    if zero1:
+        payload = migrate_zero1_to_subtree(payload, opt.named_params, opt.trainable_mask)
     opt.count = int(payload["count"])
     saved = payload["state"]
     opt.adamw.state.clear()
@@ -86,28 +137,49 @@ def _load_opt(opt, payload: dict) -> None:
                 for k, v in saved[name].items()}
 
 
-def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None) -> str:
+def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None,
+                    group=None) -> str:
     """Write the whole ``TrainState`` and the epoch to
     ``run_dir/checkpoint.pt``, and ``meta`` (small, JSON-able) to
-    ``checkpoint_meta.json`` beside it; both by temporary file and rename."""
+    ``checkpoint_meta.json`` beside it; both by temporary file and rename.
+    With ``group`` every rank calls it, rank 0 writes, and all return once
+    the files are in place."""
+    from timetuning_tpu_torch.core.optimizer import Zero1Optimizer
+    from timetuning_tpu_torch.parallel.mesh import (
+        all_gather_rows,
+        all_reduce_sum,
+        data_rank,
+    )
+
     run_dir = os.path.abspath(run_dir)
     path = os.path.join(run_dir, CHECKPOINT)
-    payload = {
-        "epoch": int(epoch),
-        "step": int(state.step),
-        "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
-        "optimizer": _opt_payload(state.opt),
-        "teacher": (None if state.teacher is None
-                    else {k: _cpu(v) for k, v in state.teacher.items()}),
-        "queue": _cpu(state.queue),
-        "queue_fill": int(state.queue_fill),
-    }
-    _atomic_write(path, lambda tmp: torch.save(payload, tmp))
-    if meta is not None:
-        def write_meta(tmp):
-            with open(tmp, "w") as f:
-                json.dump(meta, f)
-        _atomic_write(os.path.join(run_dir, "checkpoint_meta.json"), write_meta)
+    writer = data_rank(group) == 0
+    # the collectives first, on every rank
+    queue = state.queue
+    if queue is not None and group is not None:
+        queue = all_gather_rows(queue, group)
+    optimizer = None
+    if writer or isinstance(state.opt, Zero1Optimizer):
+        optimizer = _opt_payload(state.opt, group)
+    if writer:
+        payload = {
+            "epoch": int(epoch),
+            "step": int(state.step),
+            "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
+            "optimizer": optimizer,
+            "teacher": (None if state.teacher is None
+                        else {k: _cpu(v) for k, v in state.teacher.items()}),
+            "queue": _cpu(queue),
+            "queue_fill": int(state.queue_fill),
+        }
+        _atomic_write(path, lambda tmp: torch.save(payload, tmp))
+        if meta is not None:
+            def write_meta(tmp):
+                with open(tmp, "w") as f:
+                    json.dump(meta, f)
+            _atomic_write(os.path.join(run_dir, "checkpoint_meta.json"), write_meta)
+    if group is not None:   # a barrier: the file is whole before any rank reads it
+        all_reduce_sum(torch.zeros(1, device=state.model.prototypes.device), group)
     return path
 
 
@@ -123,11 +195,22 @@ def load_checkpoint_meta(run_dir: str) -> dict | None:
         return None
 
 
+def saved_zero1_padding(run_dir: str) -> int | None:
+    """The padded length of a checkpoint's ZeRO-1 moments, or None when
+    there is no checkpoint or its optimizer state is by name."""
+    path = os.path.join(os.path.abspath(run_dir), CHECKPOINT)
+    if not os.path.exists(path):
+        return None
+    opt = torch.load(path, map_location="cpu", weights_only=True, mmap=True)["optimizer"]
+    return int(opt["mu"].shape[0]) if opt.get("layout") == "zero1" else None
+
+
 def load_checkpoint(run_dir: str, state):
     """Restore ``state`` in place from ``run_dir``; returns (state, epoch), and
     (state, 0) when there is no checkpoint (the reference's tolerant resume,
-    time_tuning.py:503-505). The queue is restored as saved; the caller
-    checks its partition against the run's."""
+    time_tuning.py:503-505). The queue is restored as saved (all ranks'
+    rows); the caller checks its partition against the run's and takes its
+    rank's rows."""
     path = os.path.join(os.path.abspath(run_dir), CHECKPOINT)
     if not os.path.exists(path):
         return state, 0

@@ -22,6 +22,19 @@ What a step computes is the JAX step's, pass for pass:
   * the EMA keeps the reference's direction ``teacher = teacher * (1 - m) +
     student * m`` with m going 0.995 -> 1.0 (time_tuning.py:113-115).
 
+Data parallelism (``TimeTConfig.axis_name``): one process per device, the
+axis being the default ``torch.distributed`` group (parallel/mesh). Each
+rank steps on its slice of the global batch with the same replicated
+student, teacher, prototypes and (without ZeRO-1) optimizer state, and its
+own feature queue, filled from its own batch: the JAX step shard_mapped
+over ``data`` (``timetuning_tpu/core/timet.py:253-287``). The Sinkhorn
+statistics are summed over the group (kernel 11's cross-rank form on the
+card), and the trainable gradients and the loss are averaged by one
+all-reduce of a flat vector, so every rank applies the same update and the
+replicated state stays bit-identical. With ZeRO-1 (``Zero1Optimizer``) a
+rank updates only its chunk of the flat trainable vector and the full
+update is rebuilt by the all-reduce of the zero-scattered chunks.
+
 The no-grad passes run the model's own attention implementation (in bf16 on
 the card: the hand-written block kernels). The differentiated pass of an
 ``attn_impl="auto"`` model runs plain attention by default
@@ -43,11 +56,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from timetuning_tpu_torch.core.optimizer import SwavOptimizer
+from timetuning_tpu_torch.core.optimizer import SwavOptimizer, Zero1Optimizer
 from timetuning_tpu_torch.core.schedules import cosine_scheduler, schedule_at
 from timetuning_tpu_torch.models.extractor import FeatureExtractor, apply_attention_mask
 from timetuning_tpu_torch.ops.propagation import propagate_labels_batch
 from timetuning_tpu_torch.ops.sinkhorn import sinkhorn_assignment
+from timetuning_tpu_torch.parallel.mesh import (
+    all_reduce_mean,
+    all_reduce_sum,
+    data_group,
+    data_world_size,
+)
 
 _EPS = 1e-12
 
@@ -124,8 +143,8 @@ class TimeTConfig:
     use_queue: bool = False
     queue_size: int = 16384            # rows of this process's FIFO
     mask_features: bool = False
-    axis_name: str | None = None       # data parallelism: not ported yet
-    world_size: int = 1                # sets the Sinkhorn column marginal
+    axis_name: str | None = None       # data axis: the default process group
+    world_size: int = 1                # ranks on it; the Sinkhorn marginal
     ema_start: float = 0.995
     ema_end: float = 1.0
     num_epochs: int = 100
@@ -141,6 +160,8 @@ class TimeTConfig:
     grad_attn_impl: str | None = "xla"
     moe_aux_weight: float = 0.0        # mixture-of-experts: not ported yet
 
+MOE_ITEM = "ROADMAP.md queue 1 item 11b, 'MoE'"
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -151,7 +172,7 @@ class TrainState:
     ``queue_fill`` and ``step`` are host integers."""
 
     model: TimeT
-    opt: SwavOptimizer
+    opt: SwavOptimizer | Zero1Optimizer
     teacher: dict[str, torch.Tensor] | None
     queue: torch.Tensor | None         # [queue_size, D] or None
     queue_fill: int = 0
@@ -193,6 +214,36 @@ def init_state(model: TimeT, cfg: TimeTConfig, opt: SwavOptimizer,
     return TrainState(model=model, opt=opt, teacher=teacher, queue=queue)
 
 
+def state_partition_specs(state: TrainState) -> dict[str, str]:
+    """Which parts of the state each rank holds whole ("replicated": equal on
+    every rank) and which are its own ("per_rank"): the feature queue (the
+    rank's FIFO, filled from its batch) and, with ZeRO-1, the optimizer's
+    moments (the rank's chunk). The counterpart of JAX's PartitionSpecs
+    (``P()`` / ``P('data')``)."""
+    return {
+        "params": "replicated",
+        "teacher": "replicated",
+        "queue": "per_rank",
+        "queue_fill": "replicated",
+        "step": "replicated",
+        "opt": "per_rank" if isinstance(state.opt, Zero1Optimizer) else "replicated",
+    }
+
+
+def replicated_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+    """Every tensor of the state that the ranks hold equal: the parameters,
+    the teacher, and the AdamW moments unless ZeRO-1 splits them."""
+    out = {f"params.{n}": p for n, p in state.model.named_parameters()}
+    for n, t in (state.teacher or {}).items():
+        out[f"teacher.{n}"] = t
+    if state_partition_specs(state)["opt"] == "replicated":
+        for n, p in state.opt.named_params.items():
+            for k, v in state.opt.adamw.state.get(p, {}).items():
+                if torch.is_tensor(v) and v.dim():
+                    out[f"opt.{n}.{k}"] = v
+    return out
+
+
 def queue_store_indices(n: int, n_store: int,
                         generator: torch.Generator | None) -> torch.Tensor:
     """Which of the step's ``n`` first-frame features enter the queue: the
@@ -218,26 +269,39 @@ def _check_trunk_is_frozen(split: int, trainable_mask: Mapping[str, bool]) -> No
                              f"{name} lies inside the trunk")
 
 
-def make_train_step(model: TimeT, cfg: TimeTConfig, opt: SwavOptimizer,
+def make_train_step(model: TimeT, cfg: TimeTConfig,
+                    opt: SwavOptimizer | Zero1Optimizer,
                     trainable_mask: Mapping[str, bool] | None = None,
                     opt_over_trainable: bool = False):
     """Build the train step. Returns ``step_fn(state, clip, generator)``.
 
-    clip: [B, F, H, W, 3] normalised frames (NHWC), on the model's device.
+    clip: [B, F, H, W, 3] normalised frames (NHWC), on the model's device:
+    with ``cfg.axis_name`` this rank's slice of the global batch.
     ``trainable_mask`` (from ``swav_optimizer``) restricts the backward to
     the trainable leaves; ``opt_over_trainable=True`` (with an optimizer
     and a state built the same way) also restricts the EMA to them. The
     trajectory is the full-tree one either way. ``generator`` draws the
-    queue's random choice."""
+    queue's random choice (the rank's own). A ``Zero1Optimizer`` (from
+    ``swav_optimizer_zero1``: JAX's ``zero1_plan``) needs
+    ``opt_over_trainable`` and a data axis."""
     if opt_over_trainable and trainable_mask is None:
         raise ValueError("opt_over_trainable=True requires trainable_mask")
-    if cfg.axis_name is not None:
-        raise NotImplementedError(
-            "TimeTConfig.axis_name: the data-parallel step is not ported yet")
+    zero1 = isinstance(opt, Zero1Optimizer)
+    if zero1 and not (opt_over_trainable and cfg.axis_name is not None):
+        raise ValueError(
+            "ZeRO-1 requires opt_over_trainable=True and a data axis "
+            "(it shards the optimizer state across data-parallel ranks)")
+    if zero1 and opt.plan.world != cfg.world_size:
+        raise ValueError(f"the ZeRO-1 plan splits over {opt.plan.world} ranks, "
+                         f"TimeTConfig.world_size is {cfg.world_size}")
     if cfg.moe_aux_weight:
         raise NotImplementedError(
             "TimeTConfig.moe_aux_weight: mixture-of-experts backbones are not "
-            "ported yet")
+            f"ported yet ({MOE_ITEM})")
+    group = data_group(cfg.axis_name)
+    if group is not None and data_world_size(group) != cfg.world_size:
+        raise ValueError(f"TimeTConfig.world_size={cfg.world_size} but the process "
+                         f"group has {data_world_size(group)} ranks")
     momentum_schedule = cosine_scheduler(
         cfg.ema_start, cfg.ema_end, cfg.num_epochs, cfg.steps_per_epoch)
     res = cfg.spatial_resolution
@@ -268,7 +332,7 @@ def make_train_step(model: TimeT, cfg: TimeTConfig, opt: SwavOptimizer,
         if queue is not None and queue_ready:
             scores = torch.cat([scores, model.similarity(queue, code_protos)])
         q = sinkhorn_assignment(scores, cfg.epsilon, cfg.sinkhorn_iterations,
-                                world_size=cfg.world_size)
+                                group=group, world_size=cfg.world_size)
         return q[: B * N].reshape(B, N, -1)
 
     def step_fn(state: TrainState, clip: torch.Tensor,
@@ -337,12 +401,19 @@ def make_train_step(model: TimeT, cfg: TimeTConfig, opt: SwavOptimizer,
             grads = torch.autograd.grad(loss, train_params, allow_unused=True)
 
         with torch.no_grad():
-            for p, g in zip(train_params, grads):
-                # a leaf the loss does not reach has a zero gradient (and
-                # still decays), as under jax.grad
-                p.grad = torch.zeros_like(p) if g is None else g
-            state.opt.step()
-            state.opt.zero_grad()
+            # a leaf the loss does not reach has a zero gradient (and still
+            # decays), as under jax.grad
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(train_params, grads)]
+            if zero1:
+                loss = _zero1_update(state.opt, grads, loss, group)
+            else:
+                if group is not None:
+                    grads, loss = _mean_over_group(grads, loss, group)
+                for p, g in zip(train_params, grads):
+                    p.grad = g
+                state.opt.step()
+                state.opt.zero_grad()
             # prototype renorm after the step (time_tuning.py:125-128, 661)
             model.prototypes.copy_(_l2norm(model.prototypes))
 
@@ -359,3 +430,38 @@ def make_train_step(model: TimeT, cfg: TimeTConfig, opt: SwavOptimizer,
         return state, {"loss": loss.detach(), "momentum": m}
 
     return step_fn
+
+
+def _mean_over_group(grads: list[torch.Tensor], loss: torch.Tensor, group):
+    """``pmean`` of the gradients and the loss: one all-reduce of the flat
+    vector [grads..., loss], divided by the group's size."""
+    flat = all_reduce_mean(torch.cat([g.reshape(-1).float() for g in grads]
+                                     + [loss.detach().float().reshape(1)]), group)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+        at += g.numel()
+    return out, flat[-1]
+
+
+def _zero1_update(opt: Zero1Optimizer, grads: list[torch.Tensor],
+                  loss: torch.Tensor, group) -> torch.Tensor:
+    """ZeRO-1 (``timetuning_tpu/core/timet.py:620-665``): the flat gradient
+    summed over the group with the loss (JAX's psum_scatter is this
+    all-reduce and the rank's slice), divided by the group's size; AdamW on
+    the rank's chunk; the full update rebuilt by the all-reduce of the
+    zero-scattered chunk updates, added to the flat parameters. Returns the
+    mean loss."""
+    plan = opt.plan
+    world = data_world_size(group)
+    g = torch.cat([g.reshape(-1).float() for g in grads])
+    flat = torch.cat([g, g.new_zeros(plan.padded - plan.length),
+                      loss.detach().float().reshape(1)])
+    flat = all_reduce_sum(flat, group)
+    g_chunk = opt.chunk_of(flat[:plan.padded]) / world
+    p_flat = opt.flat_params()
+    u_chunk = opt.update(g_chunk, opt.chunk_of(p_flat))
+    u = torch.zeros_like(p_flat)
+    opt.chunk_of(u).copy_(u_chunk)
+    opt.assign(p_flat + all_reduce_sum(u, group))
+    return flat[-1] / world

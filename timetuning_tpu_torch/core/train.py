@@ -6,15 +6,22 @@ assembly, the epoch loop with a checkpoint at the top of every epoch, the
 Pascal VOC clustering eval every ``eval_every`` epochs with the best model
 exported, and the per-step loss log.
 
-One process on one device (the card unless ``device="cpu"``): the uint8
-host batch is copied from pinned memory on a side stream while the previous
-step runs, then augmented (data/transforms.apply_augment) and stepped
+One process a device (the card unless ``device="cpu"``): the uint8 host
+batch is copied from pinned memory on a side stream while the previous step
+runs, then augmented (data/transforms.apply_augment) and stepped
 (core/timet) on the device. Every step's randomness (the augmentation's
-draws and the queue's choice) comes from ``step_generator(seed, step)``, so
-a resumed run draws what the uninterrupted run drew at the same step, and no
-generator state is checkpointed. The data-parallel, ZeRO-1, tensor-parallel
-and multi-host forms of the JAX driver are not ported yet (ROADMAP.md queue
-1 item 11): their options raise.
+draws and the queue's choice) comes from ``step_generator(seed, step,
+rank)``, so a resumed run draws what the uninterrupted run drew at the same
+step, and no generator state is checkpointed.
+
+Data parallelism: when the caller has initialized a ``torch.distributed``
+group of more than one process (``cli/train --multihost`` under
+``torchrun``), each process is a rank of the data axis. Its loader yields
+its ``rank::world`` share of the videos (``batch_size`` clips a rank), the
+step averages over the group (core/timet), rank 0 alone chooses the run
+directory, writes the checkpoint, logs and evaluates, and every rank
+resumes from the same files. ``zero1`` splits the optimizer state over the
+ranks. Tensor parallelism is not ported yet (ROADMAP.md queue 1 item 11c).
 """
 
 from __future__ import annotations
@@ -35,13 +42,15 @@ from timetuning_tpu_torch.core.checkpoint import (
     load_checkpoint_meta,
     make_run_directory,
     save_checkpoint,
+    saved_zero1_padding,
 )
-from timetuning_tpu_torch.core.optimizer import swav_optimizer
+from timetuning_tpu_torch.core.optimizer import swav_optimizer, swav_optimizer_zero1
 from timetuning_tpu_torch.core.timet import (
     TimeT,
     TimeTConfig,
     init_state,
     make_train_step,
+    replicated_tensors,
 )
 from timetuning_tpu_torch.data.transforms import (
     IMAGENET_STD,
@@ -51,9 +60,8 @@ from timetuning_tpu_torch.data.transforms import (
     eval_preprocess_batch,
 )
 from timetuning_tpu_torch.obs.logging import MetricsWriter, dump_config, make_file_logger
+from timetuning_tpu_torch.parallel import mesh
 from timetuning_tpu_torch.runtime import resolve_device
-
-PARALLEL_ITEM = "ROADMAP.md queue 1 item 11, 'Parallel axes'"
 
 
 @dataclasses.dataclass
@@ -104,7 +112,7 @@ class TrainingConfig:
     eval_num_clusters: int = 21             # Pascal (:603)
     max_steps_per_epoch: int | None = None  # test hook
     use_tensorboard: bool = True
-    num_devices: int | None = None          # more than one: not ported yet
+    num_devices: int | None = None          # the ranks of the process group
     streaming_eval: bool = False            # bounded-memory dataset-wise eval
     checkpoint_every_steps: int | None = None  # mid-epoch periodic saves
     handle_preemption: bool = True          # SIGTERM -> save + clean exit
@@ -112,10 +120,10 @@ class TrainingConfig:
     # state for the full tree (checkpoints load into either)
     opt_over_trainable: bool = True
     log_histograms: bool = False
-    zero1: bool = False                     # not ported yet
+    zero1: bool = False                     # optimizer state split over ranks
     pack_path: str | None = None            # decode-once packed clip cache
     fast_decode: bool = False
-    tensor_parallel: int = 1                # above 1: not ported yet
+    tensor_parallel: int = 1                # above 1: not ported yet (11c)
     device: str | None = None               # None: the card, or an error
 
 
@@ -171,10 +179,14 @@ def build_model(cfg: TrainingConfig, device: torch.device | str = "cpu"):
     return model.to(device), pretrained, bb.spatial_resolution(cfg.input_resolution)
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The host generator of global step ``step``: a pure function of
-    (seed, step), forked from the model's init stream by a constant."""
-    s = np.random.SeedSequence([seed, 0x57E9, step]).generate_state(1, np.uint64)[0]
+def step_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
+    """The host generator of global step ``step`` on data rank ``rank``: a
+    pure function of (seed, step, rank), forked from the model's init stream
+    by a constant. The ranks draw apart (their augmentations and queue
+    choices differ, as JAX folds the axis index into the step's key); rank
+    0 draws what one process draws."""
+    entropy = [seed, 0x57E9, step] + ([rank] if rank else [])
+    s = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(s))
 
 
@@ -270,20 +282,54 @@ def log_training_diagnostics(scores_fn, eval_loader, writer, run_dir: str,
     return ent
 
 
-def _check_single_device(cfg: TrainingConfig) -> None:
+def _check_parallel(cfg: TrainingConfig, world: int) -> None:
     if cfg.tensor_parallel < 1:
         raise ValueError(f"tensor_parallel must be >= 1, got {cfg.tensor_parallel}")
-    for flag, on in (("num_devices > 1", (cfg.num_devices or 1) > 1),
-                     ("zero1", cfg.zero1),
-                     ("tensor_parallel > 1", cfg.tensor_parallel > 1)):
-        if on:
-            raise NotImplementedError(
-                f"TrainingConfig.{flag}: the multi-device driver is not ported "
-                f"yet ({PARALLEL_ITEM})")
+    if cfg.tensor_parallel > 1:
+        raise NotImplementedError(
+            "TrainingConfig.tensor_parallel > 1: tensor parallelism is not "
+            f"ported yet ({mesh.TP_SP_PP_ITEM})")
+    if cfg.num_devices is not None and cfg.num_devices != world:
+        # one process a device: a silent mismatch would desynchronise
+        # world_size from the group (wrong Sinkhorn marginals, queue shapes)
+        raise ValueError(
+            f"num_devices={cfg.num_devices} but {world} process(es) run: the "
+            "port runs one process a device, so start num_devices ranks "
+            "(torchrun --nproc_per_node N ... --multihost true)")
+
+
+def _broadcast_str(s: str | None, device, group, max_len: int = 512) -> str:
+    """Agree on a string across the ranks (rank 0's value wins)."""
+    buf = torch.zeros(max_len, dtype=torch.uint8)
+    if s is not None:
+        b = s.encode()
+        if len(b) > max_len:
+            raise ValueError(f"string too long to broadcast: {s!r}")
+        buf[:len(b)] = torch.frombuffer(bytearray(b), dtype=torch.uint8)
+    buf = buf.to(device)
+    mesh.broadcast_tensors([buf], group)
+    return bytes(buf.cpu().numpy()).rstrip(b"\0").decode()
+
+
+def _barrier(device, group) -> None:
+    mesh.all_reduce_sum(torch.zeros(1, device=device), group)
+
+
+class _NoWriter:
+    """The metrics writer of ranks other than 0: they log nothing."""
+
+    def scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def run_training(cfg: TrainingConfig) -> dict[str, Any]:
-    _check_single_device(cfg)
+    world = mesh.data_world_size()
+    rank = mesh.data_rank()
+    group = mesh.data_group(mesh.DATA_AXIS) if world > 1 else None
+    _check_parallel(cfg, world)
     device = resolve_device(cfg.device)
     from timetuning_tpu_torch.data.datasets import SamplingMode
     from timetuning_tpu_torch.data.loader import (
@@ -292,30 +338,53 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
         make_loader,
     )
 
-    run_dir = (find_last_run_directory(cfg.log_dir) if cfg.load_checkpoint
-               else None) or make_run_directory(cfg.log_dir)
-    dump_config(dataclasses.asdict(cfg), run_dir)
-    writer = MetricsWriter(run_dir, use_tensorboard=cfg.use_tensorboard)
-    logger = make_file_logger("train", run_dir)
+    run_dir = None
+    if rank == 0:
+        run_dir = (find_last_run_directory(cfg.log_dir) if cfg.load_checkpoint
+                   else None) or make_run_directory(cfg.log_dir)
+    if group is not None:
+        # the run dir is timestamped and resume scans the file system: every
+        # rank takes rank 0's, or the ranks would save and resume apart
+        run_dir = _broadcast_str(run_dir, device, group)
+    if rank == 0:
+        dump_config(dataclasses.asdict(cfg), run_dir)
+        writer = MetricsWriter(run_dir, use_tensorboard=cfg.use_tensorboard)
+        logger = make_file_logger("train", run_dir)
+    else:
+        import logging
+
+        writer, logger = _NoWriter(), logging.getLogger(f"train.rank{rank}")
 
     model, pretrained, spatial_res = build_model(cfg, device)
 
-    if cfg.pack_path and not (os.path.exists(cfg.pack_path)
+    if cfg.pack_path:
+        if rank == 0 and not (os.path.exists(cfg.pack_path)
                               and os.path.exists(cfg.pack_path + ".index.json")):
-        from timetuning_tpu_torch.native import build_clip_pack
+            from timetuning_tpu_torch.native import build_clip_pack
 
-        plain = make_loader(cfg.dataset, num_clip_frames=cfg.num_frames,
-                            batch_size=cfg.batch_size, root=cfg.data_root,
-                            decode_size=cfg.decode_size, fast_decode=cfg.fast_decode)
-        t0 = time.time()
-        build_clip_pack(plain.dataset, cfg.pack_path)
-        logger.info("clip pack built at %s in %.1fs", cfg.pack_path, time.time() - t0)
+            plain = make_loader(cfg.dataset, num_clip_frames=cfg.num_frames,
+                                batch_size=cfg.batch_size, root=cfg.data_root,
+                                decode_size=cfg.decode_size,
+                                fast_decode=cfg.fast_decode)
+            t0 = time.time()
+            build_clip_pack(plain.dataset, cfg.pack_path)
+            logger.info("clip pack built at %s in %.1fs", cfg.pack_path,
+                        time.time() - t0)
+        if group is not None:
+            # every rank needs the pack before opening it; joining may not
+            # depend on the existence probe, or a rank arriving after the
+            # build would pair rank 0's barrier with its first step's
+            # collective
+            _barrier(device, group)
     loader = make_loader(
         cfg.dataset, num_clip_frames=cfg.num_frames, batch_size=cfg.batch_size,
         regular_step=cfg.regular_step, sampling_mode=SamplingMode.UNIFORM,
         shuffle=True, num_workers=cfg.num_workers, root=cfg.data_root,
         decode_size=cfg.decode_size, pack_path=cfg.pack_path,
         fast_decode=cfg.fast_decode, seed=cfg.seed,
+        # equal per-rank counts: another count would leave one rank in a
+        # collective that the others never join
+        world_size=world, rank=rank,
         # the SSL loss never reads annotations
         load_annotations=False,
     )
@@ -334,7 +403,11 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
         n_last_frames=cfg.n_last_frames,
         size_mask_neighborhood=cfg.size_mask_neighborhood, topk=cfg.topk,
         use_teacher=cfg.use_teacher, use_queue=cfg.use_queue,
-        queue_size=cfg.queue_size, mask_features=cfg.use_mask,
+        # the reference's per-rank queue of queue_size / world rows
+        # (time_tuning.py:617-618)
+        queue_size=cfg.queue_size // world, mask_features=cfg.use_mask,
+        axis_name=mesh.DATA_AXIS if group is not None else None,
+        world_size=world,
         ema_start=cfg.ema_decay, num_epochs=cfg.num_epochs,
         steps_per_epoch=steps_per_epoch, spatial_resolution=spatial_res,
         frozen_trunk_blocks=frozen_trunk_split(cfg.unfreeze_layers,
@@ -342,22 +415,44 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
     )
     if cfg.use_queue and tcfg.queue_size <= 0:
         raise ValueError(f"--queue_size {cfg.queue_size} gives the feature queue "
-                         "no rows")
+                         f"no rows on each of the {world} rank(s)")
 
-    opt, trainable_mask = swav_optimizer(
-        model, lr=cfg.head_lr, backbone_lr=cfg.head_lr / 10,
+    zero1 = cfg.zero1 and group is not None
+    if cfg.zero1 and not zero1:
+        logger.warning("zero1 requested but disabled: it needs more than one "
+                       "rank (found %d); a ZeRO-1 checkpoint still resumes here, "
+                       "converted to this run's layout", world)
+    if zero1 and not cfg.opt_over_trainable:
+        raise ValueError("zero1=True requires opt_over_trainable=True")
+    opt_kwargs = dict(
+        lr=cfg.head_lr, backbone_lr=cfg.head_lr / 10,
         num_epochs=cfg.num_epochs, steps_per_epoch=steps_per_epoch,
         unfreeze_layers=cfg.unfreeze_layers,
-        use_cosine_lr=cfg.lr_scheduler == "CosineAnnealingLR",
-        opt_over_trainable=cfg.opt_over_trainable)
+        use_cosine_lr=cfg.lr_scheduler == "CosineAnnealingLR")
+    if zero1:
+        opt, trainable_mask, _ = swav_optimizer_zero1(
+            model, world_size=world, rank=rank, **opt_kwargs)
+    else:
+        opt, trainable_mask = swav_optimizer(
+            model, opt_over_trainable=cfg.opt_over_trainable, **opt_kwargs)
+    opt_layout = "zero1" if zero1 else (
+        "trainable-subtree" if cfg.opt_over_trainable else "full-tree")
     state = init_state(model, tcfg, opt, pretrained_params=pretrained,
                        trainable_mask=trainable_mask if cfg.opt_over_trainable else None)
+    if group is not None:
+        # the replicated state starts as rank 0's on every rank
+        mesh.broadcast_tensors(replicated_tensors(state).values(), group)
     start_epoch = 0
     resume_skip = 0
     best_score = -1.0
     if cfg.load_checkpoint:
         state, start_epoch = load_checkpoint(run_dir, state)
         meta = load_checkpoint_meta(run_dir) or {}
+        if meta.get("opt_layout", opt_layout) != opt_layout:
+            logger.info("checkpoint used the %s optimizer layout (world %s, ZeRO-1 "
+                        "padding %s): converted to this run's %s layout",
+                        meta["opt_layout"], meta.get("world_size"),
+                        saved_zero1_padding(run_dir), opt_layout)
         # a mid-epoch checkpoint (checkpoint_every_steps, preemption) holds
         # step > start_epoch * steps_per_epoch: skip the batches of the epoch
         # it already trained (the shuffle is keyed by (seed, epoch)), unless
@@ -367,15 +462,25 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
                               steps_per_epoch)
         if "best_score" in meta:
             best_score = float(meta["best_score"])
-        if cfg.use_queue and state.queue is not None and (
-                state.queue.shape[0] != tcfg.queue_size
-                or meta.get("queue_rows_per_device", tcfg.queue_size) != tcfg.queue_size):
-            logger.warning("feature queue reset on restore: checkpoint has %d rows, "
-                           "this run needs %d; it refills during training",
-                           state.queue.shape[0], tcfg.queue_size)
-            state.queue = torch.zeros(tcfg.queue_size, state.queue.shape[1],
-                                      device=device)
-            state.queue_fill = 0
+        if cfg.use_queue and state.queue is not None:
+            # the queue is FIFO state partitioned (world, rows a rank): a
+            # changed partition scrambles which rows queue_fill marks valid,
+            # even where the total row count stays, so it is reset and
+            # refills (JAX core/train.py:775-800)
+            rows = tcfg.queue_size
+            repartitioned = (meta.get("queue_rows_per_device", rows) != rows
+                             or meta.get("world_size", world) != world)
+            if state.queue.shape[0] != rows * world or repartitioned:
+                logger.warning(
+                    "feature queue reset on restore: checkpoint has %s, this run "
+                    "needs %d rank(s) x %d rows; it refills during training",
+                    f"{meta.get('world_size')} rank(s) x "
+                    f"{meta.get('queue_rows_per_device')} rows" if meta
+                    else f"{state.queue.shape[0]} rows", world, rows)
+                state.queue = torch.zeros(rows, state.queue.shape[1], device=device)
+                state.queue_fill = 0
+            else:
+                state.queue = state.queue[rank * rows:(rank + 1) * rows].clone()
 
     aug_cfg = AugmentConfig(out_size=cfg.input_resolution)
     step_fn = make_full_step(model, tcfg, opt, aug_cfg, trainable_mask=trainable_mask,
@@ -383,7 +488,7 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
 
     evaluator_factory = None
     eval_res = default_eval_resolution(cfg)
-    if cfg.pascal_root:
+    if cfg.pascal_root and rank == 0:
         from timetuning_tpu_torch.data.pascal import pascal_loader
         from timetuning_tpu_torch.eval.evaluator import Evaluator
 
@@ -427,9 +532,8 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
     mem_reported = False
     diag_scores_fn = None
     ckpt_meta = {
-        "world_size": 1, "queue_rows_per_device": tcfg.queue_size,
-        "tensor_parallel": 1,
-        "opt_layout": "trainable-subtree" if cfg.opt_over_trainable else "full-tree",
+        "world_size": world, "queue_rows_per_device": tcfg.queue_size,
+        "tensor_parallel": 1, "opt_layout": opt_layout,
         "best_score": best_score, "steps_per_epoch": steps_per_epoch,
     }
 
@@ -452,7 +556,7 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
                 "preempted": preempted}
 
     for epoch in range(start_epoch, cfg.num_epochs):
-        save_checkpoint(state, run_dir, epoch, meta=ckpt_meta)
+        save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group)
         loader.set_epoch(epoch)
         # a resumed mid-epoch checkpoint skips this epoch's eval: the
         # uninterrupted run already scored it before the interruption
@@ -490,11 +594,11 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
             if cfg.max_steps_per_epoch and bi + skip >= cfg.max_steps_per_epoch:
                 break
             state, metrics = step_fn(state, frames, sizes, gmeans,
-                                     step_generator(cfg.seed, global_step))
+                                     step_generator(cfg.seed, global_step, rank))
             global_step += 1
             if not mem_reported:
                 mem_reported = True
-                if device.type == "cuda":
+                if device.type == "cuda" and rank == 0:
                     torch.cuda.synchronize(device)
                     gib = 1024 ** 3
                     in_use = torch.cuda.memory_allocated(device)
@@ -506,10 +610,19 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
                 log_pending(pending)
             pending = (global_step, metrics)
             if cfg.checkpoint_every_steps and global_step % cfg.checkpoint_every_steps == 0:
-                save_checkpoint(state, run_dir, epoch, meta=ckpt_meta)
-            if preempt["flag"]:
+                save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group)
+            # over a group the ranks agree on the flag every 20 steps (the
+            # batch index is aligned: equal per-rank counts), so all stop at
+            # one step: SIGTERM may reach one rank first, and the save is a
+            # collective
+            preempt_now = preempt["flag"]
+            if group is not None:
+                preempt_now = bi % 20 == 0 and mesh.all_reduce_sum(
+                    torch.tensor([float(preempt["flag"])], device=device),
+                    group).item() > 0
+            if preempt_now:
                 log_pending(pending)
-                save_checkpoint(state, run_dir, epoch, meta=ckpt_meta)
+                save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group)
                 logger.info("preemption signal: checkpoint saved at step %d "
                             "(epoch %d); resume with --load_checkpoint",
                             global_step, epoch)
@@ -521,5 +634,5 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
 
     # the epoch-top saves never hold the last epoch's training: epoch =
     # num_epochs marks every epoch trained, so a same-config resume is a no-op
-    save_checkpoint(state, run_dir, cfg.num_epochs, meta=ckpt_meta)
+    save_checkpoint(state, run_dir, cfg.num_epochs, meta=ckpt_meta, group=group)
     return finish()

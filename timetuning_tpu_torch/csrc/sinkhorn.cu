@@ -488,3 +488,209 @@ extern "C" int tt_sinkhorn(const float* src, const float* valid, float* out,
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K11 across ranks: the same Sinkhorn when a process group spans the batch
+// (ops/sinkhorn.sinkhorn with a group). Only the [K] row sums (and, once, the
+// total mass and the valid count) are summed over the ranks, and no
+// collective can run inside a launch, so the iteration is a chain of short
+// launches on the stream with an all-reduce of one [K + 1] vector between
+// them (ops/sinkhorn_cuda.sinkhorn_assignment_dp_cuda):
+//   kDpLoad     Q0 = exp(s / epsilon) * valid of the scores into `out`,
+//               b = 1, and the rank's row sums of Q0 with the valid count in
+//               slot K, into `red`
+//   all-reduce  red
+//   kDpIter     a from red (iteration 0: the total mass and the marginal c
+//               from red), one sweep over the rank's columns: Q0^T a, the
+//               new b, and the next row sums into `red`
+//   all-reduce  red                                    (n_iters - 1 times)
+//   kDpLast     the last iteration's sweep writes the result over Q0 in
+//               `out` instead of row sums (kDpOut: n_iters = 0)
+// so 1 + max(n_iters, 1) launches and max(n_iters, 1) all-reduces. a is
+// scaled by 1 / (total + 1e-12) as in the one-launch form, Q0 is never
+// rewritten until the result replaces it. The rank's matrix (5 MB at
+// [6,272, 200]) stays in the 50 MB L2 between launches and is reread from
+// there once an iteration (__ldcg). A block owns `cols` columns, a warp one
+// column at a time (its K values spread over the lanes); the block's row
+// partials are summed over its warps in shared memory, written to `part`,
+// and the last block to finish (a ticket counter) sums the blocks' partials
+// in block order into `red`: no grid barrier, and the sums do not depend on
+// block timing.
+namespace {
+
+constexpr int kDpThreads = 256;
+constexpr int kDpWarps = kDpThreads / 32;
+
+enum DpMode { kDpLoad = 0, kDpIter = 1, kDpLast = 2, kDpOut = 3 };
+
+template <int KPL>
+__global__ void __launch_bounds__(kDpThreads)
+sinkhorn_dp_kernel(const float* __restrict__ src, const float* __restrict__ valid,
+                   float* out, float* part, float* red, float* avec, float* scal,
+                   float* bvec, unsigned* counter, int K, int B, int cols, int it,
+                   int mode, float epsilon, float c_marginal) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ bool is_last;
+  const int K1 = K + 1;
+  float* wpart = sm;                    // [kDpWarps][K + 1]
+  float* a_s = sm + kDpWarps * K1;      // [K]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col0 = blockIdx.x * cols;
+  const int ncol = max(0, min(cols, B - col0));
+
+  // this launch's row scaling a and column marginal c
+  float av[KPL];
+  float c = c_marginal;
+  if (mode != kDpLoad) {
+    float a0 = 0.f;
+    if (it == 0) {
+      float t = 0.f;                    // every warp sums in one order
+      for (int k = lane; k < K; k += 32) t += red[k];
+      t = tt::warp_sum(t);
+      a0 = 1.f / (t + kEps);
+      if (valid != nullptr) c = 1.f / (red[K] + kEps);
+      if (blockIdx.x == 0 && tid == 0) scal[0] = c;
+    } else {
+      c = scal[0];
+    }
+    const float r = 1.f / (float)K;
+    for (int k = tid; k < K; k += kDpThreads) {
+      float a_new = a0;
+      if (mode != kDpOut) {
+        const float a_prev = it == 0 ? a0 : avec[(it & 1) * K + k];
+        const float u = a_prev * red[k];
+        a_new = u > 0.f ? a_prev * (r / (u + kEps)) : 0.f;
+      }
+      a_s[k] = a_new;
+      if (blockIdx.x == 0) avec[((it + 1) & 1) * K + k] = a_new;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) {
+      const int k = lane + 32 * i;
+      av[i] = k < K ? a_s[k] : 0.f;
+    }
+  }
+
+  float p[KPL];
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) p[i] = 0.f;
+  float nval = 0.f;
+  for (int j = warp; j < ncol; j += kDpWarps) {
+    const int g = col0 + j;
+    float* col = out + (size_t)g * K;
+    float q[KPL];
+    float bj = 1.f;
+    if (mode == kDpLoad) {
+      const float m = valid != nullptr ? valid[g] : 1.f;
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const int k = lane + 32 * i;
+        float v = 0.f;
+        if (k < K) {
+          v = expf(src[(size_t)g * K + k] / epsilon) * m;
+          col[k] = v;
+        }
+        q[i] = v;
+      }
+      nval += m;
+      if (lane == 0) bvec[g] = 1.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const int k = lane + 32 * i;
+        q[i] = k < K ? __ldcg(col + k) : 0.f;
+      }
+      if (mode != kDpOut) bj = bvec[g];
+      float x = 0.f;
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) x = fmaf(q[i], av[i], x);
+      x = tt::warp_sum(x);
+      if (mode != kDpOut) {
+        const float cs = bj * x;
+        bj = cs > 0.f ? bj * (c / (cs + kEps)) : 0.f;
+        if (lane == 0) bvec[g] = bj;
+      }
+      if (mode == kDpLast || mode == kDpOut) {
+        const float scale = bj / (bj * x + kEps);
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) {
+          const int k = lane + 32 * i;
+          if (k < K) col[k] = q[i] * av[i] * scale;
+        }
+        continue;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) p[i] = fmaf(q[i], bj, p[i]);
+  }
+  if (mode == kDpLast || mode == kDpOut) return;
+
+  // the block's row partials (slot K: the valid count of the load)
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int k = lane + 32 * i;
+    if (k < K) wpart[warp * K1 + k] = p[i];
+  }
+  if (lane == 0) wpart[warp * K1 + K] = (mode == kDpLoad && valid != nullptr) ? nval : 0.f;
+  __syncthreads();
+  for (int k = tid; k < K1; k += kDpThreads) {
+    float v = 0.f;
+    for (int w = 0; w < kDpWarps; ++w) v += wpart[w * K1 + k];
+    part[(size_t)blockIdx.x * K1 + k] = v;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const int nb = gridDim.x;
+  for (int k = tid; k < K1; k += kDpThreads) {
+    float v = 0.f;
+    for (int q0 = 0; q0 < nb; q0 += 8) {          // 8 loads in flight, then the sum
+      float pq[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        pq[q] = q0 + q < nb ? __ldcg(part + (size_t)(q0 + q) * K1 + k) : 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v += pq[q];
+    }
+    red[k] = v;
+  }
+  if (tid == 0) *counter = 0u;          // ready for the next launch
+}
+
+template <int KPL>
+void* dp_ptr() {
+  return reinterpret_cast<void*>(sinkhorn_dp_kernel<KPL>);
+}
+
+}  // namespace
+
+// One launch of the cross-rank chain (mode: 0 load, 1 iterate, 2 last
+// iterate, 3 output with no iteration) at iteration `it`. src: scores [B, K]
+// f32 contiguous; valid [B] or null; out [B, K]
+// (Q0 from the load on, the result after the last launch); part [blocks,
+// K + 1]; red [K + 1] (all-reduced by the caller between launches); avec
+// [2, K]; scal [1]; bvec [B]; counter one zeroed word. blocks x cols must
+// cover B with no empty block (ops/sinkhorn_cuda.sinkhorn_dp_plan).
+extern "C" int tt_sinkhorn_dp(const float* src, const float* valid, float* out,
+                              float* part, float* red, float* avec, float* scal,
+                              float* bvec, unsigned* counter, int K, int B,
+                              int cols, int blocks, int it, int mode,
+                              float epsilon, float c_marginal, void* stream) {
+  if (K <= 0 || K > 1024 || B <= 0 || cols <= 0 || blocks <= 0 ||
+      (long long)cols * (blocks - 1) >= B || (long long)cols * blocks < B ||
+      it < 0 || mode < kDpLoad || mode > kDpOut || !(epsilon > 0.f) ||
+      (long long)K * B > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  void* fn = K > 256 ? dp_ptr<32>() : dp_ptr<8>();
+  const size_t smem = (size_t)(kDpWarps * (K + 1) + K) * sizeof(float);
+  void* args[] = {&src, &valid, &out, &part, &red, &avec, &scal, &bvec, &counter,
+                  &K, &B, &cols, &it, &mode, &epsilon, &c_marginal};
+  cudaError_t e = cudaLaunchKernel(fn, dim3(blocks), dim3(kDpThreads), args, smem,
+                                   static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

@@ -422,16 +422,14 @@ def _tensors(x):
 def host_batch_to_device(local_np, device):
     """Put one host array on ``device``: pinned host memory, then an
     asynchronous copy (``non_blocking``) that rides the copy engine while the
-    device computes. Single process: a run over several processes shards the
-    batch across them, which the port does not do yet (ROADMAP.md queue 1
-    item 11, 'Parallel axes')."""
+    device computes. Over several processes (one a device, the data axis)
+    each process's loader yields its own ``rank::world_size`` slice of the
+    global batch (``world_size`` x ``batch_size`` clips), so the local
+    array is this rank's shard as it stands: the counterpart of JAX's
+    ``make_array_from_process_local_data``, with no global array to
+    assemble."""
     import torch
 
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "host_batch_to_device: a batch sharded over processes is not ported "
-            "yet (ROADMAP.md queue 1 item 11, 'Parallel axes')")
     t = torch.from_numpy(np.ascontiguousarray(local_np))
     device = torch.device(device)
     if device.type != "cuda":

@@ -5,8 +5,9 @@ Counterpart of ``timetuning_tpu/models/moco.py`` (reference
 models.py:1604-1707 ``VisionTransformerMoCo`` + ``ConvStem``,
 models.py:1710-1822 ``MoCo`` / ``MoCo_ViT``). The released ViT-S/B
 checkpoints use the standard patch embedding (``models/vit``); ViT-S/16 has
-12 heads of 32, which the bf16 block kernel serves. One process only: the
-JAX loss gathers keys over a mesh axis (ROADMAP queue 1 item 11).
+12 heads of 32, which the bf16 block kernel serves. ``contrastive_loss``
+gathers the keys over the data axis's process group, as the JAX loss does
+over its mesh axis.
 """
 
 from __future__ import annotations
@@ -123,13 +124,26 @@ def import_moco_predictor(state_dict, prefix: str = "predictor.") -> dict[str, t
 def contrastive_loss(q, k, temperature: float = 0.2, axis_name: str | None = None):
     """InfoNCE (reference ``MoCo.contrastive_loss``, models.py:1775-1790):
     q and k normalised, logits q k^T / T in f32, positives on the diagonal,
-    the mean cross-entropy times 2 T."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "contrastive_loss over a process group (the keys gathered across "
-            "devices) is not ported yet (ROADMAP.md queue 1 item 11, 'Parallel axes')")
+    the mean cross-entropy times 2 T. With ``axis_name`` the keys of every
+    rank of the default process group are gathered (``concat_all_gather``,
+    JAX's ``all_gather``) and rank r's positives sit at r * n + i; the other
+    ranks' keys carry no gradient here (the reference's gather has none)."""
     q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
     k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)
+    n = q.shape[0]
+    offset = 0
+    if axis_name is not None:
+        from timetuning_tpu_torch.parallel.mesh import (
+            all_gather_rows,
+            data_group,
+            data_rank,
+        )
+
+        group = data_group(axis_name)
+        offset = data_rank(group) * n
+        with torch.no_grad():
+            k_all = all_gather_rows(k.detach(), group)
+        k = torch.cat([k_all[:offset], k, k_all[offset + n:]])
     logits = torch.einsum("nd,md->nm", q.float(), k.float()) / temperature
-    labels = torch.arange(q.shape[0], device=q.device)
+    labels = torch.arange(n, device=q.device) + offset
     return F.cross_entropy(logits, labels) * (2 * temperature)

@@ -83,6 +83,8 @@ KERNELS = {
                "timetuning_tpu/ops/attention.py:53"),
         Kernel("sinkhorn", "timetuning_tpu_torch/csrc/sinkhorn.cu",
                "timetuning_tpu/ops/sinkhorn_pallas.py:51 and :91"),
+        Kernel("sinkhorn_dp", "timetuning_tpu_torch/csrc/sinkhorn.cu",
+               "timetuning_tpu/ops/sinkhorn_pallas.py:51 and :91"),
     )
 }
 
@@ -113,6 +115,7 @@ _SIGNATURES = {
     "tt_mha": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
     "tt_sinkhorn": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P],
     "tt_sinkhorn_plan": [_I, _I, _P],
+    "tt_sinkhorn_dp": [_P] * 9 + [_I] * 6 + [_F] * 2 + [_P],
 }
 
 _lock = threading.Lock()

@@ -10,14 +10,15 @@ iteration is two matrix-vector products against the unchanged Q_0, with no
 Dispatch (``sinkhorn_assignment``, ``sinkhorn_route``): scores on the card
 with no process group go to kernel 11 (``ops/sinkhorn_cuda.
 sinkhorn_assignment_cuda``), which computes this form with all iterations
-in one launch; with a process group, and on the CPU, the matvec form below
-runs. The JAX package retired its own kernel from dispatch because the
+in one launch; with a process group, to kernel 11's cross-rank form
+(``sinkhorn_assignment_dp_cuda``: a launch an iteration, the [K + 1] row
+sums all-reduced between them); on the CPU the matvec form below runs. The JAX package retired its own kernel from dispatch because the
 matvec form beat it on v5e, and wrote the rule: "don't re-dispatch without
 beating the matvec numbers" (``timetuning_tpu/ops/sinkhorn_pallas.py:1-13``).
 On the H100 the kernel beats the matvec form (PERF.md §6), so it is
-dispatched where its semantics are the step's: one process. ``sinkhorn``
-itself stays the matvec form on every device: it is the kernel's plain
-version.
+dispatched on the card, in one process and across ranks. ``sinkhorn``
+itself stays the matvec form on every device: it is the plain version of
+both forms.
 
 Everything is f32. With a ``torch.distributed`` process group the three sums
 that span the global batch (the total mass, the valid-sample count, the
@@ -83,9 +84,11 @@ def sinkhorn(Q: torch.Tensor, n_iters: int = 3, group=None,
 
 
 def sinkhorn_route(device: torch.device, group=None) -> str:
-    """"kernel" for scores on a CUDA device with no process group, else
-    "matvec"."""
-    return "kernel" if device.type == "cuda" and group is None else "matvec"
+    """"kernel" for scores on a CUDA device with no process group,
+    "kernel_dp" on a CUDA device with one, "matvec" on the CPU."""
+    if device.type != "cuda":
+        return "matvec"
+    return "kernel" if group is None else "kernel_dp"
 
 
 @torch.no_grad()
@@ -94,13 +97,19 @@ def sinkhorn_assignment(scores: torch.Tensor, epsilon: float = 0.05,
                         valid: torch.Tensor | None = None) -> torch.Tensor:
     """``find_optimal_assignment`` (reference time_tuning.py:157-168):
     scores [B, K] -> ``sinkhorn(exp(scores / eps).T)`` [B, K]. The assignment
-    is a soft label, not a differentiable path: no gradient. On the card
-    with no ``group``: kernel 11, one launch (``sinkhorn_route``)."""
-    if sinkhorn_route(scores.device, group) == "kernel":
+    is a soft label, not a differentiable path: no gradient. On the card:
+    kernel 11, in one launch with no ``group``, across the ranks of
+    ``group`` with one (``sinkhorn_route``)."""
+    route = sinkhorn_route(scores.device, group)
+    if route != "matvec":
         from timetuning_tpu_torch.ops import sinkhorn_cuda  # imports this module
 
-        return sinkhorn_cuda.sinkhorn_assignment_cuda(
-            scores, epsilon, n_iters, valid=valid, world_size=world_size)
+        if route == "kernel":
+            return sinkhorn_cuda.sinkhorn_assignment_cuda(
+                scores, epsilon, n_iters, valid=valid, world_size=world_size)
+        return sinkhorn_cuda.sinkhorn_assignment_dp_cuda(
+            scores, epsilon, n_iters, group=group, world_size=world_size,
+            valid=valid)
     q = torch.exp(scores.detach() / epsilon).t()
     return sinkhorn(q, n_iters=n_iters, group=group, world_size=world_size,
                     valid=valid)

@@ -8,13 +8,19 @@ docstring names; that function is its plain version. Two entries:
 ``sinkhorn_cuda`` on Q [K, B] and ``sinkhorn_assignment_cuda`` on the train
 step's scores [B, K], which takes ``exp(scores / epsilon)`` as it loads.
 
+Across ranks (a process group spans the batch),
+``sinkhorn_assignment_dp_cuda`` runs the same iteration on the step's scores
+as a chain of launches with an all-reduce of one [K + 1] vector between them (no
+collective can run inside the one-launch form's grid barrier); their plain
+version is ``ops.sinkhorn.sinkhorn`` with the group.
+
 Dispatch: the JAX package retired its kernel from dispatch because the
 matvec form beat it on v5e, with the rule "don't re-dispatch without beating
 the matvec numbers" (``timetuning_tpu/ops/sinkhorn_pallas.py:1-13``). On the
 H100 the kernel beats the matvec form (PERF.md §6), so
 ``ops.sinkhorn.sinkhorn_assignment`` takes ``sinkhorn_assignment_cuda`` for
-scores on the card when no process group spans the batch; with a group, and
-on the CPU, the matvec form runs.
+scores on the card with no process group and ``sinkhorn_assignment_dp_cuda``
+with one; on the CPU the matvec form runs.
 
 ``sinkhorn_plain`` is the TPU kernel's own materialising loop, kept as that
 kernel's reference (tests pin it in interpret mode): it divides an all-zero
@@ -176,3 +182,95 @@ def sinkhorn_assignment_cuda(scores: torch.Tensor, epsilon: float = 0.05,
     if valid is not None:
         valid = valid.detach().float().contiguous()
     return _launch(s, True, K, B, n_iters, epsilon, valid, world_size)
+
+
+_DP_MIN_COLS = 16           # columns a block at least, cross-rank form
+_DP_LOAD, _DP_ITER, _DP_LAST, _DP_OUT = range(4)   # csrc/sinkhorn.cu DpMode
+
+
+def sinkhorn_dp_plan(B: int, sms: int) -> tuple[int, int]:
+    """(columns a block, blocks) of the cross-rank form for B local columns
+    on a card of ``sms`` SMs: one block an SM, at least 16 columns a block,
+    no empty block (tt_sinkhorn_dp checks it)."""
+    blocks = max(1, min(-(-B // _DP_MIN_COLS), sms))
+    cols = -(-B // blocks)
+    return cols, -(-B // cols)
+
+
+def dp_launches(n_iters: int) -> int:
+    """Launches of one cross-rank call: the load, then one an iteration (at
+    least one, which writes the result)."""
+    return 1 + max(n_iters, 1)
+
+
+def _launch_dp(src, K: int, B: int, n_iters: int, epsilon: float, valid, group,
+               world_size: int) -> torch.Tensor:
+    name = "sinkhorn_assignment_dp_cuda"
+    tensors = [src] if valid is None else [src, valid]
+    kernel_lib.require_cuda(name, *tensors)
+    if valid is not None and tuple(valid.shape) != (B,):
+        raise ValueError(f"{name}: valid must be [{B}], got {tuple(valid.shape)}")
+    if n_iters < 0:
+        raise ValueError(f"{name}: n_iters must be >= 0, got {n_iters}")
+    if not 0 < K <= _MAX_K:
+        raise ValueError(f"{name}: the kernel takes 1 <= K <= {_MAX_K}, got {K}")
+    if not epsilon > 0:
+        raise ValueError(f"{name}: epsilon must be > 0, got {epsilon}")
+    dev = src.device
+    cols, blocks = sinkhorn_dp_plan(B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((B, K), **f32)
+    part = torch.empty(blocks * (K + 1), **f32)
+    red = torch.empty(K + 1, **f32)
+    avec = torch.empty(2 * K, **f32)
+    scal = torch.empty(1, **f32)
+    bvec = torch.empty(B, **f32)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    c = 1.0 / (B * world_size + _EPS)
+
+    def launch(it: int, mode: int) -> None:
+        kernel_lib.launch(
+            "sinkhorn_dp", "tt_sinkhorn_dp", dev, src.data_ptr(),
+            None if valid is None else valid.data_ptr(), out.data_ptr(),
+            part.data_ptr(), red.data_ptr(), avec.data_ptr(), scal.data_ptr(),
+            bvec.data_ptr(), counter.data_ptr(), K, B, cols, blocks, it, mode,
+            float(epsilon), c)
+
+    def all_reduce() -> None:
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(red, op=dist.ReduceOp.SUM, group=group)
+
+    launch(0, _DP_LOAD)
+    all_reduce()
+    if n_iters == 0:
+        launch(0, _DP_OUT)
+    for it in range(n_iters):
+        launch(it, _DP_LAST if it == n_iters - 1 else _DP_ITER)
+        if it < n_iters - 1:
+            all_reduce()
+    return out
+
+
+def sinkhorn_assignment_dp_cuda(scores: torch.Tensor, epsilon: float = 0.05,
+                                n_iters: int = 10, group=None, world_size: int = 1,
+                                valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel 11's cross-rank form on this rank's scores [B_local, K]:
+    ``exp(scores / epsilon)`` taken as the load reads them, then the
+    Sinkhorn over the group. Returns [B_local, K] f32,
+    ``ops.sinkhorn.sinkhorn_assignment`` with the group, whose matvec form is
+    its plain version (and what runs on CPU tensors)."""
+    kernel_lib.require_no_grad("sinkhorn_assignment_dp_cuda", scores, valid)
+    if scores.device.type == "cpu":
+        q = torch.exp(scores.detach().float() / epsilon).t()
+        return _matvec.sinkhorn(q, n_iters, group=group, world_size=world_size,
+                                valid=valid)
+    if scores.dim() != 2:
+        raise ValueError(f"sinkhorn_assignment_dp_cuda: expected scores [B, K], "
+                         f"got {tuple(scores.shape)}")
+    B, K = scores.shape
+    s = scores.detach().float().contiguous()
+    if valid is not None:
+        valid = valid.detach().float().contiguous()
+    return _launch_dp(s, K, B, n_iters, epsilon, valid, group, world_size)
