@@ -120,6 +120,23 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    the one-launch kernel 11 on the concatenated [12,544, 200]; 2 f32 steps
    at 2 x 4 clips against one process on the 8; ``run_training`` at 2 ranks
    for 2 epochs and a resume, clips/s over the window.
+20. ``moe``: the MoE ViT-S/16 (every 2nd block a Switch MoE of 8 experts,
+   capacity 1.25) sparse-upcycled from the seeded dense weights: the
+   upcycled MoE branch equal to gate x dense MLP on kept tokens and 0 on
+   dropped ones; a 64-frame forward in bf16 (K1 in all 12 blocks, K2 in the
+   6 dense ones) against f32 on the tokens routed alike; 3 flagship steps
+   at 32 clips with ``moe_aux_weight`` 0.01 (loss falls, ``moe_aux`` in [1,
+   8], frozen leaves bit-identical, K1 14, K2 7, K3 1, K11 1 a step); the
+   ``--moe_every_k 2 --moe_experts 8`` export and its round trip;
+21. ``ep``: the same model on a dp 1 x ep 2 mesh of 2 gloo ranks sharing
+   the card (4 of the 8 experts a rank): the feature forward, 3 bf16 steps
+   at 8 clips and 2 f32 steps at 4, each against one process, replicated
+   state bit-identical, the all-reduces of a step timed;
+22. ``tp``: the flagship dense model on a dp 1 x tp 2 mesh (half of qkv,
+   fc1, proj, fc2 a rank, plain attention), the same gates; a TP state's
+   checkpoint loaded into one process against the gathered parameters;
+   ``cli/train --multihost true --tensor_parallel 2`` for an epoch and a
+   resumed one, then one process resuming its checkpoint.
 
 After phase 3 the kernels' backward (K1, K2 at 50 x 197; K7, K8, K9, K5/6
 at 4 x 3,137) against autograd through the plain versions, and after
@@ -137,8 +154,8 @@ where PyTorch has library calls for the same function, their time
 library times are device times: the timed launches are queued behind a
 device-side sleep, so a slow host does not show in them.
 
-Launch counts are set to 0 just before each main-path run (phases 5 to 10
-and 12 to 18, and in each rank of phase 19)
+Launch counts are set to 0 just before each main-path run (phases 5 to 10,
+12 to 18 and 20, and in each rank of phases 19, 21 and 22)
 and read just after; each run must launch the kernels of its path, and the
 sums over all runs are the ``launches`` of the kernels line. The last lines
 are a JSON object of per-kernel results, the card's ``nvidia-smi`` name and
@@ -148,10 +165,12 @@ power limit, and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1060,6 +1079,11 @@ PATH_KERNELS = {
     ("export", "dino-s8"): ("preprocess", "ln_dense", "flash_attention",
                             "dense_residual", "mlp_rows"),
     ("parity", "float32"): ("propagation",),
+    ("moe", "forward"): ("attention_block", "mlp_block"),
+    ("moe", "step"): ("attention_block", "mlp_block", "propagation", "sinkhorn"),
+    ("moe", "export"): ("preprocess", "attention_block", "mlp_block"),
+    ("ep", "step"): ("attention_block", "mlp_block", "propagation", "sinkhorn"),
+    ("tp", "step"): ("propagation", "sinkhorn"),
 }   # the zoo's paths are added by run_zoo (zoo_path_kernels)
 
 
@@ -1218,14 +1242,18 @@ def synthetic_train_clips(n_clips: int, dev, seed: int = 0) -> torch.Tensor:
 
 
 def build_train(dev, dtype, attn_impl: str = "auto", seed: int = 0,
-                remat: bool = False, zero1: bool = False, **cfg_kw):
+                remat: bool = False, zero1: bool = False, moe: bool = False,
+                shard=None, mesh=None, **cfg_kw):
     """The reference's flagship at full width (time_tuning.py:573-577): DINO
     ViT-S/16 at 224, head [1024, 1024, 512, 256], 200 prototypes, seeded
     random weights; blocks 10 and 11, the head and the prototypes trainable
     over a shared frozen trunk of 10 blocks, AdamW over the trainable
     subtree. ``remat``: ``ViTConfig.remat``; ``cfg_kw``: more
     ``TimeTConfig`` fields (``axis_name`` and ``world_size`` for the data
-    axis); ``zero1``: the optimizer state split over its ranks."""
+    axis); ``zero1``: the optimizer state split over its ranks. ``moe``: the
+    MoE ViT upcycled from the same seed's dense weights (``moe_vit``);
+    ``shard(model)`` keeps a rank's slices before the optimizer is built,
+    and ``mesh`` is the 2-D mesh of the step."""
     from timetuning_tpu_torch.core.optimizer import swav_optimizer, swav_optimizer_zero1
     from timetuning_tpu_torch.core.timet import (
         TimeT,
@@ -1236,10 +1264,18 @@ def build_train(dev, dtype, attn_impl: str = "auto", seed: int = 0,
     from timetuning_tpu_torch.models.extractor import FeatureExtractor
     from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
 
-    vit = VisionTransformer(vit_small(16, img_size=S, dtype=dtype, attn_impl=attn_impl,
-                                      remat=remat))
+    vcfg = vit_small(16, img_size=S, dtype=dtype, attn_impl=attn_impl, remat=remat)
+    if moe:
+        vcfg = dataclasses.replace(vcfg, moe_every_k=MOE_EVERY_K, n_experts=MOE_EXPERTS,
+                                   moe_capacity_factor=MOE_CAPACITY)
+    vit = VisionTransformer(vcfg)
     model = TimeT(FeatureExtractor(vit, 384, (1024, 1024, 512, 256)), 200)
-    model.init_weights(torch.Generator().manual_seed(seed)).to(dev)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    if moe:
+        vit.load_state_dict(moe_vit(dtype, seed)[1].state_dict())
+    model.to(dev)
+    if shard is not None:
+        shard(model)
     cfg = TimeTConfig(n_prototypes=200, use_teacher=True, frozen_trunk_blocks=10,
                       n_last_frames=7, size_mask_neighborhood=6, topk=5,
                       num_epochs=1, steps_per_epoch=100, spatial_resolution=S // 16,
@@ -1253,9 +1289,9 @@ def build_train(dev, dtype, attn_impl: str = "auto", seed: int = 0,
     else:
         opt, mask = swav_optimizer(model, lr=1e-4, num_epochs=1, steps_per_epoch=100,
                                    opt_over_trainable=True)
-    state = init_state(model, cfg, opt, trainable_mask=mask)
+    state = init_state(model, cfg, opt, trainable_mask=mask, mesh=mesh)
     step = make_train_step(model, cfg, opt, trainable_mask=mask,
-                           opt_over_trainable=True)
+                           opt_over_trainable=True, mesh=mesh)
     return model, cfg, mask, state, step
 
 
@@ -3059,6 +3095,538 @@ def run_dp(dev, results: dict, totals: dict) -> None:
         raise AssertionError(f"dp driver: losses {losses}")
 
 
+MOE_EVERY_K, MOE_EXPERTS, MOE_CAPACITY = 2, 8, 1.25   # every 2nd block, 8 experts
+MOE_FRAMES = 64                     # frames of the moe phase's feature forward
+MESH_WORLD = 2                      # ranks of the ep and tp phases, on the one card
+MESH_FRAMES = 16                    # frames of their feature forward
+MESH_F32_B = 4                      # clips a step of their f32 agreement run
+MESH_TIMEOUT = 600                  # s the ranks of a phase may take together
+
+
+def moe_vit(dtype, seed: int = 0):
+    """(dense, MoE) DINO ViT-S/16 at 224 from ``seed``: the MoE ViT (every 2nd
+    block 8 experts, capacity 1.25) sparse-upcycled from the dense weights,
+    its routers a seeded init (``cli/export``'s construction), on the host."""
+    from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
+    from timetuning_tpu_torch.parallel.ep import upcycle_dense_to_moe
+
+    cfg = vit_small(16, img_size=S, dtype=dtype)
+    dense = VisionTransformer(cfg).init_weights(torch.Generator().manual_seed(seed))
+    mcfg = dataclasses.replace(cfg, moe_every_k=MOE_EVERY_K, n_experts=MOE_EXPERTS,
+                               moe_capacity_factor=MOE_CAPACITY)
+    moe = VisionTransformer(mcfg).init_weights(torch.Generator().manual_seed(seed + 1))
+    moe.load_state_dict(upcycle_dense_to_moe(dense.state_dict(), moe.state_dict(), mcfg))
+    return dense, moe
+
+
+def mesh_frames(dev, n: int, seed: int = 7) -> torch.Tensor:
+    """[n, 224, 224, 3] normalised frames: the train clips' frames."""
+    return synthetic_train_clips(-(-n // TRAIN_F), dev, seed=seed).flatten(0, 1)[:n]
+
+
+def token_cosine(got, want) -> float:
+    return float(torch.nn.functional.cosine_similarity(
+        got.float(), want.float(), dim=-1).min())
+
+
+@contextlib.contextmanager
+def moe_routes(model):
+    """While open, each ``MoEMlp`` call of ``model`` records its tokens'
+    route: the top-1 expert, or -1 for a token past the capacity; yields the
+    list of [B, S] routes, one a call."""
+    from timetuning_tpu_torch.parallel.ep import MoEMlp, switch_capacity
+
+    routes = []
+
+    def hook(mod, args, _out):
+        y = args[0]
+        B, Sq = y.shape[:2]
+        G, Sg = mod.groups(B, Sq)
+        logits = torch.nn.functional.linear(y.reshape(G, Sg, -1),
+                                            mod.router.weight.to(y.dtype))
+        expert = torch.softmax(logits.float(), dim=-1).argmax(dim=-1)
+        onehot = torch.nn.functional.one_hot(expert, mod.n_experts).float()
+        slot = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1
+        kept = slot < switch_capacity(Sg, mod.capacity_factor, mod.n_experts)
+        routes.append(torch.where(kept, expert, -1).reshape(B, Sq))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, MoEMlp)]
+    try:
+        yield routes
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def moe_gate_check(dev, dense, moe) -> dict:
+    """On the card, in f32: the upcycled MoE branch of block 1 equals its
+    top-1 gate times the dense block's MLP on the tokens its expert keeps,
+    and 0 on the tokens past the capacity (8 x 197 tokens, a routing group
+    a sample)."""
+    from timetuning_tpu_torch.ops.fused_block import _ln
+    from timetuning_tpu_torch.parallel.ep import switch_capacity
+
+    bm, bd = moe.blocks[1], dense.blocks[1]
+    x = torch.randn(8, 197, 384, generator=torch.Generator().manual_seed(11)).to(dev)
+    with torch.no_grad():
+        y = _ln(x, bm.norm2.weight, bm.norm2.bias)
+        got = bm.moe(y)
+        dense_out = bd.mlp(y)
+        probs = torch.softmax(y @ bm.moe.router.weight.t(), dim=-1)
+        gate, expert = probs.max(dim=-1)
+        onehot = torch.nn.functional.one_hot(expert, MOE_EXPERTS).float()
+        slot = ((torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1)
+        kept = slot < switch_capacity(197, MOE_CAPACITY, MOE_EXPERTS)
+        want = torch.where(kept[..., None], gate[..., None] * dense_out,
+                           torch.zeros_like(dense_out))
+    err = float((got - want).abs().max())
+    return {"err": err, "kept": int(kept.sum()), "tokens": kept.numel(),
+            "dropped_zero": bool((got[~kept] == 0).all())}
+
+
+def run_moe(dev, totals: dict) -> None:
+    """The ``moe`` phase: the MoE ViT-S/16 (every 2nd block 8 experts,
+    upcycled) in one process on the card: the gate check; bf16 through
+    kernels 1 and 2 against the f32 plain forward on 64 frames; the bf16
+    feature forward's time and launches (K1 in all 12 blocks, K2 in the 6
+    dense ones); 3 flagship TimeT steps at 32 clips with the Switch
+    auxiliary (``moe_aux_weight=0.01``; block 11, on the grad path, is MoE);
+    the ``--moe_every_k 2 --moe_experts 8`` export and its round trip."""
+    import tempfile
+
+    from timetuning_tpu_torch.cli import export as texport
+
+    dense, moe = moe_vit(torch.bfloat16)
+    dense, moe = dense.to(dev).eval(), moe.to(dev).eval()
+    gate = moe_gate_check(dev, dense, moe)
+    print(f"moe gate (block 1, f32 on the card, 8 x 197 tokens): the MoE branch vs "
+          f"gate x dense MLP: max |err| {gate['err']:.3e} (gate 1e-4); {gate['kept']} of "
+          f"{gate['tokens']} tokens kept, the dropped ones exactly 0: "
+          f"{gate['dropped_zero']}", flush=True)
+    if not (gate["err"] <= 1e-4 and gate["dropped_zero"]):
+        raise AssertionError("moe gate: the upcycled MoE branch is not gate x dense MLP")
+
+    frames = mesh_frames(dev, MOE_FRAMES)
+    f32 = dataclasses.replace(moe.config, dtype=torch.float32)
+    from timetuning_tpu_torch.models.vit import VisionTransformer
+
+    moe32 = VisionTransformer(f32).to(dev).eval()
+    moe32.load_state_dict(moe.state_dict())
+    with torch.no_grad():
+        with moe_routes(moe) as r16:
+            (got,), counts = counted(("moe", "forward"), lambda: (moe(frames)["tokens"],),
+                                     totals)
+        with moe_routes(moe32) as r32:
+            want = moe32(frames)["tokens"]
+        ms = cuda_ms(lambda: moe(frames), warmup=1, reps=5, queued=False)
+        ms32 = cuda_ms(lambda: moe32(frames), warmup=1, reps=3, queued=False)
+    # top-1 routing is discrete: a near-tie of two experts, or a slot taken
+    # by another token's flip, routes a token otherwise in bf16 than in f32
+    same = torch.stack([a == b for a, b in zip(r16, r32)]).all(dim=0)
+    cos_all = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1)
+    cos = float(cos_all[same].min())
+    print(f"moe forward {MOE_FRAMES} frames ViT-S/16 MoE (8 experts, every 2nd block) bf16: "
+          f"{ms:.3f} ms ({MOE_FRAMES / ms * 1e3:.1f} frames/s; f32 plain {ms32:.3f} ms); "
+          f"tokens routed alike in bf16 and f32 in all 6 MoE blocks "
+          f"{int(same.sum())} of {same.numel()}: min per-token cosine {cos:.6f} (gate "
+          f"0.999); the others min {float(cos_all[~same].min()) if (~same).any() else 1:.6f}, "
+          f"all tokens mean {float(cos_all.mean()):.6f} (gate 0.999) | launches {counts}",
+          flush=True)
+    if cos < 0.999 or float(cos_all.mean()) < 0.999 or not torch.isfinite(got).all():
+        raise AssertionError("moe forward: bf16 disagrees with f32")
+    if counts["attention_block"] != 12 or counts["mlp_block"] != 6:
+        raise AssertionError(f"moe forward: launches {counts}, expected K1 12 and K2 6")
+    del moe32, want
+
+    clip = synthetic_train_clips(TRAIN_B, dev)
+    model, cfg, mask, state, step = build_train(dev, torch.bfloat16, moe=True,
+                                                moe_aux_weight=0.01)
+    before = _params(model)
+    teacher_before = {n: t.clone() for n, t in state.teacher.items()}
+    losses, auxes, times = [], [], []
+
+    def steps():
+        for i in range(3):
+            if i == 2:
+                teacher_before.update({n: t.clone() for n, t in state.teacher.items()})
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, m = step(state, clip)
+            ev[1].record()
+            losses.append(m["loss"])
+            auxes.append(m["moe_aux"])
+            times.append(ev)
+
+    torch.cuda.reset_peak_memory_stats()
+    _, counts = counted(("moe", "step"), steps, totals)
+    losses, auxes = [float(v) for v in losses], [float(v) for v in auxes]
+    ms = [a.elapsed_time(b) for a, b in times]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"moe train B={TRAIN_B} bf16 (moe_aux_weight 0.01, 10 frozen trunk blocks, block "
+          f"11 MoE): losses {[round(v, 5) for v in losses]}, moe_aux "
+          f"{[round(v, 5) for v in auxes]}; step {[round(v, 3) for v in ms]} ms (CUDA "
+          f"events; beside the dense default step of this run), peak memory "
+          f"{peak:.3f} GiB | "
+          f"launches {counts}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and all(1.0 <= a <= MOE_EXPERTS for a in auxes)):
+        raise AssertionError(f"moe train: losses {losses}, moe_aux {auxes}")
+    check_train_state("moe train", model, mask, state, before, teacher_before)
+    want = {"attention_block": 14 * 3, "mlp_block": 7 * 3, "propagation": 3, "sinkhorn": 3}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"moe train: launches {counts}, expected {want}")
+    del model, state, step, clip
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        blob, live, shape, _ = texport.export_features(
+            "dino-s16", None, 8, S, "bfloat16", moe_every_k=MOE_EVERY_K,
+            moe_experts=MOE_EXPERTS, device=str(dev))
+        export_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "moe.pt2")
+        with open(path, "wb") as f:
+            f.write(blob)
+        fn = texport.load_exported(path)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, shape, np.uint8)).to(dev)
+    with torch.no_grad():
+        (got,), counts = counted(("moe", "export"), lambda: (fn(x),), totals)
+        want = live(x)
+    err = float((got.float() - want.float()).abs().max())
+    print(f"moe export dino-s16 --moe_every_k {MOE_EVERY_K} --moe_experts {MOE_EXPERTS} "
+          f"batch 8 bf16: {export_s:.1f} s, {len(blob) / 1e6:.1f} MB; "
+          f"round trip max |err| {err:.3e} (gate 1e-3) | launches of one call {counts}",
+          flush=True)
+    if err > 1e-3 or counts["preprocess"] != 1 or counts["attention_block"] != 12 \
+            or counts["mlp_block"] != 6:
+        raise AssertionError("moe export: round trip or launches")
+
+
+def mesh_rank(rank: int, kind: str, port: int, out_dir: str, log_dir: str) -> None:
+    """One rank of the ``ep`` or ``tp`` phase (a ``torch.multiprocessing``
+    process): gloo on the one card, the phase's parts in step with the other
+    rank, its results to ``out_dir/rank{rank}.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=MESH_WORLD, timeout=datetime.timedelta(seconds=120))
+    out = (ep_work if kind == "ep" else tp_work)(dev, rank, port, log_dir)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def mesh_steps(dev, label: str, n_steps: int, **kw) -> dict:
+    """``n_steps`` bf16 flagship steps at TRAIN_B clips on a 2-D mesh (host
+    clock between synchronisations), their launches, one more step with its
+    all-reduces timed, the replica check; then 2 f32 steps at MESH_F32_B."""
+    from timetuning_tpu_torch.core.timet import sharded_tensors
+    from timetuning_tpu_torch.ops import kernel_lib
+
+    clip = synthetic_train_clips(TRAIN_B, dev, seed=300)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, cfg, mask, state, step = build_train(dev, torch.bfloat16, **kw)
+    losses, auxes, ms = [], [], []
+    torch.cuda.synchronize()
+    kernel_lib.reset_launch_counts()
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        _, m = step(state, clip)
+        losses.append(float(m["loss"]))
+        auxes.append(float(m["moe_aux"]) if "moe_aux" in m else None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernel_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with dp_collective_times() as coll:
+        t0 = time.perf_counter()
+        step(state, clip)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    shapes = {n: tuple(v.shape) for n, v in sharded_tensors(state).items()
+              if n.startswith("params.")}
+    out = {"losses": losses, "aux": auxes, "ms": ms, "counts": counts, "peak_gib": peak,
+           "collectives": coll, "timed_step_ms": timed_ms, "shapes": shapes,
+           "mismatches": dp_replica_mismatches(state, None)}
+    del model, state, step
+    _, _, _, state, step = build_train(dev, torch.float32, **kw)
+    clip = synthetic_train_clips(MESH_F32_B, dev, seed=301)
+    out["f32"] = [float(step(state, clip)[1]["loss"]) for _ in range(2)]
+    return out
+
+
+def ep_work(dev, rank: int, port: int, log_dir: str) -> dict:
+    from timetuning_tpu_torch.parallel import ep
+
+    mesh = ep.make_dp_ep_mesh(1, MESH_WORLD)
+    _, moe = moe_vit(torch.bfloat16)
+    moe = moe.to(dev).eval()
+    ep.shard_experts(mesh, moe)
+    frames = mesh_frames(dev, MESH_FRAMES)
+    with torch.no_grad():
+        tokens = moe(frames)["tokens"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moe(frames)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    out = mesh_steps(dev, "ep", 3, moe=True, moe_aux_weight=0.01,
+                     shard=lambda m: ep.shard_experts(mesh, m), mesh=mesh)
+    out.update(tokens=tokens.float().cpu(), fwd_ms=fwd_ms,
+               experts=int(moe.blocks[1].moe.w1.shape[0]))
+    return out
+
+
+def tp_work(dev, rank: int, port: int, log_dir: str) -> dict:
+    """The tp rank: the feature forward, the steps, a checkpoint of the TP
+    state beside its gathered parameters, then ``cli/train --multihost true
+    --tensor_parallel 2`` for an epoch of 2 steps and a resumed second (each
+    run takes down its group, so the runs come last)."""
+    import contextlib as _cl
+    import io
+
+    import torch.distributed as dist
+
+    from timetuning_tpu_torch.cli import train as tcli
+    from timetuning_tpu_torch.core.checkpoint import save_checkpoint
+    from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
+    from timetuning_tpu_torch.parallel import tp
+    from timetuning_tpu_torch.parallel.mesh import data_group
+
+    mesh = tp.make_dp_tp_mesh(1, MESH_WORLD)
+    vit = VisionTransformer(vit_small(16, img_size=S, dtype=torch.bfloat16)).init_weights(
+        torch.Generator().manual_seed(0)).to(dev).eval()
+    tp.shard_params(mesh, vit)
+    frames = mesh_frames(dev, MESH_FRAMES)
+    with torch.no_grad():
+        tokens = vit(frames)["tokens"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vit(frames)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+
+    def shard(m):
+        tp.force_xla_attention(m)
+        tp.shard_params(mesh, m)
+
+    out = mesh_steps(dev, "tp", 3, shard=shard, mesh=mesh)
+    out.update(tokens=tokens.float().cpu(), fwd_ms=fwd_ms)
+    # a checkpoint of a TP state (2 f32 steps) and its gathered parameters
+    model, _, _, state, step = build_train(dev, torch.float32, shard=shard, mesh=mesh)
+    step(state, synthetic_train_clips(MESH_F32_B, dev, seed=302))
+    ckpt = os.path.join(log_dir, "tp_state")
+    os.makedirs(ckpt, exist_ok=True)
+    save_checkpoint(state, ckpt, 1, group=data_group("data"))
+    out["gathered"] = tp.gather_global_params(model)
+    out["ckpt"] = ckpt
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    name = register_synthetic_dataset()
+    argv = ["--multihost", "true", "--tensor_parallel", str(MESH_WORLD), "--device", "cuda:0",
+            "--architecture", "dino-s16", "--dataset", name,
+            "--data_root", str(2 * TRAIN_B), "--batch_size", str(TRAIN_B // MESH_WORLD),
+            "--num_frames", "4", "--num_workers", "2", "--log_dir",
+            os.path.join(log_dir, "cli"), "--use_queue", "true", "--queue_size", "4096"]
+    printed, cli_ms = [], []
+    for i, extra in enumerate((["--num_epochs", "1"],
+                               ["--num_epochs", "2", "--load_checkpoint", "true"])):
+        if dist.is_initialized():
+            dist.barrier()
+            dist.destroy_process_group()
+        # gloo (two ranks share the card); cli/train keeps a group it finds
+        os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(MESH_WORLD),
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port + 1 + i))
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port + 1 + i}",
+                                rank=rank, world_size=MESH_WORLD)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with _cl.redirect_stdout(buf):
+            if tcli.main(argv + extra) != 0:
+                raise AssertionError(f"tp: cli/train {extra} failed")
+        cli_ms.append((time.perf_counter() - t0) * 1e3)
+        printed.append(buf.getvalue())
+    out.update(cli=printed, cli_ms=cli_ms, cli_dir=os.path.join(log_dir, "cli"))
+    return out
+
+
+def run_mesh_ranks(kind: str) -> list[dict]:
+    """Start the ``MESH_WORLD`` ranks of the ``kind`` phase and collect them
+    (killed at MESH_TIMEOUT); the ranks' log dir stays for the checks."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(kind, port, out_dir, out_dir),
+                             nprocs=MESH_WORLD, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_TIMEOUT:
+                raise AssertionError(f"{kind}: the ranks did not finish in {MESH_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(MESH_WORLD)]
+    ranks[0]["wall_s"] = time.perf_counter() - t0
+    ranks[0]["dir"] = out_dir
+    return ranks
+
+
+def one_process_reference(dev, **kw) -> dict:
+    """The mesh phases' one-process references: the same bf16 steps at
+    TRAIN_B clips and 2 f32 steps at MESH_F32_B."""
+    clip = synthetic_train_clips(TRAIN_B, dev, seed=300)
+    _, _, _, state, step = build_train(dev, torch.bfloat16, **kw)
+    bf16 = [float(step(state, clip)[1]["loss"]) for _ in range(3)]
+    del state, step
+    _, _, _, state, step = build_train(dev, torch.float32, **kw)
+    clip = synthetic_train_clips(MESH_F32_B, dev, seed=301)
+    return {"bf16": bf16, "f32": [float(step(state, clip)[1]["loss"]) for _ in range(2)]}
+
+
+def mesh_report(kind: str, ranks: list, ref: dict, want_tokens, path: tuple,
+                totals: dict) -> None:
+    """The ``ep`` / ``tp`` gates: features (cosine), bf16 and f32 losses
+    against one process, the ranks' losses equal, replicated state
+    bit-identical, the path's launches; and the all-reduce ms a step."""
+    r0 = ranks[0]
+    cos = min(token_cosine(r["tokens"], want_tokens) for r in ranks)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["f32"], ref["f32"]))
+    rel16 = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["bf16"]))
+    coll = r0["collectives"]
+    sizes = {}
+    for numel, ms in coll:
+        sizes.setdefault(numel, []).append(ms)
+    steady = [float(np.mean(r["ms"][1:])) for r in ranks]
+    print(f"{kind}: {MESH_WORLD} gloo ranks on one card (dp 1 x {kind[0]}p {MESH_WORLD}: "
+          f"agreement and the cost of the collectives, not the speed of two cards), "
+          f"{r0['wall_s']:.1f} s in all; feature forward {MESH_FRAMES} frames bf16 "
+          f"{r0['fwd_ms']:.3f} ms a rank (host clock), min per-token cosine vs one process "
+          f"{cos:.6f} (gate 0.999); bf16 B={TRAIN_B} losses "
+          f"{[round(v, 5) for v in r0['losses']]} vs one process "
+          f"{[round(v, 5) for v in ref['bf16']]} (relative {rel16:.3e}, gate 1e-2)"
+          + (f", moe_aux {[round(v, 5) for v in r0['aux']]}" if r0["aux"][0] is not None
+             else "") + f"; f32 B={MESH_F32_B} 2 steps: losses {r0['f32']} vs "
+          f"{ref['f32']} (relative {rel:.3e}, gate 1e-5); step "
+          f"{steady[0]:.3f} / {steady[1]:.3f} ms a rank (host clock, steps 2-3), peak "
+          f"{[round(r['peak_gib'], 3) for r in ranks]} GiB a rank; replicated state "
+          f"mismatches {r0['mismatches']} | launches {r0['counts']}", flush=True)
+    print(f"{kind} all-reduce a step (rank 0, each between two synchronisations): "
+          f"{sum(ms for _, ms in coll):.3f} ms of a {r0['timed_step_ms']:.3f} ms step, "
+          f"{len(coll)} calls; by size: " + ", ".join(
+              f"[{n}] x {len(v)}: {sum(v):.3f} ms" for n, v in sorted(sizes.items())),
+          flush=True)
+    if not (cos >= 0.999 and rel <= 1e-5 and rel16 <= 1e-2
+            and ranks[0]["losses"] == ranks[1]["losses"] and not r0["mismatches"]):
+        raise AssertionError(f"{kind}: the mesh disagrees with one process or itself")
+    for r in ranks:
+        missing = [k for k in PATH_KERNELS[path] if r["counts"][k] <= 0]
+        if missing:
+            raise AssertionError(f"{path}: kernels not launched: {missing}")
+        for k, v in r["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+
+
+def run_ep(dev, totals: dict) -> None:
+    """The ``ep`` phase: the moe phase's model on a dp 1 x ep 2 mesh of 2
+    gloo ranks sharing the card, against one process."""
+    ranks = run_mesh_ranks("ep")
+    _, moe = moe_vit(torch.bfloat16)
+    with torch.no_grad():
+        want = moe.to(dev).eval()(mesh_frames(dev, MESH_FRAMES))["tokens"].float().cpu()
+    del moe
+    ref = one_process_reference(dev, moe=True, moe_aux_weight=0.01)
+    mesh_report("ep", ranks, ref, want, ("ep", "step"), totals)
+    held = [r["experts"] for r in ranks]
+    shapes = ranks[0]["shapes"]
+    w1 = shapes["params.feature_extractor.backbone.blocks.11.moe.w1"]
+    print(f"ep experts held a rank: {held} of {MOE_EXPERTS} (block 11 w1 {list(w1)}); "
+          f"{len(shapes)} sharded leaves a rank", flush=True)
+    if held != [MOE_EXPERTS // MESH_WORLD] * MESH_WORLD or w1[0] != MOE_EXPERTS // MESH_WORLD:
+        raise AssertionError("ep: a rank does not hold 4 of the 8 experts")
+    c = ranks[0]["counts"]
+    if c["attention_block"] != 14 * 3 or c["mlp_block"] != 7 * 3 or c["sinkhorn"] != 3:
+        raise AssertionError(f"ep: launches {c}")
+    shutil.rmtree(ranks[0]["dir"], ignore_errors=True)
+
+
+def run_tp(dev, totals: dict) -> None:
+    """The ``tp`` phase: the flagship dense model on a dp 1 x tp 2 mesh of 2
+    gloo ranks sharing the card (plain attention: the block kernels take
+    whole weights), against one process on plain attention; the TP
+    checkpoint in one process; ``cli/train --tensor_parallel 2`` and its
+    resume, then one process resuming its checkpoint."""
+    from timetuning_tpu_torch.core.checkpoint import load_checkpoint
+    from timetuning_tpu_torch.core.train import run_training
+    from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
+    from timetuning_tpu_torch.parallel import tp
+
+    ranks = run_mesh_ranks("tp")
+    vit = VisionTransformer(vit_small(16, img_size=S, dtype=torch.bfloat16,
+                                      attn_impl="xla")).init_weights(
+        torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.no_grad():
+        want = vit(mesh_frames(dev, MESH_FRAMES))["tokens"].float().cpu()
+    del vit
+    ref = one_process_reference(dev, shard=tp.force_xla_attention)
+    mesh_report("tp", ranks, ref, want, ("tp", "step"), totals)
+    r0 = ranks[0]
+    b0 = "params.feature_extractor.backbone.blocks.0."
+    shapes = {k[len(b0):]: v for k, v in r0["shapes"].items() if k.startswith(b0)}
+    print(f"tp slices a rank (block 0): {shapes}", flush=True)
+    if shapes != {"attn.qkv.weight": (576, 384), "attn.qkv.bias": (576,),
+                  "attn.proj.weight": (384, 192), "mlp.fc1.weight": (768, 384),
+                  "mlp.fc1.bias": (768,), "mlp.fc2.weight": (384, 768)}:
+        raise AssertionError("tp: a rank does not hold half of qkv, fc1, proj and fc2")
+    c = r0["counts"]
+    if c["attention_block"] or c["mlp_block"] or c["propagation"] != 3 or c["sinkhorn"] != 3:
+        raise AssertionError(f"tp: launches {c} (want K3 and K11 3 times, no K1 / K2)")
+
+    # the TP checkpoint in one process equals the gathered parameters
+    model, _, _, state, _ = build_train(dev, torch.float32)
+    load_checkpoint(r0["ckpt"], state)
+    diff = [k for k, v in model.state_dict().items()
+            if not torch.equal(v.cpu(), r0["gathered"][k])]
+    # cli/train --tensor_parallel 2 (epoch 1, then resumed to 2): the ranks
+    # print one run dir; one process resumes it for a third epoch
+    dirs = [[x.split("run_dir=")[1].split()[0] for x in out.splitlines()
+             if x.startswith("done: run_dir=")][0] for out in r0["cli"]]
+    meta = json.load(open(os.path.join(dirs[0], "checkpoint_meta.json")))
+    one = run_training(driver_config(dev, r0["cli_dir"], TRAIN_B,
+                                     data_root=str(2 * TRAIN_B), num_epochs=3,
+                                     max_steps_per_epoch=2, load_checkpoint=True,
+                                     use_queue=True, queue_size=4096))
+    print(f"tp checkpoint: the TP state's checkpoint loaded into one process vs the ranks' "
+          f"gathered parameters: {len(diff)} tensors differ (gate 0); cli/train "
+          f"--multihost true --tensor_parallel 2: {[round(v / 1e3, 1) for v in r0['cli_ms']]}"
+          f" s for epoch 1 and the resumed epoch 2 (2 steps each, one run dir: "
+          f"{dirs[0] == dirs[1]}, meta tensor_parallel {meta['tensor_parallel']}), then one "
+          f"process resumed it to step {one['global_step']} (loss {one['final_loss']:.5f})",
+          flush=True)
+    if diff or dirs[0] != dirs[1] or meta["tensor_parallel"] != MESH_WORLD \
+            or one["global_step"] != 6 or not np.isfinite(one["final_loss"]):
+        raise AssertionError("tp: checkpoint or cli/train run")
+    shutil.rmtree(r0["dir"], ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3107,6 +3675,9 @@ def main() -> int:
     run_export(dev, totals)
     run_parity(dev, totals)
     run_dp(dev, results, totals)
+    run_moe(dev, totals)
+    run_ep(dev, totals)
+    run_tp(dev, totals)
 
     missing = [k for k in kernel_lib.KERNELS if totals.get(k, 0) <= 0]
     if missing:

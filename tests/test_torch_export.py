@@ -66,6 +66,44 @@ def test_program_matches_jax_live_forward(tiny_pth, symbolic):
         np.testing.assert_allclose(got.numpy(), live_out.numpy(), rtol=0, atol=1e-5)
 
 
+def test_moe_program_matches_jax_live_forward(tiny_pth, tmp_path, capsys):
+    """``--moe_every_k 2 --moe_experts 4``: the program of the MoE ViT
+    upcycled from the dense weights (blocks 1 and 3 MoE, every expert a copy
+    of the block's dense MLP) against JAX's live forward of the same MoE
+    ViT on the program's weights (the routers are the port's seeded init,
+    carried over by models/convert); ``main`` writes and checks it."""
+    import dataclasses
+
+    from timetuning_tpu.data.transforms import eval_preprocess_batch
+    from timetuning_tpu_torch.models.convert import timet_params_to_jax
+
+    blob, live, _, _ = texport.export_features(
+        "vit-tiny-test", tiny_pth, 3, 32, "float32", moe_every_k=2, moe_experts=2,
+        device="cpu")
+    vit = live.backbone
+    dense = torch.load(tiny_pth, weights_only=True)
+    assert torch.equal(vit.blocks[1].moe.w1[1], dense["blocks.1.mlp.fc1.weight"].t())
+    assert torch.equal(vit.blocks[0].mlp.fc1.weight, dense["blocks.0.mlp.fc1.weight"])
+    jb = jget_backbone("vit-tiny-test")
+    jm = jb.module.clone(config=dataclasses.replace(jb.module.config, moe_every_k=2,
+                                                    n_experts=2))
+    jparams = timet_params_to_jax(vit.state_dict())
+    fn = texport.load_exported(io.BytesIO(blob))
+    x = _frames(3, seed=4)
+    want = np.asarray(jm.apply({"params": jparams}, eval_preprocess_batch(
+        jnp.asarray(x), out_size=32))["tokens"][:, 1:])
+    with torch.no_grad():
+        got = fn(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    rc = texport.main(["--architecture", "vit-tiny-test", "--model_path", tiny_pth,
+                       "--input_resolution", "32", "--batch_size", "2",
+                       "--compute_dtype", "float32", "--device", "cpu",
+                       "--moe_every_k", "2", "--moe_experts", "2",
+                       "--out", str(tmp_path / "moe.pt2")])
+    text = capsys.readouterr().out
+    assert rc == 0 and "round-trip check: max|Δ| = 0.00e+00" in text, text
+
+
 def test_main_writes_and_checks_the_program(tmp_path, tiny_pth, capsys):
     out = tmp_path / "f.pt2"
     rc = texport.main(["--architecture", "vit-tiny-test", "--model_path", tiny_pth,
@@ -157,19 +195,27 @@ def test_custom_op_fake_matches_its_real_output(name):
 
 
 def test_unported_flags_raise():
-    """JAX's geometry checks keep their ValueErrors; what passes them raises
-    NotImplementedError naming the roadmap item of the parallel axes."""
+    """JAX's geometry checks keep their ValueErrors; a multi-device artifact
+    that passes them raises NotImplementedError naming the remaining item
+    (sp, pp and the multi-device artifacts); the MoE flags export a
+    one-device program (against JAX's forward:
+    ``test_moe_program_matches_jax_live_forward``)."""
     kw = dict(architecture="vit-tiny-test", model_path=None, batch_size=2,
               input_resolution=32, compute_dtype="float32", device="cpu")
     for flags in (dict(tensor_parallel=2), dict(data_parallel=2),
                   dict(sequence_parallel=2), dict(pipeline_parallel=2),
-                  dict(moe_every_k=2, moe_experts=4),
                   dict(expert_parallel=2, moe_every_k=2, moe_experts=4)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        with pytest.raises(NotImplementedError,
+                           match="sp, pp and the multi-device cli/export artifacts"):
             texport.export_features(**kw, **flags)
+    blob, live, shape, mesh = texport.export_features(**kw, moe_every_k=2, moe_experts=4)
+    assert blob and mesh is None and live.backbone.blocks[1].moe.w1.shape[0] == 4
+    assert shape == (2, 32, 32, 3)
     for flags, msg in ((dict(tensor_parallel=0), ">= 1"),
                        (dict(tensor_parallel=2, sequence_parallel=2), "mutually exclusive"),
                        (dict(expert_parallel=2), "needs a MoE"),
+                       (dict(expert_parallel=3, moe_every_k=2, moe_experts=4),
+                        "not divisible"),
                        (dict(moe_every_k=2), "BOTH"),
                        (dict(data_parallel=2, symbolic_batch=True), "static-batch"),
                        (dict(data_parallel=4, batch_size=6), "must divide")):

@@ -999,3 +999,30 @@ def test_kmeans_on_the_card(dev):
     assert torch.allclose(got.centroids.cpu(), want.centroids, rtol=1e-4, atol=1e-4)
     red = km.normalize_and_reduce(x.to(dev), 8)
     assert red.shape == (20000, 8) and torch.isfinite(red).all()
+
+
+@pytest.mark.parametrize("block", [0, 1])
+def test_moe_vit_blocks_under_the_block_kernels(dev, block):
+    """A bf16 MoE ViT-S block at 8 x 197 tokens: the dense block 0 runs
+    kernels 1 and 2, the MoE block 1 kernel 1 and its MoE branch in plain
+    ops; each against its plain bf16 composition (``attn_impl="xla"``)
+    within K1 / K2's bound (3e-2 + 3e-2 rel.), launches counted."""
+    from timetuning_tpu_torch.models.vit import ViTConfig, VisionTransformer
+
+    vit = VisionTransformer(ViTConfig(embed_dim=384, depth=2, num_heads=6,
+                                      dtype=torch.bfloat16, moe_every_k=2,
+                                      n_experts=8)).init_weights(
+        torch.Generator().manual_seed(0)).to(dev)
+    x = torch.randn(8, 197, 384, generator=torch.Generator().manual_seed(1)).to(
+        dev, torch.bfloat16)
+    blk = vit.blocks[block]
+    with torch.no_grad():
+        kernel_lib.reset_launch_counts()
+        got, _ = blk(x)
+        torch.cuda.synchronize()
+        counts = kernel_lib.launch_counts()
+        want, _ = blk(x, attn_impl="xla")
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 3e-2 + 3e-2 * want.float().abs()).all()), float(err.max())
+    assert counts["attention_block"] == 1
+    assert counts["mlp_block"] == (1 if block == 0 else 0)

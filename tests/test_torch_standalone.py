@@ -265,3 +265,51 @@ assert not any(r['foreign_modules'] for r in ranks), [r['foreign_modules'] for r
 print('ranks', len(ranks), mesh.DATA_AXIS)
 """)
     assert "ranks 2 data" in out
+
+
+def test_the_moe_ep_and_tp_steps_run_without_the_jax_package(tmp_path):
+    """A fresh interpreter imports ``parallel/ep`` and ``parallel/tp``, runs
+    2 MoE steps with the Switch auxiliary in bf16 (the MoE block's branch
+    in plain ops), and 2 gloo ranks of a 1 x 2 expert mesh and of a 1 x 2
+    model mesh (tests/torch_dp_worker.py); neither it nor the ranks load
+    jax, flax, optax or the JAX package."""
+    out = _run(f"""
+import sys
+sys.path.insert(0, 'tests')
+import numpy as np
+import torch
+from timetuning_tpu_torch.parallel import ep, tp
+from timetuning_tpu_torch.core.optimizer import swav_optimizer
+from timetuning_tpu_torch.core.timet import TimeTConfig, init_state, make_train_step
+from torch_dp_worker import spawn, torch_model
+moe_vit = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, img_size=32,
+               moe_every_k=2, n_experts=4)
+g = torch.Generator().manual_seed(0)
+model = torch_model(vit_kw=dict(moe_vit, dtype=torch.bfloat16)).init_weights(g)
+cfg = TimeTConfig(n_prototypes=8, spatial_resolution=4, num_epochs=1, steps_per_epoch=10,
+                  moe_aux_weight=0.01)
+opt, mask = swav_optimizer(model, unfreeze_layers=('blocks.1',), num_steps=10,
+                           opt_over_trainable=True)
+state = init_state(model, cfg, opt, trainable_mask=mask)
+step = make_train_step(model, cfg, opt, trainable_mask=mask, opt_over_trainable=True)
+clip = torch.randn(2, 3, 32, 32, 3, generator=g)
+for _ in range(2):
+    state, metrics = step(state, clip, g)
+assert 1.0 <= float(metrics['moe_aux']) <= 4.0 and np.isfinite(float(metrics['loss']))
+sd = torch_model(vit_kw=moe_vit).init_weights(torch.Generator().manual_seed(1)).state_dict()
+dense = torch_model().init_weights(torch.Generator().manual_seed(2)).state_dict()
+clips = np.random.default_rng(0).standard_normal((2, 2, 3, 32, 32, 3)).astype(np.float32)
+x = clips[0, :, 0]
+base = dict(kind='mesh_step', dp=1, n=2, cfg={{}}, unfreeze=('blocks.1',), clips=clips,
+            draws=[], x=x)
+job = [dict(base, name='ep', mesh='ep', state_dict=sd, vit=moe_vit),
+       dict(base, name='tp', mesh='tp', state_dict=dense,
+            vit=dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, img_size=32))]
+ranks = spawn(job, {str(tmp_path)!r}, 2, timeout=180)
+for name in ('ep', 'tp'):
+    a, b = (r[name] for r in ranks)
+    assert a['losses'] == b['losses'] and np.isfinite(a['losses']).all()
+assert not any(r['foreign_modules'] for r in ranks), [r['foreign_modules'] for r in ranks]
+print('ranks', len(ranks), ep.EXPERT_AXIS, tp.MODEL_AXIS)
+""")
+    assert "ranks 2 expert model" in out

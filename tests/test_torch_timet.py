@@ -294,7 +294,8 @@ def test_unported_config_fields_raise():
     """``axis_name`` names the default process group: without one it is
     refused, with one (here of one rank; 2 ranks: tests/test_torch_dp.py)
     the step builds, and a ``world_size`` other than the group's is
-    refused. ``moe_aux_weight`` raises, naming its slice."""
+    refused. ``moe_aux_weight`` on a backbone without MoE blocks is
+    refused as JAX refuses it (the MoE step itself: tests/test_torch_moe.py).""" 
     model = _torch_model()
     opt, _ = swav_optimizer(model, num_steps=10)
     with pytest.raises(RuntimeError, match="axis_name='data' needs an initialized"):
@@ -303,7 +304,7 @@ def test_unported_config_fields_raise():
         tt.make_train_step(model, tt.TimeTConfig(axis_name="data"), opt)
         with pytest.raises(ValueError, match="world_size=2 but the process group has 1"):
             tt.make_train_step(model, tt.TimeTConfig(axis_name="data", world_size=2), opt)
-    with pytest.raises(NotImplementedError, match="moe_aux_weight.*item 11b"):
+    with pytest.raises(ValueError, match="moe_aux_weight=0.01 but no MoE block"):
         tt.make_train_step(model, tt.TimeTConfig(moe_aux_weight=0.01), opt)
     with pytest.raises(ValueError, match="requires trainable_mask"):
         tt.make_train_step(model, tt.TimeTConfig(), opt, opt_over_trainable=True)

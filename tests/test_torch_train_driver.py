@@ -290,8 +290,9 @@ def test_multi_device_options_raise(davis_tree, tmp_path, kw, flag):
     """In one process: ``num_devices`` other than the ranks that run is
     refused (a process a device); ``zero1`` is disabled with a warning and
     the run trains in the subtree layout (JAX's behaviour on one device);
-    ``tensor_parallel`` above 1 raises, naming its slice. (2 ranks:
-    tests/test_torch_dp.py.)"""
+    ``tensor_parallel=2`` is refused at one rank, as JAX refuses it on one
+    device. (2 ranks: tests/test_torch_dp.py; tensor_parallel=2 trains at 2
+    ranks in tests/test_torch_tp.py's spawn.)"""
     if flag == "zero1":
         r = ttrain.run_training(_cfg(davis_tree, tmp_path, num_epochs=1, **kw))
         assert np.isfinite(r["final_loss"])
@@ -301,8 +302,8 @@ def test_multi_device_options_raise(davis_tree, tmp_path, kw, flag):
         assert meta["opt_layout"] == "trainable-subtree" and meta["world_size"] == 1
         return
     err, match = {"num_devices": (ValueError, "num_devices=2 but 1 process"),
-                  "tensor_parallel": (NotImplementedError,
-                                      "tensor_parallel > 1.*queue 1 item 11c")}[flag]
+                  "tensor_parallel": (ValueError,
+                                      "tensor_parallel=2 must divide the 1 devices")}[flag]
     with pytest.raises(err, match=match):
         ttrain.run_training(_cfg(davis_tree, tmp_path, **kw))
 

@@ -1,4 +1,5 @@
-"""Ranks of the port's data-parallel tests: a launcher and the worker.
+"""Ranks of the port's data-, tensor- and expert-parallel tests: a launcher
+and the worker.
 
 ``spawn(job, workdir, world)`` starts ``world`` processes of this script,
 each a rank of a gloo group on ``tcp://localhost:<free port>`` (60 s
@@ -91,13 +92,14 @@ def spawn(job: list, workdir: str, world: int = 2, timeout: float = 240.0,
 # ---------------------------------------------------------------- the model
 
 
-def torch_model(state_dict=None):
+def torch_model(state_dict=None, vit_kw=None):
     from timetuning_tpu_torch.core import timet as tt
     from timetuning_tpu_torch.models.extractor import FeatureExtractor
     from timetuning_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
-    vit = VisionTransformer(ViTConfig(dtype=torch.float32, **VIT))
-    model = tt.TimeT(FeatureExtractor(vit, VIT["embed_dim"], HEAD), K)
+    vit_kw = {"dtype": torch.float32, **(VIT if vit_kw is None else vit_kw)}
+    vit = VisionTransformer(ViTConfig(**vit_kw))
+    model = tt.TimeT(FeatureExtractor(vit, vit_kw["embed_dim"], HEAD), K)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model
@@ -250,8 +252,131 @@ def run_driver(case: dict, rank: int, world: int) -> dict:
         "replicated": {k: v.clone() for k, v in tt.replicated_tensors(r["state"]).items()}}
 
 
+def run_mesh_step(case: dict, rank: int, world: int) -> dict:
+    """A TP or EP case on a 2-D mesh (``case["mesh"]``: "tp" or "ep", of
+    ``case["dp"]`` x ``case["n"]`` ranks; the ranks past it return {}): the
+    whole weights sharded, the backbone's forward on this rank's data slice
+    of ``case["x"]`` (tokens and last-block probabilities), then the steps
+    on its slices of ``case["clips"]`` (global batches, the queue's draws
+    handed over to the mesh's origin, reversed to the other ranks). Returns
+    the losses and auxiliaries, the gathered student and teacher, the
+    queue, this rank's slice shapes, the replicated and the sharded tensors; with
+    ``load_dir`` the one-process checkpoint there is loaded first and saved
+    again to ``save_dir``."""
+    from timetuning_tpu_torch.core import checkpoint, timet as tt
+    from timetuning_tpu_torch.core.optimizer import swav_optimizer
+    from timetuning_tpu_torch.parallel import ep, tp
+    from timetuning_tpu_torch.parallel.mesh import data_group
+
+    if case["mesh"] == "tp":
+        mesh = tp.make_dp_tp_mesh(case["dp"], case["n"])
+    else:
+        mesh = ep.make_dp_ep_mesh(case["dp"], case["n"])
+    if mesh.coords is None:
+        return {}
+    model = torch_model(case["state_dict"], case["vit"])
+    if case["mesh"] == "tp":
+        sharding = tp.shard_params(mesh, model)
+    else:
+        sharding = ep.shard_experts(mesh, model)
+    d, n_data = mesh.outer_index, mesh.n_outer
+    out = {"coords": mesh.coords}
+    x = case["x"]
+    b = x.shape[0] // n_data
+    with torch.no_grad():
+        fwd = model.feature_extractor.backbone(torch.from_numpy(x[d * b:(d + 1) * b]),
+                                               want_attention=True)
+    out["tokens"], out["attention"] = fwd["tokens"], fwd["attention"]
+    cfg = tt.TimeTConfig(n_prototypes=K, spatial_resolution=4, **SCHED, **case["cfg"])
+    opt, mask = swav_optimizer(model, lr=1e-3, unfreeze_layers=case["unfreeze"],
+                               opt_over_trainable=True, **SCHED)
+    state = tt.init_state(model, cfg, opt, trainable_mask=mask, mesh=mesh)
+    make = tp.make_tp_train_step if case["mesh"] == "tp" else ep.make_ep_train_step
+    step, _ = make(model, cfg, opt, mesh, state, trainable_mask=mask,
+                   opt_over_trainable=True)
+    if case.get("load_dir"):
+        checkpoint.load_checkpoint(case["load_dir"], state)
+        checkpoint.save_checkpoint(state, case["save_dir"], 1, group=data_group("data"))
+        out["loaded"] = {k: v.clone() for k, v in tt.state_tensors(state).items()}
+        return out
+    draws = iter(case["draws"])
+    # a rank off the mesh's origin draws other rows: the step keeps the
+    # origin's choice on every rank
+    off = mesh.coords != (0, 0)
+    real = tt.queue_store_indices
+    tt.queue_store_indices = lambda n, k, g: torch.as_tensor(
+        np.array(next(draws)[::-1] if off else next(draws)), dtype=torch.int64)
+    try:
+        losses, aux = [], []
+        for clip in case["clips"]:
+            b = clip.shape[0] // n_data
+            _, m = step(state, torch.from_numpy(np.ascontiguousarray(clip[d * b:(d + 1) * b])),
+                        None)
+            losses.append(float(m["loss"]))
+            aux.append(float(m["moe_aux"]) if "moe_aux" in m else None)
+    finally:
+        tt.queue_store_indices = real
+    out.update(
+        losses=losses, aux=aux, params=tp.gather_global_params(model),
+        teacher={k: v.cpu() for k, v in sharding.gather_state_dict(state.teacher).items()},
+        queue=None if state.queue is None else state.queue.clone(),
+        queue_fill=state.queue_fill,
+        shapes={k: tuple(v.shape) for k, v in model.named_parameters()
+                if sharding.spec_of(k) is not None},
+        replicated={k: v.clone() for k, v in tt.replicated_tensors(state).items()},
+        sharded={k: v.clone() for k, v in tt.sharded_tensors(state).items()},
+        shardings={k: v for k, v in (
+            tp.timet_state_shardings(state, mesh) if case["mesh"] == "tp" else
+            ep.ep_state_shardings(state, mesh, model.feature_extractor.backbone.config.n_experts)
+        ).items() if v != "replicated"},
+        partition=tt.state_partition_specs(state))
+    if case.get("save_dir"):
+        checkpoint.save_checkpoint(state, case["save_dir"], 1, group=data_group("data"))
+    return out
+
+
+def run_gather(case: dict, rank: int, world: int) -> dict:
+    """``gather_along`` over the inner axis of a ``case["dp"]`` x
+    ``case["n"]`` mesh: each rank's [2, 1, 3] block of its global rank's
+    value side by side, and the gradient of a weighted sum of the whole."""
+    from timetuning_tpu_torch.parallel.mesh import gather_along, make_2d_mesh
+
+    mesh = make_2d_mesh(case["dp"], case["n"], ("data", "model"))
+    if mesh.coords is None:
+        return {}
+    x = torch.full((2, 1, 3), float(rank), requires_grad=True)
+    y = gather_along(x, 1, mesh.inner)
+    w = torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape)
+    (y * w).sum().backward()
+    return {"coords": mesh.coords, "grid": mesh.grid, "y": y.detach(), "w": w,
+            "grad": x.grad}
+
+
+def run_cli(case: dict, rank: int, world: int) -> dict:
+    """``cli/train.main`` with ``--multihost true`` once for each argv of
+    ``case["argvs"]``, torchrun's environment set (a port each: every run
+    initializes and takes down its own group); the lines it prints."""
+    import io
+    import torch.distributed as dist
+
+    from timetuning_tpu_torch.cli import train as tcli
+
+    printed = []
+    for argv, port in zip(case["argvs"], case["ports"]):
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert tcli.main(argv + ["--multihost", "true"]) == 0
+        printed.append(buf.getvalue())
+    return {"printed": printed}
+
+
 CASES = {"step": run_steps, "sinkhorn": run_sinkhorn, "contrastive": run_contrastive,
-         "loader": run_loader, "driver": run_driver}
+         "loader": run_loader, "driver": run_driver, "mesh_step": run_mesh_step,
+         "gather": run_gather, "cli": run_cli}
 
 
 def main(argv) -> int:
@@ -274,7 +399,8 @@ def main(argv) -> int:
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "timetuning_tpu"))
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

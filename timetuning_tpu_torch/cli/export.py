@@ -22,11 +22,17 @@ imports it); JAX's StableHLO artifact carries its custom calls itself.
 
 ``--symbolic_batch`` exports one program for any batch. JAX traces the XLA
 attention there, because its Pallas grids are batch-static; the custom ops
-take any batch, so this program keeps the kernels. The flags of JAX's
-multi-device and mixture-of-experts artifacts are checked as JAX checks
-them and then raise: mixture-of-experts blocks are ROADMAP.md queue 1 item
-11b, the multi-device artifacts item 11c. ``--device`` picks the device (the
-card unless ``cpu``).
+take any batch, so this program keeps the kernels.
+
+``--moe_every_k K --moe_experts E`` export the MoE ViT sparse-upcycled from
+the dense weights (JAX export.py:157-186: every K-th block's MLP becomes E
+experts, each a copy of the dense MLP, the routers at their seeded init):
+its MoE branches are plain ops in the graph, the preprocess and the
+attention and dense MLP kernels stay custom ops. The flags of JAX's
+multi-device artifacts (``--tensor_parallel``, ``--data_parallel``,
+``--expert_parallel``, ``--sequence_parallel``, ``--pipeline_parallel``)
+are checked as JAX checks them and then raise: they are ROADMAP.md queue 1
+item 11c. ``--device`` picks the device (the card unless ``cpu``).
 """
 
 from __future__ import annotations
@@ -39,11 +45,9 @@ import torch
 import torch.nn as nn
 
 from timetuning_tpu_torch.cli.train import str2bool
+from timetuning_tpu_torch.parallel.mesh import SP_PP_EXPORT_ITEM
 
-_UNPORTED_MOE = ("is not ported yet: mixture-of-experts blocks are ROADMAP.md "
-                 "queue 1 item 11b")
-_UNPORTED_MESH = ("is not ported yet: the artifacts of the tp, sp, pp, ep and "
-                  "data axes are ROADMAP.md queue 1 item 11c")
+_UNPORTED_MESH = f"is not ported yet ({SP_PP_EXPORT_ITEM})"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,11 +81,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_unported(bb, batch_size, symbolic_batch, tensor_parallel,
-                    data_parallel, sequence_parallel, pipeline_parallel,
-                    expert_parallel, moe_every_k, moe_experts) -> None:
+def _check_flags(bb, batch_size, symbolic_batch, tensor_parallel,
+                 data_parallel, sequence_parallel, pipeline_parallel,
+                 expert_parallel, moe_every_k, moe_experts) -> None:
     """JAX's geometry checks (timetuning_tpu/cli/export.py:137-170, 211-221)
-    with their ValueErrors, then NotImplementedError for what passes them."""
+    with their ValueErrors, then NotImplementedError for a multi-device
+    artifact that passes them."""
     if min(tensor_parallel, data_parallel, sequence_parallel,
            pipeline_parallel, expert_parallel) < 1:
         raise ValueError("tensor_parallel/data_parallel/sequence_parallel/"
@@ -100,7 +105,9 @@ def _check_unported(bb, batch_size, symbolic_batch, tensor_parallel,
             raise ValueError("--moe_every_k supports ViT backbones only")
         if not (moe_every_k and moe_experts):
             raise ValueError("set BOTH --moe_every_k and --moe_experts")
-        raise NotImplementedError(f"--moe_every_k/--moe_experts {_UNPORTED_MOE}")
+        from timetuning_tpu_torch.parallel.ep import validate_ep_geometry
+
+        validate_ep_geometry(moe_experts, expert_parallel)
     n_mesh = (tensor_parallel * data_parallel * sequence_parallel
               * pipeline_parallel * expert_parallel)
     if n_mesh > 1:
@@ -111,6 +118,25 @@ def _check_unported(bb, batch_size, symbolic_batch, tensor_parallel,
             raise ValueError(f"batch_size {batch_size} must divide over "
                              f"data_parallel={data_parallel}")
         raise NotImplementedError(f"a multi-device artifact {_UNPORTED_MESH}")
+
+
+def upcycled_moe_backbone(bb, moe_every_k: int, moe_experts: int, seed: int = 0):
+    """``bb`` with its ViT rebuilt as a MoE ViT, sparse-upcycled from its
+    dense weights (parallel/ep.upcycle_dense_to_moe); the routers take a
+    seeded init."""
+    import dataclasses
+
+    from timetuning_tpu_torch.models.vit import VisionTransformer
+    from timetuning_tpu_torch.parallel.ep import upcycle_dense_to_moe
+
+    dense = bb.module
+    cfg = dataclasses.replace(dense.config, moe_every_k=moe_every_k,
+                              n_experts=moe_experts)
+    moe = VisionTransformer(cfg).init_weights(torch.Generator().manual_seed(seed))
+    dev = next(dense.parameters()).device
+    sd = {k: v.cpu() for k, v in dense.state_dict().items()}
+    moe.load_state_dict(upcycle_dense_to_moe(sd, moe.state_dict(), cfg))
+    return dataclasses.replace(bb, module=moe.to(dev).eval())
 
 
 class FeatureForward(nn.Module):
@@ -147,16 +173,20 @@ def export_features(architecture: str, model_path: str | None,
     """Build and export the uint8 -> features forward. Returns (the saved
     program's bytes, the live forward, the example input shape, None); the
     last is JAX's mesh, which a one-device program does not have. Without
-    ``model_path`` the weights are the registry's seeded init (seed 0)."""
+    ``model_path`` the weights are the registry's seeded init (seed 0);
+    with ``moe_every_k`` / ``moe_experts`` the backbone is upcycled to a MoE
+    ViT (``upcycled_moe_backbone``)."""
     from timetuning_tpu_torch.models.registry import get_backbone
     from timetuning_tpu_torch.runtime import resolve_device
 
     dev = resolve_device(device)
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
     bb = get_backbone(architecture, model_path, dtype=dtype, device=dev)
-    _check_unported(bb, batch_size, symbolic_batch, tensor_parallel,
-                    data_parallel, sequence_parallel, pipeline_parallel,
-                    expert_parallel, moe_every_k, moe_experts)
+    _check_flags(bb, batch_size, symbolic_batch, tensor_parallel,
+                 data_parallel, sequence_parallel, pipeline_parallel,
+                 expert_parallel, moe_every_k, moe_experts)
+    if moe_every_k:
+        bb = upcycled_moe_backbone(bb, moe_every_k, moe_experts)
     if symbolic_batch and batch_size < 2:
         raise ValueError("--symbolic_batch exports from an example batch of at "
                          f"least 2 (a batch of 1 specialises), got {batch_size}")

@@ -10,12 +10,17 @@ initializes ``torch.distributed`` from ``torchrun``'s environment (the
 counterpart of ``jax.distributed.initialize()``; NCCL on the card, gloo with
 ``--device cpu``) and runs on ``cuda:LOCAL_RANK``. ``--batch_size`` is per
 rank; ``--zero1 true`` splits the optimizer state over the ranks.
-``--tensor_parallel`` above 1 raises (ROADMAP.md queue 1 item 11c).
+``--tensor_parallel N`` (with ``--multihost``) lays the ranks out as a
+(data, model) mesh of world / N rows: each rank holds its Megatron slices of
+the backbone, the ranks of a model group step on the same clips
+(core/train.py).
 
     python -m timetuning_tpu_torch.cli.train --data_root DAVIS --dataset davis \\
         --pascal_root VOC --batch_size 32
     torchrun --nproc_per_node 8 -m timetuning_tpu_torch.cli.train \\
         --multihost true --data_root DAVIS --dataset davis --batch_size 16
+    torchrun --nproc_per_node 4 -m timetuning_tpu_torch.cli.train \\
+        --multihost true --tensor_parallel 2 --data_root DAVIS --dataset davis
 """
 
 from __future__ import annotations
@@ -103,8 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JPEG DCT-domain reduced decode when the source is "
                         ">=2x decode_size")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="model-axis size of a (data, model) mesh: not ported "
-                        "yet above 1")
+                   help="model-axis size of a (data, model) mesh over the "
+                        "ranks (Megatron slices of the backbone)")
     p.add_argument("--multihost", type=str2bool, default=False,
                    help="initialize torch.distributed from torchrun's "
                         "environment: one data-parallel rank a process")

@@ -24,6 +24,13 @@ the port's parameter order), rank 0 alone writes, and every rank returns
 after the file is whole. Every rank reads a checkpoint; the optimizer state
 is converted on load to the run's layout (by name or ZeRO-1, at any world
 size: ``core/optimizer.migrate_*``).
+
+On a 2-D mesh (tensor or expert parallelism: the model's
+``param_sharding``) the parameters, the teacher and the AdamW moments are
+gathered to the whole layout before rank 0 writes (a collective over the
+model or expert axis), the global queue is saved as it is, and a load takes
+each rank's slices: a TP checkpoint loads into one process, and a
+one-process checkpoint into TP.
 """
 
 from __future__ import annotations
@@ -81,8 +88,9 @@ def _gather_chunks(v: torch.Tensor, opt, group) -> torch.Tensor:
     return full.cpu()
 
 
-def _opt_payload(opt, group=None) -> dict:
-    """The optimizer's step count and its AdamW state by parameter name, or
+def _opt_payload(opt, group=None, sharding=None) -> dict:
+    """The optimizer's step count and its AdamW state by parameter name (each
+    moment gathered to the whole layout where ``sharding`` splits it), or
     ZeRO-1's padded flat moments gathered over the group."""
     from timetuning_tpu_torch.core.optimizer import Zero1Optimizer
 
@@ -95,13 +103,15 @@ def _opt_payload(opt, group=None) -> dict:
     for name, p in opt.named_params.items():
         st = opt.adamw.state.get(p)
         if st:
-            state[name] = {k: _cpu(v) if torch.is_tensor(v) else v
-                           for k, v in st.items()}
+            state[name] = {
+                k: _cpu(v if sharding is None or not v.dim() else sharding.gather(name, v))
+                if torch.is_tensor(v) else v for k, v in st.items()}
     return {"count": opt.count, "state": state}
 
 
-def _load_opt(opt, payload: dict) -> None:
-    """Load an optimizer payload of either layout into ``opt``'s."""
+def _load_opt(opt, payload: dict, sharding=None) -> None:
+    """Load an optimizer payload of either layout into ``opt``'s (each
+    moment's slice where ``sharding`` splits it)."""
     from timetuning_tpu_torch.core.optimizer import (
         Zero1Optimizer,
         migrate_subtree_to_zero1,
@@ -133,7 +143,8 @@ def _load_opt(opt, payload: dict) -> None:
         # no gradient, so AdamW keeps no state for it here either
         if name in saved:
             opt.adamw.state[p] = {
-                k: v.to(p.device) if torch.is_tensor(v) and v.dim() else v
+                k: (v if sharding is None else sharding.local(name, v)).to(p.device)
+                if torch.is_tensor(v) and v.dim() else v
                 for k, v in saved[name].items()}
 
 
@@ -149,26 +160,34 @@ def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None,
         all_gather_rows,
         all_reduce_sum,
         data_rank,
+        param_sharding,
     )
 
     run_dir = os.path.abspath(run_dir)
     path = os.path.join(run_dir, CHECKPOINT)
     writer = data_rank(group) == 0
+    sharding = param_sharding(state.model)
     # the collectives first, on every rank
     queue = state.queue
-    if queue is not None and group is not None:
+    if queue is not None and group is not None and state.mesh is None:
         queue = all_gather_rows(queue, group)
-    optimizer = None
-    if writer or isinstance(state.opt, Zero1Optimizer):
-        optimizer = _opt_payload(state.opt, group)
+    optimizer = model = teacher = None
+    if writer or isinstance(state.opt, Zero1Optimizer) or sharding is not None:
+        optimizer = _opt_payload(state.opt, group, sharding)
+    if writer or sharding is not None:
+        model = state.model.state_dict()
+        teacher = state.teacher
+        if sharding is not None:
+            model = sharding.gather_state_dict(model)
+            teacher = None if teacher is None else sharding.gather_state_dict(teacher)
     if writer:
         payload = {
             "epoch": int(epoch),
             "step": int(state.step),
-            "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
+            "model": {k: _cpu(v) for k, v in model.items()},
             "optimizer": optimizer,
-            "teacher": (None if state.teacher is None
-                        else {k: _cpu(v) for k, v in state.teacher.items()}),
+            "teacher": (None if teacher is None
+                        else {k: _cpu(v) for k, v in teacher.items()}),
             "queue": _cpu(queue),
             "queue_fill": int(state.queue_fill),
         }
@@ -214,16 +233,26 @@ def load_checkpoint(run_dir: str, state):
     path = os.path.join(os.path.abspath(run_dir), CHECKPOINT)
     if not os.path.exists(path):
         return state, 0
+    from timetuning_tpu_torch.parallel.mesh import param_sharding
+
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    _load_opt(state.opt, payload["optimizer"])
+    sharding = param_sharding(state.model)
+    model = payload["model"]
+    if sharding is not None:
+        model = sharding.local_state_dict(model)
+    state.model.load_state_dict(model)
+    _load_opt(state.opt, payload["optimizer"], sharding)
     if state.teacher is not None:
         saved = payload["teacher"] or {}
         student = state.model.state_dict()
         with torch.no_grad():
             for name, t in state.teacher.items():
                 # a leaf the saved teacher shared with the student
-                t.copy_(saved[name] if name in saved else student[name])
+                if name not in saved:
+                    t.copy_(student[name])
+                else:
+                    t.copy_(saved[name] if sharding is None
+                            else sharding.local(name, saved[name]))
     if payload["queue"] is not None:
         dev = state.model.prototypes.device
         state.queue = payload["queue"].to(dev)

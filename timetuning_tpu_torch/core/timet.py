@@ -43,6 +43,23 @@ the card: the hand-written block kernels). The differentiated pass of an
 implementation, the block kernels included, whose backward is the JAX
 package's (the VJP of the plain composition, ops/fused_block). A forced
 implementation is kept on the grad path too.
+
+On a 2-D mesh (``make_train_step(..., mesh=...)``: parallel/tp and
+parallel/ep, JAX's GSPMD steps) the step is the single-device step on the
+global batch: each rank steps on its data slice, the ranks of one model or
+expert group see the same slice and hold slices of the sharded leaves
+(student, teacher and AdamW moments alike), the feature queue is ONE global
+FIFO of ``queue_size`` rows that every rank holds whole (the stored rows
+gathered over the data axis; the queue's choice drawn at the mesh's origin
+and broadcast to every rank), the Sinkhorn runs over the data axis (each data rank takes its
+share of the queue's rows), and the gradients, the loss and the MoE
+auxiliary are averaged over the data axis. Replicated leaves stay
+bit-identical on every rank, sharded ones across their data axis.
+
+Mixture of experts (``TimeTConfig.moe_aux_weight`` > 0): the Switch
+auxiliary of the MoE blocks on the grad path (``parallel/ep.collect_aux``),
+averaged over the blocks, is added to the loss with that weight, and the
+step reports it as ``metrics["moe_aux"]``.
 """
 
 from __future__ import annotations
@@ -61,11 +78,14 @@ from timetuning_tpu_torch.core.schedules import cosine_scheduler, schedule_at
 from timetuning_tpu_torch.models.extractor import FeatureExtractor, apply_attention_mask
 from timetuning_tpu_torch.ops.propagation import propagate_labels_batch
 from timetuning_tpu_torch.ops.sinkhorn import sinkhorn_assignment
+from timetuning_tpu_torch.parallel.ep import collect_aux
 from timetuning_tpu_torch.parallel.mesh import (
+    all_gather_rows,
     all_reduce_mean,
     all_reduce_sum,
     data_group,
     data_world_size,
+    param_sharding,
 )
 
 _EPS = 1e-12
@@ -141,7 +161,8 @@ class TimeTConfig:
     score_temperature: float = 0.1
     use_teacher: bool = True
     use_queue: bool = False
-    queue_size: int = 16384            # rows of this process's FIFO
+    queue_size: int = 16384            # rows of this process's FIFO (the
+                                       # global FIFO's on a 2-D mesh)
     mask_features: bool = False
     axis_name: str | None = None       # data axis: the default process group
     world_size: int = 1                # ranks on it; the Sinkhorn marginal
@@ -158,9 +179,8 @@ class TimeTConfig:
     # Attention implementation of the differentiated pass when the model's
     # own is "auto"; None keeps the model's everywhere.
     grad_attn_impl: str | None = "xla"
-    moe_aux_weight: float = 0.0        # mixture-of-experts: not ported yet
-
-MOE_ITEM = "ROADMAP.md queue 1 item 11b, 'MoE'"
+    # weight of the MoE blocks' Switch load-balance auxiliary in the loss
+    moe_aux_weight: float = 0.0
 
 
 @dataclasses.dataclass
@@ -169,7 +189,8 @@ class TrainState:
     ``model``). ``teacher`` maps parameter names to the EMA teacher's
     tensors; a name it does not hold is shared with the student (the frozen
     leaves, when the optimizer runs over the trainable subtree only).
-    ``queue_fill`` and ``step`` are host integers."""
+    ``queue_fill`` and ``step`` are host integers. ``mesh``: the 2-D mesh
+    (parallel/mesh.Mesh2D) of a TP or EP run, None otherwise."""
 
     model: TimeT
     opt: SwavOptimizer | Zero1Optimizer
@@ -177,14 +198,19 @@ class TrainState:
     queue: torch.Tensor | None         # [queue_size, D] or None
     queue_fill: int = 0
     step: int = 0
+    mesh: object = None
 
 
 def _graft(model: TimeT, pretrained: Mapping[str, torch.Tensor]) -> None:
     """Overlay imported weights onto the model's (keys present in
-    ``pretrained`` win; names must exist and shapes must match)."""
+    ``pretrained`` win; names must exist and shapes must match). A sharded
+    model takes its slices of the whole weights."""
     own = dict(model.named_parameters())
+    sharding = param_sharding(model)
     with torch.no_grad():
         for k, v in pretrained.items():
+            if sharding is not None:
+                v = sharding.local(k, v)
             if k not in own:
                 raise KeyError(f"pretrained key {k} not in model tree")
             if own[k].shape != v.shape:
@@ -195,12 +221,18 @@ def _graft(model: TimeT, pretrained: Mapping[str, torch.Tensor]) -> None:
 
 def init_state(model: TimeT, cfg: TimeTConfig, opt: SwavOptimizer,
                pretrained_params: Mapping[str, torch.Tensor] | None = None,
-               trainable_mask: Mapping[str, bool] | None = None) -> TrainState:
+               trainable_mask: Mapping[str, bool] | None = None,
+               mesh=None) -> TrainState:
     """The initial state around an initialised ``model`` (optionally grafting
     imported weights first): teacher copy, queue, counters. With
     ``trainable_mask`` (from ``swav_optimizer(..., opt_over_trainable=True)``)
     the teacher copies the trainable leaves only and shares the frozen ones
-    with the student, which never change."""
+    with the student, which never change. ``mesh``: the 2-D mesh of a TP or
+    EP step (the queue is then the global FIFO, its rows split evenly over
+    the data axis for the Sinkhorn)."""
+    if mesh is not None and cfg.use_queue and cfg.queue_size % mesh.n_outer:
+        raise ValueError(f"queue_size={cfg.queue_size} does not split over the "
+                         f"{mesh.n_outer} data ranks of the mesh")
     if pretrained_params is not None:
         _graft(model, pretrained_params)
     teacher = None
@@ -211,37 +243,82 @@ def init_state(model: TimeT, cfg: TimeTConfig, opt: SwavOptimizer,
     if cfg.use_queue:
         queue = torch.zeros(cfg.queue_size, model.prototypes.shape[-1],
                             dtype=torch.float32, device=model.prototypes.device)
-    return TrainState(model=model, opt=opt, teacher=teacher, queue=queue)
+    return TrainState(model=model, opt=opt, teacher=teacher, queue=queue, mesh=mesh)
 
 
 def state_partition_specs(state: TrainState) -> dict[str, str]:
     """Which parts of the state each rank holds whole ("replicated": equal on
-    every rank) and which are its own ("per_rank"): the feature queue (the
-    rank's FIFO, filled from its batch) and, with ZeRO-1, the optimizer's
-    moments (the rank's chunk). The counterpart of JAX's PartitionSpecs
-    (``P()`` / ``P('data')``)."""
+    every rank), which are its own ("per_rank"): on the data axis the
+    feature queue (the rank's FIFO, filled from its batch) and, with ZeRO-1,
+    the optimizer's moments (the rank's chunk); and which it holds slices
+    of on a 2-D mesh ("sharded": the leaves of ``model.param_sharding``,
+    the rest replicated; the queue is then the global FIFO, whole). The
+    counterpart of JAX's PartitionSpecs (``P()`` / ``P('data')`` /
+    ``P('model')``)."""
+    sharded = "sharded" if param_sharding(state.model) is not None else "replicated"
     return {
-        "params": "replicated",
-        "teacher": "replicated",
-        "queue": "per_rank",
+        "params": sharded,
+        "teacher": sharded,
+        "queue": "replicated" if state.mesh is not None else "per_rank",
         "queue_fill": "replicated",
         "step": "replicated",
-        "opt": "per_rank" if isinstance(state.opt, Zero1Optimizer) else "replicated",
+        "opt": "per_rank" if isinstance(state.opt, Zero1Optimizer) else sharded,
     }
 
 
-def replicated_tensors(state: TrainState) -> dict[str, torch.Tensor]:
-    """Every tensor of the state that the ranks hold equal: the parameters,
-    the teacher, and the AdamW moments unless ZeRO-1 splits them."""
+def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+    """Every tensor of the state by name: ``params.<name>``,
+    ``teacher.<name>``, ``opt.<name>.<moment>`` (the AdamW moments by
+    parameter name; ZeRO-1's flat chunks are ``opt.mu`` / ``opt.nu``) and
+    ``queue``."""
     out = {f"params.{n}": p for n, p in state.model.named_parameters()}
     for n, t in (state.teacher or {}).items():
         out[f"teacher.{n}"] = t
-    if state_partition_specs(state)["opt"] == "replicated":
+    if isinstance(state.opt, Zero1Optimizer):
+        out["opt.mu"], out["opt.nu"] = state.opt.mu, state.opt.nu
+    else:
         for n, p in state.opt.named_params.items():
             for k, v in state.opt.adamw.state.get(p, {}).items():
                 if torch.is_tensor(v) and v.dim():
                     out[f"opt.{n}.{k}"] = v
+    if state.queue is not None:
+        out["queue"] = state.queue
     return out
+
+
+def _split_tensors(state: TrainState):
+    """(replicated, sharded) tensors of the state, by ``state_tensors``'
+    names; the per-rank ones (the data axis's queues, ZeRO-1's chunks) in
+    neither."""
+    specs = state_partition_specs(state)
+    sharding = param_sharding(state.model)
+    rep, shard = {}, {}
+    for k, t in state_tensors(state).items():
+        part = k.split(".", 1)[0]
+        if specs[part] == "per_rank":
+            continue
+        name = k.split(".", 1)[-1]
+        if part == "opt":
+            name = name.rsplit(".", 1)[0]
+        if sharding is not None and part != "queue" and sharding.spec_of(name):
+            shard[k] = t
+        else:
+            rep[k] = t
+    return rep, shard
+
+
+def replicated_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+    """Every tensor of the state that all the ranks hold equal: the
+    parameters, the teacher, and the AdamW moments unless ZeRO-1 splits
+    them; on a 2-D mesh those that are not sharded, and the global queue."""
+    return _split_tensors(state)[0]
+
+
+def sharded_tensors(state: TrainState) -> dict[str, torch.Tensor]:
+    """The tensors of the state that this rank holds a slice of (a 2-D
+    mesh's parameters, teacher leaves and moments): equal across the ranks
+    of its data axis."""
+    return _split_tensors(state)[1]
 
 
 def queue_store_indices(n: int, n_store: int,
@@ -269,10 +346,27 @@ def _check_trunk_is_frozen(split: int, trainable_mask: Mapping[str, bool]) -> No
                              f"{name} lies inside the trunk")
 
 
+def _moe_guard(model: TimeT, cfg: TimeTConfig) -> None:
+    """JAX's build-time guard (timetuning_tpu/core/timet.py:332-348): an
+    auxiliary weight needs a MoE block on the grad path, or the router would
+    get no balancing gradient."""
+    from timetuning_tpu_torch.models.vit import is_moe_block
+
+    vcfg = getattr(model.feature_extractor.backbone, "config", None)
+    moe_blocks = ([i for i in range(vcfg.depth) if is_moe_block(vcfg, i)]
+                  if vcfg is not None and getattr(vcfg, "moe_every_k", 0) else [])
+    lo = cfg.frozen_trunk_blocks or 0
+    if not any(i >= lo for i in moe_blocks):
+        raise ValueError(
+            f"moe_aux_weight={cfg.moe_aux_weight} but no MoE block on the grad "
+            f"path (MoE blocks {moe_blocks}, grad path starts at block {lo}): "
+            "the router would get no balancing gradient")
+
+
 def make_train_step(model: TimeT, cfg: TimeTConfig,
                     opt: SwavOptimizer | Zero1Optimizer,
                     trainable_mask: Mapping[str, bool] | None = None,
-                    opt_over_trainable: bool = False):
+                    opt_over_trainable: bool = False, mesh=None):
     """Build the train step. Returns ``step_fn(state, clip, generator)``.
 
     clip: [B, F, H, W, 3] normalised frames (NHWC), on the model's device:
@@ -283,7 +377,12 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
     trajectory is the full-tree one either way. ``generator`` draws the
     queue's random choice (the rank's own). A ``Zero1Optimizer`` (from
     ``swav_optimizer_zero1``: JAX's ``zero1_plan``) needs
-    ``opt_over_trainable`` and a data axis."""
+    ``opt_over_trainable`` and a data axis. ``mesh``: a 2-D mesh
+    (parallel/tp, parallel/ep; the model already sharded over it), with
+    ``axis_name=None, world_size=1``: clip is then this rank's slice of the
+    global batch on the data axis, the same on every rank of its model or
+    expert group, and the step is the single-device step on the global
+    batch."""
     if opt_over_trainable and trainable_mask is None:
         raise ValueError("opt_over_trainable=True requires trainable_mask")
     zero1 = isinstance(opt, Zero1Optimizer)
@@ -294,14 +393,23 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
     if zero1 and opt.plan.world != cfg.world_size:
         raise ValueError(f"the ZeRO-1 plan splits over {opt.plan.world} ranks, "
                          f"TimeTConfig.world_size is {cfg.world_size}")
-    if cfg.moe_aux_weight:
-        raise NotImplementedError(
-            "TimeTConfig.moe_aux_weight: mixture-of-experts backbones are not "
-            f"ported yet ({MOE_ITEM})")
-    group = data_group(cfg.axis_name)
-    if group is not None and data_world_size(group) != cfg.world_size:
-        raise ValueError(f"TimeTConfig.world_size={cfg.world_size} but the process "
-                         f"group has {data_world_size(group)} ranks")
+    aux_w = cfg.moe_aux_weight
+    if aux_w:
+        _moe_guard(model, cfg)
+    if mesh is not None:
+        if cfg.axis_name is not None or cfg.world_size != 1:
+            raise ValueError("a step on a 2-D mesh is one global program: build "
+                             "TimeTConfig with axis_name=None, world_size=1")
+        if zero1:
+            raise ValueError("ZeRO-1 and a 2-D mesh are mutually exclusive (the "
+                             "moments already shard over the model axis)")
+        # the data axis: the Sinkhorn's and the gradients' reductions
+        group, world = mesh.outer, mesh.n_outer
+    else:
+        group, world = data_group(cfg.axis_name), cfg.world_size
+        if group is not None and data_world_size(group) != cfg.world_size:
+            raise ValueError(f"TimeTConfig.world_size={cfg.world_size} but the "
+                             f"process group has {data_world_size(group)} ranks")
     momentum_schedule = cosine_scheduler(
         cfg.ema_start, cfg.ema_end, cfg.num_epochs, cfg.steps_per_epoch)
     res = cfg.spatial_resolution
@@ -330,9 +438,13 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
         B, N, D = feats.shape
         scores = model.similarity(feats.reshape(B * N, D), code_protos)
         if queue is not None and queue_ready:
+            if mesh is not None:
+                # the global FIFO's rows, split over the data axis: together
+                # the ranks' columns are the single-device step's
+                queue = queue.chunk(world)[mesh.outer_index]
             scores = torch.cat([scores, model.similarity(queue, code_protos)])
         q = sinkhorn_assignment(scores, cfg.epsilon, cfg.sinkhorn_iterations,
-                                group=group, world_size=cfg.world_size)
+                                group=group, world_size=world)
         return q[: B * N].reshape(B, N, -1)
 
     def step_fn(state: TrainState, clip: torch.Tensor,
@@ -369,10 +481,19 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
             # stored and the queue turns ready in the step that fills it
             if cfg.use_queue:
                 store = src_feats.reshape(-1, src_feats.shape[-1])
-                n_store = min(B * 10, cfg.queue_size)
+                n_glob = B
+                if mesh is not None and group is not None:
+                    # the one global FIFO: the global batch's rows
+                    store, n_glob = all_gather_rows(store, group), B * world
+                n_store = min(n_glob * 10, cfg.queue_size)
                 idx = queue_store_indices(store.shape[0], n_store, generator)
+                idx = idx.to(store.device)
+                if mesh is not None:
+                    # and the rows rank (0, 0) chose, on every rank of the
+                    # mesh, whatever generator each was given
+                    mesh.broadcast_from_origin(idx)
                 state.queue = torch.cat(
-                    [store[idx.to(store.device)].float(), state.queue[:-n_store]])
+                    [store[idx].float(), state.queue[:-n_store]])
                 state.queue_fill = min(state.queue_fill + n_store, cfg.queue_size)
             queue_ready = cfg.use_queue and state.queue_fill >= cfg.queue_size
 
@@ -385,7 +506,7 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
             labels = prop[:, -1].argmax(dim=1)                    # [B, N]
 
         # grad path: student with head on the last frame
-        with torch.enable_grad():
+        with torch.enable_grad(), collect_aux() as auxes:
             s_feats, s_attn = model(
                 last, use_head=True, want_attention=cfg.mask_features,
                 start_block=start, attn_impl=grad_impl)
@@ -398,6 +519,11 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
             if cfg.mask_features:
                 ce = ce * mask[:, 0]
             loss = ce.mean()
+            aux = None
+            if aux_w:
+                # the mean over the grad path's MoE blocks (JAX's _aux_mean)
+                aux = torch.stack(auxes).mean()
+                loss = loss + aux_w * aux
             grads = torch.autograd.grad(loss, train_params, allow_unused=True)
 
         with torch.no_grad():
@@ -405,11 +531,12 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
             # decays), as under jax.grad
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(train_params, grads)]
+            scalars = [loss] if aux is None else [loss, aux]
             if zero1:
-                loss = _zero1_update(state.opt, grads, loss, group)
+                scalars = _zero1_update(state.opt, grads, scalars, group)
             else:
                 if group is not None:
-                    grads, loss = _mean_over_group(grads, loss, group)
+                    grads, scalars = _mean_over_group(grads, scalars, group)
                 for p, g in zip(train_params, grads):
                     p.grad = g
                 state.opt.step()
@@ -427,36 +554,45 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
                     t = state.teacher["prototypes"]
                     t.copy_(_l2norm(t))
             state.step += 1
-        return state, {"loss": loss.detach(), "momentum": m}
+        metrics = {"loss": scalars[0].detach(), "momentum": m}
+        if aux is not None:
+            # the UNWEIGHTED balance statistic (1 balanced, n_experts
+            # collapsed); "loss" already holds aux_w times it
+            metrics["moe_aux"] = scalars[1].detach()
+        return state, metrics
 
     return step_fn
 
 
-def _mean_over_group(grads: list[torch.Tensor], loss: torch.Tensor, group):
-    """``pmean`` of the gradients and the loss: one all-reduce of the flat
-    vector [grads..., loss], divided by the group's size."""
+def _scalars(scalars: list[torch.Tensor]) -> list[torch.Tensor]:
+    return [s.detach().float().reshape(1) for s in scalars]
+
+
+def _mean_over_group(grads: list[torch.Tensor], scalars: list[torch.Tensor], group):
+    """``pmean`` of the gradients and the scalars (the loss, the MoE
+    auxiliary): one all-reduce of the flat vector [grads..., scalars...],
+    divided by the group's size."""
     flat = all_reduce_mean(torch.cat([g.reshape(-1).float() for g in grads]
-                                     + [loss.detach().float().reshape(1)]), group)
+                                     + _scalars(scalars)), group)
     out, at = [], 0
     for g in grads:
         out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
         at += g.numel()
-    return out, flat[-1]
+    return out, list(flat[at:])
 
 
 def _zero1_update(opt: Zero1Optimizer, grads: list[torch.Tensor],
-                  loss: torch.Tensor, group) -> torch.Tensor:
+                  scalars: list[torch.Tensor], group) -> list[torch.Tensor]:
     """ZeRO-1 (``timetuning_tpu/core/timet.py:620-665``): the flat gradient
-    summed over the group with the loss (JAX's psum_scatter is this
+    summed over the group with the scalars (JAX's psum_scatter is this
     all-reduce and the rank's slice), divided by the group's size; AdamW on
     the rank's chunk; the full update rebuilt by the all-reduce of the
     zero-scattered chunk updates, added to the flat parameters. Returns the
-    mean loss."""
+    mean scalars."""
     plan = opt.plan
     world = data_world_size(group)
     g = torch.cat([g.reshape(-1).float() for g in grads])
-    flat = torch.cat([g, g.new_zeros(plan.padded - plan.length),
-                      loss.detach().float().reshape(1)])
+    flat = torch.cat([g, g.new_zeros(plan.padded - plan.length)] + _scalars(scalars))
     flat = all_reduce_sum(flat, group)
     g_chunk = opt.chunk_of(flat[:plan.padded]) / world
     p_flat = opt.flat_params()
@@ -464,4 +600,4 @@ def _zero1_update(opt: Zero1Optimizer, grads: list[torch.Tensor],
     u = torch.zeros_like(p_flat)
     opt.chunk_of(u).copy_(u_chunk)
     opt.assign(p_flat + all_reduce_sum(u, group))
-    return flat[-1] / world
+    return list(flat[plan.padded:] / world)

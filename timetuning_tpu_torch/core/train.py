@@ -21,7 +21,20 @@ its ``rank::world`` share of the videos (``batch_size`` clips a rank), the
 step averages over the group (core/timet), rank 0 alone chooses the run
 directory, writes the checkpoint, logs and evaluates, and every rank
 resumes from the same files. ``zero1`` splits the optimizer state over the
-ranks. Tensor parallelism is not ported yet (ROADMAP.md queue 1 item 11c).
+ranks.
+
+Tensor parallelism (``tensor_parallel`` = tp > 1, JAX core/train.py:354-379,
+413-424, 985-996): the ranks form a (data, model) mesh of dp = world / tp
+rows (parallel/tp); the ranks of one model group load the same share of the
+videos (``batch_size x tp`` clips: the global batch is ``batch_size`` a
+process, as JAX's per-host batch) and draw the same augmentation, each
+holds its Megatron slices of the student, the teacher and the AdamW
+moments, and the step is the single-device step on the global batch with
+one global feature FIFO of ``queue_size`` rows (rounded down to a multiple
+of dp). The backbone runs plain attention. The checkpoint holds the whole
+layout (gathered, rank 0 writes; meta ``tensor_parallel``), and rank 0
+evaluates and exports on the gathered parameters. ZeRO-1 is refused with
+it, as in JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from timetuning_tpu_torch.core.timet import (
     TimeTConfig,
     init_state,
     make_train_step,
+    _graft,
     replicated_tensors,
 )
 from timetuning_tpu_torch.data.transforms import (
@@ -123,7 +137,7 @@ class TrainingConfig:
     zero1: bool = False                     # optimizer state split over ranks
     pack_path: str | None = None            # decode-once packed clip cache
     fast_decode: bool = False
-    tensor_parallel: int = 1                # above 1: not ported yet (11c)
+    tensor_parallel: int = 1                # the model axis of a (data, model) mesh
     device: str | None = None               # None: the card, or an error
 
 
@@ -191,15 +205,24 @@ def step_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
 
 
 def make_full_step(model: TimeT, tcfg: TimeTConfig, opt, aug_cfg: AugmentConfig,
-                   trainable_mask=None, opt_over_trainable: bool | None = None):
+                   trainable_mask=None, opt_over_trainable: bool | None = None,
+                   mesh=None):
     """uint8 batch -> augment -> TimeT step on the model's device. Returns
     ``full(state, frames_u8, src_sizes, gray_means, generator)``: the
     augmentation's values are drawn from ``generator`` first, then the step
-    draws the queue's choice from it."""
+    draws the queue's choice from it. ``mesh``: the (data, model) mesh of a
+    TP run (parallel/tp.make_tp_train_step)."""
     if opt_over_trainable is None:
         opt_over_trainable = trainable_mask is not None
-    base_step = make_train_step(model, tcfg, opt, trainable_mask=trainable_mask,
-                                opt_over_trainable=opt_over_trainable)
+    if mesh is not None:
+        from timetuning_tpu_torch.parallel.tp import make_tp_train_step
+
+        base_step, _ = make_tp_train_step(model, tcfg, opt, mesh,
+                                          trainable_mask=trainable_mask,
+                                          opt_over_trainable=opt_over_trainable)
+    else:
+        base_step = make_train_step(model, tcfg, opt, trainable_mask=trainable_mask,
+                                    opt_over_trainable=opt_over_trainable)
 
     def full(state, frames_u8, src_sizes, gray_means, generator):
         B, F = frames_u8.shape[:2]
@@ -283,12 +306,24 @@ def log_training_diagnostics(scores_fn, eval_loader, writer, run_dir: str,
 
 
 def _check_parallel(cfg: TrainingConfig, world: int) -> None:
-    if cfg.tensor_parallel < 1:
-        raise ValueError(f"tensor_parallel must be >= 1, got {cfg.tensor_parallel}")
-    if cfg.tensor_parallel > 1:
-        raise NotImplementedError(
-            "TrainingConfig.tensor_parallel > 1: tensor parallelism is not "
-            f"ported yet ({mesh.TP_SP_PP_ITEM})")
+    tp = cfg.tensor_parallel
+    if tp < 1:
+        raise ValueError(f"tensor_parallel must be >= 1, got {tp}")
+    if tp > 1:
+        if world % tp:
+            raise ValueError(f"tensor_parallel={tp} must divide the {world} devices")
+        dp = world // tp
+        # batch_size is a process's (JAX's per-host batch): the global batch
+        # batch_size x processes splits over the data axis
+        if (cfg.batch_size * world) % dp:
+            raise ValueError(
+                f"global batch {cfg.batch_size} x {world} process(es) must divide "
+                f"over the data axis (dp={dp} at tensor_parallel={tp})")
+        if cfg.zero1:
+            raise ValueError(
+                "zero1 and tensor_parallel are mutually exclusive (ZeRO-1 shards "
+                "the flat optimizer vector over the data axis; under TP the "
+                "moments already shard over the model axis)")
     if cfg.num_devices is not None and cfg.num_devices != world:
         # one process a device: a silent mismatch would desynchronise
         # world_size from the group (wrong Sinkhorn marginals, queue shapes)
@@ -328,8 +363,11 @@ class _NoWriter:
 def run_training(cfg: TrainingConfig) -> dict[str, Any]:
     world = mesh.data_world_size()
     rank = mesh.data_rank()
+    # every rank: the run dir, the barriers, the checkpoint's writer
     group = mesh.data_group(mesh.DATA_AXIS) if world > 1 else None
     _check_parallel(cfg, world)
+    tp = cfg.tensor_parallel
+    dp = world // tp
     device = resolve_device(cfg.device)
     from timetuning_tpu_torch.data.datasets import SamplingMode
     from timetuning_tpu_torch.data.loader import (
@@ -356,6 +394,23 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
         writer, logger = _NoWriter(), logging.getLogger(f"train.rank{rank}")
 
     model, pretrained, spatial_res = build_model(cfg, device)
+    tp_mesh = None
+    data_index = rank
+    if tp > 1:
+        from timetuning_tpu_torch.parallel import tp as tpm
+
+        bcfg = getattr(model.feature_extractor.backbone, "config", None)
+        if bcfg is not None:
+            tpm.validate_tp_geometry(bcfg, tp)
+        tpm.force_xla_attention(model)
+        if pretrained is not None:
+            _graft(model, pretrained)
+            pretrained = None
+        # the whole weights start as rank 0's; then each rank keeps its slices
+        mesh.broadcast_tensors([p for _, p in model.named_parameters()], group)
+        tp_mesh = tpm.make_dp_tp_mesh(dp, tp)
+        tpm.shard_params(tp_mesh, model)
+        data_index = tp_mesh.outer_index
 
     if cfg.pack_path:
         if rank == 0 and not (os.path.exists(cfg.pack_path)
@@ -377,14 +432,15 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
             # collective
             _barrier(device, group)
     loader = make_loader(
-        cfg.dataset, num_clip_frames=cfg.num_frames, batch_size=cfg.batch_size,
+        cfg.dataset, num_clip_frames=cfg.num_frames, batch_size=cfg.batch_size * tp,
         regular_step=cfg.regular_step, sampling_mode=SamplingMode.UNIFORM,
         shuffle=True, num_workers=cfg.num_workers, root=cfg.data_root,
         decode_size=cfg.decode_size, pack_path=cfg.pack_path,
         fast_decode=cfg.fast_decode, seed=cfg.seed,
         # equal per-rank counts: another count would leave one rank in a
-        # collective that the others never join
-        world_size=world, rank=rank,
+        # collective that the others never join; the ranks of a model group
+        # load the same share
+        world_size=dp, rank=data_index,
         # the SSL loss never reads annotations
         load_annotations=False,
     )
@@ -404,10 +460,12 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
         size_mask_neighborhood=cfg.size_mask_neighborhood, topk=cfg.topk,
         use_teacher=cfg.use_teacher, use_queue=cfg.use_queue,
         # the reference's per-rank queue of queue_size / world rows
-        # (time_tuning.py:617-618)
-        queue_size=cfg.queue_size // world, mask_features=cfg.use_mask,
-        axis_name=mesh.DATA_AXIS if group is not None else None,
-        world_size=world,
+        # (time_tuning.py:617-618); under TP one global FIFO, its rows a
+        # multiple of dp
+        queue_size=(cfg.queue_size // dp) * dp if tp > 1 else cfg.queue_size // world,
+        mask_features=cfg.use_mask,
+        axis_name=mesh.DATA_AXIS if group is not None and tp == 1 else None,
+        world_size=1 if tp > 1 else world,
         ema_start=cfg.ema_decay, num_epochs=cfg.num_epochs,
         steps_per_epoch=steps_per_epoch, spatial_resolution=spatial_res,
         frozen_trunk_blocks=frozen_trunk_split(cfg.unfreeze_layers,
@@ -438,10 +496,13 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
     opt_layout = "zero1" if zero1 else (
         "trainable-subtree" if cfg.opt_over_trainable else "full-tree")
     state = init_state(model, tcfg, opt, pretrained_params=pretrained,
-                       trainable_mask=trainable_mask if cfg.opt_over_trainable else None)
+                       trainable_mask=trainable_mask if cfg.opt_over_trainable else None,
+                       mesh=tp_mesh)
     if group is not None:
         # the replicated state starts as rank 0's on every rank
         mesh.broadcast_tensors(replicated_tensors(state).values(), group)
+    # the queue's partition: the ranks' FIFOs, or one global FIFO under TP
+    q_world, q_rank = (1, 0) if tp > 1 else (world, rank)
     start_epoch = 0
     resume_skip = 0
     best_score = -1.0
@@ -469,32 +530,37 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
             # refills (JAX core/train.py:775-800)
             rows = tcfg.queue_size
             repartitioned = (meta.get("queue_rows_per_device", rows) != rows
-                             or meta.get("world_size", world) != world)
-            if state.queue.shape[0] != rows * world or repartitioned:
+                             or meta.get("world_size", q_world) != q_world)
+            if state.queue.shape[0] != rows * q_world or repartitioned:
                 logger.warning(
                     "feature queue reset on restore: checkpoint has %s, this run "
                     "needs %d rank(s) x %d rows; it refills during training",
                     f"{meta.get('world_size')} rank(s) x "
                     f"{meta.get('queue_rows_per_device')} rows" if meta
-                    else f"{state.queue.shape[0]} rows", world, rows)
+                    else f"{state.queue.shape[0]} rows", q_world, rows)
                 state.queue = torch.zeros(rows, state.queue.shape[1], device=device)
                 state.queue_fill = 0
             else:
-                state.queue = state.queue[rank * rows:(rank + 1) * rows].clone()
+                state.queue = state.queue[q_rank * rows:(q_rank + 1) * rows].clone()
 
     aug_cfg = AugmentConfig(out_size=cfg.input_resolution)
     step_fn = make_full_step(model, tcfg, opt, aug_cfg, trainable_mask=trainable_mask,
-                             opt_over_trainable=cfg.opt_over_trainable)
+                             opt_over_trainable=cfg.opt_over_trainable, mesh=tp_mesh)
 
     evaluator_factory = None
     eval_res = default_eval_resolution(cfg)
+    # under TP rank 0 evaluates and exports a whole model that takes the
+    # gathered parameters before each eval
+    eval_model = model
     if cfg.pascal_root and rank == 0:
         from timetuning_tpu_torch.data.pascal import pascal_loader
         from timetuning_tpu_torch.eval.evaluator import Evaluator
 
         eval_loader = pascal_loader(60, cfg.pascal_root, "val", eval_res,
                                     cfg.input_resolution)
-        feature_fn = make_eval_feature_fn(model, cfg.input_resolution)
+        if tp > 1:
+            eval_model = build_model(cfg, device)[0]
+        feature_fn = make_eval_feature_fn(eval_model, cfg.input_resolution)
 
         def evaluator_factory():
             return Evaluator(
@@ -532,8 +598,8 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
     mem_reported = False
     diag_scores_fn = None
     ckpt_meta = {
-        "world_size": world, "queue_rows_per_device": tcfg.queue_size,
-        "tensor_parallel": 1, "opt_layout": opt_layout,
+        "world_size": q_world, "queue_rows_per_device": tcfg.queue_size,
+        "tensor_parallel": tp, "opt_layout": opt_layout,
         "best_score": best_score, "steps_per_epoch": steps_per_epoch,
     }
 
@@ -560,8 +626,16 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
         loader.set_epoch(epoch)
         # a resumed mid-epoch checkpoint skips this epoch's eval: the
         # uninterrupted run already scored it before the interruption
-        do_eval = (evaluator_factory is not None and epoch % cfg.eval_every == 0
-                   and not (epoch == start_epoch and resume_skip > 0))
+        eval_epoch = (cfg.pascal_root and epoch % cfg.eval_every == 0
+                      and not (epoch == start_epoch and resume_skip > 0))
+        do_eval = evaluator_factory is not None and eval_epoch
+        if eval_epoch and tp > 1:
+            # a collective over the model axis, on every rank
+            from timetuning_tpu_torch.parallel.tp import gather_global_params
+
+            full = gather_global_params(model)
+            if do_eval:
+                eval_model.load_state_dict(full)
         if do_eval:
             score = evaluator_factory().evaluate(
                 many_to_one=cfg.many_to_one,
@@ -573,13 +647,14 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
             last_eval = score
             if cfg.log_histograms:
                 if diag_scores_fn is None:
-                    diag_scores_fn = make_diagnostics_scores_fn(model, cfg.input_resolution)
+                    diag_scores_fn = make_diagnostics_scores_fn(eval_model,
+                                                                cfg.input_resolution)
                 log_training_diagnostics(diag_scores_fn, eval_loader, writer,
                                          run_dir, epoch, cfg, spatial_res)
             if score > best_score:
                 best_score = score
                 ckpt_meta["best_score"] = best_score
-                export_best(model, run_dir, score, epoch)
+                export_best(eval_model, run_dir, score, epoch)
 
         t0 = time.time()
         skip = resume_skip if epoch == start_epoch else 0
@@ -594,7 +669,7 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
             if cfg.max_steps_per_epoch and bi + skip >= cfg.max_steps_per_epoch:
                 break
             state, metrics = step_fn(state, frames, sizes, gmeans,
-                                     step_generator(cfg.seed, global_step, rank))
+                                     step_generator(cfg.seed, global_step, data_index))
             global_step += 1
             if not mem_reported:
                 mem_reported = True

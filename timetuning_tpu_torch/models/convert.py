@@ -8,7 +8,9 @@ Flax ``LinearProbeHead``. ``timet_state_dict_from_jax`` carries a whole
 ``TimeT`` tree (backbone, projection head, prototypes) into the port's
 ``TimeT`` module, and ``timet_params_to_jax`` takes a state dict of that
 module back to numpy arrays in the JAX tree's layout, so two trees can be
-compared leaf by leaf.
+compared leaf by leaf. Both directions carry MoE blocks: the router's flax
+``kernel`` [D, E] is the port's ``router.weight`` [E, D], the stacked expert
+leaves are carried as they are.
 
 The zoo's other families go through ``flax_state_dict``, one Flax variables
 tree (``params`` and ``batch_stats``) to the port module's state dict by
@@ -30,11 +32,35 @@ import torch
 from timetuning_tpu_torch.models.export_torch import vit_params_to_torch
 
 
+def _moe_state_dict(prefix: str, moe: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """A Flax ``MoEMlp`` tree -> the port's names: the router's kernel
+    [D, E] -> ``router.weight`` [E, D]; the stacked ``w1``, ``b1``, ``w2``,
+    ``b2`` as they are."""
+    sd = {prefix + "router.weight": np.asarray(moe["router"]["kernel"]).T}
+    for leaf in ("w1", "b1", "w2", "b2"):
+        sd[prefix + leaf] = np.asarray(moe[leaf])
+    return sd
+
+
 def vit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    return {
-        k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
-        for k, v in vit_params_to_torch(params).items()
-    }
+    """A Flax ``VisionTransformer`` tree -> the port's state dict, MoE blocks
+    (``blocks_i.moe``) included."""
+    params = dict(params)
+    moe = {}
+    for k in [k for k in params if k.startswith("blocks_") and "moe" in params[k]]:
+        blk = dict(params[k])
+        moe.update(_moe_state_dict(f"blocks.{k.split('_')[1]}.moe.", blk.pop("moe")))
+        # the exporter reads a dense MLP from every block: a stand-in that
+        # is dropped again
+        blk["mlp"] = {f: {"kernel": np.zeros((0, 0)), "bias": np.zeros(0)}
+                      for f in ("fc1", "fc2")}
+        params[k] = blk
+    sd = {k: v for k, v in vit_params_to_torch(params).items()
+          if not any(k.startswith(f"blocks.{b}.mlp.") for b in
+                     {n.split(".")[1] for n in moe})}
+    sd.update(moe)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
+            for k, v in sd.items()}
 
 
 def linear_probe_head_state_dict_from_jax(

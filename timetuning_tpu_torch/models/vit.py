@@ -25,6 +25,16 @@ an ``auto`` model passes ``attn_impl="xla"`` per call by default
 ``ViTConfig.remat`` each block is recomputed in the backward
 (``torch.utils.checkpoint``), as the JAX ``nn.remat(Block)``. Parameters
 stay f32 and are cast to the compute dtype where they are used.
+
+Mixture of experts (``ViTConfig.moe_every_k`` / ``n_experts``, JAX
+vit.py:45-58, 202-257): every k-th block's MLP is a Switch top-1
+``parallel/ep.MoEMlp`` with one routing group a sample; its attention branch
+is routed as any block's (kernel 1 in bf16), its MLP branch is plain ops
+(JAX computes it in XLA, outside any kernel). Tensor parallelism
+(parallel/tp): a block whose ``tp_group`` is set holds its heads' columns of
+qkv, its hidden slice of fc1 and the matching rows of proj and fc2, and runs
+the plain composition with one all-reduce at the end of each residual
+branch (JAX's ``force_xla_attention``).
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ from timetuning_tpu_torch.ops.fused_block import (
     mlp_block_branch,
     mlp_rows,
 )
+from timetuning_tpu_torch.parallel.ep import MoEMlp
+from timetuning_tpu_torch.parallel.mesh import copy_to_group, gather_along, reduce_from_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +70,16 @@ class ViTConfig:
     dtype: torch.dtype = torch.float32   # compute dtype; params stay f32
     attn_impl: str = "auto"              # auto | xla | pallas | fused
     remat: bool = False                  # recompute blocks in the backward
+    # every k-th block's MLP a Switch MoE of n_experts expert FFNs (blocks
+    # k-1, 2k-1, ...); 0/0 = dense everywhere (the reference architecture)
+    moe_every_k: int = 0
+    n_experts: int = 0
+    moe_capacity_factor: float = 1.25
+
+
+def is_moe_block(cfg: ViTConfig, i: int) -> bool:
+    return (cfg.moe_every_k > 0 and cfg.n_experts > 1
+            and i % cfg.moe_every_k == cfg.moe_every_k - 1)
 
 
 def vit_tiny(patch_size: int = 16, **kw) -> ViTConfig:
@@ -109,6 +131,15 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(3, dim, patch_size, patch_size)
 
 
+def _row_linear(x, lin: nn.Linear, group):
+    """``lin`` over a row-parallel slice of its input: the ranks' partial
+    products summed over ``group`` and the (replicated) bias added once,
+    after the sum; ``_linear`` without a group."""
+    if group is None:
+        return _linear(x, lin)
+    return reduce_from_group(F.linear(x, lin.weight.to(x.dtype)), group) + lin.bias.to(x.dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
@@ -116,14 +147,22 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, return_probs: bool = False, impl: str = "auto"):
+    def forward(self, x, return_probs: bool = False, impl: str = "auto", group=None):
+        """``group``: the model axis of parallel/tp, whose ranks each hold
+        their heads' q, k and v rows of ``qkv`` and the matching input
+        columns of ``proj``; the probabilities, when asked for, are then
+        every head's (gathered)."""
         B, S, D = x.shape
         Dh = D // self.num_heads
-        qkv = _linear(x, self.qkv).reshape(B, S, 3, self.num_heads, Dh)
+        qkv = _linear(copy_to_group(x, group), self.qkv)
+        heads = qkv.shape[-1] // (3 * Dh)
+        qkv = qkv.reshape(B, S, 3, heads, Dh)
         q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
         out, probs = attention(q, k, v, return_probs=return_probs, impl=impl)
-        out = out.permute(0, 2, 1, 3).reshape(B, S, D)
-        return _linear(out, self.proj), probs
+        out = out.permute(0, 2, 1, 3).reshape(B, S, heads * Dh)
+        if probs is not None:
+            probs = gather_along(probs, 1, group)
+        return _row_linear(out, self.proj, group), probs
 
 
 class Mlp(nn.Module):
@@ -132,14 +171,18 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x):
-        return _linear(F.gelu(_linear(x, self.fc1), approximate="none"), self.fc2)
+    def forward(self, x, group=None):
+        """``group``: the model axis of parallel/tp (a rank's slice of the
+        hidden: fc1's rows, fc2's input columns)."""
+        h = F.gelu(_linear(copy_to_group(x, group), self.fc1), approximate="none")
+        return _row_linear(h, self.fc2, group)
 
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", moe: bool = False, n_experts: int = 0,
+                 moe_capacity: float = 1.25):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -147,15 +190,33 @@ class Block(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        hidden = int(dim * mlp_ratio)
+        if moe:
+            # one routing group a sample: the dispatch stays linear in the
+            # batch (one global group is quadratic in tokens, see MoEMlp)
+            self.moe = MoEMlp(dim, n_experts, hidden, moe_capacity, group_size=-1)
+        else:
+            self.mlp = Mlp(dim, hidden)
+        self.tp_group = None        # parallel/tp: the model axis's group
+
+    def _mlp_branch(self, x):
+        """LN2 + the MoE MLP + residual, in plain ops (JAX's
+        ``Block._mlp_branch``)."""
+        return x + self.moe(_ln(x, self.norm2.weight, self.norm2.bias))
 
     def forward(self, x, return_probs: bool = False,
                 attn_impl: str | None = None):
-        """``attn_impl`` overrides the block's own for this call."""
-        impl = self.attn_impl if attn_impl is None else attn_impl
+        """``attn_impl`` overrides the block's own for this call. A block
+        split over a model axis (``tp_group``, parallel/tp) runs the plain
+        composition with the plain attention core, as under JAX's
+        ``force_xla_attention``: the block kernels take whole weights."""
+        g = self.tp_group
+        impl = "xla" if g is not None else (
+            self.attn_impl if attn_impl is None else attn_impl)
+        moe = hasattr(self, "moe")
         if (impl in ("auto", "fused") and not return_probs
                 and (self.dtype == torch.bfloat16 or impl == "fused")):
-            a, m, dt = self.attn, self.mlp, self.dtype
+            a, dt = self.attn, self.dtype
             long = x.shape[1] > WHOLE_SEQUENCE_TOKENS
             attn_branch = attention_block_branch_flash if long else attention_block_branch
             mlp_branch = mlp_rows if long else mlp_block_branch
@@ -163,14 +224,19 @@ class Block(nn.Module):
                 x.to(dt), self.norm1.weight, self.norm1.bias,
                 a.qkv.weight.t().to(dt), a.qkv.bias, a.proj.weight.t().to(dt),
                 a.proj.bias, self.num_heads)
+            if moe:
+                return self._mlp_branch(x), None
+            m = self.mlp
             x = mlp_branch(
                 x, self.norm2.weight, self.norm2.bias, m.fc1.weight.t().to(dt),
                 m.fc1.bias, m.fc2.weight.t().to(dt), m.fc2.bias)
             return x, None
         y, probs = self.attn(_ln(x, self.norm1.weight, self.norm1.bias),
-                             return_probs=return_probs, impl=impl)
+                             return_probs=return_probs, impl=impl, group=g)
         x = x + y
-        return x + self.mlp(_ln(x, self.norm2.weight, self.norm2.bias)), probs
+        if moe:
+            return self._mlp_branch(x), probs
+        return x + self.mlp(_ln(x, self.norm2.weight, self.norm2.bias), group=g), probs
 
 
 class VisionTransformer(nn.Module):
@@ -202,14 +268,16 @@ class VisionTransformer(nn.Module):
             torch.zeros(1, 1 + (c.img_size // c.patch_size) ** 2, c.embed_dim))
         self.blocks = nn.ModuleList(
             Block(c.embed_dim, c.num_heads, c.mlp_ratio, c.qkv_bias, c.dtype,
-                  c.attn_impl)
-            for _ in range(c.depth))
+                  c.attn_impl, moe=is_moe_block(c, i), n_experts=c.n_experts,
+                  moe_capacity=c.moe_capacity_factor)
+            for i in range(c.depth))
         self.norm = nn.LayerNorm(c.embed_dim, eps=1e-6)
 
     def init_weights(self, generator: torch.Generator) -> "VisionTransformer":
         """Seeded random init: truncated normal (std 0.02) for the CLS token
         and positional embedding, LeCun normal for projection and patch
-        kernels, zero biases, unit LayerNorm scales."""
+        kernels and the experts' stacked FFNs, zero biases, unit LayerNorm
+        scales."""
         with torch.no_grad():
             nn.init.trunc_normal_(self.cls_token, std=0.02, generator=generator)
             nn.init.trunc_normal_(self.pos_embed, std=0.02, generator=generator)
@@ -225,6 +293,8 @@ class VisionTransformer(nn.Module):
                 elif isinstance(mod, nn.LayerNorm):
                     nn.init.ones_(mod.weight)
                     nn.init.zeros_(mod.bias)
+                elif isinstance(mod, MoEMlp):
+                    mod.init_experts(generator)
         return self
 
     def forward(self, x: torch.Tensor, want_attention: bool = False,

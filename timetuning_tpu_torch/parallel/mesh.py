@@ -1,4 +1,4 @@
-"""The data axis: one process per device over ``torch.distributed``.
+"""The data axis, and the 2-D meshes, over ``torch.distributed``.
 
 Counterpart of ``timetuning_tpu/parallel/mesh.py``. The JAX package runs one
 process with a ``Mesh(('data',))`` over its devices and shard_maps the step
@@ -17,19 +17,34 @@ and NCCL both take these on CUDA and CPU tensors, where gloo's
 reduce-scatter is an all-reduce and a slice, an all-gather the all-reduce
 of a zero-scattered buffer (JAX's own ZeRO-1 rebuild,
 ``timetuning_tpu/core/timet.py:640-659``).
+
+The 2-D meshes of tensor and expert parallelism (``make_2d_mesh``: the
+``(data, model)`` and ``(data, expert)`` meshes of parallel/tp and
+parallel/ep) are process groups: the inner axis a group of consecutive
+ranks, the outer axis a group of the ranks at one inner index. JAX jits one
+GSPMD program over such a mesh and lets the partitioner place the
+collectives; here the modules place them by hand, with the conjugate pair
+``copy_to_group`` (identity forward, all-reduce backward) and
+``reduce_from_group`` (all-reduce forward, identity backward), and a
+parameter that a rank holds a slice of is described by a ``ShardSpec``
+(``ParamSharding`` gathers and slices whole state dicts).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
+from typing import Mapping, NamedTuple
 
 import torch
 
 DATA_AXIS = "data"
 
-# the slice that ports the (data, model) and (data, seq) meshes
-TP_SP_PP_ITEM = "ROADMAP.md queue 1 item 11c, 'tp, sp and pp'"
+# the slice that ports the (data, seq) and pipeline meshes and the
+# multi-device export artifacts
+SP_PP_EXPORT_ITEM = ("ROADMAP.md queue 1 item 11c, 'sp, pp and the multi-device "
+                     "cli/export artifacts'")
 
 
 def _dist():
@@ -147,9 +162,213 @@ def shard_batch(batch, device, group=None):
     return one(batch)
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A 2-D mesh of ranks: ``shape`` maps the two axis names to their sizes
+    (JAX's ``Mesh.shape``); ``outer`` and ``inner`` are this rank's process
+    groups along each axis (None where the axis has size 1: no collective),
+    ``coords`` its (outer, inner) indices, None for a rank off the mesh;
+    ``grid[o][i]`` is the global rank at (o, i)."""
+
+    axis_names: tuple
+    shape: dict
+    outer: object
+    inner: object
+    coords: tuple | None
+    grid: tuple
+
+    @property
+    def n_outer(self) -> int:
+        return self.shape[self.axis_names[0]]
+
+    @property
+    def n_inner(self) -> int:
+        return self.shape[self.axis_names[1]]
+
+    @property
+    def outer_index(self) -> int:
+        return self.coords[0]
+
+    @property
+    def inner_index(self) -> int:
+        return self.coords[1]
+
+    def broadcast_from_origin(self, t: torch.Tensor) -> None:
+        """Overwrite ``t`` in place with its value at mesh coordinates
+        (0, 0): a broadcast along the inner axis from inner index 0, then
+        along the outer axis from outer index 0 (every rank of the mesh
+        calls it)."""
+        o, i = self.coords
+        if self.inner is not None:
+            _dist().broadcast(t, src=self.grid[o][0], group=self.inner)
+        if self.outer is not None:
+            _dist().broadcast(t, src=self.grid[0][i], group=self.outer)
+
+
 def make_2d_mesh(n_outer: int, n_inner: int, axis_names: tuple[str, str],
-                 devices=None):
-    """The (data, model) and (data, seq) meshes: not ported yet."""
-    raise NotImplementedError(
-        f"make_2d_mesh{axis_names}: the 2-D meshes of tensor, sequence and "
-        f"pipeline parallelism are not ported yet ({TP_SP_PP_ITEM})")
+                 devices=None) -> Mesh2D:
+    """The 2-D mesh behind the (data, model) and (data, expert) meshes, with
+    the INNER axis over consecutive ranks (JAX's grid puts it innermost).
+    ``devices``: the global ranks to lay out (default all); the first
+    ``n_outer * n_inner`` of them form the grid, and a rank past them gets
+    ``coords=None``. Every rank of the default group must call it, in the
+    same order (``torch.distributed.new_group``). Raises where JAX raises:
+    more ranks asked for than there are."""
+    world = data_world_size() if is_initialized() else 1
+    ranks = list(range(world)) if devices is None else [int(r) for r in devices]
+    if n_outer * n_inner > len(ranks):
+        raise ValueError(
+            f"{axis_names[0]}*{axis_names[1]}={n_outer * n_inner} exceeds "
+            f"{len(ranks)} devices")
+    grid = [ranks[o * n_inner:(o + 1) * n_inner] for o in range(n_outer)]
+    me = data_rank() if is_initialized() else 0
+    outer = inner = coords = None
+    for o, row in enumerate(grid):
+        g = _dist().new_group(row) if n_inner > 1 else None
+        if me in row:
+            inner, coords = g, (o, row.index(me))
+    for i in range(n_inner):
+        col = [row[i] for row in grid]
+        g = _dist().new_group(col) if n_outer > 1 else None
+        if me in col:
+            outer = g
+    return Mesh2D(tuple(axis_names), {axis_names[0]: n_outer, axis_names[1]: n_inner},
+                  outer, inner, coords, tuple(tuple(row) for row in grid))
+
+
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The all-reduce of the conjugate pair, in f32 whatever ``x``'s dtype
+    (the result is the same bits on every rank)."""
+    return all_reduce_sum(x.float(), group).to(x.dtype)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Where a replicated activation enters a computation that each rank of
+    ``group`` does a part of: identity forward, all-reduce of the gradient
+    backward (Megatron's f). A no-op without a group."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial results: all-reduce forward, identity
+    backward (Megatron's g). A no-op without a group."""
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' slices of ``dim`` side by side in the group's rank order:
+    the all-reduce of a zero-scattered buffer, differentiable (the backward
+    hands each rank the gradient of its own slice). A no-op without a
+    group."""
+    if group is None:
+        return x
+    parts = [torch.zeros_like(x) for _ in range(data_world_size(group))]
+    parts[data_rank(group)] = x
+    return reduce_from_group(torch.cat(parts, dim), group)
+
+
+class ShardSpec(NamedTuple):
+    """How a rank's slice of a parameter lies in the whole: the whole's
+    ``dim`` holds ``parts`` equal blocks (3 for a fused q, k, v projection),
+    and each block splits into equal contiguous slices, one a rank."""
+
+    dim: int
+    parts: int = 1
+
+
+def local_slice(full: torch.Tensor, spec: ShardSpec, index: int, size: int) -> torch.Tensor:
+    """Rank ``index``'s slice of the whole tensor ``full``."""
+    blocks = full.chunk(spec.parts, spec.dim)
+    return torch.cat([b.chunk(size, spec.dim)[index] for b in blocks], spec.dim)
+
+
+def gather_slices(local: torch.Tensor, spec: ShardSpec, group, index: int,
+                  size: int) -> torch.Tensor:
+    """The whole tensor from every rank's slice (a collective over
+    ``group``; without one the slice is the whole)."""
+    if group is None:
+        return local
+    shape = list(local.shape)
+    shape[spec.dim] *= size
+    full = local.new_zeros(shape)
+    n = local.shape[spec.dim] // spec.parts
+    for p, piece in enumerate(local.chunk(spec.parts, spec.dim)):
+        full.narrow(spec.dim, (p * size + index) * n, n).copy_(piece)
+    return all_reduce_sum(full, group)
+
+
+@dataclasses.dataclass
+class ParamSharding:
+    """The parameters of a module that this rank holds a slice of: ``specs``
+    maps their names (as ``named_parameters()`` gives them, or any suffix
+    of the form ``prefix.name``) to a ``ShardSpec``; the slices are over
+    ``group`` (the mesh's inner axis), this rank's at ``index`` of
+    ``size``."""
+
+    specs: dict
+    group: object
+    index: int
+    size: int
+
+    def spec_of(self, name: str) -> ShardSpec | None:
+        for n, spec in self.specs.items():
+            if name == n or name.endswith("." + n):
+                return spec
+        return None
+
+    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        spec = self.spec_of(name)
+        return full if spec is None else local_slice(full, spec, self.index, self.size)
+
+    def gather(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        spec = self.spec_of(name)
+        return local if spec is None else gather_slices(
+            local, spec, self.group, self.index, self.size)
+
+    def local_state_dict(self, full: Mapping[str, torch.Tensor]) -> dict:
+        return {k: self.local(k, v) for k, v in full.items()}
+
+    def gather_state_dict(self, local: Mapping[str, torch.Tensor]) -> dict:
+        """A collective: every rank of ``group`` calls it, in the same order."""
+        return {k: self.gather(k, v) for k, v in local.items()}
+
+
+def shard_module(module: torch.nn.Module, specs: Mapping[str, ShardSpec],
+                 mesh: Mesh2D) -> ParamSharding:
+    """Replace each parameter of ``module`` named in ``specs`` by this rank's
+    slice along the mesh's inner axis (the same ``Parameter`` objects, new
+    data) and record the sharding as ``module.param_sharding``. Build the
+    optimizer after this."""
+    sharding = ParamSharding(dict(specs), mesh.inner, mesh.inner_index, mesh.n_inner)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name in specs:
+                p.data = sharding.local(name, p.data).clone()
+    module.param_sharding = sharding
+    return sharding
+
+
+def param_sharding(module: torch.nn.Module) -> ParamSharding | None:
+    """The sharding ``shard_module`` recorded on ``module``, or None."""
+    return getattr(module, "param_sharding", None)
