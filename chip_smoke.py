@@ -21,9 +21,11 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    9,850 rows; the bf16 hidden of kernels 2 and 9 against the plain hidden,
    and their two launches (fc1 + GELU, fc2) timed apart;
    the flash kernel in bf16 and f32 at [4 x 6 heads, 3,137
-   tokens, 64], at queries != keys with a key mask, and in bf16 at the eval
-   group's own 50 frames; the row kernels (ln_dense, dense_residual,
-   mlp_rows) at 50 frames x 3,137 tokens; the propagation kernel (kernel 3)
+   tokens, 64], at queries != keys with a key mask, in bf16 at the eval
+   group's own 50 frames and at the sp phase's 1,569 local queries against
+   3,138 gathered keys (kv_len 3,137); the row kernels (ln_dense,
+   dense_residual, mlp_rows) at 50 frames x 3,137 tokens and at the sp
+   phase's 4 x 1,569 rows; the propagation kernel (kernel 3)
    in bf16 and f32 at 196 and at 56x56 patches, with the rows it sent to
    its exact dense pass and its scratch bytes; kernel 10 (whole-sequence attention) in bf16 and f32 at the
    train step's [128, 6, 197, 64] and at 256, 257 (both sides of its
@@ -136,7 +138,23 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    fc1, proj, fc2 a rank, plain attention), the same gates; a TP state's
    checkpoint loaded into one process against the gathered parameters;
    ``cli/train --multihost true --tensor_parallel 2`` for an epoch and a
-   resumed one, then one process resuming its checkpoint.
+   resumed one, then one process resuming its checkpoint;
+23. ``sp`` and ``pp``: 2 gloo ranks sharing the card: ``dino-s8`` at 448,
+   batch 4, on a dp 1 x sp 2 mesh (1,569 rows a slab: K7, K5/6 with local
+   queries against the gathered keys, K8, K9, 12 each a rank) and
+   ``dino-s16`` at 224, batch 64, on a dp 1 x pp 2 mesh at ``n_micro`` 2
+   (auto) and 4 (K1, K2 6 a tick a stage), each in bf16 and f32 against the
+   one-process forward (bf16 per-token cosine >= 0.999, f32 max |diff| <=
+   1e-4 with TF32 off): ms a forward, the all-reduces of one by size, the
+   parameter bytes a pipe rank holds;
+24. ``export mesh``: the five multi-device ``cli/export`` programs (tp 2,
+   ep 2 on the upcycled MoE, sp 2 at dino-s8 448 batch 4, pp 2, dp 2 at
+   dino-s16 224 batch 64), each exported by 2 ranks (one program a rank
+   and a manifest) and loaded by 2 fresh ranks: the round trip against the
+   live mesh forward (<= 1e-3), the features against the one-device
+   program's (bf16 per-token cosine >= 0.999), export s, MB a rank beside
+   the one-device program's (tp and pp under it), frames/s of the program
+   and of the live mesh forward, one call's launches a rank.
 
 After phase 3 the kernels' backward (K1, K2 at 50 x 197; K7, K8, K9, K5/6
 at 4 x 3,137) against autograd through the plain versions, and after
@@ -155,7 +173,7 @@ library times are device times: the timed launches are queued behind a
 device-side sleep, so a slow host does not show in them.
 
 Launch counts are set to 0 just before each main-path run (phases 5 to 10,
-12 to 18 and 20, and in each rank of phases 19, 21 and 22)
+12 to 18 and 20, and in each rank of phases 19 and 21 to 24)
 and read just after; each run must launch the kernels of its path, and the
 sums over all runs are the ``launches`` of the kernels line. The last lines
 are a JSON object of per-kernel results, the card's ``nvidia-smi`` name and
@@ -642,29 +660,38 @@ def check_flash_kernels(dev, results: dict) -> None:
     q, k, v = (qkv50[:, :, i].permute(0, 2, 1, 3) for i in range(3))
     check_flash(f"flash_attention/bf16/{B}", q, k, v, None, 4e-3, 1e-2, bf16,
                 f"bf16 [{B}x6, {T8}, 64] strided views, plain in chunks of 5 ", chunk=5)
+    # the sp phase's launch: a slab's local queries (views of its qkv rows)
+    # against the keys and values gathered over 2 ranks (views of the
+    # gathered [4, 3,138, 2, 6, 64] buffer), the padded key masked
+    rng = np.random.default_rng(1569)
+    Sl = -(-T8 // MESH_WORLD)
+    slab = torch.from_numpy(rng.standard_normal((SP_BATCH, Sl, 3, 6, 64), dtype=np.float32)
+                            ).to(dev, torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal((SP_BATCH, Sl * MESH_WORLD, 2, 6, 64),
+                                              dtype=np.float32)).to(dev, torch.bfloat16)
+    q = slab[:, :, 0].permute(0, 2, 1, 3)
+    k, v = (kv[:, :, i].permute(0, 2, 1, 3) for i in range(2))
+    check_flash("flash_attention/sp", q, k, v, T8, 4e-3, 1e-2, bf16,
+                f"bf16 [{SP_BATCH}x6] Sq={Sl} Sk={Sl * MESH_WORLD} kv_len={T8} strided views ")
 
 
-def check_long_token_kernels(dev, results: dict) -> None:
-    """The row kernels and the propagation kernel of the ViT-S/8 at 448
-    path, at its shapes."""
+def check_row_kernels(dev, report, rng, B: int, T: int, suffix: str = ""):
+    """The row kernels (K7 ``ln_dense``, K8 ``dense_residual``, K9
+    ``mlp_rows``) on one block's branches at [B, T, 384] against their plain
+    versions, the library composition beside them; bound: bf16 rounding at
+    O(1) values. Returns the MLP's input and weights."""
     from timetuning_tpu_torch.ops import fused_block as fb
 
-    rng = np.random.default_rng(8)
     t, w = _tensor_maker(dev, rng)
-    report = _reporter(results)
-    T8 = (S8 // 8) ** 2 + 1
-
-    # the row kernels: one block's branches at 50 frames x 3,137 tokens;
-    # bound: bf16 rounding at O(1) values
-    D, Hd, B = 384, 1536, CLIPS * FRAMES
-    x = t(rng.standard_normal((B, T8, D)), torch.bfloat16)
-    y = t(rng.standard_normal((B, T8, D)), torch.bfloat16)
+    D, Hd = 384, 1536
+    x = t(rng.standard_normal((B, T, D)), torch.bfloat16)
+    y = t(rng.standard_normal((B, T, D)), torch.bfloat16)
     ln_s, ln_b = t(1 + 0.1 * rng.standard_normal(D)), t(0.1 * rng.standard_normal(D))
     w_qkv, b_qkv = w(D, 3 * D), t(0.1 * rng.standard_normal(3 * D))
     w_proj, b_proj = w(D, D), t(0.1 * rng.standard_normal(D))
     mlp = (ln_s, ln_b, w(D, Hd), t(0.1 * rng.standard_normal(Hd)), w(Hd, D),
            t(0.1 * rng.standard_normal(D)))
-    M = B * T8
+    M = B * T
     for name, kern, plain, args, flops, lib in (
             ("ln_dense", fb.ln_dense_rows, fb.ln_dense_xla,
              (x, ln_s, ln_b, w_qkv, b_qkv), 2.0 * M * D * 3 * D,
@@ -682,12 +709,22 @@ def check_long_token_kernels(dev, results: dict) -> None:
         ok = torch.allclose(got.float(), want.float(), atol=3e-2, rtol=3e-2)
         report(name, got, want, "atol=rtol=3e-2 (bf16 rounding at O(1))",
                cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args)),
-               extra=f"[{B}, {T8}, {D}] ",
+               extra=f"[{B}, {T}, {D}] ", key=name + suffix,
                work=(io_bytes(*args, got), flops, "bf16"),
                library_ms=cuda_ms(lib))
         if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with plain version")
+            raise AssertionError(f"{name + suffix}: kernel disagrees with plain version")
         del got, want
+    return x, mlp
+
+
+def check_long_token_kernels(dev, results: dict) -> None:
+    """The row kernels and the propagation kernel of the ViT-S/8 at 448
+    path, at its shapes (the row kernels at 50 frames x 3,137 tokens, and at
+    the sp phase's slab, 4 frames x 1,569 rows)."""
+    report = _reporter(results)
+    T8 = (S8 // 8) ** 2 + 1
+    x, mlp = check_row_kernels(dev, report, np.random.default_rng(8), CLIPS * FRAMES, T8)
     check_mlp_parts("mlp_rows", x, mlp)
 
     check_propagation(dev, report, np.random.default_rng(3136), (S8 // 8) ** 2,
@@ -701,6 +738,8 @@ def check_long_token_kernels(dev, results: dict) -> None:
                       dtype=torch.float32)
     check_propagation(dev, report, np.random.default_rng(3), (S8 // 8) ** 2,
                       "propagation/s8/ties", "ties")
+    check_row_kernels(dev, report, np.random.default_rng(1569), SP_BATCH,
+                      -(-T8 // MESH_WORLD), "/sp")
 
 
 def check_block_kernel(report, name, key, kern, plain, x, wts, flops, lib) -> None:
@@ -1084,6 +1123,16 @@ PATH_KERNELS = {
     ("moe", "export"): ("preprocess", "attention_block", "mlp_block"),
     ("ep", "step"): ("attention_block", "mlp_block", "propagation", "sinkhorn"),
     ("tp", "step"): ("propagation", "sinkhorn"),
+    ("sp", "bfloat16"): ("ln_dense", "flash_attention", "dense_residual", "mlp_rows"),
+    ("sp", "float32"): ("flash_attention",),
+    ("pp", "bfloat16"): ("attention_block", "mlp_block"),
+    ("pp", "float32"): (),
+    ("export mesh", "tp"): ("preprocess",),
+    ("export mesh", "ep"): ("preprocess", "attention_block", "mlp_block"),
+    ("export mesh", "sp"): ("preprocess", "ln_dense", "flash_attention", "dense_residual",
+                            "mlp_rows"),
+    ("export mesh", "pp"): ("preprocess", "attention_block", "mlp_block"),
+    ("export mesh", "dp"): ("preprocess", "attention_block", "mlp_block"),
 }   # the zoo's paths are added by run_zoo (zoo_path_kernels)
 
 
@@ -3097,7 +3146,7 @@ def run_dp(dev, results: dict, totals: dict) -> None:
 
 MOE_EVERY_K, MOE_EXPERTS, MOE_CAPACITY = 2, 8, 1.25   # every 2nd block, 8 experts
 MOE_FRAMES = 64                     # frames of the moe phase's feature forward
-MESH_WORLD = 2                      # ranks of the ep and tp phases, on the one card
+MESH_WORLD = 2                      # ranks of the mesh phases, on the one card
 MESH_FRAMES = 16                    # frames of their feature forward
 MESH_F32_B = 4                      # clips a step of their f32 agreement run
 MESH_TIMEOUT = 600                  # s the ranks of a phase may take together
@@ -3303,9 +3352,10 @@ def run_moe(dev, totals: dict) -> None:
 
 
 def mesh_rank(rank: int, kind: str, port: int, out_dir: str, log_dir: str) -> None:
-    """One rank of the ``ep`` or ``tp`` phase (a ``torch.multiprocessing``
-    process): gloo on the one card, the phase's parts in step with the other
-    rank, its results to ``out_dir/rank{rank}.pt``."""
+    """One rank of the ``ep``, ``tp``, ``sp pp`` or ``export mesh`` phase (a
+    ``torch.multiprocessing`` process): gloo on the one card, the phase's
+    parts in step with the other rank (``MESH_WORK[kind]``), its results to
+    ``out_dir/rank{rank}.pt``."""
     import datetime
 
     import torch.distributed as dist
@@ -3316,7 +3366,7 @@ def mesh_rank(rank: int, kind: str, port: int, out_dir: str, log_dir: str) -> No
     dev = torch.device("cuda", 0)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=MESH_WORLD, timeout=datetime.timedelta(seconds=120))
-    out = (ep_work if kind == "ep" else tp_work)(dev, rank, port, log_dir)
+    out = MESH_WORK[kind](dev, rank, port, log_dir)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     if dist.is_initialized():
         dist.barrier()
@@ -3459,9 +3509,10 @@ def tp_work(dev, rank: int, port: int, log_dir: str) -> dict:
     return out
 
 
-def run_mesh_ranks(kind: str) -> list[dict]:
+def run_mesh_ranks(kind: str, log_dir: str | None = None) -> list[dict]:
     """Start the ``MESH_WORLD`` ranks of the ``kind`` phase and collect them
-    (killed at MESH_TIMEOUT); the ranks' log dir stays for the checks."""
+    (killed at MESH_TIMEOUT); the ranks' log dir (a new one unless given)
+    stays for the checks."""
     import socket
     import tempfile
 
@@ -3472,7 +3523,7 @@ def run_mesh_ranks(kind: str) -> list[dict]:
         port = sock.getsockname()[1]
     out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{kind}_")
     t0 = time.perf_counter()
-    ctx = mp.start_processes(mesh_rank, args=(kind, port, out_dir, out_dir),
+    ctx = mp.start_processes(mesh_rank, args=(kind, port, out_dir, log_dir or out_dir),
                              nprocs=MESH_WORLD, join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=5):
@@ -3512,9 +3563,6 @@ def mesh_report(kind: str, ranks: list, ref: dict, want_tokens, path: tuple,
     rel = max(abs(a - b) / abs(b) for a, b in zip(r0["f32"], ref["f32"]))
     rel16 = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["bf16"]))
     coll = r0["collectives"]
-    sizes = {}
-    for numel, ms in coll:
-        sizes.setdefault(numel, []).append(ms)
     steady = [float(np.mean(r["ms"][1:])) for r in ranks]
     print(f"{kind}: {MESH_WORLD} gloo ranks on one card (dp 1 x {kind[0]}p {MESH_WORLD}: "
           f"agreement and the cost of the collectives, not the speed of two cards), "
@@ -3529,20 +3577,13 @@ def mesh_report(kind: str, ranks: list, ref: dict, want_tokens, path: tuple,
           f"{steady[0]:.3f} / {steady[1]:.3f} ms a rank (host clock, steps 2-3), peak "
           f"{[round(r['peak_gib'], 3) for r in ranks]} GiB a rank; replicated state "
           f"mismatches {r0['mismatches']} | launches {r0['counts']}", flush=True)
-    print(f"{kind} all-reduce a step (rank 0, each between two synchronisations): "
-          f"{sum(ms for _, ms in coll):.3f} ms of a {r0['timed_step_ms']:.3f} ms step, "
-          f"{len(coll)} calls; by size: " + ", ".join(
-              f"[{n}] x {len(v)}: {sum(v):.3f} ms" for n, v in sorted(sizes.items())),
-          flush=True)
+    print(f"{kind} all-reduce a step (rank 0, each between two synchronisations) in a "
+          f"{r0['timed_step_ms']:.3f} ms step: {collective_line(coll)}", flush=True)
     if not (cos >= 0.999 and rel <= 1e-5 and rel16 <= 1e-2
             and ranks[0]["losses"] == ranks[1]["losses"] and not r0["mismatches"]):
         raise AssertionError(f"{kind}: the mesh disagrees with one process or itself")
     for r in ranks:
-        missing = [k for k in PATH_KERNELS[path] if r["counts"][k] <= 0]
-        if missing:
-            raise AssertionError(f"{path}: kernels not launched: {missing}")
-        for k, v in r["counts"].items():
-            totals[k] = totals.get(k, 0) + v
+        add_counts(path, r["counts"], totals, {})
 
 
 def run_ep(dev, totals: dict) -> None:
@@ -3627,6 +3668,308 @@ def run_tp(dev, totals: dict) -> None:
     shutil.rmtree(r0["dir"], ignore_errors=True)
 
 
+SP_BATCH = 4                        # frames of the sp phase: the S/8 serving program's
+PP_BATCH = 64                       # frames of the pp phase: JAX's export default
+PP_MICRO = (None, 4)                # n_micro of the pp phase: auto (2), then 4
+# the multi-device programs of the export mesh phase: (architecture, input
+# resolution, batch, cli/export flags), each on 2 ranks
+MESH_PROGRAMS = {
+    "tp": ("dino-s16", S, PP_BATCH, {"tensor_parallel": MESH_WORLD}),
+    "ep": ("dino-s16", S, PP_BATCH, {"expert_parallel": MESH_WORLD,
+                                     "moe_every_k": MOE_EVERY_K, "moe_experts": MOE_EXPERTS}),
+    "sp": ("dino-s8", S8, SP_BATCH, {"sequence_parallel": MESH_WORLD}),
+    "pp": ("dino-s16", S, PP_BATCH, {"pipeline_parallel": MESH_WORLD}),
+    "dp": ("dino-s16", S, PP_BATCH, {"data_parallel": MESH_WORLD}),
+}
+
+
+def s8_frames(dev) -> torch.Tensor:
+    """[SP_BATCH, 448, 448, 3] normalised frames: the train clips' frames
+    resized to 448."""
+    x = mesh_frames(dev, SP_BATCH).permute(0, 3, 1, 2)
+    return torch.nn.functional.interpolate(x, size=(S8, S8), mode="bilinear").permute(
+        0, 2, 3, 1).contiguous()
+
+
+def export_frames(dev, batch: int, size: int) -> torch.Tensor:
+    """The uint8 frames of the export mesh phase (seeded, the same in every
+    process)."""
+    return torch.from_numpy(np.random.default_rng(21).integers(
+        0, 256, (batch, size, size, 3), np.uint8)).to(dev)
+
+
+def mesh_forward(fwd, x, reps: int = 3) -> dict:
+    """A mesh forward on this rank: its tokens and launches (counts set to 0
+    just before, read just after), then one forward with each all-reduce
+    timed between two synchronisations, then ``reps`` forwards timed on the
+    host clock."""
+    from timetuning_tpu_torch.ops import kernel_lib
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        kernel_lib.reset_launch_counts()
+        tokens = fwd(x)
+        torch.cuda.synchronize()
+        counts = kernel_lib.launch_counts()
+        with dp_collective_times() as coll:
+            fwd(x)
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fwd(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"tokens": tokens.float().cpu(), "counts": counts, "ms": ms, "collectives": coll}
+
+
+def param_bytes(module) -> int:
+    return sum(p.numel() * p.element_size() for p in module.parameters())
+
+
+def sp_pp_work(dev, rank: int, port: int, log_dir: str) -> dict:
+    """The sp and pp rank: dino-s8 at 448 on a dp 1 x sp 2 mesh (SP_BATCH
+    frames), then dino-s16 at 224 on a dp 1 x pp 2 mesh (PP_BATCH frames, at
+    each n_micro of PP_MICRO), each in bf16 and f32 (``mesh_forward``)."""
+    from timetuning_tpu_torch.models.registry import get_backbone
+    from timetuning_tpu_torch.parallel import pp, sp
+
+    out = {}
+    mesh = sp.make_dp_sp_mesh(1, MESH_WORLD)
+    x = s8_frames(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        vit = get_backbone("dino-s8", dtype=dtype, device=dev).module.eval()
+        out[("sp", str(dtype).split(".")[1])] = mesh_forward(sp.make_sp_feature_fn(vit, mesh), x)
+        del vit
+    mesh = pp.make_dp_pp_mesh(1, MESH_WORLD)
+    x = mesh_frames(dev, PP_BATCH)
+    for dtype in (torch.bfloat16, torch.float32):
+        vit = get_backbone("dino-s16", dtype=dtype, device=dev).module.eval()
+        whole = param_bytes(vit)
+        for nm in PP_MICRO:
+            res = mesh_forward(pp.make_pp_feature_fn(vit, mesh, nm), x)
+            res.update(param_bytes=param_bytes(vit), whole_bytes=whole,
+                       stage=list(vit.pipe_stage))
+            out[("pp", str(dtype).split(".")[1], nm)] = res
+        del vit
+    return out
+
+
+def export_work(dev, rank: int, port: int, log_dir: str) -> dict:
+    """The exporting rank: each program of MESH_PROGRAMS exported
+    (``cli/export.export_features``, bf16) and written with its manifest to
+    ``log_dir`` (``save_exported``); this rank's live mesh forward on its
+    data slice of the frames, and its ms (host clock, 3 calls)."""
+    from timetuning_tpu_torch.cli import export as texport
+
+    out = {}
+    for name, (arch, size, batch, flags) in MESH_PROGRAMS.items():
+        t0 = time.perf_counter()
+        blob, live, _, em = texport.export_features(arch, None, batch, size, "bfloat16",
+                                                    device=str(dev), **flags)
+        export_s = time.perf_counter() - t0
+        sizes = texport.save_exported(os.path.join(log_dir, f"{name}.json"), blob, em)
+        x = em.local_slice(export_frames(dev, batch, size))
+        with torch.no_grad():
+            want = live(x)
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                live(x)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"export_s": export_s, "sizes": sizes, "live": want.float().cpu(),
+                     "live_ms": ms, "coords": em.coords}
+        del blob, live
+        torch.cuda.empty_cache()
+    return out
+
+
+def load_work(dev, rank: int, port: int, log_dir: str) -> dict:
+    """The loading rank (a fresh process): each program of MESH_PROGRAMS
+    loaded from ``log_dir`` (``cli/export.load_exported``) and called on
+    this rank's data slice (``mesh_forward``)."""
+    from timetuning_tpu_torch.cli import export as texport
+
+    out = {}
+    for name, (arch, size, batch, flags) in MESH_PROGRAMS.items():
+        path = os.path.join(log_dir, f"{name}.json")
+        fn = texport.load_exported(path)
+        manifest = json.load(open(path))
+        d = manifest["ranks"][rank]["coords"][0]
+        b = batch // manifest["axis_sizes"][0]
+        out[name] = mesh_forward(fn, export_frames(dev, batch, size)[d * b:(d + 1) * b])
+        out[name]["coords"] = tuple(manifest["ranks"][rank]["coords"])
+        del fn
+    return out
+
+
+MESH_WORK = {"ep": ep_work, "tp": tp_work, "sp_pp": sp_pp_work, "export": export_work,
+             "load": load_work}
+
+
+def collective_line(coll) -> str:
+    """The all-reduces of one forward by size: calls and ms."""
+    sizes = {}
+    for numel, ms in coll:
+        sizes.setdefault(numel, []).append(ms)
+    return (f"{sum(ms for _, ms in coll):.3f} ms in {len(coll)} all-reduces; by size: "
+            + ", ".join(f"[{n}] x {len(v)}: {sum(v):.3f} ms" for n, v in sorted(sizes.items())))
+
+
+def mesh_gate(label: str, ranks: list, want, dtype: str) -> str:
+    """The ranks' tokens against the one-process forward: bf16 per-token
+    cosine >= 0.999, f32 max |diff| <= 1e-4 (TF32 off); returns the line's
+    numbers."""
+    if dtype == "bfloat16":
+        cos = min(token_cosine(r, want) for r in ranks)
+        if not cos >= 0.999:
+            raise AssertionError(f"{label}: min per-token cosine {cos:.6f} against one process")
+        return f"min per-token cosine vs one process {cos:.6f} (gate 0.999)"
+    err = max(float((r - want).abs().max()) for r in ranks)
+    if not err <= 1e-4:
+        raise AssertionError(f"{label}: max |diff| {err:.3e} against one process")
+    return f"max |diff| vs one process {err:.3e} (gate 1e-4, TF32 off)"
+
+
+def add_counts(path: tuple, counts: dict, totals: dict, want: dict) -> None:
+    """A rank's launches of a main-path run: the path's kernels all
+    launched, ``want``'s exactly; added to ``totals``."""
+    missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
+    wrong = {k: counts[k] for k, n in want.items() if counts[k] != n}
+    if missing or wrong:
+        raise AssertionError(f"{path}: kernels not launched {missing}, launches {wrong} "
+                             f"where {want} were expected")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def run_sp_pp(dev, totals: dict) -> None:
+    """The ``sp`` and ``pp`` phases: 2 gloo ranks sharing the card
+    (``sp_pp_work``) against the one-process forward of the same seeded
+    weights on the same frames."""
+    from timetuning_tpu_torch.models.registry import get_backbone
+
+    ranks = run_mesh_ranks("sp_pp")
+    print(f"sp pp: {MESH_WORLD} gloo ranks on one card (agreement and the cost of the "
+          f"collectives, not the speed of two cards), {ranks[0]['wall_s']:.1f} s in all",
+          flush=True)
+    T8 = (S8 // 8) ** 2 + 1
+    for dtype in ("bfloat16", "float32"):
+        vit = get_backbone("dino-s8", dtype=getattr(torch, dtype), device=dev).module.eval()
+        with torch.no_grad():
+            want = vit(s8_frames(dev))["tokens"].float().cpu()
+        del vit
+        rs = [r[("sp", dtype)] for r in ranks]
+        gate = mesh_gate(f"sp {dtype}", [r["tokens"] for r in rs], want, dtype)
+        kernels = (("ln_dense", "flash_attention", "dense_residual", "mlp_rows")
+                   if dtype == "bfloat16" else ("flash_attention",))
+        for r in rs:
+            add_counts(("sp", dtype), r["counts"], totals, {k: 12 for k in kernels})
+        print(f"sp dino-s8 {S8} {dtype} batch {SP_BATCH}, dp 1 x sp {MESH_WORLD} "
+              f"({T8} tokens, {-(-T8 // MESH_WORLD)} rows a slab): {gate}; forward "
+              f"{[round(v, 3) for v in rs[0]['ms']]} / {[round(v, 3) for v in rs[1]['ms']]} "
+              f"ms a rank (host clock); the K/V all-gathers and the output's, rank 0: "
+              f"{collective_line(rs[0]['collectives'])} | launches a rank "
+              f"{[{k: r['counts'][k] for k in kernels} for r in rs]}", flush=True)
+    for dtype in ("bfloat16", "float32"):
+        vit = get_backbone("dino-s16", dtype=getattr(torch, dtype), device=dev).module.eval()
+        with torch.no_grad():
+            want = vit(mesh_frames(dev, PP_BATCH))["tokens"].float().cpu()
+        del vit
+        for nm in PP_MICRO:
+            rs = [r[("pp", dtype, nm)] for r in ranks]
+            gate = mesh_gate(f"pp {dtype} n_micro {nm}", [r["tokens"] for r in rs], want, dtype)
+            n = nm or MESH_WORLD
+            ticks = n + MESH_WORLD - 1
+            kernels = (("attention_block", "mlp_block") if dtype == "bfloat16" else ())
+            for r in rs:
+                add_counts(("pp", dtype), r["counts"], totals,
+                           {k: 12 // MESH_WORLD * ticks for k in kernels})
+            print(f"pp dino-s16 {S} {dtype} batch {PP_BATCH}, dp 1 x pp {MESH_WORLD}, "
+                  f"n_micro {n}{' (auto)' if nm is None else ''} ({ticks} ticks, bubble "
+                  f"{(MESH_WORLD - 1) / ticks:.3f} of them): {gate}; forward "
+                  f"{[round(v, 3) for v in rs[0]['ms']]} / "
+                  f"{[round(v, 3) for v in rs[1]['ms']]} ms a rank (host clock); the hops "
+                  f"and the output's all-reduce, rank 0: "
+                  f"{collective_line(rs[0]['collectives'])}; parameters held "
+                  f"{[r['param_bytes'] / 1e6 for r in rs]} MB a rank (blocks "
+                  f"{[r['stage'] for r in rs]}) of the whole {rs[0]['whole_bytes'] / 1e6} MB"
+                  f" | launches a rank {[{k: r['counts'][k] for k in kernels} for r in rs]}",
+                  flush=True)
+            if not all(r["param_bytes"] < 0.6 * r["whole_bytes"] for r in rs):
+                raise AssertionError("pp: a rank holds more than its stage")
+    shutil.rmtree(ranks[0]["dir"], ignore_errors=True)
+
+
+def run_export_mesh(dev, totals: dict) -> None:
+    """The ``export mesh`` phase: each multi-device program of MESH_PROGRAMS
+    exported by 2 ranks (``export_work``) and loaded by 2 fresh ranks
+    (``load_work``): the round trip against the live mesh forward (max |diff|
+    <= 1e-3), each program's features against the one-device program's
+    (bf16 per-token cosine >= 0.999), export s, MB a rank beside the
+    one-device program's, frames/s of the program and of the live mesh
+    forward, one call's launches."""
+    import io
+
+    from timetuning_tpu_torch.cli import export as texport
+
+    ex = run_mesh_ranks("export")
+    ld = run_mesh_ranks("load", log_dir=ex[0]["dir"])
+    print(f"export mesh: {MESH_WORLD} gloo ranks on one card export "
+          f"{len(MESH_PROGRAMS)} programs ({ex[0]['wall_s']:.1f} s in all), 2 fresh ranks "
+          f"load them ({ld[0]['wall_s']:.1f} s)", flush=True)
+    one = {}
+    for name, (arch, size, batch, flags) in MESH_PROGRAMS.items():
+        moe = {k: v for k, v in flags.items() if k.startswith("moe_")}
+        key = (arch, size, batch, tuple(moe.items()))
+        if key not in one:
+            blob, _, _, _ = texport.export_features(arch, None, batch, size, "bfloat16",
+                                                    device=str(dev), **moe)
+            with torch.no_grad():
+                got = texport.load_exported(io.BytesIO(blob))(export_frames(dev, batch, size))
+            one[key] = (len(blob), got.float().cpu())
+            del blob
+        one_mb, want = one[key][0] / 1e6, one[key][1]
+        n_data = flags.get("data_parallel", 1)
+        b = batch // n_data
+        errs, cos = [], []
+        for e, lo in zip(ex, ld):
+            e, lo = e[name], lo[name]
+            d = lo["coords"][0]
+            errs.append(float((lo["tokens"] - e["live"]).abs().max()))
+            cos.append(token_cosine(lo["tokens"], want[d * b:(d + 1) * b]))
+        mbs = [n / 1e6 for n in ex[0][name]["sizes"]]
+        prog_ms = [min(r[name]["ms"]) for r in ld]
+        live_ms = [min(r[name]["live_ms"]) for r in ex]
+        want_counts = {"tp": {"preprocess": 1},
+                       "ep": {"preprocess": 1, "attention_block": 12, "mlp_block": 6},
+                       "sp": {"preprocess": 1, "ln_dense": 12, "flash_attention": 12,
+                              "dense_residual": 12, "mlp_rows": 12},
+                       "pp": {"preprocess": 1, "attention_block": 18, "mlp_block": 18},
+                       "dp": {"preprocess": 1, "attention_block": 12, "mlp_block": 12}}[name]
+        for r in ld:
+            add_counts(("export mesh", name), r[name]["counts"], totals, want_counts)
+        print(f"export mesh {name} ({arch} {size} bf16 batch {batch}, "
+              f"{' '.join(f'--{k} {v}' for k, v in flags.items())}): export "
+              f"{[round(r[name]['export_s'], 2) for r in ex]} s a rank, program "
+              f"{[round(v, 1) for v in mbs]} MB a rank (one-device program {one_mb:.1f} MB); "
+              f"round trip max |diff| {max(errs):.2e} (gate 1e-3); features vs the one-device "
+              f"program min per-token cosine {min(cos):.6f} (gate 0.999); program "
+              f"{batch / max(prog_ms) * 1e3:.1f} frames/s ({[round(v, 3) for v in prog_ms]} "
+              f"ms a rank), live mesh forward {batch / max(live_ms) * 1e3:.1f} frames/s "
+              f"({[round(v, 3) for v in live_ms]} ms a rank; host clock, the ranks in "
+              f"step) | one call's launches a rank "
+              f"{[{k: r[name]['counts'][k] for k in want_counts} for r in ld]}", flush=True)
+        if max(errs) > 1e-3 or min(cos) < 0.999:
+            raise AssertionError(f"export mesh {name}: round trip or features")
+        if name in ("tp", "pp") and not max(mbs) < one_mb:
+            raise AssertionError(f"export mesh {name}: a rank's program is not under the "
+                                 "one-device program's")
+    shutil.rmtree(ex[0]["dir"], ignore_errors=True)
+    shutil.rmtree(ld[0]["dir"], ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3678,6 +4021,8 @@ def main() -> int:
     run_moe(dev, totals)
     run_ep(dev, totals)
     run_tp(dev, totals)
+    run_sp_pp(dev, totals)
+    run_export_mesh(dev, totals)
 
     missing = [k for k in kernel_lib.KERNELS if totals.get(k, 0) <= 0]
     if missing:

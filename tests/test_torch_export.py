@@ -7,8 +7,8 @@ on the same weights (a reference-layout .pth that both load): atol 1e-4. A
 bf16 ``auto`` ViT exported through the custom ops, at 17 and at 1,090
 tokens (the whole-block and the row/flash branches), the program against
 the live forward; the symbolic-batch program at batches 2, 3 and 5; each
-op's fake against its real output (shape, dtype, strides); the flags of the
-unported multi-device and MoE artifacts."""
+op's fake against its real output (shape, dtype, strides); the flags'
+checks, JAX's, and the MoE program."""
 
 import io
 
@@ -194,19 +194,19 @@ def test_custom_op_fake_matches_its_real_output(name):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_unported_flags_raise():
-    """JAX's geometry checks keep their ValueErrors; a multi-device artifact
-    that passes them raises NotImplementedError naming the remaining item
-    (sp, pp and the multi-device artifacts); the MoE flags export a
-    one-device program (against JAX's forward:
-    ``test_moe_program_matches_jax_live_forward``)."""
+def test_export_flag_checks_raise_as_jax():
+    """JAX's geometry checks keep their ValueErrors, and a multi-device
+    program asks for as many ranks as its mesh has (JAX's "mesh export
+    needs N devices", here with no process group: one); the MoE flags
+    export a one-device program (against JAX's forward:
+    ``test_moe_program_matches_jax_live_forward``; the multi-device programs
+    against JAX's: tests/test_torch_export_mesh.py)."""
     kw = dict(architecture="vit-tiny-test", model_path=None, batch_size=2,
               input_resolution=32, compute_dtype="float32", device="cpu")
     for flags in (dict(tensor_parallel=2), dict(data_parallel=2),
                   dict(sequence_parallel=2), dict(pipeline_parallel=2),
                   dict(expert_parallel=2, moe_every_k=2, moe_experts=4)):
-        with pytest.raises(NotImplementedError,
-                           match="sp, pp and the multi-device cli/export artifacts"):
+        with pytest.raises(ValueError, match="mesh export needs 2 devices, found 1"):
             texport.export_features(**kw, **flags)
     blob, live, shape, mesh = texport.export_features(**kw, moe_every_k=2, moe_experts=4)
     assert blob and mesh is None and live.backbone.blocks[1].moe.w1.shape[0] == 4

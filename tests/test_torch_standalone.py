@@ -313,3 +313,41 @@ assert not any(r['foreign_modules'] for r in ranks), [r['foreign_modules'] for r
 print('ranks', len(ranks), ep.EXPERT_AXIS, tp.MODEL_AXIS)
 """)
     assert "ranks 2 expert model" in out
+
+
+def test_sp_pp_and_a_mesh_export_run_without_the_jax_package(tmp_path):
+    """A fresh interpreter imports ``parallel/sp`` and ``parallel/pp`` and
+    runs 2 gloo ranks (tests/torch_dp_worker.py) of a 1 x 2 seq and a 1 x 2
+    pipe forward, the pipe's with its backward, and of a 1 x 2 seq mesh
+    export (``cli/export``) loaded back; neither it nor the ranks load jax,
+    flax, optax or the JAX package."""
+    out = _run(f"""
+import sys
+sys.path.insert(0, 'tests')
+import numpy as np
+import torch
+from timetuning_tpu_torch.parallel import pp, sp
+from timetuning_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from torch_dp_worker import spawn
+vit = dict(patch_size=8, embed_dim=32, depth=2, num_heads=2, img_size=32)
+sd = VisionTransformer(ViTConfig(**vit)).init_weights(torch.Generator().manual_seed(0)).state_dict()
+x = np.random.default_rng(0).standard_normal((2, 32, 32, 3)).astype(np.float32)
+frames = np.random.default_rng(1).integers(0, 256, (2, 32, 32, 3), np.uint8)
+base = dict(kind='seq_pipe', dp=1, n=2, vit=vit, state_dict=sd, x=x)
+program = dict(architecture='vit-tiny-test', model_path=None, batch_size=2,
+               input_resolution=32, compute_dtype='float32', device='cpu',
+               sequence_parallel=2)
+job = [dict(base, name='sp', mesh='sp'), dict(base, name='pp', mesh='pp', grad=True),
+       dict(kind='export_mesh', name='export', programs=dict(sp=program),
+            dir={str(tmp_path)!r}, frames=frames),
+       dict(kind='load_mesh', name='load', frames=frames,
+            paths=dict(sp={str(tmp_path / 'sp.json')!r}))]
+ranks = spawn(job, {str(tmp_path / 'ranks')!r}, 2, timeout=180)
+for r in ranks:
+    assert torch.allclose(r['sp']['tokens'], r['pp']['tokens'], atol=1e-5)
+    assert torch.allclose(r['load']['sp']['program'], r['export']['sp']['live'], atol=1e-6)
+    assert r['pp']['grads']
+assert not any(r['foreign_modules'] for r in ranks)
+print('ranks', len(ranks), sp.SEQ_AXIS, pp.PIPE_AXIS)
+""")
+    assert "ranks 2 seq pipe" in out

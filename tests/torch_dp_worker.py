@@ -1,5 +1,6 @@
-"""Ranks of the port's data-, tensor- and expert-parallel tests: a launcher
-and the worker.
+"""Ranks of the port's data-, tensor-, expert-, sequence- and
+pipeline-parallel tests and of its multi-device export: a launcher and the
+worker.
 
 ``spawn(job, workdir, world)`` starts ``world`` processes of this script,
 each a rank of a gloo group on ``tcp://localhost:<free port>`` (60 s
@@ -374,9 +375,178 @@ def run_cli(case: dict, rank: int, world: int) -> dict:
     return {"printed": printed}
 
 
+def run_seq_pipe(case: dict, rank: int, world: int) -> dict:
+    """An sp or pp forward (``case["mesh"]``) on a ``case["dp"]`` x
+    ``case["n"]`` mesh (the ranks past it return {}) of the bare ViT
+    ``case["vit"]`` (ViTConfig keywords) with ``case["state_dict"]``, on
+    this rank's data slice of ``case["x"]``: its tokens, the names it holds,
+    and with ``case["grad"]`` the gradients of ``sum(tokens ** 2)``."""
+    from timetuning_tpu_torch.models.vit import ViTConfig, VisionTransformer
+    from timetuning_tpu_torch.parallel import pp, sp
+
+    if case["mesh"] == "sp":
+        mesh = sp.make_dp_sp_mesh(case["dp"], case["n"])
+    else:
+        mesh = pp.make_dp_pp_mesh(case["dp"], case["n"])
+    if mesh.coords is None:
+        return {}
+    vit = VisionTransformer(ViTConfig(**case["vit"]))
+    vit.load_state_dict(case["state_dict"])
+    if case["mesh"] == "sp":
+        fwd = sp.sp_forward_fn(vit, mesh)
+    else:
+        fwd = pp.pp_forward_fn(vit, mesh, case.get("n_micro"))
+    b = case["x"].shape[0] // case["dp"]
+    d = mesh.outer_index
+    x = torch.from_numpy(case["x"][d * b:(d + 1) * b]).to(vit.config.dtype)
+    out = {"coords": mesh.coords}
+    with torch.set_grad_enabled(bool(case.get("grad"))):
+        tokens = fwd(x)
+    if case.get("grad"):
+        (tokens.float() ** 2).sum().backward()
+        out["grads"] = {k: p.grad.clone() for k, p in vit.named_parameters()
+                        if p.grad is not None}
+    out["tokens"] = tokens.detach()
+    out["held"] = sorted(vit.state_dict())
+    return out
+
+
+class _Forward(torch.nn.Module):
+    """A forward function over ``vit``'s parameters, as a module to export."""
+
+    def __init__(self, vit, fwd):
+        super().__init__()
+        self.vit, self.fwd = vit, fwd
+
+    def forward(self, x):
+        return self.fwd(x)
+
+
+def run_sp_export(case: dict, rank: int, world: int) -> dict:
+    """A seeded bf16 ``auto`` ViT of ``case["vit"]`` on a 1 x ``case["n"]``
+    seq mesh: its sp forward exported with ``torch.export`` (the kernels'
+    custom ops it calls, its functional all-reduces), the saved program
+    loaded and called, beside the live sp forward and the one-process
+    forward on the same 2 images."""
+    import io
+
+    from timetuning_tpu_torch.cli.export import load_exported
+    from timetuning_tpu_torch.models.vit import ViTConfig, VisionTransformer
+    from timetuning_tpu_torch.parallel import sp
+
+    mesh = sp.make_dp_sp_mesh(1, case["n"])
+    if mesh.coords is None:
+        return {}
+    vit = VisionTransformer(ViTConfig(dtype=torch.bfloat16, **case["vit"])).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    size = case["vit"]["img_size"]
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, size, size, 3)).astype(
+        np.float32)).to(torch.bfloat16)
+    fwd = sp.sp_forward_fn(vit, mesh)
+    with torch.no_grad():
+        program = torch.export.export(_Forward(vit, fwd), (x,), strict=False)
+        live, one = fwd(x), vit(x)["tokens"]
+    nodes = [n for n in program.graph.nodes if n.op == "call_function"]
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    with torch.no_grad():
+        got = load_exported(io.BytesIO(buf.getvalue()))(x)
+    return {"ops": {n.target.name().split("::")[1].split(".")[0] for n in nodes
+                    if "timetuning_tpu_torch" in str(n.target)},
+            "collectives": sum("_c10d_functional.all_reduce" in str(n.target) for n in nodes),
+            "program": got, "live": live, "one": one}
+
+
+def run_all_gather(case: dict, rank: int, world: int) -> dict:
+    """``all_gather_along`` over the inner axis of a ``case["dp"]`` x
+    ``case["n"]`` mesh: each rank's [2, 1, 3] block of its global rank's
+    value side by side, and the gradient of a weighted sum of the whole
+    whose weights differ by rank."""
+    from timetuning_tpu_torch.parallel.mesh import all_gather_along, make_2d_mesh
+
+    mesh = make_2d_mesh(case["dp"], case["n"], ("data", "seq"))
+    if mesh.coords is None:
+        return {}
+    x = torch.full((2, 1, 3), float(rank), requires_grad=True)
+    y = all_gather_along(x, 1, mesh.inner)
+    w = (torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape) + 1) * (rank + 1)
+    (y * w).sum().backward()
+    return {"coords": mesh.coords, "grid": mesh.grid, "y": y.detach(), "w": w,
+            "grad": x.grad}
+
+
+def run_export_mesh(case: dict, rank: int, world: int) -> dict:
+    """``cli/export``'s multi-device programs: for each entry of
+    ``case["programs"]`` (name -> export_features keywords) the programs
+    and the manifest written to ``case["dir"]/<name>.json``
+    (``export_features`` + ``save_exported``, or ``main`` for the names in
+    ``case["main"]``: its printed lines), and this rank's live mesh forward
+    on its data slice of ``case["frames"]``. ``case["moe_state"]``: the
+    upcycled MoE ViT's whole state dict, loaded over the port's upcycle
+    (the routers' init)."""
+    import io
+
+    from timetuning_tpu_torch.cli import export as texport
+
+    real = texport.upcycled_moe_backbone
+    if case.get("moe_state") is not None:
+        def upcycle(bb, k, e, seed=0):
+            bb = real(bb, k, e, seed)
+            bb.module.load_state_dict(case["moe_state"])
+            return bb
+        texport.upcycled_moe_backbone = upcycle
+    out = {}
+    try:
+        for name, kw in case["programs"].items():
+            path = os.path.join(case["dir"], name.replace(" ", "_") + ".json")
+            if name in case.get("main", ()):
+                argv = [f"--{k}={v}" for k, v in kw.items()] + ["--out", path]
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = texport.main(argv)
+                out[name] = {"rc": rc, "printed": buf.getvalue()}
+                continue
+            blob, live, _, em = texport.export_features(**kw)
+            texport.save_exported(path, blob, em)
+            if live is None:
+                out[name] = {}
+                continue
+            with torch.no_grad():
+                got = live(torch.from_numpy(em.local_slice(case["frames"])))
+            out[name] = {"coords": em.coords, "live": got}
+    finally:
+        texport.upcycled_moe_backbone = real
+    return out
+
+
+def run_load_mesh(case: dict, rank: int, world: int) -> dict:
+    """Each program of ``case["paths"]`` (name -> manifest) loaded with
+    ``load_exported`` and called on this rank's data slice of
+    ``case["frames"]``."""
+    import json
+
+    from timetuning_tpu_torch.cli import export as texport
+
+    out = {}
+    for name, path in case["paths"].items():
+        fn = texport.load_exported(path)
+        if fn is None:
+            out[name] = {}
+            continue
+        manifest = json.load(open(path))
+        d = manifest["ranks"][rank]["coords"][0]
+        b = manifest["batch"] // manifest["axis_sizes"][0]
+        with torch.no_grad():
+            out[name] = {"coords": tuple(manifest["ranks"][rank]["coords"]),
+                         "program": fn(torch.from_numpy(case["frames"][d * b:(d + 1) * b]))}
+    return out
+
+
 CASES = {"step": run_steps, "sinkhorn": run_sinkhorn, "contrastive": run_contrastive,
          "loader": run_loader, "driver": run_driver, "mesh_step": run_mesh_step,
-         "gather": run_gather, "cli": run_cli}
+         "gather": run_gather, "cli": run_cli, "seq_pipe": run_seq_pipe,
+         "sp_export": run_sp_export, "all_gather": run_all_gather, "export_mesh": run_export_mesh,
+         "load_mesh": run_load_mesh}
 
 
 def main(argv) -> int:

@@ -18,16 +18,20 @@ reduce-scatter is an all-reduce and a slice, an all-gather the all-reduce
 of a zero-scattered buffer (JAX's own ZeRO-1 rebuild,
 ``timetuning_tpu/core/timet.py:640-659``).
 
-The 2-D meshes of tensor and expert parallelism (``make_2d_mesh``: the
-``(data, model)`` and ``(data, expert)`` meshes of parallel/tp and
-parallel/ep) are process groups: the inner axis a group of consecutive
-ranks, the outer axis a group of the ranks at one inner index. JAX jits one
-GSPMD program over such a mesh and lets the partitioner place the
-collectives; here the modules place them by hand, with the conjugate pair
+The 2-D meshes (``make_2d_mesh``: the ``(data, model)``, ``(data,
+expert)``, ``(data, seq)`` and ``(data, pipe)`` meshes of parallel/tp,
+parallel/ep, parallel/sp and parallel/pp) are process groups: the inner axis
+a group of consecutive ranks, the outer axis a group of the ranks at one
+inner index. JAX jits one GSPMD or shard_map program over such a mesh; here
+the modules place the collectives by hand, with the conjugate pair
 ``copy_to_group`` (identity forward, all-reduce backward) and
-``reduce_from_group`` (all-reduce forward, identity backward), and a
-parameter that a rank holds a slice of is described by a ``ShardSpec``
-(``ParamSharding`` gathers and slices whole state dicts).
+``reduce_from_group`` (all-reduce forward, identity backward), and
+``all_gather_along`` (all-reduce both ways: sequence parallelism's keys and
+values, which each rank reads with its own queries). A parameter that a rank holds a slice of is described
+by a ``ShardSpec`` (``ParamSharding`` gathers and slices whole state dicts).
+While ``torch.export`` traces, the all-reduce is the functional collective
+(``_c10d_functional.all_reduce`` on the group's name), and the autograd
+Functions step aside where no gradient is wanted.
 """
 
 from __future__ import annotations
@@ -40,11 +44,6 @@ from typing import Mapping, NamedTuple
 import torch
 
 DATA_AXIS = "data"
-
-# the slice that ports the (data, seq) and pipeline meshes and the
-# multi-device export artifacts
-SP_PP_EXPORT_ITEM = ("ROADMAP.md queue 1 item 11c, 'sp, pp and the multi-device "
-                     "cli/export artifacts'")
 
 
 def _dist():
@@ -111,7 +110,14 @@ def init_from_env(device: str | torch.device | None = None,
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """``psum``: a new tensor, the sum of ``x`` over the group."""
+    """``psum``: a new tensor, the sum of ``x`` over the group. While
+    ``torch.export`` traces, the functional collective, so the program holds
+    it as ``_c10d_functional.all_reduce`` on the group's name."""
+    if torch.compiler.is_exporting():
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(
+            x, "sum", _dist().group.WORLD if group is None else group))
     x = x.clone()
     _dist().all_reduce(x, op=_dist().ReduceOp.SUM, group=group)
     return x
@@ -207,8 +213,9 @@ class Mesh2D:
 
 def make_2d_mesh(n_outer: int, n_inner: int, axis_names: tuple[str, str],
                  devices=None) -> Mesh2D:
-    """The 2-D mesh behind the (data, model) and (data, expert) meshes, with
-    the INNER axis over consecutive ranks (JAX's grid puts it innermost).
+    """The 2-D mesh behind the (data, model), (data, expert), (data, seq)
+    and (data, pipe) meshes, with the INNER axis over consecutive ranks
+    (JAX's grid puts it innermost).
     ``devices``: the global ranks to lay out (default all); the first
     ``n_outer * n_inner`` of them form the grid, and a rank past them gets
     ``coords=None``. Every rank of the default group must call it, in the
@@ -242,6 +249,10 @@ def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
     return all_reduce_sum(x.float(), group).to(x.dtype)
 
 
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 class _CopyToGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -263,29 +274,65 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
+class _SumVarying(torch.autograd.Function):
+    """The all-reduce whose result each rank uses in its own way (the
+    transpose of a device-varying ``psum``): the cotangents differ by rank,
+    so the backward sums them too. In ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous(), ctx.group), None
+
+
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """Where a replicated activation enters a computation that each rank of
     ``group`` does a part of: identity forward, all-reduce of the gradient
     backward (Megatron's f). A no-op without a group."""
-    return x if group is None else _CopyToGroup.apply(x, group)
+    return x if group is None or not _needs_grad(x) else _CopyToGroup.apply(x, group)
 
 
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of the ranks' partial results: all-reduce forward, identity
     backward (Megatron's g). A no-op without a group."""
-    return x if group is None else _ReduceFromGroup.apply(x, group)
+    if group is None:
+        return x
+    return _ReduceFromGroup.apply(x, group) if _needs_grad(x) else _sum_f32(x, group)
+
+
+def _zero_scattered(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    parts = [torch.zeros_like(x) for _ in range(data_world_size(group))]
+    parts[data_rank(group)] = x
+    return torch.cat(parts, dim)
 
 
 def gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' slices of ``dim`` side by side in the group's rank order:
     the all-reduce of a zero-scattered buffer, differentiable (the backward
-    hands each rank the gradient of its own slice). A no-op without a
+    hands each rank the gradient of its own slice), for a result that
+    everything downstream uses alike on every rank. A no-op without a
     group."""
     if group is None:
         return x
-    parts = [torch.zeros_like(x) for _ in range(data_world_size(group))]
-    parts[data_rank(group)] = x
-    return reduce_from_group(torch.cat(parts, dim), group)
+    return reduce_from_group(_zero_scattered(x, dim, group), group)
+
+
+def all_gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``lax.all_gather(..., tiled=True)`` along ``dim``: the ranks' slices
+    side by side in the group's rank order, for a result that each rank uses
+    in its own way (sequence parallelism's keys and values, read by every
+    rank's own queries). Its backward is JAX's transpose, a reduce-scatter:
+    the gradients of all the ranks summed, then this rank's slice.
+    ``gather_along``'s backward keeps only this rank's own gradient. A
+    no-op without a group."""
+    if group is None:
+        return x
+    buf = _zero_scattered(x, dim, group)
+    return _SumVarying.apply(buf, group) if _needs_grad(buf) else all_reduce_sum(buf, group)
 
 
 class ShardSpec(NamedTuple):
