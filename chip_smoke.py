@@ -76,12 +76,28 @@ imports nothing of JAX. Phases, each of which raises on failure (exit code
    and the median ms a step, the saves' ms, peak memory, the device's idle
    share; the augmentation alone at 32
    and 128 clips (device ms, launches: equal); the bare step at both sizes;
-11. the augmentation on the card against the host on the same draws;
+11. the augmentation on the card against the host on the same draws; then
+   ``graphs``: the port's programs run as CUDA graphs (``runtime.CapturedCall``,
+   the counterpart of ``jax.jit``) against the same programs eager, bit for
+   bit, with the kernel launches of a call equal: 6 flagship steps at 32
+   clips (``make_full_step``: augmentation + step), default and with
+   ``attn_impl="pallas"``, through the queue turning ready under schedules
+   that move every step (every loss, then every parameter, teacher leaf,
+   queue row and AdamW moment); the step at 32 and 128 clips and
+   ``run_training`` at 32 clips each way (ms, host ms, idle share, peak
+   memory, clips/s over the window). Phases 5 and 17 make the same
+   comparison for the bf16 eval groups and their features (``graphs eval ...``)
+   and for each serving program (``graphs export ...``, the symbolic one at
+   64, 65 and 7), and phase 12 for the in-training eval's feature
+   and diagnostics functions (``graphs eval driver ...``). Every main path
+   runs graphed by default;
 12. the in-training Pascal eval (``make_eval_feature_fn`` + ``Evaluator``)
    at ViT-S/16 224, eval resolution 112, 21 clusters, on 120 synthetic
    images in batches of 60, dataset-wise in memory and streaming: mIoU,
-   ms, k-means ms; before it, the feature function on one batch against
-   the plain preprocess and the plain blocks;
+   ms, k-means ms; before it, at the batch of 60, the feature function
+   (with and without the attention) and the diagnostics' scores function
+   graphed against eager, and the feature function against the plain
+   preprocess and the plain blocks;
 13. the zoo: every name of ``models/registry`` at full width with seeded
    weights on the eval feature path (8 uint8 480x854 frames -> the
    preprocess -> the backbone at 224), in bf16 and f32: ms a frame and
@@ -275,13 +291,14 @@ class NoDeviceEvents(AssertionError):
     """A profiler trace with no device event inside its host window."""
 
 
-def trace(fn, label: str, reps: int = 3, top: int = 8) -> None:
+def trace(fn, label: str, reps: int = 3, top: int = 8) -> dict:
     """Device idle share and kernel time by name over ``reps`` calls of
     ``fn`` under ``torch.profiler``. The window is a host range around the
     calls that ends in a synchronise; busy time is the union of the device
     events' intervals (kernels, copies, memsets) inside it. Only device
     events count: in ``key_averages`` a CPU op's row carries its kernels'
-    device time as well, so summing all rows counts that time twice."""
+    device time as well, so summing all rows counts that time twice.
+    Returns ``device_time``'s dict."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -297,8 +314,7 @@ def trace(fn, label: str, reps: int = 3, top: int = 8) -> None:
         win = next(e for e in events if e.name() == "chip_smoke.trace"
                    and e.device_type() == DeviceType.CPU)
         try:
-            device_time(events, win.start_ns(), win.end_ns(), reps, label, top)
-            return
+            return device_time(events, win.start_ns(), win.end_ns(), reps, label, top)
         except NoDeviceEvents:
             if attempt:
                 raise
@@ -1155,12 +1171,111 @@ def counted(path: tuple, fn, totals: dict):
     return out, counts
 
 
+def _clone_tree(out):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, out)
+
+
+def _equal_trees(a, b) -> bool:
+    from torch.utils import _pytree as pytree
+
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    return sa == sb and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def call_launches(fn, *args):
+    """One call of ``fn``: its outputs (cloned out of a graph's memory) and
+    the kernel launches it made (a graph's replay counts its kernels)."""
+    from timetuning_tpu_torch.ops import kernel_lib
+
+    torch.cuda.synchronize()
+    kernel_lib.reset_launch_counts()
+    out = _clone_tree(fn(*args))
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in kernel_lib.launch_counts().items() if v}
+
+
+def host_ms(fn, calls: int = 3) -> float:
+    """Host ms a call of ``fn``, no synchronise between the calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return out
+
+
+def busy_check(label: str, res: dict, graphed) -> None:
+    """An idle share is quoted only where the trace lists the kernels inside
+    a replay: the graphed busy time within 10 % of the eager one. The
+    profiler has dropped some of a replay's device events (and once all of
+    a short window's), so the graphed call is traced up to twice more; a
+    trace that never holds them leaves the graphed idle share unmeasured
+    (None)."""
+    for attempt in range(3):
+        if abs(res["graphed"]["busy_ms"] - res["eager"]["busy_ms"]) <= \
+                0.1 * res["eager"]["busy_ms"]:
+            return
+        if attempt < 2:
+            res["graphed"].update(trace(graphed, f"graphs {label} graphed, again", top=3))
+    print(f"graphs {label}: the trace kept {res['graphed']['busy_ms']:.3f} ms of device "
+          f"busy graphed against {res['eager']['busy_ms']:.3f} eager: it lost kernels "
+          f"inside the replay, so the graphed idle share is not measured", flush=True)
+    res["graphed"]["idle"] = None
+
+
+def pct(x) -> str:
+    return "not measured" if x is None else f"{100 * x:.2f} %"
+
+
+def graphs_compare(label: str, graphed, eager, *args, reps: int = 5) -> dict:
+    """One program graphed (``runtime.CapturedCall``) and eager on the same
+    inputs: the outputs bit for bit equal on three graphed calls (the eager
+    warm-up, the capture and its replay, a replay) and the kernel launches
+    of a call equal; then, each way, host ms a call (no synchronise), ms a
+    call (CUDA events, unqueued), peak memory over those calls and the
+    trace's busy ms and idle share (``busy_check``)."""
+    want, n_eager = call_launches(eager, *args)
+    for i in range(3):
+        got, n_graphed = call_launches(graphed, *args)
+        if not _equal_trees(got, want):
+            raise AssertionError(f"graphs {label}: graphed call {i} differs from eager")
+        if n_graphed != n_eager:
+            raise AssertionError(f"graphs {label}: graphed call {i} launched {n_graphed}, "
+                                 f"eager {n_eager}")
+    res = {}
+    for mode, fn in (("eager", eager), ("graphed", graphed)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: fn(*args), warmup=1, reps=reps, queued=False)
+        res[mode] = {"ms": ms, "host_ms": host_ms(lambda: fn(*args)),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     **trace(lambda: fn(*args), f"graphs {label} {mode}", top=3)}
+    busy_check(label, res, lambda: graphed(*args))
+    e, g = res["eager"], res["graphed"]
+    print(f"graphs {label}: graphed = eager bit for bit on 3 calls, launches a call "
+          f"{n_eager} both ways | ms a call (CUDA events) eager {e['ms']:.3f}, graphed "
+          f"{g['ms']:.3f}; host ms a call {e['host_ms']:.3f} / {g['host_ms']:.3f}; "
+          f"device busy {e['busy_ms']:.3f} / {g['busy_ms']:.3f} ms, idle "
+          f"{pct(e['idle'])} / {pct(g['idle'])}; peak memory "
+          f"{e['peak_gib']:.3f} / {g['peak_gib']:.3f} GiB", flush=True)
+    return res
+
+
 def run_eval(dev, clips, arch: str, size: int, totals: dict) -> dict:
     """The port's propagation eval (``cli/propagate``'s per-group compute and
     scoring) on ``clips`` with ``arch`` at ``size``, in bf16 through the
-    kernels and in f32; fails if |J&F(bf16) - J&F(f32)| > 0.05."""
+    kernels and in f32; fails if |J&F(bf16) - J&F(f32)| > 0.05. The groups
+    run as ``cli/propagate``'s CUDA graph (one program over the warm-up and
+    the counted run); then, in bf16, the ``graphs`` comparison of the group
+    and of its feature extraction, graphed against eager."""
     from timetuning_tpu_torch.cli import propagate as prop
+    from timetuning_tpu_torch.data.transforms import eval_preprocess_batch
     from timetuning_tpu_torch.models.registry import get_backbone
+    from timetuning_tpu_torch.runtime import CapturedCall
 
     n = CLIPS * FRAMES
     frames = torch.from_numpy(np.stack([f for f, _ in clips])).to(dev)
@@ -1173,12 +1288,16 @@ def run_eval(dev, clips, arch: str, size: int, totals: dict) -> dict:
             "--clip_batch", str(CLIPS)])
         bb = get_backbone(args.architecture, dtype=prop.compute_dtype(args),
                           device=dev)
-        prop.evaluate_clips(args, bb, clips[:1], dev)           # warm-up
+        program = prop.group_program(args, bb)
+        # warm-up: the group shape's eager call, then the counted run's
+        # capture and replay
+        prop.evaluate_clips(args, bb, clips[:1], dev, program=program)
         t0 = time.perf_counter()
         with dense_pass_rows() as k3:
-            res, counts = counted((arch, dtype),
-                                  lambda: prop.evaluate_clips(args, bb, clips, dev),
-                                  totals)
+            res, counts = counted(
+                (arch, dtype),
+                lambda: prop.evaluate_clips(args, bb, clips, dev, program=program),
+                totals)
         wall = time.perf_counter() - t0
         scores[dtype] = res["jf"]
 
@@ -1191,9 +1310,7 @@ def run_eval(dev, clips, arch: str, size: int, totals: dict) -> dict:
             prop.first_frame_onehot(f, bb.spatial_resolution(size), 4)
             for f in first])).to(dev)
         def group():
-            return prop.propagate_clip_group(
-                bb, frames, onehots, input_resolution=size, n_last=4,
-                radius=12, topk=5, dtype=prop.compute_dtype(args))
+            return program(frames, onehots)
 
         ms = cuda_ms(group, warmup=1, reps=5, queued=False)
         s = scores[dtype]
@@ -1204,7 +1321,32 @@ def run_eval(dev, clips, arch: str, size: int, totals: dict) -> dict:
               f"| launches {counts}", flush=True)
         dense_pass_line(f"eval {arch}/{size} {dtype}", k3)
         trace(group, f"{arch}/{size} {dtype} group")
-        del bb
+
+        def extract(x):
+            x = eval_preprocess_batch(x.reshape((n,) + x.shape[2:]), out_size=size,
+                                      compute_dtype=prop.compute_dtype(args))
+            return bb.apply(x)[0]
+
+        if dtype == "bfloat16":           # the kernels' path
+            with torch.inference_mode():
+                graphs_compare(f"eval {arch}/{size} {dtype} features",
+                               CapturedCall(extract), extract, frames)
+            res_g = graphs_compare(f"eval {arch}/{size} {dtype} group",
+                                   prop.group_program(args, bb),
+                                   prop.group_program(args, bb, graphed=False), frames,
+                                   onehots)
+            # the blocks' f32 weights cast to bf16 on every forward
+            # (models/vit.py, each block's qkv, proj, fc1, fc2): kernels
+            # inside the graph now, timed alone
+            ws = [w for blk in bb.module.blocks for w in (
+                blk.attn.qkv.weight, blk.attn.proj.weight, blk.mlp.fc1.weight,
+                blk.mlp.fc2.weight)]
+            cast_ms = cuda_ms(lambda: [w.t().to(torch.bfloat16) for w in ws], reps=10)
+            busy = res_g["graphed"]["busy_ms"]
+            print(f"graphs eval {arch}/{size} {dtype}: the {len(ws)} per-block weight "
+                  f"casts alone {cast_ms:.4f} ms = {100 * cast_ms / busy:.2f} % of the "
+                  f"graphed group's device busy {busy:.3f} ms", flush=True)
+        del bb, program
     if not all(np.isfinite(v) for s in scores.values() for v in s.values()):
         raise AssertionError(f"{arch}: non-finite scores {scores}")
     delta = abs(scores["bfloat16"]["J&F"] - scores["float32"]["J&F"])
@@ -1418,7 +1560,7 @@ def train_split(model, cfg, state, clip) -> None:
         return run
 
     def update():
-        state.opt.adamw.step()
+        state.opt.step()
         for n, t in state.teacher.items():
             t.mul_(0.005).add_(named[n].detach() * 0.995)
 
@@ -1911,12 +2053,14 @@ def run_train_driver(dev, totals: dict) -> None:
     # the resumed epoch's steady steps under the profiler: from the start of
     # its second step to the start of its last
     events = prof.profiler.kineto_results.events()
+    # (the resumed state's tensors are new: its first step runs eagerly, its
+    # second captures the step's graph)
     marks = sorted(e.start_ns() for e in events if e.name() == "chip_smoke.driver_step"
                    and e.device_type() == DeviceType.CPU)
-    idle = device_time(events, marks[1], marks[-1], len(marks) - 2,
+    idle = device_time(events, marks[2], marks[-1], len(marks) - 3,
                        "train driver B=32 (loader + copy + augmentation + step)")["idle"]
 
-    r32 = driver_rates(t32, 32, per_epoch=4)
+    r32 = driver_rates(t32, 32, per_epoch=4, skip=2)
     with tempfile.TemporaryDirectory() as log_dir:
         with step_times() as t128:
             big, _ = counted(("train", "driver"),
@@ -1924,7 +2068,7 @@ def run_train_driver(dev, totals: dict) -> None:
                                  dev, log_dir, 128, num_epochs=1,
                                  max_steps_per_epoch=DRIVER_STEPS_128)), totals)
         peak128 = torch.cuda.max_memory_allocated() / 2 ** 30
-    r128 = driver_rates(t128, 128, per_epoch=DRIVER_STEPS_128)
+    r128 = driver_rates(t128, 128, per_epoch=DRIVER_STEPS_128, skip=2)
     if big["global_step"] != DRIVER_STEPS_128:
         raise AssertionError(f"train driver B=128: {big['global_step']} steps")
 
@@ -1935,8 +2079,9 @@ def run_train_driver(dev, totals: dict) -> None:
                 f"{r['median']:.3f} ms a step = {B / r['median'] * 1e3:.1f} clips/s "
                 f"(steps {r['gaps']})")
 
-    print(f"train driver wall, host clock entry to entry (warm-up step excluded; "
-          f"every step waits for the previous one's loss): {rates(r32, 32)}; "
+    print(f"train driver wall, host clock entry to entry (the eager warm-up step and "
+          f"the step that captures the graph excluded; every step waits for the "
+          f"previous one's loss): {rates(r32, 32)}; "
           f"{rates(r128, 128)}; checkpoint saves {[round(v, 1) for v in t32.saves]} ms "
           f"at B=32 (the second is the epoch-top save inside the window); of a step, "
           f"inside the full step {r32['inside']:.3f} / {r128['inside']:.3f} ms (draw "
@@ -1980,6 +2125,174 @@ def run_train_driver(dev, totals: dict) -> None:
           f"{aug[128]['wall_ms']:.3f}; the loader and copy alone: "
           f"{loader_ms[32]:.3f} / {loader_ms[128]:.3f}; the draw: "
           f"{aug[32]['draw_ms']:.3f} / {aug[128]['draw_ms']:.3f})", flush=True)
+
+
+GRAPH_STEPS = 6                     # flagship steps a configuration of the graphs phase
+GRAPH_QUEUE = 960                   # rows of its queue: 320 stored a step, ready at step 3
+
+
+def graphs_step(dev, attn_impl: str, graphed: bool):
+    """The flagship's full step (``core/train.make_full_step``: augmentation
+    + step) at full width, seeded, bf16, with a queue of ``GRAPH_QUEUE``
+    rows and the lr, weight-decay and EMA-momentum schedules cosine over
+    ``GRAPH_STEPS`` steps, so that a value frozen into a graph shows from
+    step 2 on; graphed or eager."""
+    from timetuning_tpu_torch.core.optimizer import swav_optimizer
+    from timetuning_tpu_torch.core.timet import TimeT, TimeTConfig, init_state
+    from timetuning_tpu_torch.core.train import make_full_step
+    from timetuning_tpu_torch.data.transforms import AugmentConfig
+    from timetuning_tpu_torch.models.extractor import FeatureExtractor
+    from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
+
+    vit = VisionTransformer(vit_small(16, img_size=S, dtype=torch.bfloat16,
+                                      attn_impl=attn_impl))
+    model = TimeT(FeatureExtractor(vit, 384, (1024, 1024, 512, 256)), 200)
+    model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    sched = dict(num_epochs=1, steps_per_epoch=GRAPH_STEPS)
+    cfg = TimeTConfig(n_prototypes=200, frozen_trunk_blocks=10, n_last_frames=7,
+                      size_mask_neighborhood=6, topk=5, spatial_resolution=S // 16,
+                      use_queue=True, queue_size=GRAPH_QUEUE, **sched)
+    opt, mask = swav_optimizer(model, lr=1e-4, opt_over_trainable=True, **sched)
+    state = init_state(model, cfg, opt, trainable_mask=mask)
+    return state, make_full_step(model, cfg, opt, AugmentConfig(), trainable_mask=mask,
+                                 opt_over_trainable=True, graphed=graphed)
+
+
+def graphs_batch(dev, B: int):
+    """B uint8 clips of 4 frames from the driver's synthetic bank (256
+    buffers of 480 x 854 clips), their native sizes and gray means."""
+    bank, gray = synthetic_clip_bank(DRIVER_BANK, 4, 256)
+    idx = np.arange(B) % DRIVER_BANK
+    return (torch.from_numpy(bank[idx]).to(dev),
+            torch.tensor([DRIVER_NATIVE] * B, device=dev),
+            torch.from_numpy(gray[idx]).to(dev))
+
+
+def selection_extra(dev, B: int) -> dict:
+    """Device ms (CUDA events, queued) of the augmentation's two per-clip
+    selections at ``B`` clips of 4 frames (256 buffers): the contrast
+    target (the buffer's gray mean) and the hue computed for every clip, as
+    ``apply_augment`` does for fixed shapes, against the same for the clips
+    that drew them alone (an index subset: shapes that follow the draws)."""
+    from timetuning_tpu_torch.data import transforms as tf
+
+    frames, _, _ = graphs_batch(dev, B)
+    x = frames.float() / 255.0
+    p = tf.draw_augment_params(torch.Generator().manual_seed(B), B, 4, tf.AugmentConfig())
+    jit, op = p.column("jitter") > 0, p.column("op")
+    c_idx = torch.nonzero(jit & (op == 1)).flatten().to(dev)
+    h_idx = torch.nonzero(jit & (op == 3)).flatten().to(dev)
+    hue = p.column("hue").to(dev)
+    every = cuda_ms(lambda: (tf._pil_gray_mean(x), tf._adj_hue(x, hue.view(B, 1, 1, 1))),
+                    reps=10)
+    subset = cuda_ms(lambda: (tf._pil_gray_mean(x.index_select(0, c_idx)),
+                              tf._adj_hue(x.index_select(0, h_idx),
+                                          hue[h_idx].view(-1, 1, 1, 1))), reps=10)
+    return {"every": every, "subset": subset, "n_contrast": int(c_idx.numel()),
+            "n_hue": int(h_idx.numel())}
+
+
+def run_graphs(dev) -> None:
+    """The ``graphs`` phase's train part (the eval and serving programs are
+    compared in their own phases): ``GRAPH_STEPS`` flagship steps at 32
+    clips, default and forced (``attn_impl="pallas"``), graphed against
+    eager from the same seed: the loss at every step, the launches of every
+    step, then every parameter, teacher leaf, queue row and AdamW moment bit
+    for bit; the step at 32 and 128 clips each way (ms, host ms, trace,
+    peak memory); ``run_training`` at 32 clips for 2 epochs each way:
+    clips/s over the window with and without the epoch-top save."""
+    import functools
+    import tempfile
+
+    from timetuning_tpu_torch.core import train as ttrain
+    from timetuning_tpu_torch.core.timet import state_tensors
+
+    t_phase = time.perf_counter()
+    for attn_impl in ("auto", "pallas"):
+        label = "default" if attn_impl == "auto" else "forced"
+        frames, sizes, gmeans = graphs_batch(dev, 32)
+        runs, timing = {}, {}
+        for mode in ("eager", "graphed"):
+            state, step = graphs_step(dev, attn_impl, mode == "graphed")
+            torch.cuda.reset_peak_memory_stats()
+            losses, launches = [], []
+            for i in range(GRAPH_STEPS):
+                (state, m), n = call_launches(
+                    lambda: step(state, frames, sizes, gmeans, ttrain.step_generator(1, i)))
+                losses.append(float(m["loss"]))
+                launches.append(n)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs[mode] = (losses, launches, {k: t.clone() for k, t in
+                                             state_tensors(state).items()}, peak)
+            if attn_impl == "auto":
+                timing[mode] = {}
+                for B in (32, 128):
+                    xb = graphs_batch(dev, B)
+                    gen = ttrain.step_generator(2, B)
+
+                    def call():
+                        return step(state, *xb, gen)
+
+                    torch.cuda.reset_peak_memory_stats()
+                    ms = cuda_ms(call, warmup=2, reps=5, queued=False)
+                    timing[mode][B] = {
+                        "call": call,
+                        "ms": ms, "host_ms": host_ms(call),
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        **trace(call, f"graphs train {label} B={B} {mode}", top=3)}
+            del state, step
+            torch.cuda.empty_cache()
+        (le, ne, te, pe), (lg, ng, tg, pg) = runs["eager"], runs["graphed"]
+        bad = [k for k in te if not torch.equal(te[k], tg[k])]
+        print(f"graphs train {label} 32 clips, {GRAPH_STEPS} steps, queue ready at step 3, "
+              f"cosine schedules over the steps: losses eager {le}, graphed {lg}; "
+              f"launches a step {ne[-1]} (graphed {ng[-1]}); {len(te)} state tensors, "
+              f"{len(bad)} differ; peak memory over the steps {pe:.3f} / {pg:.3f} GiB",
+              flush=True)
+        if le != lg or ne != ng or bad or te.keys() != tg.keys():
+            raise AssertionError(f"graphs train {label}: graphed differs from eager "
+                                 f"(losses {le} / {lg}, launches {ne} / {ng}, tensors "
+                                 f"{bad[:5]})")
+        for B in timing.get("graphed", {}):
+            pair = {mode: timing[mode][B] for mode in ("eager", "graphed")}
+            busy_check(f"train {label} B={B}", pair, pair["graphed"]["call"])
+            e, g = pair["eager"], pair["graphed"]
+            print(f"graphs train {label} step B={B} (augmentation + step): ms a step "
+                  f"(CUDA events) eager {e['ms']:.3f}, graphed {g['ms']:.3f} = "
+                  f"{B / e['ms'] * 1e3:.1f} / {B / g['ms'] * 1e3:.1f} clips/s; host ms "
+                  f"a step {e['host_ms']:.3f} / {g['host_ms']:.3f}; device busy "
+                  f"{e['busy_ms']:.3f} / {g['busy_ms']:.3f} ms, idle {pct(e['idle'])} "
+                  f"/ {pct(g['idle'])}; peak memory {e['peak_gib']:.3f} / "
+                  f"{g['peak_gib']:.3f} GiB", flush=True)
+
+    for B in (32, 128):
+        sel = selection_extra(dev, B)
+        print(f"graphs augment selection B={B}: the gray mean and the hue of every clip "
+              f"{sel['every']:.4f} ms against those of the clips that drew them "
+              f"({sel['n_contrast']} contrast, {sel['n_hue']} hue) {sel['subset']:.4f} ms: "
+              f"{sel['every'] - sel['subset']:.4f} ms more device time a step", flush=True)
+
+    rates = {}
+    make = ttrain.make_full_step
+    for mode in ("eager", "graphed"):
+        if mode == "eager":
+            ttrain.make_full_step = functools.partial(make, graphed=False)
+        try:
+            with tempfile.TemporaryDirectory() as log_dir, step_times() as rec:
+                out = ttrain.run_training(driver_config(dev, log_dir, 32))
+        finally:
+            ttrain.make_full_step = make
+        if out["global_step"] != 8 or not np.isfinite(out["final_loss"]):
+            raise AssertionError(f"graphs driver {mode}: {out['global_step']} steps, "
+                                 f"final loss {out['final_loss']}")
+        rates[mode] = driver_rates(rec, 32, per_epoch=4, skip=2)
+    e, g = rates["eager"], rates["graphed"]
+    print(f"graphs train driver B=32, 2 epochs of 4 steps (the first two steps left "
+          f"out): clips/s over the window (the epoch-top save inside) eager "
+          f"{e['window']:.1f}, graphed {g['window']:.1f}; inside an epoch "
+          f"{e['in_epoch']:.1f} / {g['in_epoch']:.1f}; median ms a step "
+          f"{e['median']:.3f} / {g['median']:.3f} (steps {e['gaps']} / {g['gaps']}) | "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def run_augment_card_vs_host(dev) -> None:
@@ -2073,8 +2386,16 @@ def run_eval_driver(dev, totals: dict) -> None:
     """Phase 12: the in-training Pascal eval as ``core/train.run_training``
     runs it (``make_eval_feature_fn`` + ``Evaluator``) at dino-s16 224, bf16,
     eval resolution 112, 21 clusters, on 120 synthetic images in batches of
-    60: the dataset-wise protocol in memory and streaming."""
-    from timetuning_tpu_torch.core.train import build_model, make_eval_feature_fn
+    60: the dataset-wise protocol in memory and streaming. Before the timed
+    passes, at the batch of 60 (so that their graphs are captured outside
+    them): the feature function with and without the attention and the
+    diagnostics' scores function, each graphed against its eager path
+    (``graphs_compare``)."""
+    from timetuning_tpu_torch.core.train import (
+        build_model,
+        make_diagnostics_scores_fn,
+        make_eval_feature_fn,
+    )
     from timetuning_tpu_torch.eval.evaluator import Evaluator
     from timetuning_tpu_torch.ops import kmeans as km
 
@@ -2104,8 +2425,20 @@ def run_eval_driver(dev, totals: dict) -> None:
         print(f"eval driver: native matcher ready in {time.perf_counter() - t0:.2f} s "
               f"(built on first use where the checkout has no build)", flush=True)
         feature_fn(batches[0][0][:2])
+        x = torch.from_numpy(batches[0][0]).to(dev)
+        eager_fn = make_eval_feature_fn(model, cfg.input_resolution, graphed=False)
+        for want_attention in (False, True):
+            graphs_compare(f"eval driver features want_attention={want_attention}",
+                           feature_fn, eager_fn, x, want_attention)
+        graphs_compare("eval driver diagnostics scores",
+                       make_diagnostics_scores_fn(model, cfg.input_resolution),
+                       make_diagnostics_scores_fn(model, cfg.input_resolution,
+                                                  graphed=False), x)
         check_eval_features(dev, model, feature_fn, batches[0][0])
-        for streaming in (False, True):
+        # the in-memory pass twice: k-means (~2,000 launches, a host sync in
+        # each bincount) is host-bound, so its time moves from call to call
+        for label, streaming in (("in memory", False), ("in memory, again", False),
+                                 ("streaming", True)):
             ev = Evaluator(lambda: iter(batches), feature_fn, res, num_classes=21,
                            involve_bg=True, ignore_index=255)
             kmeans_ms.clear()
@@ -2114,9 +2447,8 @@ def run_eval_driver(dev, totals: dict) -> None:
                 evaluation_protocol="dataset-wise", eval_resolution=112,
                 num_clusters=21, streaming=streaming), totals)
             ms = (time.perf_counter() - t0) * 1e3
-            print(f"eval driver ({'streaming' if streaming else 'in memory'}, "
-                  f"dataset-wise, 120 images, k=21 at 112): mIoU {score:.6f} | "
-                  f"{ms:.1f} ms, of it k-means {sum(kmeans_ms):.1f} ms "
+            print(f"eval driver ({label}, dataset-wise, 120 images, k=21 at 112): "
+                  f"mIoU {score:.6f} | {ms:.1f} ms, of it k-means {sum(kmeans_ms):.1f} ms "
                   f"({len(kmeans_ms)} fit) | launches {counts}", flush=True)
             if not (np.isfinite(score) and 0.0 <= score <= 1.0):
                 raise AssertionError(f"eval driver: mIoU {score} is not in [0, 1]")
@@ -2676,7 +3008,13 @@ def run_export(dev, totals: dict) -> None:
             if launched != want_counts[arch]:
                 raise AssertionError(f"export {label}: one call launched {launched}, "
                                      f"expected {want_counts[arch]}")
-            del fn, live, frames, got, want
+            eager = cli_export.load_exported(out, graphed=False)
+            with torch.no_grad():
+                for xb in [frames] + ([torch.from_numpy(np.random.default_rng(b).integers(
+                        0, 256, (b, size, size, 3), np.uint8)).to(dev) for b in (65, 7)]
+                        if symbolic else []):
+                    graphs_compare(f"export {label} batch {xb.shape[0]}", fn, eager, xb)
+            del fn, eager, live, frames, got, want
 
 
 def write_davis_tree(root: str) -> None:
@@ -4010,6 +4348,7 @@ def main() -> int:
     run_train_f32_against_host(dev, totals)
     run_train_driver(dev, totals)
     run_augment_card_vs_host(dev)
+    run_graphs(dev)
     run_eval_driver(dev, totals)
     run_zoo(dev, totals)
     run_cbfe(dev, totals)

@@ -413,10 +413,19 @@ def _rename_groups(gm, names: dict) -> None:
     gm.recompile()
 
 
-def load_exported(path):
+def load_exported(path, graphed: bool = True):
     """Serving-side loader: a saved program (path or file object) ->
     callable(frames_u8). Registers the kernels' custom ops (ops/kernel_lib),
     which the program calls by name; imports no model code.
+
+    A one-device program is replayed as one CUDA graph a batch shape on the
+    card (runtime.CapturedCall around ``torch.export.load(path).module()``;
+    the serving counterpart of JAX's compiled StableHLO): the program's
+    ``_assert_tensor_metadata`` guards are host checks, so they run at the
+    capture and drop out of the replay; nothing is stripped from the saved
+    program. Each call returns a tensor of its own (copied out of the
+    graph's memory, which the next call of any batch shape overwrites), as
+    the eager module does; ``graphed=False`` returns the module itself.
 
     A mesh's manifest (``save_exported``) loads on each rank of an
     initialized process group of the exporter's size: the mesh is rebuilt
@@ -429,7 +438,17 @@ def load_exported(path):
     kernel_lib.register_ops()
     manifest = _manifest(path)
     if manifest is None:
-        return torch.export.load(path).module()
+        from timetuning_tpu_torch.runtime import CapturedCall
+
+        module = torch.export.load(path).module()
+        if not graphed:
+            return module
+        program = CapturedCall(module)
+
+        def serve(frames_u8):
+            return program(frames_u8).clone()
+
+        return serve
     world = pm.data_world_size() if pm.is_initialized() else 1
     if world != manifest["world_size"]:
         raise ValueError(f"{path} holds a {manifest['kind']} mesh of "

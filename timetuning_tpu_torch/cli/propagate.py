@@ -20,9 +20,10 @@ frame to frame at S x S, no backbone forward.
 
 The per-group compute (preprocess -> ViT -> propagate -> upsample -> argmax)
 is ``propagate_clip_group``, which takes in-memory uint8 clips;
-``evaluate_clips`` adds the grouping and the scoring (J&F, mIoU under a
-clustering protocol, propagation J), and
-``run_propagation`` feeds it from the dataset loader.
+``group_program`` makes it one CUDA graph a group shape on the card (the
+JAX CLI's jitted ``extract`` + ``propagate_batch``); ``evaluate_clips`` adds
+the grouping and the scoring (J&F, mIoU under a clustering protocol,
+propagation J), and ``run_propagation`` feeds it from the dataset loader.
 """
 
 from __future__ import annotations
@@ -109,14 +110,36 @@ def propagate_clip_group(bb: Backbone, frames: torch.Tensor,
     return up.argmax(dim=1).reshape(B, T1, S, S)
 
 
+def group_program(args, bb: Backbone, graphed: bool = True):
+    """``propagate_clip_group`` at ``args``' settings as a callable
+    ``(frames, first_onehots) -> predicted ids``: on the card one CUDA graph
+    a (group shape, K) (runtime.CapturedCall), whose output stays valid
+    until the program's next call; eagerly with ``graphed=False`` or on CPU
+    tensors."""
+    from timetuning_tpu_torch.runtime import CapturedCall
+
+    def group(frames, onehots):
+        return propagate_clip_group(
+            bb, frames, onehots, input_resolution=args.input_resolution,
+            n_last=args.n_last_frames, radius=args.size_mask_neighborhood,
+            topk=args.topk, dtype=compute_dtype(args))
+
+    return CapturedCall(group) if graphed else group
+
+
 def evaluate_clips(args, bb: Backbone,
                    clips: Iterable[tuple[np.ndarray, np.ndarray]],
-                   device: torch.device | str, metrics: tuple = ("jf",)) -> dict:
+                   device: torch.device | str, metrics: tuple = ("jf",),
+                   program=None) -> dict:
     """Propagate the first-frame masks through ``clips`` ((frames [T, H, W, 3]
     uint8, annotations [T, h, w]) pairs) in groups of ``--clip_batch`` and
     score the requested metrics: ``{"jf": {"J", "F", "J&F"}, "miou": float,
-    "propagation": float}``."""
+    "propagation": float}``. ``program``: the ``group_program`` of ``args``
+    and ``bb`` to run the groups (its graphs outlive this call); None makes
+    a graphed one."""
     S = args.input_resolution
+    if program is None:
+        program = group_program(args, bb)
     res = bb.spatial_resolution(S)
     CB = max(1, int(args.clip_batch))
     sequences: list[dict] = []
@@ -144,11 +167,7 @@ def evaluate_clips(args, bb: Backbone,
         fr = np.stack([f for f, _, _ in group] + [group[-1][0]] * (CB - nb))
         onehots = [first_frame_onehot(ann[0], res, K) for _, ann, _ in group]
         oh = np.stack(onehots + [onehots[-1]] * (CB - nb))
-        preds = propagate_clip_group(
-            bb, torch.from_numpy(fr).to(device), torch.from_numpy(oh).to(device),
-            input_resolution=S, n_last=args.n_last_frames,
-            radius=args.size_mask_neighborhood, topk=args.topk,
-            dtype=compute_dtype(args))
+        preds = program(torch.from_numpy(fr).to(device), torch.from_numpy(oh).to(device))
         for (_, ann, _), pr in zip(group, preds[:nb].cpu().numpy()):
             score_clip(ann, pr)
         group.clear()

@@ -140,12 +140,13 @@ def _load_opt(opt, payload: dict, sharding=None) -> None:
     opt.adamw.state.clear()
     for name, p in opt.named_params.items():
         # a leaf the saved optimizer did not track was frozen there: it gets
-        # no gradient, so AdamW keeps no state for it here either
+        # no gradient, so AdamW keeps no state for it here either; the
+        # per-leaf "step" of earlier payloads is the count
         if name in saved:
             opt.adamw.state[p] = {
-                k: (v if sharding is None else sharding.local(name, v)).to(p.device)
-                if torch.is_tensor(v) and v.dim() else v
-                for k, v in saved[name].items()}
+                k: (saved[name][k] if sharding is None
+                    else sharding.local(name, saved[name][k])).to(p.device)
+                for k in ("exp_avg", "exp_avg_sq")}
 
 
 def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None,

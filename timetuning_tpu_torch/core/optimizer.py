@@ -9,11 +9,15 @@ Counterpart of ``timetuning_tpu/core/optimizer.py`` (reference
   * the weight decay itself cosine-scheduled 0.04 -> 0.4 (:427-429, :613).
 
 The JAX package expresses this as one optax chain whose schedules are
-functions of the chain's own step counter. Here it is a
-``torch.optim.AdamW`` whose groups' ``lr`` and ``weight_decay`` are set
-from the same schedules, by the same counter, before each update: optax's
-``p - lr * (adam + wd * p)`` and torch's decoupled decay
-``p * (1 - lr * wd) - lr * adam`` are the same update.
+functions of the chain's own step counter. Here the schedules are read at
+the same counter on the host, before each update, into a small table of
+scalars (``SwavOptimizer.scalars``), and the update (``apply``) is torch's
+AdamW written on tensors that reads every scheduled value from that table
+on the device: a CUDA graph of the train step replays it with each step's
+values (``torch.optim.AdamW`` takes its weight decay only as a Python float,
+which a graph would freeze). optax's ``p - lr * (adam + wd * p)`` and
+torch's decoupled decay ``p * (1 - lr * wd) - lr * adam`` are the same
+update.
 
 Which parameters train is a mask over parameter names (``build_masks``),
 not ``requires_grad``: backbone leaves train only if their name holds one of
@@ -30,6 +34,7 @@ moments) convert exactly into each other (``migrate_*``).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Iterable, Mapping, NamedTuple, Sequence
 
@@ -105,12 +110,32 @@ class _Schedules:
         return schedule_at(self.wd_schedule, count)
 
 
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+@dataclasses.dataclass
+class AdamWGroups:
+    """``SwavOptimizer``'s groups and moments, in the layout the checkpoint
+    writes (torch's optimizer layout): ``param_groups``, dicts of
+    ``params``, ``lr_factor``, ``decays`` and the last update's ``lr`` and
+    ``weight_decay``; ``state[p]``, the ``exp_avg`` and ``exp_avg_sq`` of
+    parameter ``p``."""
+
+    param_groups: list
+    state: dict = dataclasses.field(default_factory=dict)
+
+
 class SwavOptimizer(_Schedules):
     """AdamW (b1 0.9, b2 0.999, eps 1e-8) over the trainable parameters of
-    ``named_params``, grouped by (lr group, decays or not). ``step()`` sets
-    every group's lr and weight decay from the schedules at the optimizer's
-    own step counter (clamped to the schedules' last entry), applies the
-    update to the ``.grad`` of each parameter, and advances the counter."""
+    ``named_params``, grouped by (lr group, decays or not).
+
+    An update is three parts: ``scalars()`` reads the schedules at the
+    optimizer's own step counter (clamped to the schedules' last entry) on
+    the host; ``apply(grads, table)`` updates the parameters and the moments
+    on their device, reading those values from ``table`` (a tensor of them
+    on that device); ``count += 1`` advances the counter. ``step()`` does
+    all three on the ``.grad`` of each parameter. The groups and the
+    moments are ``adamw`` (``AdamWGroups``)."""
 
     def __init__(self, named_params: Mapping[str, torch.Tensor], lr: float,
                  backbone_lr: float, num_steps: int,
@@ -130,20 +155,86 @@ class SwavOptimizer(_Schedules):
                           if groups[n] == group and decay[n] == decays]
                 if params:
                     param_groups.append(dict(
-                        params=params, lr_factor=factors[group], decays=decays))
-        self.adamw = torch.optim.AdamW(param_groups, lr=lr, betas=(0.9, 0.999),
-                                       eps=1e-8, weight_decay=0.0)
+                        params=params, lr_factor=factors[group], decays=decays,
+                        lr=lr * factors[group], weight_decay=0.0))
+        self.adamw = AdamWGroups(param_groups)
+        # the trainable leaves' moments exist from the start, so a train
+        # step's tensors keep their addresses from its first call on
+        self._moments([p for n, p in self.named_params.items()
+                       if self.trainable_mask[n]])
 
-    def step(self) -> None:
+    def scalars(self) -> list[float]:
+        """The scheduled values of the next update, host floats in the order
+        ``apply`` reads them: 1 / sqrt(1 - b2^t), then per group
+        ``1 - lr * wd`` and ``-lr / (1 - b1^t)`` (t = count + 1; torch's
+        AdamW computes the same values on the host). Also records the
+        group's ``lr`` and ``weight_decay``."""
+        t = self.count + 1
         lr, wd = self.lr_at(self.count), self.weight_decay_at(self.count)
+        out = [1.0 / (1.0 - _B2 ** t) ** 0.5]
         for g in self.adamw.param_groups:
             g["lr"] = lr * g["lr_factor"]
             g["weight_decay"] = wd if g["decays"] else 0.0
-        self.adamw.step()
+            out += [1.0 - g["lr"] * g["weight_decay"], -g["lr"] / (1.0 - _B1 ** t)]
+        return out
+
+    def apply(self, grads: dict, table: torch.Tensor) -> None:
+        """One AdamW update of the parameters in ``grads`` (parameter ->
+        gradient; the others keep their value and moments), on their
+        device, every scheduled value read from ``table`` (``scalars()`` as
+        f32, on that device): torch's AdamW as its multi-tensor form orders
+        it, no host value that changes from step to step."""
+        inv_bc2 = table[0]
+        with torch.no_grad():
+            for i, g in enumerate(self.adamw.param_groups):
+                ps = [p for p in g["params"] if p in grads]
+                if not ps:
+                    continue
+                gs = [grads[p] for p in ps]
+                mus, nus = self._moments(ps)
+                if g["decays"]:
+                    torch._foreach_mul_(ps, table[1 + 2 * i])
+                torch._foreach_lerp_(mus, gs, 1.0 - _B1)
+                torch._foreach_mul_(nus, _B2)
+                torch._foreach_addcmul_(nus, gs, gs, value=1.0 - _B2)
+                den = torch._foreach_sqrt(nus)
+                torch._foreach_mul_(den, inv_bc2)
+                torch._foreach_add_(den, _EPS)
+                upd = torch._foreach_div(mus, den)
+                torch._foreach_mul_(upd, table[2 + 2 * i])
+                torch._foreach_add_(ps, upd)
+
+    def _moments(self, params) -> tuple[list, list]:
+        """The AdamW moments of ``params``, zeros where a parameter has none
+        yet. Never made inside a CUDA graph capture: they would be zeroed at
+        every replay."""
+        mus, nus = [], []
+        for p in params:
+            st = self.adamw.state.setdefault(p, {})
+            if not st:
+                if p.is_cuda and torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError("SwavOptimizer: first update of a parameter "
+                                       "inside a CUDA graph capture")
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            mus.append(st["exp_avg"])
+            nus.append(st["exp_avg_sq"])
+        return mus, nus
+
+    def step(self) -> None:
+        """One update of every parameter that has a ``.grad``."""
+        grads = {p: p.grad for g in self.adamw.param_groups for p in g["params"]
+                 if p.grad is not None}
+        if grads:
+            dev = next(iter(grads)).device
+            self.apply(grads, torch.tensor(self.scalars(), dtype=torch.float32,
+                                           device=dev))
         self.count += 1
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        for g in self.adamw.param_groups:
+            for p in g["params"]:
+                p.grad = None
 
 
 def _named(params) -> dict[str, torch.Tensor]:
@@ -342,8 +433,8 @@ def swav_optimizer_zero1(params: torch.nn.Module | Mapping[str, torch.Tensor],
 
 
 # ---- the layouts of a checkpoint's optimizer state ----------------------
-# by name: {"count", "state": {name: {"step", "exp_avg", "exp_avg_sq"}}}
-#          (torch AdamW's state; a name without state has zero moments)
+# by name: {"count", "state": {name: {"exp_avg", "exp_avg_sq"}}}
+#          (AdamWGroups.state; a name without state has zero moments)
 # ZeRO-1:  {"layout": "zero1", "count", "mu", "nu", "decay_vec"}, [padded]
 
 
@@ -395,8 +486,7 @@ def migrate_zero1_to_subtree(payload: dict, named_params: Mapping[str, torch.Ten
         p = named_params[n]
         k = p.numel()
         if count:
-            state[n] = {"step": torch.tensor(float(count)),
-                        "exp_avg": mu[at:at + k].reshape(p.shape).clone(),
+            state[n] = {"exp_avg": mu[at:at + k].reshape(p.shape).clone(),
                         "exp_avg_sq": nu[at:at + k].reshape(p.shape).clone()}
         at += k
     return {"count": count, "state": state}

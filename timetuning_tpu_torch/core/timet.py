@@ -68,6 +68,7 @@ import dataclasses
 import re
 from typing import Mapping
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -75,6 +76,7 @@ from torch.func import functional_call
 
 from timetuning_tpu_torch.core.optimizer import SwavOptimizer, Zero1Optimizer
 from timetuning_tpu_torch.core.schedules import cosine_scheduler, schedule_at
+from timetuning_tpu_torch.data.loader import host_batch_to_device
 from timetuning_tpu_torch.models.extractor import FeatureExtractor, apply_attention_mask
 from timetuning_tpu_torch.ops.propagation import propagate_labels_batch
 from timetuning_tpu_torch.ops.sinkhorn import sinkhorn_assignment
@@ -363,6 +365,31 @@ def _moe_guard(model: TimeT, cfg: TimeTConfig) -> None:
             "the router would get no balancing gradient")
 
 
+@dataclasses.dataclass
+class StepPlan:
+    """What the host decides before a step's device work
+    (``make_train_step``'s ``plan``): the queue's chosen rows (``idx`` [n_store]
+    int64 on the host, None without a queue), how many it stores, whether the
+    Sinkhorn reads the queue, the EMA momentum, and the scalars the device
+    work reads, in its order: [m, 1 - m, *the optimizer's scalars()]."""
+
+    idx: torch.Tensor | None
+    n_store: int
+    queue_ready: bool
+    momentum: float
+    scalars: list
+
+
+def step_metrics(scalars: list[torch.Tensor], p: StepPlan) -> dict:
+    """A step's metrics: the loss (a device scalar), the EMA momentum and,
+    with MoE blocks, the UNWEIGHTED balance statistic (1 balanced,
+    n_experts collapsed; "loss" already holds the weight times it)."""
+    metrics = {"loss": scalars[0], "momentum": p.momentum}
+    if len(scalars) > 1:
+        metrics["moe_aux"] = scalars[1]
+    return metrics
+
+
 def make_train_step(model: TimeT, cfg: TimeTConfig,
                     opt: SwavOptimizer | Zero1Optimizer,
                     trainable_mask: Mapping[str, bool] | None = None,
@@ -431,6 +458,7 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
     train_names = [n for n in named
                    if trainable_mask is None or trainable_mask[n]]
     train_params = [named[n] for n in train_names]
+    train_set = set(train_names)
 
     def assign(code_protos, feats, queue, queue_ready):
         """First-frame Sinkhorn codes, over batch + queue once the queue is
@@ -447,8 +475,31 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
                                 group=group, world_size=world)
         return q[: B * N].reshape(B, N, -1)
 
-    def step_fn(state: TrainState, clip: torch.Tensor,
-                generator: torch.Generator | None = None):
+    n_patches = cfg.spatial_resolution ** 2
+    # the queue's rows come from the global batch on a 2-D mesh
+    batch_ranks = world if mesh is not None and group is not None else 1
+
+    def plan(state: TrainState, B: int, generator) -> StepPlan:
+        """The host's part of a step, before its device work: the queue's
+        choice drawn from ``generator``, whether the Sinkhorn reads the
+        queue, and the step's scheduled scalars."""
+        idx, n_store = None, 0
+        queue_ready = False
+        if cfg.use_queue:
+            n_store = min(B * batch_ranks * 10, cfg.queue_size)
+            idx = queue_store_indices(B * batch_ranks * n_patches, n_store, generator)
+            queue_ready = min(state.queue_fill + n_store, cfg.queue_size) >= cfg.queue_size
+        m = schedule_at(momentum_schedule, state.step) if cfg.use_teacher else 0.0
+        opt_scalars = [] if zero1 else state.opt.scalars()
+        return StepPlan(idx, n_store, queue_ready, m, [m, 1.0 - m, *opt_scalars])
+
+    def device_step(state: TrainState, clip: torch.Tensor, idx, table: torch.Tensor,
+                    queue_ready: bool) -> list[torch.Tensor]:
+        """The device's part of a step: passes, queue, Sinkhorn, propagation,
+        loss, gradients, update, EMA, with the host's choices as tensors on
+        the device (``idx`` the queue's rows, ``table`` the plan's scalars,
+        f32). It changes no host value, so a CUDA graph of it replays a step
+        (core/train.make_full_step). Returns [loss] or [loss, MoE aux]."""
         B, Fr, H, W, _ = clip.shape
         with torch.no_grad():
             code = state.teacher if cfg.use_teacher else {}
@@ -481,21 +532,22 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
             # stored and the queue turns ready in the step that fills it
             if cfg.use_queue:
                 store = src_feats.reshape(-1, src_feats.shape[-1])
-                n_glob = B
                 if mesh is not None and group is not None:
                     # the one global FIFO: the global batch's rows
-                    store, n_glob = all_gather_rows(store, group), B * world
-                n_store = min(n_glob * 10, cfg.queue_size)
-                idx = queue_store_indices(store.shape[0], n_store, generator)
-                idx = idx.to(store.device)
+                    store = all_gather_rows(store, group)
+                if store.shape[0] != B * batch_ranks * n_patches:
+                    raise ValueError(
+                        f"the queue's choice was drawn over {B * batch_ranks} x "
+                        f"{n_patches} rows (TimeTConfig.spatial_resolution="
+                        f"{res}), the step stores {store.shape[0]}")
                 if mesh is not None:
                     # and the rows rank (0, 0) chose, on every rank of the
                     # mesh, whatever generator each was given
                     mesh.broadcast_from_origin(idx)
-                state.queue = torch.cat(
-                    [store[idx].float(), state.queue[:-n_store]])
-                state.queue_fill = min(state.queue_fill + n_store, cfg.queue_size)
-            queue_ready = cfg.use_queue and state.queue_fill >= cfg.queue_size
+                # in place: a CUDA graph of the step reads the queue by address
+                n_store = idx.shape[0]
+                state.queue.copy_(torch.cat([store[idx].float(),
+                                             state.queue[:-n_store]]))
 
             q = assign(code_protos, src_feats, state.queue, queue_ready)
             # propagate q through the clip over the backbone features
@@ -505,15 +557,20 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
                 radius=cfg.size_mask_neighborhood, topk=cfg.topk)
             labels = prop[:, -1].argmax(dim=1)                    # [B, N]
 
-        # grad path: student with head on the last frame
+        # grad path: student with head on the last frame, on fresh leaves
+        # that alias the parameters (no copy): their autograd nodes are made
+        # anew in every call, on its stream, so none kept alive from an
+        # earlier call ties a CUDA graph's capture to another stream
+        leaves = {n: p.detach().requires_grad_(n in train_set) for n, p in named.items()}
         with torch.enable_grad(), collect_aux() as auxes:
-            s_feats, s_attn = model(
-                last, use_head=True, want_attention=cfg.mask_features,
-                start_block=start, attn_impl=grad_impl)
+            s_feats, s_attn = functional_call(
+                model, leaves, (last,),
+                dict(use_head=True, want_attention=cfg.mask_features,
+                     start_block=start, attn_impl=grad_impl))
             if cfg.mask_features:
                 masked, mask = apply_attention_mask(s_feats[:, None], s_attn, res)
                 s_feats = masked[:, 0]
-            logits = model.similarity(s_feats) / cfg.score_temperature
+            logits = model.similarity(s_feats, leaves["prototypes"]) / cfg.score_temperature
             ce = F.cross_entropy(logits.flatten(0, 1), labels.flatten(),
                                  reduction="none").reshape(labels.shape)
             if cfg.mask_features:
@@ -524,7 +581,8 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
                 # the mean over the grad path's MoE blocks (JAX's _aux_mean)
                 aux = torch.stack(auxes).mean()
                 loss = loss + aux_w * aux
-            grads = torch.autograd.grad(loss, train_params, allow_unused=True)
+            grads = torch.autograd.grad(loss, [leaves[n] for n in train_names],
+                                        allow_unused=True)
 
         with torch.no_grad():
             # a leaf the loss does not reach has a zero gradient (and still
@@ -537,30 +595,42 @@ def make_train_step(model: TimeT, cfg: TimeTConfig,
             else:
                 if group is not None:
                     grads, scalars = _mean_over_group(grads, scalars, group)
-                for p, g in zip(train_params, grads):
-                    p.grad = g
-                state.opt.step()
-                state.opt.zero_grad()
+                state.opt.apply(dict(zip(train_params, grads)), table[2:])
             # prototype renorm after the step (time_tuning.py:125-128, 661)
             model.prototypes.copy_(_l2norm(model.prototypes))
 
-            # EMA teacher; leaves it does not hold are the student's own
-            m = 0.0
+            # EMA teacher, m and 1 - m from the table; leaves it does not
+            # hold are the student's own
             if cfg.use_teacher:
-                m = schedule_at(momentum_schedule, state.step)
-                for n, t in state.teacher.items():
-                    t.mul_(1.0 - m).add_(named[n].detach() * m)
+                teach = list(state.teacher.values())
+                torch._foreach_mul_(teach, table[1])
+                torch._foreach_add_(teach, torch._foreach_mul(
+                    [named[n].detach() for n in state.teacher], table[0]))
                 if "prototypes" in state.teacher:
                     t = state.teacher["prototypes"]
                     t.copy_(_l2norm(t))
-            state.step += 1
-        metrics = {"loss": scalars[0].detach(), "momentum": m}
-        if aux is not None:
-            # the UNWEIGHTED balance statistic (1 balanced, n_experts
-            # collapsed); "loss" already holds aux_w times it
-            metrics["moe_aux"] = scalars[1].detach()
-        return state, metrics
+        return [s.detach() for s in scalars]
 
+    def commit(state: TrainState, p: StepPlan) -> None:
+        """The host's part after a step: the counters."""
+        state.queue_fill = min(state.queue_fill + p.n_store, cfg.queue_size)
+        state.step += 1
+        if not zero1:       # Zero1Optimizer.update counts its own updates
+            state.opt.count += 1
+
+    def step_fn(state: TrainState, clip: torch.Tensor,
+                generator: torch.Generator | None = None):
+        p = plan(state, clip.shape[0], generator)
+        dev = clip.device
+        table = host_batch_to_device(np.asarray(p.scalars, np.float32), dev)
+        idx = None if p.idx is None else host_batch_to_device(p.idx.numpy(), dev)
+        scalars = device_step(state, clip, idx, table, p.queue_ready)
+        commit(state, p)
+        return state, step_metrics(scalars, p)
+
+    step_fn.plan, step_fn.device_step, step_fn.commit = plan, device_step, commit
+    # the process group (or 2-D mesh) the step's collectives run over
+    step_fn.group = mesh if mesh is not None else group
     return step_fn
 
 

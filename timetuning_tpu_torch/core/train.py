@@ -65,17 +65,21 @@ from timetuning_tpu_torch.core.timet import (
     make_train_step,
     _graft,
     replicated_tensors,
+    state_tensors,
+    step_metrics,
 )
 from timetuning_tpu_torch.data.transforms import (
     IMAGENET_STD,
     AugmentConfig,
+    AugmentParams,
     apply_augment,
     draw_augment_params,
     eval_preprocess_batch,
 )
+from timetuning_tpu_torch.data.loader import host_batch_to_device
 from timetuning_tpu_torch.obs.logging import MetricsWriter, dump_config, make_file_logger
 from timetuning_tpu_torch.parallel import mesh
-from timetuning_tpu_torch.runtime import resolve_device
+from timetuning_tpu_torch.runtime import CapturedCall, resolve_device
 
 
 @dataclasses.dataclass
@@ -206,12 +210,24 @@ def step_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
 
 def make_full_step(model: TimeT, tcfg: TimeTConfig, opt, aug_cfg: AugmentConfig,
                    trainable_mask=None, opt_over_trainable: bool | None = None,
-                   mesh=None):
+                   mesh=None, graphed: bool = True):
     """uint8 batch -> augment -> TimeT step on the model's device. Returns
     ``full(state, frames_u8, src_sizes, gray_means, generator)``: the
-    augmentation's values are drawn from ``generator`` first, then the step
-    draws the queue's choice from it. ``mesh``: the (data, model) mesh of a
-    TP run (parallel/tp.make_tp_train_step)."""
+    augmentation's values are drawn from ``generator`` first, then the
+    queue's choice. ``mesh``: the (data, model) mesh of a TP run
+    (parallel/tp.make_tp_train_step).
+
+    The JAX package's ``full`` is one jitted program; here the device work
+    (the augmentation and the step's ``device_step``) is one CUDA graph a
+    (batch shape, queue ready) on the card (runtime.CapturedCall), keyed
+    also on the addresses of the state's tensors, which it updates in place.
+    The host draws, the queue's choice and the step's scheduled scalars
+    (learning rates, weight decay, EMA momentum) go into one table, copied
+    to the device before the replay. The first call of a key runs eagerly
+    (a real step), the next captures and replays. A step over a process
+    group or on CPU tensors stays eager (``CapturedCall``'s rule).
+    ``graphed=False`` runs the same device work eagerly: the graphs'
+    reference."""
     if opt_over_trainable is None:
         opt_over_trainable = trainable_mask is not None
     if mesh is not None:
@@ -224,50 +240,104 @@ def make_full_step(model: TimeT, tcfg: TimeTConfig, opt, aug_cfg: AugmentConfig,
         base_step = make_train_step(model, tcfg, opt, trainable_mask=trainable_mask,
                                     opt_over_trainable=opt_over_trainable)
 
+    def device_full(frames_u8, src_sizes, gray_means, table, state, queue_ready,
+                    n_aug: int, n_store: int):
+        """The device work of one step; ``table`` holds the augmentation's
+        draws, the queue's rows (exact in f32: fewer than 2^24) and the
+        step's scalars."""
+        B, F = frames_u8.shape[:2]
+        params = AugmentParams(table[:n_aug].view(B, -1), F)
+        clips, _ = apply_augment(frames_u8, params, aug_cfg, src_sizes, gray_means)
+        idx = table[n_aug:n_aug + n_store].long() if n_store else None
+        return base_step.device_step(state, clips, idx, table[n_aug + n_store:],
+                                     queue_ready)
+
+    program = CapturedCall(device_full, group=base_step.group)
+
     def full(state, frames_u8, src_sizes, gray_means, generator):
         B, F = frames_u8.shape[:2]
+        dev = frames_u8.device
         params = draw_augment_params(generator, B, F, aug_cfg)
-        if frames_u8.is_cuda:
-            params = params.pin_memory().to(frames_u8.device, non_blocking=True)
-        clips, _ = apply_augment(frames_u8, params, aug_cfg, src_sizes, gray_means)
-        return base_step(state, clips, generator)
+        p = base_step.plan(state, B, generator)
+        parts = [params.table.reshape(-1)]
+        if p.idx is not None:
+            parts.append(p.idx.float())
+        table = host_batch_to_device(torch.cat(parts + [torch.tensor(p.scalars)]).numpy(),
+                                     dev)
+        if src_sizes is not None:
+            src_sizes = torch.as_tensor(src_sizes).to(dev)
+        if gray_means is not None:
+            gray_means = torch.as_tensor(gray_means).to(dev)
+        args = (frames_u8, src_sizes, gray_means, table, state, p.queue_ready,
+                params.table.numel(), p.n_store)
+        if graphed:
+            key = (p.queue_ready, tuple(t.data_ptr() for t in state_tensors(state).values()))
+            scalars = program(*args, key=key)
+        else:
+            scalars = device_full(*args)
+        base_step.commit(state, p)
+        # into memory the next replay does not write: run_training reads step
+        # n's loss after it has launched step n + 1
+        return state, step_metrics([s.clone() for s in scalars], p)
 
     return full
 
 
-def make_eval_feature_fn(model: TimeT, input_resolution: int):
+def make_eval_feature_fn(model: TimeT, input_resolution: int, graphed: bool = True):
     """The in-training eval's feature function (the JAX driver's
     ``feature_fn_jit``, core/train.py:838-856): uint8 frames [N, H, W, 3] ->
     (patch features [N, P, D], last attention or None) on the model's
     device, no grad. The frames are resized and normalised in the model's
     compute dtype (the preprocess kernel for bf16 on the card), which is
-    where the JAX model rounds its f32 input."""
+    where the JAX model rounds its f32 input. On the card a CUDA graph a
+    (batch shape, want_attention) for the whole run (runtime.CapturedCall),
+    reading the live parameters, which the optimizer updates in place; the
+    outputs are the caller's own (cloned out of the graph's memory)."""
     device = model.prototypes.device
     dtype = getattr(getattr(model.feature_extractor.backbone, "config", None),
                     "dtype", torch.float32)
+
+    def features(x, want_attention: bool):
+        x = eval_preprocess_batch(x, out_size=input_resolution, std=IMAGENET_STD,
+                                  compute_dtype=dtype)
+        return model(x, use_head=False, want_attention=want_attention)
+
+    program = CapturedCall(features)
 
     @torch.no_grad()
     def feature_fn(frames, want_attention: bool = False):
         x = torch.as_tensor(np.asarray(frames) if not torch.is_tensor(frames)
                             else frames).to(device)
-        x = eval_preprocess_batch(x, out_size=input_resolution, std=IMAGENET_STD,
-                                  compute_dtype=dtype)
-        return model(x, use_head=False, want_attention=bool(want_attention))
+        if not graphed:
+            return features(x, bool(want_attention))
+        out = program(x, bool(want_attention), key=bool(want_attention))
+        return tuple(None if t is None else t.clone() for t in out)
 
     return feature_fn
 
 
-def make_diagnostics_scores_fn(model: TimeT, input_resolution: int):
+def make_diagnostics_scores_fn(model: TimeT, input_resolution: int,
+                               graphed: bool = True):
     """(normalised images, prototype scores) of uint8 frames, for the
-    training diagnostics: f32 preprocessing as the JAX driver's."""
+    training diagnostics: f32 preprocessing as the JAX driver's. A CUDA graph
+    a batch shape on the card, as ``make_eval_feature_fn``; ``graphed=False``
+    runs it eagerly, the graph's reference."""
     device = model.prototypes.device
+
+    def scores(x):
+        x = eval_preprocess_batch(x, out_size=input_resolution, std=IMAGENET_STD)
+        feats, _ = model(x, use_head=True)
+        return x, model.similarity(feats)
+
+    program = CapturedCall(scores)
 
     @torch.no_grad()
     def scores_fn(frames_u8):
-        x = eval_preprocess_batch(torch.as_tensor(np.asarray(frames_u8)).to(device),
-                                  out_size=input_resolution, std=IMAGENET_STD)
-        feats, _ = model(x, use_head=True)
-        return x, model.similarity(feats)
+        x = torch.as_tensor(np.asarray(frames_u8) if not torch.is_tensor(frames_u8)
+                            else frames_u8).to(device)
+        if not graphed:
+            return scores(x)
+        return tuple(t.clone() for t in program(x))
 
     return scores_fn
 
@@ -370,11 +440,7 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
     dp = world // tp
     device = resolve_device(cfg.device)
     from timetuning_tpu_torch.data.datasets import SamplingMode
-    from timetuning_tpu_torch.data.loader import (
-        device_prefetch,
-        host_batch_to_device,
-        make_loader,
-    )
+    from timetuning_tpu_torch.data.loader import device_prefetch, make_loader
 
     run_dir = None
     if rank == 0:

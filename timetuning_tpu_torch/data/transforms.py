@@ -22,8 +22,10 @@ are split here:
 ``apply_augment`` has no loop over clips, and its launch count does not
 depend on the batch size. The jitter op of each clip is chosen by
 per-clip factors: brightness, contrast and saturation are the one blend
-``clip(a x + c gray(x) + d)``; hue runs on the clips that drew it (their
-indices are known on the host). The Gaussian blur and the random resized
+``clip(a x + c gray(x) + d)``; the contrast target (a gray mean) and the
+hue are computed for every clip and selected per clip with ``torch.where``
+(as the JAX package's ``lax.switch`` under ``vmap``), so no shape depends
+on the draws and the whole chain is one CUDA graph a batch shape. The Gaussian blur and the random resized
 crop are both linear along each axis, so they are one matrix a frame and
 an axis (the crop's weights times the blur's banded matrix, identity for
 clips that do not blur, rows reversed for clips that flip), applied to the
@@ -43,6 +45,8 @@ import math
 
 import numpy as np
 import torch
+
+from timetuning_tpu_torch.ops.util import device_constant
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 # The reference's (typo'd) ImageNet std, kept for checkpoint parity
@@ -102,8 +106,9 @@ def _pil_gray_mean(x):
          + 32768.0) / 65536.0)
     # the integer sum is exact; XLA divides by the count as a product with
     # its f32 reciprocal
-    n = torch.tensor(1.0 / (lum.shape[-1] * lum.shape[-2]), dtype=torch.float32)
-    return lum.sum(dim=(-2, -1)) * n.to(lum.device)
+    # (a host scalar: a multiplier rounded to f32, no copy to the device)
+    n = float(np.float32(1.0 / (lum.shape[-1] * lum.shape[-2])))
+    return lum.sum(dim=(-2, -1)) * n
 
 
 def _contrast_offset(mean255, f):
@@ -188,14 +193,10 @@ class AugmentParams:
     the jitter op (0 brightness, 1 contrast, 2 saturation, 3 hue), the
     jitter / grayscale / blur / flip decisions as 0 or 1, the crop's two
     position uniforms, then the blur sigma of each frame (native-resolution
-    units) and the crop's ten scale and ten log-ratio tries. ``subsets``
-    holds the indices of the clips whose applied jitter is contrast, then
-    those whose is hue (``n_contrast`` of the first). One table and one
-    index tensor: two host-to-device copies a batch."""
+    units) and the crop's ten scale and ten log-ratio tries. One table:
+    one host-to-device copy a batch."""
 
     table: torch.Tensor
-    subsets: torch.Tensor
-    n_contrast: int
     n_frames: int
 
     @classmethod
@@ -212,23 +213,16 @@ class AugmentParams:
             torch.as_tensor(np.asarray(crop_scale), dtype=torch.float32),
             torch.as_tensor(np.asarray(crop_log_ratio), dtype=torch.float32),
         ], dim=1)
-        on = table[:, 5] > 0
-        op = table[:, 4]
-        c_idx = torch.nonzero(on & (op == 1)).flatten()
-        h_idx = torch.nonzero(on & (op == 3)).flatten()
-        return cls(table, torch.cat([c_idx, h_idx]), int(c_idx.numel()),
-                   int(sigma.shape[1]))
+        return cls(table, int(sigma.shape[1]))
 
     def to(self, device, non_blocking: bool = False) -> "AugmentParams":
         if self.table.device == torch.device(device):
             return self
         return dataclasses.replace(
-            self, table=self.table.to(device, non_blocking=non_blocking),
-            subsets=self.subsets.to(device, non_blocking=non_blocking))
+            self, table=self.table.to(device, non_blocking=non_blocking))
 
     def pin_memory(self) -> "AugmentParams":
-        return dataclasses.replace(self, table=self.table.pin_memory(),
-                                   subsets=self.subsets.pin_memory())
+        return dataclasses.replace(self, table=self.table.pin_memory())
 
     def column(self, name: str) -> torch.Tensor:
         return self.table[:, _COLUMNS.index(name)]
@@ -242,14 +236,6 @@ class AugmentParams:
     def crop_tries(self) -> tuple[torch.Tensor, torch.Tensor]:
         n = len(_COLUMNS) + self.n_frames
         return self.table[:, n:n + _TRIES], self.table[:, n + _TRIES:n + 2 * _TRIES]
-
-    @property
-    def contrast_clips(self) -> torch.Tensor:
-        return self.subsets[:self.n_contrast]
-
-    @property
-    def hue_clips(self) -> torch.Tensor:
-        return self.subsets[self.n_contrast:]
 
 
 def draw_augment_params(generator: torch.Generator | None, B: int, F: int,
@@ -374,7 +360,7 @@ def _reflect_taps(n: int, ksize: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.where(m >= n, period - m, m)).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant
 def _constant(values: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
@@ -389,8 +375,7 @@ def _blur_matrices(n: int, sigma, do_blur, ksize: int):
     r = torch.arange(ksize, dtype=torch.float32, device=dev) - (ksize - 1) / 2
     k = torch.exp(-(r ** 2) / (2.0 * sigma[..., None] ** 2))
     k = k / k.sum(dim=-1, keepdim=True)
-    delta = torch.zeros(ksize, dtype=torch.float32, device=dev)
-    delta[ksize // 2] = 1.0
+    delta = (torch.arange(ksize, device=dev) == ksize // 2).float()
     k = torch.where(do_blur[:, None, None], k, delta)
     idx = _reflect_taps(n, ksize, dev)
     out = torch.zeros(B, F, n, n, dtype=torch.float32, device=dev)
@@ -480,6 +465,7 @@ def apply_augment(frames, params: AugmentParams, cfg: AugmentConfig,
     # (video_transformations.py:768-780)
     jit, op = p.column("jitter") > 0, p.column("op")
     is_b, is_c, is_s = jit & (op == 0), jit & (op == 1), jit & (op == 2)
+    is_h = jit & (op == 3)
     fc, fs = p.column("contrast"), p.column("saturation")
     one = torch.ones_like(fc)
     a = torch.where(is_b, p.column("brightness"),
@@ -489,17 +475,15 @@ def apply_augment(frames, params: AugmentParams, cfg: AugmentConfig,
         mean255 = torch.full((B, F), float("nan"), device=dev)
     else:
         mean255 = torch.as_tensor(gray_means).to(dev, torch.float32)
-    c_idx = p.contrast_clips
-    own = torch.zeros(B, F, device=dev).index_copy_(
-        0, c_idx, _pil_gray_mean(x.index_select(0, c_idx)))
-    mean255 = torch.where(torch.isnan(mean255), own, mean255)
+    # the buffer's own gray mean and the hue of every clip, kept where the
+    # clip drew them: fixed shapes, whatever the draws
+    mean255 = torch.where(torch.isnan(mean255), _pil_gray_mean(x), mean255)
     d = torch.where(is_c[:, None], _contrast_offset(mean255, fc[:, None]),
                     torch.zeros_like(mean255))
     y = _blend(x, a.view(B, 1, 1, 1, 1), _grayscale(x) * c.view(B, 1, 1, 1, 1),
                d.view(B, F, 1, 1, 1))
-    h_idx = p.hue_clips
-    y.index_copy_(0, h_idx, _adj_hue(x.index_select(0, h_idx),
-                                     p.column("hue")[h_idx].view(-1, 1, 1, 1)))
+    y = torch.where(is_h.view(B, 1, 1, 1, 1),
+                    _adj_hue(x, p.column("hue").view(B, 1, 1, 1)), y)
     x = torch.where(p.column("gray").view(B, 1, 1, 1, 1) > 0,
                     _grayscale(y).expand_as(y), y)
 
@@ -706,9 +690,8 @@ def eval_preprocess_batch(frames, out_size: int = 224,
                                     out_dtype=dt)
     x = frames.float() / 255.0
     x = resize_bilinear(x.movedim(-1, -3), (out_size, out_size)).movedim(-3, -1)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    return ((x - mean) / torch.tensor(std, dtype=torch.float32,
-                                      device=x.device)).to(dt)
+    return ((x - _constant(IMAGENET_MEAN, x.device))
+            / _constant(tuple(std), x.device)).to(dt)
 
 
 def eval_preprocess_flat(frames_flat, src_hw: tuple, out_size: int = 224,

@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from timetuning_tpu_torch.ops.util import device_constant
+
 _EPS = 1e-12
 
 
@@ -43,10 +45,11 @@ def context_slots(T: int, n_last: int) -> int:
     return max(min(n_last, T - 2), 1)
 
 
+@device_constant
 def neighborhood_mask(h: int, w: int, radius: int,
                       device: torch.device | str = "cpu") -> torch.Tensor:
     """[h*w, h*w] mask: 1 iff source s lies within a (2*radius+1)^2 window of
-    query q. radius <= 0 -> all ones."""
+    query q. radius <= 0 -> all ones. Made once per (grid, radius, device)."""
     if radius <= 0:
         return torch.ones((h * w, h * w), dtype=torch.float32, device=device)
     return torch.from_numpy(_cached_neighborhood(h, w, radius)).to(device)

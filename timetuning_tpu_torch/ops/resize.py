@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from timetuning_tpu_torch.ops.preprocess_cuda import _resize_weights
+from timetuning_tpu_torch.ops.util import device_constant
 
 
 @functools.lru_cache(maxsize=64)
@@ -67,8 +68,14 @@ def _cubic_matrix(n_in: int, n_out: int, inv_scale: float | None = None):
     return W.astype(np.float32)
 
 
-def _mat(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(m).to(like.device)
+@device_constant
+def _mat(build, args: tuple, device: torch.device) -> torch.Tensor:
+    """``build(*args)`` on ``device``, made once per (matrix, device). Made
+    from Python numbers on the device itself: while ``torch.export`` traces,
+    it is then a device constant of the program (from a numpy array it would
+    be a host constant, copied to the device on every call)."""
+    m = build(*args)
+    return torch.tensor(m.tolist(), dtype=torch.from_numpy(m).dtype, device=device)
 
 
 def resize_bicubic_torch(x, size: tuple[int, int],
@@ -80,8 +87,8 @@ def resize_bicubic_torch(x, size: tuple[int, int],
     oh, ow = size
     inv_h = None if scales is None else 1.0 / scales[0]
     inv_w = None if scales is None else 1.0 / scales[1]
-    Wh = _mat(_cubic_matrix(H, oh, inv_h), x)
-    Ww = _mat(_cubic_matrix(W, ow, inv_w), x)
+    Wh = _mat(_cubic_matrix, (H, oh, inv_h), x.device)
+    Ww = _mat(_cubic_matrix, (W, ow, inv_w), x.device)
     out = torch.einsum("...hwc,Hh,Ww->...HWc", x.float(), Wh, Ww)
     return out.to(x.dtype)
 
@@ -97,8 +104,8 @@ def resize_bilinear(x, size: tuple[int, int]):
     H, W = x.shape[-2:]
     oh, ow = size
     up = oh >= H and ow >= W
-    Wh = _mat(_axis_matrix(H, oh, up), x)
-    Ww = _mat(_axis_matrix(W, ow, up), x)
+    Wh = _mat(_axis_matrix, (H, oh, up), x.device)
+    Ww = _mat(_axis_matrix, (W, ow, up), x.device)
     out = torch.einsum("...hw,Hh,Ww->...HW", x.float(), Wh, Ww)
     return out.to(x.dtype)
 
@@ -115,8 +122,8 @@ def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
 def resize_nearest(x, size: tuple[int, int]):
     """Nearest-neighbour resize of [..., H, W] (annotation co-transform)."""
     H, W = x.shape[-2:]
-    ih = torch.from_numpy(_nearest_index(H, size[0])).to(x.device)
-    iw = torch.from_numpy(_nearest_index(W, size[1])).to(x.device)
+    ih = _mat(_nearest_index, (H, size[0]), x.device)
+    iw = _mat(_nearest_index, (W, size[1]), x.device)
     return x.index_select(-2, ih).index_select(-1, iw)
 
 
@@ -132,7 +139,7 @@ def patch_grid_to_image(feats, grid: tuple[int, int], size: tuple[int, int]):
     oh, ow = size
     if oh < gh or ow < gw:
         return resize_bilinear(x.movedim(-1, -3), size).movedim(-3, -1)
-    Wh = _mat(_bilinear_matrix(gh, oh), x)
-    Ww = _mat(_bilinear_matrix(gw, ow), x)
+    Wh = _mat(_bilinear_matrix, (gh, oh), x.device)
+    Ww = _mat(_bilinear_matrix, (gw, ow), x.device)
     out = torch.einsum("...hwc,Hh,Ww->...HWc", x.float(), Wh, Ww)
     return out.to(feats.dtype)
