@@ -356,6 +356,50 @@ def test_cli_flags_are_the_jax_clis(davis_tree, tmp_path, capsys):
     assert rc == 0 and "done: run_dir=" in capsys.readouterr().out
 
 
+def test_training_spans_under_a_trace(davis_tree, tmp_path):
+    """``run_training`` under ``obs/profiling.trace``: the driver's, the
+    loader's and the checkpoint's spans, nested as the loop runs them, the
+    decodes on the loader's threads, and ``spans.jsonl`` beside the trace."""
+    import threading
+
+    from timetuning_tpu_torch.obs import profiling
+
+    profiling.clear()
+    with profiling.trace(str(tmp_path / "prof")):
+        r = ttrain.run_training(_cfg(davis_tree, tmp_path / "run", num_epochs=1))
+    spans = profiling.spans()
+    profiling.clear()
+    assert r["global_step"] == 2
+    by_id = {s.id: s for s in spans}
+
+    def named(name):
+        return [s for s in spans if s.name == name]
+
+    def parents(name):
+        return {by_id[s.parent].name if s.parent else None for s in named(name)}
+
+    main = threading.main_thread().ident
+    (epoch,) = named("train.epoch")
+    assert epoch.attrs == {"epoch": 0} and epoch.parent == 0 and epoch.thread == main
+    assert len(named("train.step")) == 2 and parents("train.step") == {"train.epoch"}
+    assert len(named("loader.stage")) >= 2 and parents("loader.stage") == {"train.epoch"}
+    assert len(named("train.log")) == 2 and parents("train.log") == {"train.epoch"}
+    assert len(named("train.loss_read")) == 2 and parents("train.loss_read") == {"train.log"}
+    # the epoch-top save inside the epoch, the closing one after the loop
+    assert len(named("train.save")) == 2 and parents("train.save") == {"train.epoch", None}
+    assert len(named("save.gather")) == 2 and parents("save.gather") == {"train.save"}
+    assert len(named("save.write")) == 2 and parents("save.write") == {"train.save"}
+    assert parents("loader.wait") <= {"train.epoch"}
+    decodes = named("loader.decode")
+    assert len(decodes) >= 2 and all(s.thread != main for s in decodes)
+    for s in spans:
+        if s.parent:
+            p = by_id[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns and p.thread == s.thread
+    lines = [json.loads(x) for x in open(tmp_path / "prof" / "spans.jsonl")]
+    assert sorted(x["id"] for x in lines) == sorted(by_id)
+
+
 def test_histograms_profiling_and_debug_nans(tmp_path):
     """``obs/histograms`` against the JAX package's on the same scores;
     ``obs/profiling.trace`` writes a trace; ``enable_debug_nans`` switches

@@ -70,6 +70,7 @@ import torch
 import torch.nn as nn
 
 from timetuning_tpu_torch.cli.train import str2bool
+from timetuning_tpu_torch.obs.profiling import annotate
 from timetuning_tpu_torch.parallel import mesh as pm
 
 
@@ -446,7 +447,8 @@ def load_exported(path, graphed: bool = True):
         program = CapturedCall(module)
 
         def serve(frames_u8):
-            return program(frames_u8).clone()
+            with annotate("serve.call"):
+                return program(frames_u8).clone()
 
         return serve
     world = pm.data_world_size() if pm.is_initialized() else 1

@@ -42,6 +42,8 @@ import re
 
 import torch
 
+from timetuning_tpu_torch.obs.profiling import annotate
+
 CHECKPOINT = "checkpoint.pt"
 
 
@@ -168,38 +170,44 @@ def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None,
     path = os.path.join(run_dir, CHECKPOINT)
     writer = data_rank(group) == 0
     sharding = param_sharding(state.model)
-    # the collectives first, on every rank
-    queue = state.queue
-    if queue is not None and group is not None and state.mesh is None:
-        queue = all_gather_rows(queue, group)
-    optimizer = model = teacher = None
-    if writer or isinstance(state.opt, Zero1Optimizer) or sharding is not None:
-        optimizer = _opt_payload(state.opt, group, sharding)
-    if writer or sharding is not None:
-        model = state.model.state_dict()
-        teacher = state.teacher
-        if sharding is not None:
-            model = sharding.gather_state_dict(model)
-            teacher = None if teacher is None else sharding.gather_state_dict(teacher)
-    if writer:
-        payload = {
-            "epoch": int(epoch),
-            "step": int(state.step),
-            "model": {k: _cpu(v) for k, v in model.items()},
-            "optimizer": optimizer,
-            "teacher": (None if teacher is None
-                        else {k: _cpu(v) for k, v in teacher.items()}),
-            "queue": _cpu(queue),
-            "queue_fill": int(state.queue_fill),
-        }
-        _atomic_write(path, lambda tmp: torch.save(payload, tmp))
-        if meta is not None:
-            def write_meta(tmp):
-                with open(tmp, "w") as f:
-                    json.dump(meta, f)
-            _atomic_write(os.path.join(run_dir, "checkpoint_meta.json"), write_meta)
-    if group is not None:   # a barrier: the file is whole before any rank reads it
-        all_reduce_sum(torch.zeros(1, device=state.model.prototypes.device), group)
+    with annotate("train.save", epoch=int(epoch)):
+        # the collectives first, on every rank; then the state on the host
+        with annotate("save.gather"):
+            queue = state.queue
+            if queue is not None and group is not None and state.mesh is None:
+                queue = all_gather_rows(queue, group)
+            optimizer = model = teacher = payload = None
+            if writer or isinstance(state.opt, Zero1Optimizer) or sharding is not None:
+                optimizer = _opt_payload(state.opt, group, sharding)
+            if writer or sharding is not None:
+                model = state.model.state_dict()
+                teacher = state.teacher
+                if sharding is not None:
+                    model = sharding.gather_state_dict(model)
+                    teacher = (None if teacher is None
+                               else sharding.gather_state_dict(teacher))
+            if writer:
+                payload = {
+                    "epoch": int(epoch),
+                    "step": int(state.step),
+                    "model": {k: _cpu(v) for k, v in model.items()},
+                    "optimizer": optimizer,
+                    "teacher": (None if teacher is None
+                                else {k: _cpu(v) for k, v in teacher.items()}),
+                    "queue": _cpu(queue),
+                    "queue_fill": int(state.queue_fill),
+                }
+        if writer:
+            with annotate("save.write"):
+                _atomic_write(path, lambda tmp: torch.save(payload, tmp))
+                if meta is not None:
+                    def write_meta(tmp):
+                        with open(tmp, "w") as f:
+                            json.dump(meta, f)
+                    _atomic_write(os.path.join(run_dir, "checkpoint_meta.json"),
+                                  write_meta)
+        if group is not None:   # a barrier: the file is whole before any rank reads it
+            all_reduce_sum(torch.zeros(1, device=state.model.prototypes.device), group)
     return path
 
 

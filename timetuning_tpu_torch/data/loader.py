@@ -34,6 +34,7 @@ from timetuning_tpu_torch.data.datasets import (
     VideoDataset,
     YTVOSDataset,
 )
+from timetuning_tpu_torch.obs.profiling import annotate
 
 
 class Batch(tuple):
@@ -209,7 +210,8 @@ class ClipLoader:
                     self._enqueued.discard(key)
                     continue
             try:
-                payload: object = self._decode_batch(b, key[0])
+                with annotate("loader.decode", epoch=key[0], batch=key[1]):
+                    payload: object = self._decode_batch(b, key[0])
             except BaseException as e:  # noqa: BLE001
                 # propagate instead of dying silently: a lost batch would
                 # block the consumer forever on its index
@@ -338,8 +340,11 @@ class ClipLoader:
                 _pump()
                 _force_feed(key, b)
                 with self._cv:
-                    while key not in self._results:
-                        self._cv.wait()
+                    if key not in self._results:
+                        # the head batch is not decoded yet
+                        with annotate("loader.wait", epoch=key[0], batch=key[1]):
+                            while key not in self._results:
+                                self._cv.wait()
                     payload = self._results.pop(key)
                     self._want.discard(key)
                 if isinstance(payload, BaseException):
@@ -388,9 +393,10 @@ def device_prefetch(iterable, transform, depth: int = 2, stream=None):
             except StopIteration:
                 return
             if stream is None:
-                buf.append((transform(item), None))
+                with annotate("loader.stage"):
+                    buf.append((transform(item), None))
                 continue
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), annotate("loader.stage"):
                 out = transform(item)
                 done = torch.cuda.Event()
                 done.record(stream)

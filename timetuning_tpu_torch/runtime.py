@@ -76,6 +76,10 @@ class CapturedCall:
       capture raised are taken back out, kept with the graph, and added on
       every replay.
     * A capture that fails raises. Nothing falls back to the eager path.
+    * While a profiler runs, each call is a span (``obs/profiling``):
+      ``graph.eager``, ``graph.capture`` (then ``graph.replay``) on a key's
+      first two calls, ``graph.replay`` (the static copies, the replay, the
+      counts) on every later one.
 
     Stays eager, by this one rule: CPU tensors (there is no CUDA graph on
     the host; ``fn`` is called directly) and a ``group`` (a process group
@@ -94,6 +98,9 @@ class CapturedCall:
         import torch
         from torch.utils import _pytree as pytree
 
+        from timetuning_tpu_torch.obs.profiling import annotate
+        from timetuning_tpu_torch.ops import kernel_lib
+
         leaves, spec = pytree.tree_flatten(args)
         where = [i for i, v in enumerate(leaves) if isinstance(v, torch.Tensor)]
         on_card = [leaves[i].is_cuda for i in where]
@@ -109,15 +116,16 @@ class CapturedCall:
         if entry.graph is None:
             if not entry.warm:
                 entry.warm = True
-                return self._eager(args, dev)
-            self._capture(entry, leaves, spec, where, dev)
-        for s, i in zip(entry.static, where):
-            s.copy_(leaves[i], non_blocking=True)
-        entry.graph.replay()
-        from timetuning_tpu_torch.ops import kernel_lib
-
-        for name, n in entry.launches.items():
-            kernel_lib.KERNELS[name].launches += n
+                with annotate("graph.eager"):
+                    return self._eager(args, dev)
+            with annotate("graph.capture"):
+                self._capture(entry, leaves, spec, where, dev)
+        with annotate("graph.replay"):
+            for s, i in zip(entry.static, where):
+                s.copy_(leaves[i], non_blocking=True)
+            entry.graph.replay()
+            for name, n in entry.launches.items():
+                kernel_lib.KERNELS[name].launches += n
         return entry.out
 
     def _eager(self, args, dev):
