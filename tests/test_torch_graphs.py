@@ -23,7 +23,8 @@ On the card (marker ``cuda``, skipped here; ``python -m pytest --noconftest
 the dino-s16 propagation group, the in-training eval's feature function
 (with and without the attention) and diagnostics' scores function, the
 loaded serving program (each call's output its own) and 3 train steps
-through the queue turning ready, with the kernel launches of a call equal.
+through the queue turning ready, with the kernel launches of a call equal;
+the training driver's loss read waits for its own step, not the next.
 """
 
 import numpy as np
@@ -393,3 +394,30 @@ def test_graphed_train_steps_equal_eager(dev):
     assert te.keys() == tg.keys()
     for k in te:
         assert torch.equal(te[k], tg[k]), k
+
+
+@pytest.mark.cuda
+def test_loss_read_waits_for_its_own_step_alone(dev):
+    """``core/train``'s loss read: step n's loss, copied to pinned memory
+    behind step n, reads exactly while step n + 1 (queued before the read)
+    still runs; a plain ``float`` of a device loss waits for every step
+    queued before it, step n + 1 too. Each stub step makes its loss, then
+    sleeps ~0.1 s on the card."""
+    def step(n):
+        loss = torch.full((), float(n), device=dev) + 0.25
+        torch.cuda._sleep(200_000_000)
+        done = torch.cuda.Event()
+        done.record()
+        return loss, done
+
+    torch.cuda.synchronize()
+    loss0, end0 = step(0)
+    value0, ready0 = ttrain.queue_loss_copy(loss0)
+    _, end1 = step(1)
+    got = ttrain.read_queued_loss(value0, ready0)
+    assert end0.query() and not end1.query()
+    assert got == 0.25 and value0.is_pinned()
+    torch.cuda.synchronize()
+    loss2, _ = step(2)
+    _, end3 = step(3)
+    assert float(loss2) == 2.25 and end3.query()

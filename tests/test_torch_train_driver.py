@@ -10,7 +10,8 @@
   config and checkpoint written; a resume at the saved epoch; a run stopped
   by SIGTERM mid-epoch and resumed equals the uninterrupted run bit for bit
   (losses, parameters, teacher, AdamW moments, queue); with a VOC tree it
-  evaluates and exports the best ``.pth``.
+  evaluates and exports the best ``.pth``; with a stub step whose loss is a
+  function of the step number, every step logs its own loss.
 * the multi-device options and ``cli/train`` without a card raise.
 """
 
@@ -253,6 +254,37 @@ def test_resume_after_sigterm_equals_uninterrupted_run(davis_tree, tmp_path,
     assert r2["state"].queue_fill == uninterrupted["state"].queue_fill
 
 
+def _stub_loss(n):
+    return 1.0 + n / 8
+
+
+@pytest.mark.parametrize("sigterm_at", [None, 2, 3])
+def test_each_step_logs_its_own_loss(davis_tree, tmp_path, monkeypatch, sigterm_at):
+    """With a step whose loss is a function of its number, ``run_training``
+    logs step n's loss at step n, one step late: mid-epoch, at each epoch's
+    last step, and on the preemption path (SIGTERM at an epoch's last step,
+    after the loop's own read, and at the next epoch's first); the final
+    loss is the last step's. The losses are CPU tensors, which read as their
+    float with no copy and no event."""
+    def make(*_a, **_kw):
+        def step(state, frames, sizes, gmeans, generator):
+            state.step += 1
+            if state.step == sigterm_at:
+                signal.raise_signal(signal.SIGTERM)
+            return state, {"loss": torch.tensor(_stub_loss(state.step)), "momentum": 0.5}
+        return step
+
+    loss = torch.tensor(0.75)
+    value, ready = ttrain.queue_loss_copy(loss)
+    assert value is loss and ready is None and ttrain.read_queued_loss(value, ready) == 0.75
+    monkeypatch.setattr(ttrain, "make_full_step", make)
+    r = ttrain.run_training(_cfg(davis_tree, tmp_path))
+    last = sigterm_at or 4
+    assert r["global_step"] == last and r["preempted"] is (sigterm_at is not None)
+    assert _losses(r["run_dir"]) == {n: _stub_loss(n) for n in range(1, last + 1)}
+    assert r["final_loss"] == _stub_loss(last)
+
+
 def test_resume_at_the_saved_epoch(davis_tree, tmp_path, uninterrupted):
     r = ttrain.run_training(_cfg(davis_tree, tmp_path / "a", num_epochs=1))
     r2 = ttrain.run_training(_cfg(davis_tree, tmp_path / "a", num_epochs=2,
@@ -385,6 +417,10 @@ def test_training_spans_under_a_trace(davis_tree, tmp_path):
     assert len(named("loader.stage")) >= 2 and parents("loader.stage") == {"train.epoch"}
     assert len(named("train.log")) == 2 and parents("train.log") == {"train.epoch"}
     assert len(named("train.loss_read")) == 2 and parents("train.loss_read") == {"train.log"}
+    # ``queued``: the next step's copy still pending when the read ended;
+    # never on the epoch's last read (no next step), nor on the CPU
+    queued = {by_id[s.parent].attrs["step"]: s.attrs["queued"] for s in named("train.loss_read")}
+    assert queued == {1: False, 2: False} and all(type(q) is bool for q in queued.values())
     # the epoch-top save inside the epoch, the closing one after the loop
     assert len(named("train.save")) == 2 and parents("train.save") == {"train.epoch", None}
     assert len(named("save.gather")) == 2 and parents("save.gather") == {"train.save"}

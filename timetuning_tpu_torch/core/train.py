@@ -209,6 +209,30 @@ def step_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
     return torch.Generator().manual_seed(int(s))
 
 
+def queue_loss_copy(loss: torch.Tensor):
+    """Step n's loss on its way to the host, queued right after step n:
+    ``(value, ready)``, a copy into fresh pinned memory and an event
+    recorded behind it on the loss's stream. Waiting on ``ready`` waits for
+    step n alone, not for the steps queued after it, so the card runs on
+    while the host reads. A CPU loss is ``(loss, None)``."""
+    if not loss.is_cuda:
+        return loss, None
+    value = torch.empty(loss.shape, dtype=loss.dtype, pin_memory=True)
+    value.copy_(loss, non_blocking=True)
+    # a blocking event: the host thread sleeps through the wait, leaving
+    # its core to the loader's threads
+    ready = torch.cuda.Event(blocking=True)
+    ready.record(torch.cuda.current_stream(loss.device))
+    return value, ready
+
+
+def read_queued_loss(value: torch.Tensor, ready) -> float:
+    """The float of ``queue_loss_copy``'s value, once its copy is done."""
+    if ready is not None:
+        ready.synchronize()
+    return float(value)
+
+
 def make_full_step(model: TimeT, tcfg: TimeTConfig, opt, aug_cfg: AugmentConfig,
                    trainable_mask=None, opt_over_trainable: bool | None = None,
                    mesh=None, graphed: bool = True):
@@ -670,12 +694,17 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
         "best_score": best_score, "steps_per_epoch": steps_per_epoch,
     }
 
-    def log_pending(pending):
+    def log_pending(pending, next_ready=None):
+        """Log a pending step. ``next_ready``: the event of the step queued
+        behind it; still pending when the read ends, it shows that the card
+        had work while the host read (``queued`` on ``train.loss_read``)."""
         nonlocal last_loss
-        pstep, pmetrics = pending
+        pstep, pmetrics, value, ready = pending
         with annotate("train.log", step=pstep):
-            with annotate("train.loss_read"):
-                last_loss = float(pmetrics["loss"])
+            with annotate("train.loss_read") as span:
+                last_loss = read_queued_loss(value, ready)
+                if span is not None:
+                    span.attrs["queued"] = next_ready is not None and not next_ready.query()
             writer.scalar("Loss/train", last_loss, pstep)
             writer.scalar("momentum", float(pmetrics["momentum"]), pstep)
 
@@ -732,9 +761,9 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
                 loader.skip_next_batches(skip)
                 logger.info("resuming epoch %d at batch %d (mid-epoch checkpoint)",
                             epoch, skip)
-            # (step, metrics): logged one step late, after the next step is
-            # queued; the loss's copy to the host is ordered on the stream
-            # behind that step, so the read waits for it too
+            # (step, metrics, loss copy, its event): logged one step late,
+            # after the next step is queued; the loss's copy is queued before
+            # that step, so the read waits for its own step alone
             pending = None
             for bi, (frames, sizes, gmeans) in enumerate(
                     device_prefetch(loader, to_device, stream=copy_stream)):
@@ -745,6 +774,7 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
                         state, frames, sizes, gmeans,
                         step_generator(cfg.seed, global_step, data_index))
                 global_step += 1
+                current = (global_step, metrics, *queue_loss_copy(metrics["loss"]))
                 if not mem_reported:
                     mem_reported = True
                     if device.type == "cuda" and rank == 0:
@@ -756,8 +786,8 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
                                     torch.cuda.max_memory_allocated(device) / gib)
                         writer.scalar("Memory/bytes_in_use", float(in_use), global_step)
                 if pending is not None:
-                    log_pending(pending)
-                pending = (global_step, metrics)
+                    log_pending(pending, next_ready=current[3])
+                pending = current
                 if cfg.checkpoint_every_steps and global_step % cfg.checkpoint_every_steps == 0:
                     save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group)
                 # over a group the ranks agree on the flag every 20 steps (the
