@@ -165,12 +165,11 @@ def test_dense_row_kernels_at_ragged_rows_and_columns(dev, M, N, K):
     129; 9,850 = 77 blocks cut into slices), a last column tile of 8 and of 72
     columns (N = 8, 200), one K step and many, A resident at 128 rows
     (K <= 512) and at 64 rows (768) under the LayerNorm prologue, streamed
-    without it (the prologue stops at K = 1,024). Bound: bf16 rounding at
-    O(1) values."""
+    without it (the prologue stops at K = 1,024; at 1,536 the LayerNorm pass
+    feeds the streamed tile). Bound: bf16 rounding at O(1) values."""
     x, res, ln, w, b = _dense_inputs(dev, M, N, K, seed=M + N + K)
-    pairs = [(fb.dense_residual_rows(x, res, w, b), fb.dense_residual_xla(x, res, w, b))]
-    if K <= fb.GEMM_LN_K:
-        pairs.append((fb.ln_dense_rows(x, *ln, w, b), fb.ln_dense_xla(x, *ln, w, b)))
+    pairs = [(fb.dense_residual_rows(x, res, w, b), fb.dense_residual_xla(x, res, w, b)),
+             (fb.ln_dense_rows(x, *ln, w, b), fb.ln_dense_xla(x, *ln, w, b))]
     for got, want in pairs:
         assert got.shape == (1, M, N) and torch.isfinite(got.float()).all()
         torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
@@ -209,24 +208,77 @@ def test_dense_row_kernels_agree_under_every_slicing(dev, n_slices, monkeypatch)
 
 
 @pytest.mark.parametrize("K,ln,epi", [
-    (K, ln, epi) for ln, epi in ((True, 0), (True, 1), (False, 2))
+    (K, ln, epi) for ln, epi in ((True, 0), (True, 1), (False, 2), (False, 0), (False, 3))
     for K in (64, 384, 512, 576, 768, 1024, 1536) if not (ln and K > 1024)])
 def test_gemm_plan_mirrors_the_tiles_own_route(dev, K, ln, epi):
     """``fused_block.gemm_plan``'s rows a block and columns a unit are the C
     side's (``tt::gemm::route``), whose ring has at least three stages and
     whose shared memory fits a block, for each epilogue (bias, GELU,
-    residual; the LayerNorm prologue stops at K = 1,024) and both forms (by
-    turns; wide from K = 1,024 on without the prologue, where the row blocks
-    fill the card)."""
+    residual, SwiGLU; the LayerNorm prologue stops at K = 1,024) and both
+    forms (by turns; wide from K = 1,024 on for a streamed product with the
+    residual, where the row blocks fill the card)."""
     import ctypes
 
     out = (ctypes.c_int * 5)()
     for M in (1000, 100_000):       # 8 and 782 row blocks: under and over a card's SMs
         assert kernel_lib.library().tt_gemm_route(int(ln), epi, M, 1152, K, 132, out) == 0
-        plan = fb.gemm_plan(M, 1152, K, ln, 132)
+        plan = fb.gemm_plan(M, 1152, K, ln, 132, epi in (1, 3), epi == 2)
         assert (out[0], out[3]) == (plan.block_rows, plan.unit_cols)
         assert out[1] >= 3 and out[2] <= 227 * 1024
-        assert out[4] == int(not ln and K >= 1024 and M > 1000)
+        assert out[4] == int(not ln and epi == 2 and K >= 1024 and M > 1000)
+
+
+def _swiglu_inputs(dev, M, D, Hd, seed):
+    rng = np.random.default_rng(seed)
+    x = _t(rng.standard_normal((1, M, D)), dev, torch.bfloat16)
+    ln = (_t(1 + 0.1 * rng.standard_normal(D), dev), _t(0.1 * rng.standard_normal(D), dev))
+    w12 = _t(rng.standard_normal((D, 2 * Hd)) / np.sqrt(D), dev)
+    w3 = _t(rng.standard_normal((Hd, D)) / np.sqrt(Hd), dev)
+    return x, (*ln, w12, _t(0.1 * rng.standard_normal(2 * Hd), dev), w3,
+               _t(0.1 * rng.standard_normal(D), dev))
+
+
+@pytest.mark.parametrize("M,D,Hd", [
+    (1, 1536, 4096), (129, 1536, 4096),
+    (2 * 1029, 1536, 4096),        # two frames of DINOv2 ViT-g at 448
+    (25 * 1029, 1536, 4096),       # a request: the wide w3 product
+    (300, 1152, 512),              # a narrower pass and a hidden of 8 tiles
+    (300, 2048, 576),              # the pass's widest rows; 9 tiles
+    (200, 384, 1024),              # rows the prologue could hold
+])
+def test_swiglu_rows_match_plain(dev, M, D, Hd):
+    """The SwiGLU MLP branch (the LayerNorm pass, the tile's SwiGLU form,
+    w3 + residual) against ``swiglu_block_xla``, at ragged rows and the
+    widths of DINOv2 ViT-g. Bound: bf16 rounding at O(1) values."""
+    x, mlp = _swiglu_inputs(dev, M, D, Hd, seed=M + D)
+    got, want = fb.swiglu_rows(x, *mlp), fb.swiglu_block_xla(x, *mlp)
+    assert got.shape == x.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("M,N", [(1, 8), (127, 200), (1029, 4608), (25 * 1029, 4608)])
+def test_ln_wide_dense_matches_plain(dev, M, N):
+    """LN + qkv at DINOv2 ViT-g's 1,536-wide rows: the LayerNorm pass and
+    the streamed tile with the bias epilogue, against ``ln_dense_xla``.
+    Bound: bf16 rounding at O(1) values."""
+    x, _, ln, w, b = _dense_inputs(dev, M, N, 1536, seed=M + N)
+    kernel_lib.reset_launch_counts()
+    got = fb.ln_dense_rows(x, *ln, w, b)
+    assert kernel_lib.launch_counts()["ln_wide_dense"] == 1
+    torch.testing.assert_close(got.float(), fb.ln_dense_xla(x, *ln, w, b).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_swiglu_rows_reads_silu_of_the_first_half(dev):
+    """A ``w12`` whose second half gives 1 everywhere leaves ``silu(a)``:
+    the kernel pairs the halves as DINOv2 does (``a`` first)."""
+    x, (ln_s, ln_b, w12, b12, w3, b3) = _swiglu_inputs(dev, 130, 1536, 4096, seed=4)
+    w12[:, 4096:] = 0.0
+    b12[4096:] = 1.0
+    got = fb.swiglu_rows(x, ln_s, ln_b, w12, b12, w3, b3)
+    h = torch.nn.functional.silu(fb._dot(fb._ln(x, ln_s, ln_b), w12[:, :4096]) + b12[:4096])
+    want = fb.dense_residual_xla(h.to(torch.bfloat16), x, w3, b3)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
 @pytest.mark.parametrize("T,N,D,n_last,radius,topk", [
@@ -904,6 +956,9 @@ def test_each_wrapper_counts_its_launches(dev):
                             20, IMAGENET_MEAN, REFERENCE_STD)
     fb.attention_block_branch_flash(x, *attn, num_heads=6)   # ln_dense, flash,
     fb.mlp_rows(x, *mlp)                                      # dense_residual
+    xw, swiglu = _swiglu_inputs(dev, 10, 1536, 512, seed=1)
+    fb.swiglu_rows(xw, *swiglu)
+    fb.ln_dense_rows(xw, *swiglu[:2], swiglu[4].t(), swiglu[3][:512])   # at D 1,536
     fa.flash_attention(*_qkv(dev, torch.float32, 5, 7))
     at.attention(*_qkv(dev, torch.bfloat16, 5, 5))            # auto: kernel 10
     at.attention(*_qkv(dev, torch.float32, 5, 5), impl="pallas")
@@ -916,7 +971,7 @@ def test_each_wrapper_counts_its_launches(dev):
     assert kernel_lib.launch_counts() == {
         "attention_block": 1, "mlp_block": 1, "propagation": 1, "preprocess": 1,
         "flash_attention": 2, "ln_dense": 1, "dense_residual": 1, "mlp_rows": 1,
-        "mha": 2, "sinkhorn": 3, "sinkhorn_dp": 3}
+        "mha": 2, "sinkhorn": 3, "sinkhorn_dp": 3, "ln_wide_dense": 1, "swiglu_mlp": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

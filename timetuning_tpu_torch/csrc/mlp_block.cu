@@ -69,3 +69,30 @@ extern "C" int tt_mlp_block(const void* x, const float* ln_s, const float* ln_b,
   if (e != 0) return e;
   return tt_mlp_fc2(hidden, x, w2, b2, out, M, D, Hd, slices_fc2, stream);
 }
+
+// DINOv2's SwiGLU MLP branch (no TPU kernel: the JAX package has no such
+// model): out = x + w3(silu(a) * b), [a | b] = w12(LN2(x)) + b12, over the
+// token rows. Three launches: the LayerNorm pass into `normed` (bf16 [M, D]),
+// the tile's SwiGLU form writing the bf16 hidden [M, Hd] (w12 [2 Hd, D] read
+// as 64 rows of each half a tile: the [M, 2 Hd] pre-activation is never
+// written), then w3 + b3 + the residual in f32 as fc2 (wide where the row
+// blocks fill the card). What bounds it: at DINOv2 ViT-g's 25 x 1,029 rows
+// the two products (647 + 324 GFLOP, 0.98 ms at the bf16 peak) against
+// ~0.5 GB moved; the LayerNorm pass (158 MB) is bound by its bytes.
+// slices_w12, slices_w3: the products' plans (ops/fused_block.gemm_plan, the
+// first over 2 Hd columns).
+extern "C" int tt_swiglu_mlp(const void* x, const float* ln_s, const float* ln_b,
+                             const void* w12, const float* b12, const void* w3,
+                             const float* b3, void* normed, void* hidden, void* out, int M,
+                             int D, int Hd, int slices_w12, int slices_w3, void* stream) {
+  using tt::bf16;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = tt::launch_ln_wide(static_cast<const bf16*>(x), ln_s, ln_b,
+                                     static_cast<bf16*>(normed), M, D, st);
+  if (e != cudaSuccess) return (int)e;
+  e = tt::launch_gemm<false, tt::kBiasSwiglu>(
+      static_cast<const bf16*>(normed), nullptr, nullptr, static_cast<const bf16*>(w12), b12,
+      nullptr, static_cast<bf16*>(hidden), M, Hd, D, slices_w12, st);
+  if (e != cudaSuccess) return (int)e;
+  return tt_mlp_fc2(hidden, x, w3, b3, out, M, D, Hd, slices_w3, stream);
+}

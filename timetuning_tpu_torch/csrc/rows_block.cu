@@ -43,6 +43,23 @@ extern "C" int tt_ln_dense(const void* x, const float* ln_s, const float* ln_b,
       static_cast<cudaStream_t>(stream));
 }
 
+// LN + dense over rows wider than the prologue holds (K > 1,024: DINOv2
+// ViT-g's LN1 + qkv at K = 1,536): the LayerNorm pass into `normed` (a bf16
+// [M, K] scratch), then the streamed tile with the bias epilogue. No TPU
+// kernel: the JAX package has no model this wide.
+extern "C" int tt_ln_wide_dense(const void* x, const float* ln_s, const float* ln_b,
+                                const void* w, const float* b, void* normed, void* out,
+                                int M, int N, int K, int n_slices, void* stream) {
+  using tt::bf16;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = tt::launch_ln_wide(static_cast<const bf16*>(x), ln_s, ln_b,
+                                           static_cast<bf16*>(normed), M, K, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)tt::launch_gemm<false, tt::kBias>(
+      static_cast<const bf16*>(normed), nullptr, nullptr, static_cast<const bf16*>(w), b,
+      nullptr, static_cast<bf16*>(out), M, N, K, n_slices, st);
+}
+
 extern "C" int tt_dense_residual(const void* y, const void* x, const void* w,
                                  const float* b, void* out, int M, int N, int K,
                                  int n_slices, void* stream) {
@@ -55,10 +72,11 @@ extern "C" int tt_dense_residual(const void* y, const void* x, const void* w,
 
 // How the tile lays out the product [M, K] x [K, N] on a card of sms
 // multiprocessors (ln: with the LayerNorm prologue; epi: 0 bias, 1 bias +
-// GELU, 2 bias + residual): out[0] = the rows of a block, out[1] = the ring's
-// stages, out[2] = its dynamic shared memory in bytes, out[3] = the output
-// columns of a unit of work, out[4] = the form (tt::gemm::Form). For the
-// tests that hold ops/fused_block.gemm_plan to it.
+// GELU, 2 bias + residual, 3 SwiGLU, N the product's columns): out[0] = the
+// rows of a block, out[1] = the ring's stages, out[2] = its dynamic shared
+// memory in bytes, out[3] = the output columns of a unit of work, out[4] =
+// the form (tt::gemm::Form). For the tests that hold
+// ops/fused_block.gemm_plan to it.
 extern "C" int tt_gemm_route(int ln, int epi, int M, int N, int K, int sms, int* out) {
   const tt::gemm::Route r = tt::gemm::route(ln != 0, epi, M, N, K, sms);
   out[0] = r.block_rows, out[1] = r.stages, out[2] = r.smem;

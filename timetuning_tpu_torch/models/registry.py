@@ -5,7 +5,10 @@ Counterpart of ``timetuning_tpu/models/registry.py`` (reference
 models.py:773-900 ``get_backbone``, models.py:76 ``spatial_resolutions``,
 leopart.py:151-230 the released-weight URLs): the 13 reference
 architectures and the two test ViTs, with the JAX package's feature dims,
-patch sizes, ``drop_cls`` and fixed grids. There is no download: every
+patch sizes, ``drop_cls`` and fixed grids, and the port's own
+``dinov2-g14-reg`` (DINOv2 ViT-g/14 with registers, which the JAX package
+lacks; its checkpoint in the hub's layout: ``register_tokens``,
+``blocks.i.ls1.gamma``, ``mlp.w12``, ``mlp.w3``, ``mask_token`` ignored). There is no download: every
 entry takes a local ``model_path`` in the reference layout, and without one
 the weights are a seeded random init. A module's ``forward(x [B, H, W, 3])``
 returns the ViT's dict (``tokens``, ``attention``, ``grid``).
@@ -21,6 +24,7 @@ import torch.nn as nn
 from timetuning_tpu_torch.models.vit import (
     ViTConfig,
     VisionTransformer,
+    dinov2_giant_reg,
     vit_base,
     vit_small,
 )
@@ -65,8 +69,12 @@ ARCHITECTURES = (
     "dino-s16", "msn-s16", "ibot-s16", "leopart", "dino-s8", "dino-b16", "vit",
     "mocov3-s16", "mocov3-b16", "mae", "motion_grouping", "dul", "stego",
 )
+# the port's names beyond the JAX registry's (``ARCHITECTURES`` mirrors it)
+PORT_ARCHITECTURES = ("dinov2-g14-reg",)
+ALL_ARCHITECTURES = ARCHITECTURES + PORT_ARCHITECTURES
 VIT_NAMES = ("vit-tiny-test", "vit-tiny-test-p4", "dino-s16", "msn-s16", "ibot-s16",
-             "leopart", "dino-s8", "dino-b16", "vit", "mocov3-s16", "mocov3-b16")
+             "leopart", "dino-s8", "dino-b16", "vit", "mocov3-s16", "mocov3-b16",
+             "dinov2-g14-reg")
 
 
 @dataclasses.dataclass
@@ -115,6 +123,8 @@ def _vit_config(name: str, dtype: torch.dtype) -> ViTConfig:
         return vit_small(8, dtype=dtype)
     if name in ("dino-b16", "vit"):
         return vit_base(16, dtype=dtype)
+    if name == "dinov2-g14-reg":
+        return dinov2_giant_reg(dtype=dtype)
     if name == "mocov3-s16":
         return moco_vit_small(dtype=dtype)
     return moco_vit_base(dtype=dtype)
@@ -140,10 +150,13 @@ def load_vit_state_dict(path: str) -> dict[str, torch.Tensor]:
     return sd
 
 
-def load_checked(module: nn.Module, sd: dict, only_known: bool = False) -> None:
+def load_checked(module: nn.Module, sd: dict, only_known: bool = False,
+                 assign: bool = False) -> None:
     """``module.load_state_dict(sd)``, where BatchNorm's
     ``num_batches_tracked`` may be absent; ``only_known`` drops keys the
-    module does not have (a checkpoint's heads and probes) first."""
+    module does not have (a checkpoint's heads and probes) first;
+    ``assign`` makes the file's tensors, in the module's dtypes, the
+    parameters (a module built on the meta device)."""
     own = module.state_dict()
     if only_known:
         sd = {k: v for k, v in sd.items() if k in own}
@@ -152,7 +165,9 @@ def load_checked(module: nn.Module, sd: dict, only_known: bool = False) -> None:
     if missing or unexpected:
         raise KeyError(f"checkpoint does not fit {type(module).__name__}: missing "
                        f"{missing[:8]}, unexpected {unexpected[:8]}")
-    module.load_state_dict(sd, strict=False)
+    if assign:
+        sd = {k: v.to(own[k].dtype).contiguous() for k, v in sd.items()}
+    module.load_state_dict(sd, strict=False, assign=assign)
 
 
 def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -203,11 +218,16 @@ def _build(name: str, model_path: str | None, dtype: torch.dtype, seed: int) -> 
 
     if name in VIT_NAMES:
         cfg = _vit_config(name, dtype)
-        module = VisionTransformer(cfg)
         if model_path:
-            # head weights of a TimeT.pth share the file and are not the ViT's
-            load_checked(module, load_vit_state_dict(model_path), only_known=True)
+            # built without an init (every parameter is the file's: 1.14 B of
+            # them for DINOv2 ViT-g); head weights of a TimeT.pth share the
+            # file and are not the ViT's
+            with torch.device("meta"):
+                module = VisionTransformer(cfg)
+            load_checked(module, load_vit_state_dict(model_path), only_known=True,
+                         assign=True)
         else:
+            module = VisionTransformer(cfg)
             module.init_weights(gen)
         return Backbone(module, cfg.patch_size, cfg.embed_dim, True, name)
 
@@ -271,7 +291,7 @@ def _build(name: str, model_path: str | None, dtype: torch.dtype, seed: int) -> 
         # patch 8: grid 28 at 224 (models.py:76); the tokens are CLS-free
         return Backbone(module, 8, dim, False, name)
 
-    raise ValueError(f"unknown backbone {name!r}; the zoo has {list(ARCHITECTURES)}")
+    raise ValueError(f"unknown backbone {name!r}; the zoo has {list(ALL_ARCHITECTURES)}")
 
 
 def get_backbone(name: str, model_path: str | None = None,
@@ -282,8 +302,8 @@ def get_backbone(name: str, model_path: str | None = None,
     With ``model_path`` the reference-layout weights load as the JAX
     registry reads them; without, the weights are a seeded random init."""
     key = name.lower()
-    if key not in ARCHITECTURES:
-        raise ValueError(f"unknown backbone {name!r}; the zoo has {list(ARCHITECTURES)}")
+    if key not in ALL_ARCHITECTURES:
+        raise ValueError(f"unknown backbone {name!r}; the zoo has {list(ALL_ARCHITECTURES)}")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "get_backbone: no CUDA device found (torch.cuda.is_available() is "

@@ -35,6 +35,23 @@ is routed as any block's (kernel 1 in bf16), its MLP branch is plain ops
 qkv, its hidden slice of fc1 and the matching rows of proj and fc2, and runs
 the plain composition with one all-reduce at the end of each residual
 branch (JAX's ``force_xla_attention``).
+
+DINOv2 (Oquab et al. 2023, arXiv:2304.07193; registers, Darcet et al. 2023,
+arXiv:2309.16588; ``facebookresearch/dinov2`` ``vision_transformer.py``),
+the port's own addition with no JAX counterpart: ``ViTConfig.n_registers``
+learned tokens inserted after the CLS token (no position), ``layerscale``
+(``ls1`` / ``ls2``: per-channel scales of the two residual branches),
+``ffn="swiglu"`` (``mlp.w12`` -> ``silu(a) * b`` -> ``mlp.w3``, the hidden
+by ``swiglu_hidden``) and ``pos_resize="dinov2"`` (the stored grid resized
+bicubically with antialias to the input's grid, by size). ``tokens``,
+``intermediates`` and ``attention`` keep their meaning (CLS + patches): the
+registers are taken out, and the final-norm registers come back under
+``registers``. A bf16 block whose width passes what the tile's LayerNorm
+prologue holds (``fused_block.GEMM_LN_K``) takes the row kernels at any
+token count (their LayerNorm pass feeds the streamed tile); a SwiGLU MLP is
+``fused_block.swiglu_rows``, and LayerScale is folded into ``proj`` / ``w3``
+and their biases in f32 before the bf16 cast. A GELU MLP wider than the
+prologue raises there (no kernel takes it, and no configuration has one).
 """
 
 from __future__ import annotations
@@ -48,11 +65,13 @@ import torch.utils.checkpoint
 
 from timetuning_tpu_torch.ops.attention import WHOLE_SEQUENCE_TOKENS, attention
 from timetuning_tpu_torch.ops.fused_block import (
+    GEMM_LN_K,
     _ln,
     attention_block_branch,
     attention_block_branch_flash,
     mlp_block_branch,
     mlp_rows,
+    swiglu_rows,
 )
 from timetuning_tpu_torch.parallel.ep import MoEMlp
 from timetuning_tpu_torch.parallel.mesh import copy_to_group, gather_along, reduce_from_group
@@ -75,6 +94,12 @@ class ViTConfig:
     moe_every_k: int = 0
     n_experts: int = 0
     moe_capacity_factor: float = 1.25
+    # DINOv2 (module docstring): learned register tokens, LayerScale, the
+    # SwiGLU MLP (its hidden width) and the position resize
+    n_registers: int = 0
+    layerscale: bool = False
+    ffn: str = "mlp"                     # mlp | swiglu
+    pos_resize: str = "dino"             # dino | dinov2
 
 
 def is_moe_block(cfg: ViTConfig, i: int) -> bool:
@@ -98,6 +123,21 @@ def vit_base(patch_size: int = 16, **kw) -> ViTConfig:
                      num_heads=12, **kw)
 
 
+def swiglu_hidden(dim: int, mlp_ratio: float = 4.0) -> int:
+    """DINOv2's SwiGLU hidden width (``SwiGLUFFNFused``): two thirds of
+    ``dim * mlp_ratio``, rounded up to a multiple of 8; 4,096 at D 1,536."""
+    return (int(dim * mlp_ratio * 2 / 3) + 7) // 8 * 8
+
+
+def dinov2_giant_reg(patch_size: int = 14, **kw) -> ViTConfig:
+    """DINOv2 ViT-g/14 with registers (``dinov2_vitg14_reg``:
+    ``vit_giant2``, ``ffn_layer="swiglufused"``, 4 registers, positions
+    stored at 518 and resized with antialias, offset 0)."""
+    return ViTConfig(patch_size=patch_size, embed_dim=1536, depth=40, num_heads=24,
+                     img_size=518, n_registers=4, layerscale=True, ffn="swiglu",
+                     pos_resize="dinov2", **kw)
+
+
 def interpolate_pos_embed(pos_embed: torch.Tensor, h_patches: int,
                           w_patches: int, patch_size: int) -> torch.Tensor:
     """Bicubic-resample the (non-CLS) positional grid to a new resolution,
@@ -117,6 +157,24 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, h_patches: int,
         scales=((h_patches + 0.1) / n0, (w_patches + 0.1) / n0))
     grid = grid.reshape(1, h_patches * w_patches, dim)
     return torch.cat([pos_embed[:, :1], grid], dim=1)
+
+
+def interpolate_pos_embed_dinov2(pos_embed: torch.Tensor, h_patches: int,
+                                 w_patches: int) -> torch.Tensor:
+    """DINOv2's ``interpolate_pos_encoding`` with ``interpolate_offset=0``
+    and ``interpolate_antialias=True``: the stored grid resized in f32 to
+    (h_patches, w_patches) by size, bicubic with antialias; the CLS
+    position passes through, and the stored grid is returned as it is."""
+    n = pos_embed.shape[1] - 1
+    dim = pos_embed.shape[-1]
+    n0 = int(round(n ** 0.5))
+    if (h_patches, w_patches) == (n0, n0):
+        return pos_embed
+    grid = pos_embed[:, 1:].float().reshape(1, n0, n0, dim).permute(0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(h_patches, w_patches), mode="bicubic",
+                         antialias=True, align_corners=False)
+    grid = grid.permute(0, 2, 3, 1).reshape(1, h_patches * w_patches, dim)
+    return torch.cat([pos_embed[:, :1].float(), grid], dim=1).to(pos_embed.dtype)
 
 
 def _linear(x, lin: nn.Linear):
@@ -178,11 +236,47 @@ class Mlp(nn.Module):
         return _row_linear(h, self.fc2, group)
 
 
+class SwiGLUMlp(nn.Module):
+    """DINOv2's ``SwiGLUFFNFused``: ``w3(silu(a) * b)`` with ``[a | b] =
+    w12(x)`` (the first and second halves of ``w12``'s outputs)."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, x, group=None):
+        if group is not None:
+            raise NotImplementedError("SwiGLUMlp: no tensor-parallel split")
+        a, b = _linear(x, self.w12).chunk(2, dim=-1)
+        return _linear(F.silu(a) * b, self.w3)
+
+
+class LayerScale(nn.Module):
+    """A residual branch's per-channel scale (DINOv2's ``ls1`` / ``ls2``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
+
+
+def _scaled(lin: nn.Linear, ls: LayerScale | None):
+    """``lin``'s f32 weight and bias with ``ls`` folded in (each output row
+    and bias entry times its scale), as the kernels take them."""
+    if ls is None:
+        return lin.weight, lin.bias
+    return lin.weight * ls.gamma[:, None], lin.bias * ls.gamma
+
+
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
                  attn_impl: str = "auto", moe: bool = False, n_experts: int = 0,
-                 moe_capacity: float = 1.25):
+                 moe_capacity: float = 1.25, layerscale: bool = False,
+                 ffn: str = "mlp"):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -195,9 +289,17 @@ class Block(nn.Module):
             # one routing group a sample: the dispatch stays linear in the
             # batch (one global group is quadratic in tokens, see MoEMlp)
             self.moe = MoEMlp(dim, n_experts, hidden, moe_capacity, group_size=-1)
+        elif ffn == "swiglu":
+            self.mlp = SwiGLUMlp(dim, swiglu_hidden(dim, mlp_ratio))
         else:
             self.mlp = Mlp(dim, hidden)
+        self.ls1 = LayerScale(dim) if layerscale else None
+        self.ls2 = LayerScale(dim) if layerscale else None
         self.tp_group = None        # parallel/tp: the model axis's group
+
+    def _ls(self, i: int, y):
+        ls = self.ls1 if i == 1 else self.ls2
+        return y if ls is None else ls(y)
 
     def _mlp_branch(self, x):
         """LN2 + the MoE MLP + residual, in plain ops (JAX's
@@ -217,26 +319,40 @@ class Block(nn.Module):
         if (impl in ("auto", "fused") and not return_probs
                 and (self.dtype == torch.bfloat16 or impl == "fused")):
             a, dt = self.attn, self.dtype
-            long = x.shape[1] > WHOLE_SEQUENCE_TOKENS
-            attn_branch = attention_block_branch_flash if long else attention_block_branch
-            mlp_branch = mlp_rows if long else mlp_block_branch
+            # the row kernels above 1024 tokens, and at any count for rows
+            # wider than the tile's LayerNorm prologue holds
+            wide = x.shape[-1] > GEMM_LN_K
+            if wide and not moe and isinstance(self.mlp, Mlp):
+                raise ValueError(f"Block: no kernel takes a GELU MLP at D {x.shape[-1]} "
+                                 f"> {GEMM_LN_K} (the SwiGLU MLP's kernels do)")
+            rows = x.shape[1] > WHOLE_SEQUENCE_TOKENS or wide
+            attn_branch = attention_block_branch_flash if rows else attention_block_branch
+            w_proj, b_proj = _scaled(a.proj, self.ls1)
             x = attn_branch(
                 x.to(dt), self.norm1.weight, self.norm1.bias,
-                a.qkv.weight.t().to(dt), a.qkv.bias, a.proj.weight.t().to(dt),
-                a.proj.bias, self.num_heads)
+                a.qkv.weight.t().to(dt), a.qkv.bias, w_proj.t().to(dt),
+                b_proj, self.num_heads)
             if moe:
                 return self._mlp_branch(x), None
             m = self.mlp
+            if isinstance(m, SwiGLUMlp):
+                w3, b3 = _scaled(m.w3, self.ls2)
+                return swiglu_rows(
+                    x, self.norm2.weight, self.norm2.bias, m.w12.weight.t().to(dt),
+                    m.w12.bias, w3.t().to(dt), b3), None
+            w2, b2 = _scaled(m.fc2, self.ls2)
+            mlp_branch = mlp_rows if rows else mlp_block_branch
             x = mlp_branch(
                 x, self.norm2.weight, self.norm2.bias, m.fc1.weight.t().to(dt),
-                m.fc1.bias, m.fc2.weight.t().to(dt), m.fc2.bias)
+                m.fc1.bias, w2.t().to(dt), b2)
             return x, None
         y, probs = self.attn(_ln(x, self.norm1.weight, self.norm1.bias),
                              return_probs=return_probs, impl=impl, group=g)
-        x = x + y
+        x = x + self._ls(1, y)
         if moe:
             return self._mlp_branch(x), probs
-        return x + self.mlp(_ln(x, self.norm2.weight, self.norm2.bias), group=g), probs
+        y = self.mlp(_ln(x, self.norm2.weight, self.norm2.bias), group=g)
+        return x + self._ls(2, y), probs
 
 
 class VisionTransformer(nn.Module):
@@ -255,7 +371,10 @@ class VisionTransformer(nn.Module):
     returning ``{"hidden": [B, 1+N, D], "grid": (hp, wp)}`` before the final
     norm; ``start_block=k`` takes such hidden tokens as ``x`` and runs blocks
     [k, depth) and the final norm (its ``grid`` is (None, None)).
-    ``attn_impl`` overrides the configuration's for this call.
+    ``attn_impl`` overrides the configuration's for this call. With
+    ``n_registers`` the registers sit after the CLS token in ``hidden`` and
+    are taken out of ``tokens``, ``intermediates`` and ``attention``;
+    ``registers`` [B, R, D] holds them, final-normed.
     """
 
     def __init__(self, config: ViTConfig):
@@ -266,21 +385,28 @@ class VisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.embed_dim))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, 1 + (c.img_size // c.patch_size) ** 2, c.embed_dim))
+        if c.n_registers:
+            self.register_tokens = nn.Parameter(
+                torch.zeros(1, c.n_registers, c.embed_dim))
         self.blocks = nn.ModuleList(
             Block(c.embed_dim, c.num_heads, c.mlp_ratio, c.qkv_bias, c.dtype,
                   c.attn_impl, moe=is_moe_block(c, i), n_experts=c.n_experts,
-                  moe_capacity=c.moe_capacity_factor)
+                  moe_capacity=c.moe_capacity_factor, layerscale=c.layerscale,
+                  ffn=c.ffn)
             for i in range(c.depth))
         self.norm = nn.LayerNorm(c.embed_dim, eps=1e-6)
 
     def init_weights(self, generator: torch.Generator) -> "VisionTransformer":
-        """Seeded random init: truncated normal (std 0.02) for the CLS token
-        and positional embedding, LeCun normal for projection and patch
-        kernels and the experts' stacked FFNs, zero biases, unit LayerNorm
-        scales."""
+        """Seeded random init: truncated normal (std 0.02) for the CLS token,
+        the positional embedding and the registers, LeCun normal for
+        projection and patch kernels and the experts' stacked FFNs, zero
+        biases, unit LayerNorm and LayerScale scales."""
         with torch.no_grad():
             nn.init.trunc_normal_(self.cls_token, std=0.02, generator=generator)
             nn.init.trunc_normal_(self.pos_embed, std=0.02, generator=generator)
+            if self.config.n_registers:
+                nn.init.trunc_normal_(self.register_tokens, std=0.02,
+                                      generator=generator)
             for mod in self.modules():
                 if isinstance(mod, (nn.Linear, nn.Conv2d)):
                     fan_in = mod.weight[0].numel()
@@ -295,6 +421,8 @@ class VisionTransformer(nn.Module):
                     nn.init.zeros_(mod.bias)
                 elif isinstance(mod, MoEMlp):
                     mod.init_experts(generator)
+                elif isinstance(mod, LayerScale):
+                    nn.init.ones_(mod.gamma)
         return self
 
     def forward(self, x: torch.Tensor, want_attention: bool = False,
@@ -312,8 +440,14 @@ class VisionTransformer(nn.Module):
             x = x.flatten(2).transpose(1, 2)
             x = torch.cat([self.cls_token.expand(B, 1, c.embed_dim).to(dt), x],
                           dim=1)
-            x = x + interpolate_pos_embed(self.pos_embed, hp, wp,
-                                          c.patch_size).to(dt)
+            if c.pos_resize == "dinov2":
+                pos = interpolate_pos_embed_dinov2(self.pos_embed, hp, wp)
+            else:
+                pos = interpolate_pos_embed(self.pos_embed, hp, wp, c.patch_size)
+            x = x + pos.to(dt)
+            if c.n_registers:
+                reg = self.register_tokens.expand(B, c.n_registers, c.embed_dim)
+                x = torch.cat([x[:, :1], reg.to(dt), x[:, 1:]], dim=1)
         stop = c.depth if stop_block is None else stop_block
         interm = []
         probs = None
@@ -335,5 +469,17 @@ class VisionTransformer(nn.Module):
                 interm.append(_ln(x, self.norm.weight, self.norm.bias))
         if stop < c.depth:
             return {"hidden": x, "grid": (hp, wp)}
-        return {"tokens": interm[-1], "attention": probs,
-                "intermediates": interm, "grid": (hp, wp)}
+        R = c.n_registers
+        if not R:
+            return {"tokens": interm[-1], "attention": probs,
+                    "intermediates": interm, "grid": (hp, wp)}
+        # the registers out of CLS + patches (and of both token axes of the
+        # probabilities); the final-norm registers under their own key
+        regs = interm[-1][:, 1:1 + R]
+        interm = [torch.cat([t[:, :1], t[:, 1 + R:]], dim=1) for t in interm]
+        if probs is not None:
+            keep = torch.cat([torch.zeros(1, dtype=torch.long),
+                              torch.arange(1 + R, probs.shape[-1])]).to(probs.device)
+            probs = probs[:, :, keep][..., keep]
+        return {"tokens": interm[-1], "attention": probs, "intermediates": interm,
+                "registers": regs, "grid": (hp, wp)}

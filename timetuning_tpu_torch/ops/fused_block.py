@@ -12,6 +12,16 @@ kernels and the flash core:
     ``ops/flash_attention`` -> ``dense_residual_rows`` (proj + residual);
   * ``mlp_rows``: LN2 + MLP + residual over the token rows.
 
+Rows wider than the tile's LayerNorm prologue holds (D > ``GEMM_LN_K``,
+DINOv2 ViT-g's 1,536) take a LayerNorm pass of their own
+(``ln_wide_rows_kernel``) that feeds the streamed tile: ``ln_dense_rows``
+does so there, counted as ``ln_wide_dense``. The SwiGLU MLP of DINOv2,
+``swiglu_rows`` (``x + w3(silu(a) * b)``, ``[a | b] = w12(LN2(x))``), is
+that pass, the tile's SwiGLU form (``gemm_swiglu_kernel``: a tile holds 64
+columns of each half of ``w12`` and writes only the product's hidden) and
+the residual product, at any token count; a LayerScale is folded into the
+residual product's weight and bias by the caller (models/vit).
+
 Counterpart of ``timetuning_tpu/ops/fused_block.py``. Weights keep the JAX
 package's layout, ``[in, out]`` (pass ``linear.weight.t()``). For a bf16
 CUDA tensor a wrapper launches its kernel (csrc/attention_block.cu,
@@ -113,6 +123,18 @@ def gelu_kernel_form(h):
     return h.clamp(min=0) - t * e
 
 
+def swiglu_hidden_xla(x, ln_s, ln_b, w12, b12):
+    """``silu(a) * b`` with ``[a | b] = LN2(x) @ w12 + b12`` (the halves of
+    the output), in f32 and rounded to ``x``'s dtype once: the hidden of
+    ``swiglu_block_xla``."""
+    a, g = (_dot(_ln(x, ln_s, ln_b), w12) + b12).chunk(2, dim=-1)
+    return (F.silu(a) * g).to(x.dtype)
+
+
+def swiglu_block_xla(x, ln_s, ln_b, w12, b12, w3, b3):
+    return dense_residual_xla(swiglu_hidden_xla(x, ln_s, ln_b, w12, b12), x, w3, b3)
+
+
 def ln_dense_xla(x, ln_s, ln_b, w, b):
     return (_dot(_ln(x, ln_s, ln_b), w) + b).to(x.dtype)
 
@@ -153,6 +175,9 @@ GEMM_LN_K = 1024
 GEMM_WIDE_K = 1024
 GEMM_WIDE_COLS = 3 * GEMM_TILE_COLS
 GEMM_L2_SHARE = 20 * 2 ** 20     # of the card's L2 (50 MB on an H100)
+# the LayerNorm pass of rows wider than GEMM_LN_K (csrc/gemm_wgmma.cuh
+# ln_wide_rows_kernel: a warp a row, the row in its registers)
+LN_WIDE_MAX_K = 2048
 
 
 class GemmPlan(NamedTuple):
@@ -171,9 +196,11 @@ class GemmPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
-              gelu: bool = False) -> GemmPlan:
+              gelu: bool = False, residual: bool = True) -> GemmPlan:
     """The plan of one product on a card of ``sms`` multiprocessors
-    (``gelu``: with the GELU epilogue, the MLP's first product).
+    (``gelu``: with the GELU or the SwiGLU epilogue, whose ``N`` is the
+    product's 2 Hd columns; ``residual``: a streamed product with the
+    residual epilogue, the only one that can be wide).
 
     Rows a block and columns a unit, by K (mirrors ``tt::gemm::route``, to
     which the card's tests hold it): with the LayerNorm prologue (``ln``) the
@@ -202,7 +229,11 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
     from L2 for every tile of its row block; where a wave's blocks of A do
     not fit ``GEMM_L2_SHARE`` (ViT-B's proj: K = 768, 197 KB a block) a row
     block is cut into as many slices as it has tiles, which then run side by
-    side and share one pass over A."""
+    side and share one pass over A. A product without the residual (the
+    streamed qkv and SwiGLU products of rows wider than the prologue holds)
+    takes the slices by waves there too, over the counts at which the row
+    blocks a wave spans fit the share: a block of one tile leaves one of its
+    two warpgroups without work."""
     if min(M, N, K, sms) < 1 or K % GEMM_K_STEP or N % 8:
         raise ValueError(f"gemm_plan: M={M}, N={N}, K={K}: the tile takes an "
                          f"inner width that is a multiple of {GEMM_K_STEP} "
@@ -213,19 +244,24 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
     block_rows = 64 if ln and K > GEMM_LN_WIDE_K else 128
     row_blocks = -(-M // block_rows)
     n_units = -(-N // GEMM_WIDE_COLS)
-    if not ln and K >= GEMM_WIDE_K and -(-M // 128) * n_units >= sms:
+    if not ln and residual and K >= GEMM_WIDE_K and -(-M // 128) * n_units >= sms:
         return GemmPlan(block_rows, GEMM_WIDE_COLS, n_units, n_units,
                         row_blocks * n_units)
     unit_cols = GEMM_TILE_COLS
     n_units = -(-N // unit_cols)
-    if not ln and min(row_blocks, sms) * block_rows * K * 2 > GEMM_L2_SHARE:
-        n_slices = n_units
-    else:
-        fill4 = 18 if ln else 4             # in quarter tiles
-        tile4 = 5 if gelu else 4
-        _, n_slices = min(
-            (-(-row_blocks * ns // sms) * (fill4 + tile4 * -(-n_units // ns)), ns)
-            for ns in range(1, n_units + 1))
+    a_bytes = block_rows * K * 2
+    least = 1
+    if not ln and min(row_blocks, sms) * a_bytes > GEMM_L2_SHARE:
+        if residual:
+            return GemmPlan(block_rows, unit_cols, n_units, n_units, row_blocks * n_units)
+        # a wave of sms blocks spans sms / ns + 1 row blocks of A
+        least = next((ns for ns in range(1, n_units + 1)
+                      if (-(-sms // ns) + 1) * a_bytes <= GEMM_L2_SHARE), n_units)
+    fill4 = 18 if ln else 4             # in quarter tiles
+    tile4 = 5 if gelu else 4
+    _, n_slices = min(
+        (-(-row_blocks * ns // sms) * (fill4 + tile4 * -(-n_units // ns)), ns)
+        for ns in range(least, n_units + 1))
     return GemmPlan(block_rows, unit_cols, n_units, n_slices,
                     row_blocks * n_slices)
 
@@ -235,9 +271,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _slices(device, M, N, K, ln, gelu=False) -> int:
+def _slices(device, M, N, K, ln, gelu=False, residual=True) -> int:
     index = torch.cuda.current_device() if device.index is None else device.index
-    return gemm_plan(M, N, K, ln, _sm_count(index), gelu).n_slices
+    return gemm_plan(M, N, K, ln, _sm_count(index), gelu, residual).n_slices
 
 
 # The fakes of the custom ops (kernel_lib.kernel_entry): each output is a
@@ -418,17 +454,67 @@ def ln_dense_rows(x, ln_s, ln_b, w, b):
     _check_x("ln_dense_rows", x)
     B, S, D = x.shape
     _check_dense("ln_dense_rows", D, w)
-    if D > GEMM_LN_K:
-        raise ValueError(f"ln_dense_rows: the LN prologue takes D <= "
-                         f"{GEMM_LN_K}, got {D}")
+    _check_ln_width("ln_dense_rows", D)
     E = w.shape[1]
     x = x.contiguous()
     args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w), _f32(b, E)]
     kernel_lib.require_cuda("ln_dense_rows", *args)
     out = torch.empty(B, S, E, dtype=torch.bfloat16, device=x.device)
+    if D > GEMM_LN_K:
+        # the LayerNorm pass into ``normed``, then the streamed tile
+        normed = torch.empty_like(x)
+        kernel_lib.launch("ln_wide_dense", "tt_ln_wide_dense", x.device,
+                          *(a.data_ptr() for a in args), normed.data_ptr(),
+                          out.data_ptr(), B * S, E, D,
+                          _slices(x.device, B * S, E, D, False, False, False))
+        return out
     kernel_lib.launch("ln_dense", "tt_ln_dense", x.device,
                       *(a.data_ptr() for a in args), out.data_ptr(), B * S, E, D,
                       _slices(x.device, B * S, E, D, True))
+    return out
+
+
+def _check_ln_width(name, D):
+    if D > LN_WIDE_MAX_K:
+        raise ValueError(f"{name}: the LayerNorm takes D <= {LN_WIDE_MAX_K}, got {D}")
+
+
+@kernel_lib.kernel_entry(
+    "swiglu_rows",
+    "(Tensor x, Tensor ln_s, Tensor ln_b, Tensor w12, Tensor? b12, "
+    "Tensor w3, Tensor? b3) -> Tensor",
+    _like_x, kernel_lib.plain_vjp(swiglu_block_xla))
+def swiglu_rows(x, ln_s, ln_b, w12, b12, w3, b3):
+    """LN2 + the SwiGLU MLP + residual over the token rows (csrc/mlp_block.cu
+    ``tt_swiglu_mlp``, counted as ``swiglu_mlp``): the LayerNorm pass, the
+    tile's SwiGLU form writing the bf16 hidden ``silu(a) * b`` [B*S, Hd], and
+    ``x + hidden @ w3 + b3`` with the sum in f32. ``x``: [B, S, D] bf16,
+    ``w12``: [D, 2 Hd] (``a`` the first Hd outputs), ``w3``: [Hd, D]. No
+    JAX counterpart (DINOv2's ``SwiGLUFFNFused``)."""
+    if x.device.type == "cpu":
+        return swiglu_block_xla(x, ln_s, ln_b, w12, b12, w3, b3)
+    _check_x("swiglu_rows", x)
+    B, S, D = x.shape
+    Hd = w3.shape[0]
+    if (tuple(w12.shape) != (D, 2 * Hd) or tuple(w3.shape) != (Hd, D)
+            or D % GEMM_K_STEP or Hd % GEMM_K_STEP):
+        raise ValueError(f"swiglu_rows: weight shapes {tuple(w12.shape)}, "
+                         f"{tuple(w3.shape)} for D={D} (widths must be multiples "
+                         f"of {GEMM_K_STEP})")
+    _check_ln_width("swiglu_rows", D)
+    x = x.contiguous()
+    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w12), _f32(b12, 2 * Hd),
+            _weight_nk(w3), _f32(b3, D)]
+    kernel_lib.require_cuda("swiglu_rows", *args)
+    normed = torch.empty_like(x)
+    hidden = torch.empty(B * S, Hd, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    kernel_lib.launch(
+        "swiglu_mlp", "tt_swiglu_mlp", x.device,
+        *(a.data_ptr() for a in args), normed.data_ptr(), hidden.data_ptr(),
+        out.data_ptr(), B * S, D, Hd,
+        _slices(x.device, B * S, 2 * Hd, D, False, True, False),
+        _slices(x.device, B * S, D, Hd, False))
     return out
 
 

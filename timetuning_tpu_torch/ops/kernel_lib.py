@@ -85,6 +85,11 @@ KERNELS = {
                "timetuning_tpu/ops/sinkhorn_pallas.py:51 and :91"),
         Kernel("sinkhorn_dp", "timetuning_tpu_torch/csrc/sinkhorn.cu",
                "timetuning_tpu/ops/sinkhorn_pallas.py:51 and :91"),
+        # DINOv2 ViT-g's 1,536-wide blocks, which no TPU kernel takes
+        Kernel("ln_wide_dense", "timetuning_tpu_torch/csrc/rows_block.cu",
+               "none: LN + qkv over rows wider than the prologue (K7's width)"),
+        Kernel("swiglu_mlp", "timetuning_tpu_torch/csrc/mlp_block.cu",
+               "none: DINOv2's SwiGLU MLP (K9's place in its blocks)"),
     )
 }
 
@@ -111,6 +116,8 @@ _SIGNATURES = {
     "tt_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
     "tt_ln_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 4 + [_P],
+    "tt_ln_wide_dense": [_P] * 7 + [_I] * 4 + [_P],
+    "tt_swiglu_mlp": [_P] * 10 + [_I] * 5 + [_P],
     "tt_gemm_route": [_I] * 6 + [_P],
     "tt_mha": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
     "tt_sinkhorn": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P],

@@ -21,6 +21,13 @@ with the GEMM tile's plan forced to each of these slice counts (capped at
 the product's tiles), beside the plan's own choice: the measurements
 ``ops/fused_block.gemm_plan``'s cost constants come from. ``--host``: the host's time for one call of each wrapper
 at a tiny shape, without synchronising (what a launch costs the Python side).
+``--g14``: DINOv2 ViT-g's block at a request of 25 frames at 448 (25 x 1,029
+rows, D 1,536, SwiGLU hidden 4,096, 24 heads of 64): LN1 + qkv (the
+LayerNorm pass and the streamed tile), proj + residual, the SwiGLU MLP, the
+flash core; each beside its PyTorch library form (F.layer_norm, F.linear,
+F.silu in bf16) and its plain version (the f32 composition); the device time
+of each kernel of the two DINOv2 entries (``torch.profiler``); the SwiGLU and
+qkv products with a tile a block (the plan's slices before slices by waves).
 
 Needs a CUDA card and nvcc; prints the card's name and power limit first.
 """
@@ -39,6 +46,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from timetuning_tpu_torch.ops import attention as at  # noqa: E402
+from timetuning_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from timetuning_tpu_torch.ops import fused_block as fb  # noqa: E402
 from timetuning_tpu_torch.ops import kernel_lib  # noqa: E402
 
@@ -89,11 +97,74 @@ def products(i):
 def forced_slices(ns):
     """``fused_block._slices`` with every plan's slices forced to ``ns``,
     capped at the product's units (a wide product keeps one item a unit)."""
-    def slices(device, M, N, K, ln, gelu=False):
-        p = fb.gemm_plan(M, N, K, ln, fb._sm_count(0), gelu)
+    def slices(device, M, N, K, ln, gelu=False, residual=True):
+        p = fb.gemm_plan(M, N, K, ln, fb._sm_count(0), gelu, residual)
         return p.n_units if p.unit_cols == fb.GEMM_WIDE_COLS else min(ns, p.n_units)
 
     return slices
+
+
+def g14(dev, gen):
+    M, D, Hd, H = 25 * 1029, 1536, 4096, 24
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def w(n_in, n_out):
+        return (r(n_out, n_in) / n_in ** 0.5).t().to(torch.bfloat16)
+
+    x, y = r(1, M, D).bfloat16(), r(1, M, D).bfloat16()
+    ln = (1 + 0.1 * r(D), 0.1 * r(D))
+    qkv, proj = (w(D, 3 * D), 0.1 * r(3 * D)), (w(D, D), 0.1 * r(D))
+    mlp = (*ln, w(D, 2 * Hd), 0.1 * r(2 * Hd), w(Hd, D), 0.1 * r(D))
+    q3 = r(25, 1029, 3, H, 64).bfloat16()
+    q, k, v = (q3[:, :, j].permute(0, 2, 1, 3) for j in range(3))
+    F = torch.nn.functional
+
+    def lib_swiglu():
+        a, b = F.linear(F.layer_norm(x, (D,), *(t.bfloat16() for t in ln), 1e-6),
+                        mlp[2].t(), mlp[3].bfloat16()).chunk(2, dim=-1)
+        return x + F.linear(F.silu(a) * b, mlp[4].t(), mlp[5].bfloat16())
+
+    rows = {
+        "ln_wide_dense (LN1 + qkv)": (
+            lambda: fb.ln_dense_rows(x, *ln, *qkv),
+            lambda: F.linear(F.layer_norm(x, (D,), *(t.bfloat16() for t in ln), 1e-6),
+                             qkv[0].t(), qkv[1].bfloat16()),
+            lambda: fb.ln_dense_xla(x, *ln, *qkv)),
+        "dense_residual (proj)": (
+            lambda: fb.dense_residual_rows(y, x, *proj),
+            lambda: x + F.linear(y, proj[0].t(), proj[1].bfloat16()),
+            lambda: fb.dense_residual_xla(y, x, *proj)),
+        "swiglu_mlp": (lambda: fb.swiglu_rows(x, *mlp), lib_swiglu,
+                       lambda: fb.swiglu_block_xla(x, *mlp)),
+        "flash (1,029 tokens)": (
+            lambda: fa.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            lambda: fa.flash_attention_xla(q, k, v)),
+    }
+    for name, (kern, lib, plain) in rows.items():
+        print(f"g14 {name} ms: kernel {cs.cuda_ms(kern):.4f}  library "
+              f"{cs.cuda_ms(lib):.4f}  plain {cs.cuda_ms(plain, reps=3):.4f}", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    for name in ("ln_wide_dense (LN1 + qkv)", "swiglu_mlp"):
+        fn = rows[name][0]
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        by = {e.key[:60]: e.device_time_total / 5e3 for e in prof.key_averages()
+              if e.device_time_total > 0}
+        print(f"g14 {name} kernels ms: " + "  ".join(f"{k} {v:.4f}" for k, v in by.items()),
+              flush=True)
+    plan = fb._slices
+    fb._slices = forced_slices(1 << 20)
+    for name in ("ln_wide_dense (LN1 + qkv)", "swiglu_mlp"):
+        print(f"g14 {name} with a tile a block, ms: {cs.cuda_ms(rows[name][0]):.4f}", flush=True)
+    fb._slices = plan
 
 
 def line(label, fns):
@@ -106,6 +177,7 @@ def main() -> int:
     ap.add_argument("csrc", nargs="*", type=Path)
     ap.add_argument("--slices", default="")
     ap.add_argument("--host", action="store_true")
+    ap.add_argument("--g14", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_block_kernels: needs a CUDA card")
@@ -130,6 +202,9 @@ def main() -> int:
                 fb._slices = forced_slices(ns)
                 line(f"{dirs[0].name} {name} slices={ns} ms", products(data[name]))
             fb._slices = plan
+
+    if args.g14:
+        g14(dev, gen)
 
     if args.host:
         tiny = inputs(dev, gen, 1, 16)
