@@ -8,6 +8,10 @@ inverse (models/convert.timet_params_to_jax).
   tree;
 * exact resume on the CPU: k steps, save, load into a fresh state, k more
   steps equal 2k steps bit for bit;
+* the ``CheckpointWriter``: a save through it writes the same files as a
+  synchronous save; the file holds the state of the call, though the state
+  changes in place while the write waits; its host buffers are reused; a
+  failed write raises at the next join;
 * ``export_best`` writes the published TimeT.pth layout: the same keys and
   values as the JAX package's export of the same weights;
 * ``timet_params_to_jax`` is the inverse of ``timet_state_dict_from_jax``
@@ -16,6 +20,8 @@ inverse (models/convert.timet_params_to_jax).
 
 import json
 import os
+import shutil
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -146,6 +152,116 @@ def test_exact_resume_k_plus_k_equals_2k(tmp_path, k):
     got += _run(resumed, step2, clips[k:], k)
     assert got == want
     _assert_equal_states(straight, resumed)
+
+
+def _writer_threads():
+    return [t for t in threading.enumerate() if t.name == "checkpoint-writer"]
+
+
+def _assert_same_payload(a, b, path="payload"):
+    assert type(a) is type(b), path
+    if isinstance(a, dict):
+        assert list(a) == list(b), path
+        for k in a:
+            _assert_same_payload(a[k], b[k], f"{path}.{k}")
+    elif torch.is_tensor(a):
+        assert (a.dtype, a.shape) == (b.dtype, b.shape), path
+        assert torch.equal(a, b), path
+    else:
+        assert a == b, path
+
+
+def _hold_writes(monkeypatch):
+    """Writes wait for the returned event before they start."""
+    go = threading.Event()
+    write = tck._atomic_write
+
+    def held(path, fn):
+        assert go.wait(60)
+        write(path, fn)
+
+    monkeypatch.setattr(tck, "_atomic_write", held)
+    return go
+
+
+@pytest.mark.parametrize("opt_over_trainable", [True, False])
+def test_writer_save_equals_synchronous_save(tmp_path, opt_over_trainable):
+    state, step = _build(opt_over_trainable=opt_over_trainable)
+    _run(state, step, _clips(2), 0)
+    meta = {"world_size": 1, "best_score": 0.5, "steps_per_epoch": 10}
+    sync, threaded = tmp_path / "sync", tmp_path / "thread"
+    sync.mkdir()
+    threaded.mkdir()
+    tck.save_checkpoint(state, str(sync), 2, meta=meta)
+    writer = tck.CheckpointWriter()
+    path = tck.save_checkpoint(state, str(threaded), 2, meta=meta, writer=writer)
+    writer.join()
+    assert path == str(threaded / "checkpoint.pt") and not _writer_threads()
+    _assert_same_payload(torch.load(sync / "checkpoint.pt", weights_only=True),
+                         torch.load(threaded / "checkpoint.pt", weights_only=True))
+    assert ((threaded / "checkpoint_meta.json").read_text()
+            == (sync / "checkpoint_meta.json").read_text())
+    assert sorted(os.listdir(threaded)) == ["checkpoint.pt", "checkpoint_meta.json"]
+
+
+def test_writer_file_holds_the_state_of_the_call(tmp_path, monkeypatch):
+    """The state, the counters and ``meta`` change right after the save
+    returns, while its write waits: the file holds them as they were at the
+    call, and the join finds the write still running."""
+    state, step = _build()
+    _run(state, step, _clips(2), 0)
+    want = {k: v.clone() for k, v in _tensors(state).items()}
+    counters = (state.step, state.queue_fill, state.opt.count)
+    meta = {"best_score": 0.25}
+    go = _hold_writes(monkeypatch)
+    writer = tck.CheckpointWriter()
+    tck.save_checkpoint(state, str(tmp_path), 4, meta=meta, writer=writer)
+    with torch.no_grad():
+        for t in _tensors(state).values():
+            t.add_(1.0)
+    state.step += 1
+    state.queue_fill = 0
+    state.opt.count += 1
+    meta["best_score"] = 0.75
+    threading.Timer(0.2, go.set).start()
+    assert writer.join() is True and not _writer_threads()
+    assert writer.join() is False                    # nothing left in flight
+    fresh, _ = _build(seed=5)
+    _, epoch = tck.load_checkpoint(str(tmp_path), fresh)
+    got = _tensors(fresh)
+    assert epoch == 4 and got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert (fresh.step, fresh.queue_fill, fresh.opt.count) == counters
+    assert tck.load_checkpoint_meta(str(tmp_path)) == {"best_score": 0.25}
+
+
+def test_writer_reuses_its_host_buffers():
+    writer = tck.CheckpointWriter()
+    a, b = torch.arange(6.0), torch.ones(2, 3, dtype=torch.bfloat16)
+    first = writer.to_host({"a": a, "n": 3, "d": {"b": b}})
+    a.add_(1)
+    second = writer.to_host({"a": a, "n": 4, "d": {"b": b}})
+    assert second["n"] == 4 and torch.equal(second["a"], a)
+    assert second["a"].data_ptr() == first["a"].data_ptr() != a.data_ptr()
+    assert second["d"]["b"].data_ptr() == first["d"]["b"].data_ptr()
+    third = writer.to_host({"a": torch.zeros(7)})    # another shape: a new buffer
+    assert third["a"].shape == (7,) and third["a"].data_ptr() != first["a"].data_ptr()
+
+
+def test_writer_failed_write_raises_at_the_next_join(tmp_path, monkeypatch):
+    state, _ = _build()
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    go = _hold_writes(monkeypatch)
+    writer = tck.CheckpointWriter()
+    tck.save_checkpoint(state, str(run_dir), 1, meta={}, writer=writer)
+    shutil.rmtree(run_dir)
+    go.set()
+    with pytest.raises((OSError, RuntimeError)):
+        tck.save_checkpoint(state, str(tmp_path), 2, writer=writer)
+    assert not _writer_threads() and writer.join() is False
+    assert not os.path.exists(tmp_path / "checkpoint.pt")
 
 
 def _jax_tree():

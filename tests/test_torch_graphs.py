@@ -24,7 +24,8 @@ the dino-s16 propagation group, the in-training eval's feature function
 (with and without the attention) and diagnostics' scores function, the
 loaded serving program (each call's output its own) and 3 train steps
 through the queue turning ready, with the kernel launches of a call equal;
-the training driver's loss read waits for its own step, not the next.
+the training driver's loss read waits for its own step, not the next; the
+checkpoint writer's files equal synchronous saves of the graphed step.
 """
 
 import numpy as np
@@ -357,31 +358,35 @@ def test_graphed_serving_program_equals_eager(dev, tmp_path):
         assert torch.equal(got, want)
 
 
-@pytest.mark.cuda
-def test_graphed_train_steps_equal_eager(dev):
-    """3 steps at dino-s16 width, bf16, 4 clips of 3 frames (the queue of
-    80 rows ready at step 2), a schedule over the 3 steps."""
+def _s16_train(dev, graphed):
+    """A TimeT at dino-s16 width, bf16, its state and its full step, with a
+    queue of 80 rows and a schedule over ``STEPS`` steps; and ``STEPS``
+    batches of 4 clips of 3 frames."""
     from timetuning_tpu_torch.models.vit import vit_small
 
-    def build(graphed):
-        vit = VisionTransformer(vit_small(16, img_size=224, dtype=torch.bfloat16))
-        model = tt.TimeT(FeatureExtractor(vit, 384, (1024, 1024, 512, 256)), 200)
-        model.init_weights(torch.Generator().manual_seed(0)).to(dev)
-        cfg = tt.TimeTConfig(frozen_trunk_blocks=10, use_queue=True, queue_size=80,
-                             spatial_resolution=14, **SCHED)
-        opt, mask = swav_optimizer(model, lr=1e-4, opt_over_trainable=True, **SCHED)
-        state = tt.init_state(model, cfg, opt, trainable_mask=mask)
-        return state, ttrain.make_full_step(model, cfg, opt, ttf.AugmentConfig(),
-                                            trainable_mask=mask, opt_over_trainable=True,
-                                            graphed=graphed)
-
+    vit = VisionTransformer(vit_small(16, img_size=224, dtype=torch.bfloat16))
+    model = tt.TimeT(FeatureExtractor(vit, 384, (1024, 1024, 512, 256)), 200)
+    model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    cfg = tt.TimeTConfig(frozen_trunk_blocks=10, use_queue=True, queue_size=80,
+                         spatial_resolution=14, **SCHED)
+    opt, mask = swav_optimizer(model, lr=1e-4, opt_over_trainable=True, **SCHED)
+    state = tt.init_state(model, cfg, opt, trainable_mask=mask)
+    step = ttrain.make_full_step(model, cfg, opt, ttf.AugmentConfig(), trainable_mask=mask,
+                                 opt_over_trainable=True, graphed=graphed)
     rng = np.random.default_rng(2)
     frames = torch.from_numpy(rng.integers(0, 256, (STEPS, 4, 3, 256, 320, 3), np.uint8)).to(dev)
     sizes = torch.tensor([[480, 854]] * 4, device=dev)
     gmeans = torch.full((4, 3), float("nan"), device=dev)
+    return state, step, (frames, sizes, gmeans)
+
+
+@pytest.mark.cuda
+def test_graphed_train_steps_equal_eager(dev):
+    """3 steps at dino-s16 width, bf16, 4 clips of 3 frames (the queue of
+    80 rows ready at step 2), a schedule over the 3 steps."""
     runs = []
     for graphed in (False, True):
-        state, step = build(graphed)
+        state, step, (frames, sizes, gmeans) = _s16_train(dev, graphed)
         losses, counts = [], []
         for i in range(STEPS):
             (state, m), n = _launches(lambda: step(state, frames[i], sizes, gmeans,
@@ -394,6 +399,59 @@ def test_graphed_train_steps_equal_eager(dev):
     assert te.keys() == tg.keys()
     for k in te:
         assert torch.equal(te[k], tg[k]), k
+
+
+@pytest.mark.cuda
+def test_checkpoint_writer_saves_graphed_steps(dev, tmp_path):
+    """``core/checkpoint``'s writer on the graphed step at dino-s16 width: a
+    save through it right after each step's replay is queued, and a
+    synchronous save after it, write equal files bit for bit; the writer's
+    host buffers are pinned and the same storages at every save."""
+    from timetuning_tpu_torch.core import checkpoint as tck
+
+    state, step, (frames, sizes, gmeans) = _s16_train(dev, graphed=True)
+    writer = tck.CheckpointWriter()
+    staged = []
+    to_host = writer.to_host
+    writer.to_host = lambda payload: staged.append(to_host(payload)) or staged[-1]
+    for i in range(STEPS):
+        state, _ = step(state, frames[i], sizes, gmeans, ttrain.step_generator(1, i))
+        for kind in ("thread", "sync"):
+            (tmp_path / f"{kind}{i}").mkdir()
+        tck.save_checkpoint(state, str(tmp_path / f"thread{i}"), i, meta={"i": i},
+                            writer=writer)
+        tck.save_checkpoint(state, str(tmp_path / f"sync{i}"), i, meta={"i": i})
+    writer.join()
+    for i in range(STEPS):
+        _assert_same_tree(
+            torch.load(tmp_path / f"thread{i}" / "checkpoint.pt", weights_only=True),
+            torch.load(tmp_path / f"sync{i}" / "checkpoint.pt", weights_only=True), str(i))
+    first = dict(_leaves(staged[0]))
+    assert len(staged) == STEPS and len(first) > 100
+    assert all(t.is_pinned() for t in first.values())
+    for later in staged[1:]:
+        assert {k: t.data_ptr() for k, t in _leaves(later)} == {
+            k: t.data_ptr() for k, t in first.items()}
+
+
+def _leaves(tree, path=""):
+    if torch.is_tensor(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}.{k}")
+
+
+def _assert_same_tree(a, b, path):
+    assert type(a) is type(b), path
+    if isinstance(a, dict):
+        assert list(a) == list(b), path
+        for k in a:
+            _assert_same_tree(a[k], b[k], f"{path}.{k}")
+    elif torch.is_tensor(a):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    else:
+        assert a == b, path
 
 
 @pytest.mark.cuda

@@ -11,10 +11,12 @@
   by SIGTERM mid-epoch and resumed equals the uninterrupted run bit for bit
   (losses, parameters, teacher, AdamW moments, queue); with a VOC tree it
   evaluates and exports the best ``.pth``; with a stub step whose loss is a
-  function of the step number, every step logs its own loss.
+  function of the step number, every step logs its own loss; every way out
+  of the run waits for the checkpoint writer's last write.
 * the multi-device options and ``cli/train`` without a card raise.
 """
 
+import glob
 import json
 import os
 import signal
@@ -285,6 +287,54 @@ def test_each_step_logs_its_own_loss(davis_tree, tmp_path, monkeypatch, sigterm_
     assert r["final_loss"] == _stub_loss(last)
 
 
+@pytest.mark.parametrize("end", ["done", "sigterm", "step_raises", "write_fails"])
+def test_run_training_returns_after_its_last_write(davis_tree, tmp_path, monkeypatch, end):
+    """Each write takes 0.2 s on the writer's thread, so the last is still
+    running when the run ends. On every way out (the end, the preemption
+    save, an exception from a step, the last write failing) no writer thread
+    is left and the files are whole: the last save's, or, after an
+    exception, the last before it; the failed write's error is raised."""
+    import threading
+    import time
+
+    from timetuning_tpu_torch.core import checkpoint as tck
+
+    write = tck._write_files
+
+    def slow(run_dir, payload, meta_text):
+        time.sleep(0.2)
+        if end == "write_fails" and payload["epoch"] == 2:
+            raise OSError("no space left on device")
+        write(run_dir, payload, meta_text)
+
+    def make(*_a, **_kw):
+        def step(state, frames, sizes, gmeans, generator):
+            state.step += 1
+            if state.step == 3 and end == "sigterm":
+                signal.raise_signal(signal.SIGTERM)
+            if state.step == 3 and end == "step_raises":
+                raise ValueError("a step failed")
+            return state, {"loss": torch.tensor(_stub_loss(state.step)), "momentum": 0.5}
+        return step
+
+    monkeypatch.setattr(tck, "_write_files", slow)
+    monkeypatch.setattr(ttrain, "make_full_step", make)
+    raises = {"step_raises": ValueError, "write_fails": OSError}.get(end)
+    if raises is None:
+        r = ttrain.run_training(_cfg(davis_tree, tmp_path))
+        assert r["preempted"] is (end == "sigterm")
+    else:
+        with pytest.raises(raises):
+            ttrain.run_training(_cfg(davis_tree, tmp_path))
+    assert not [t for t in threading.enumerate() if t.name == "checkpoint-writer"]
+    (run_dir,) = {os.path.dirname(p) for p in glob.glob(str(tmp_path / "*/*/checkpoint.pt"))}
+    saved = torch.load(os.path.join(run_dir, "checkpoint.pt"), weights_only=True)
+    want = {"done": (2, 4), "sigterm": (1, 3), "step_raises": (1, 2), "write_fails": (1, 2)}
+    assert (saved["epoch"], saved["step"]) == want[end]
+    assert json.load(open(os.path.join(run_dir, "checkpoint_meta.json")))["steps_per_epoch"] == 2
+    assert not [f for f in os.listdir(run_dir) if f.endswith(".tmp")]
+
+
 def test_resume_at_the_saved_epoch(davis_tree, tmp_path, uninterrupted):
     r = ttrain.run_training(_cfg(davis_tree, tmp_path / "a", num_epochs=1))
     r2 = ttrain.run_training(_cfg(davis_tree, tmp_path / "a", num_epochs=2,
@@ -391,7 +441,8 @@ def test_cli_flags_are_the_jax_clis(davis_tree, tmp_path, capsys):
 def test_training_spans_under_a_trace(davis_tree, tmp_path):
     """``run_training`` under ``obs/profiling.trace``: the driver's, the
     loader's and the checkpoint's spans, nested as the loop runs them, the
-    decodes on the loader's threads, and ``spans.jsonl`` beside the trace."""
+    decodes on the loader's threads, the checkpoint's writes on its writer's
+    thread, and ``spans.jsonl`` beside the trace."""
     import threading
 
     from timetuning_tpu_torch.obs import profiling
@@ -424,7 +475,14 @@ def test_training_spans_under_a_trace(davis_tree, tmp_path):
     # the epoch-top save inside the epoch, the closing one after the loop
     assert len(named("train.save")) == 2 and parents("train.save") == {"train.epoch", None}
     assert len(named("save.gather")) == 2 and parents("save.gather") == {"train.save"}
-    assert len(named("save.write")) == 2 and parents("save.write") == {"train.save"}
+    # each save joins the writer's previous write, then the writer's thread
+    # writes the files while the driver goes on
+    joins = named("save.join")
+    assert len(joins) == 2 and parents("save.join") == {"train.save"}
+    assert all(type(s.attrs["waited"]) is bool for s in joins)
+    writes = named("save.write")
+    assert len(writes) == 2 and parents("save.write") == {None}
+    assert all(s.thread != main for s in writes)
     assert parents("loader.wait") <= {"train.epoch"}
     decodes = named("loader.decode")
     assert len(decodes) >= 2 and all(s.thread != main for s in decodes)

@@ -25,6 +25,13 @@ after the file is whole. Every rank reads a checkpoint; the optimizer state
 is converted on load to the run's layout (by name or ZeRO-1, at any world
 size: ``core/optimizer.migrate_*``).
 
+With a ``CheckpointWriter`` (the training driver's) the save returns once
+the state is on the host, in host buffers the writer owns and reuses
+(pinned for a card's tensors), and a thread of the writer's writes the
+files while the caller steps on. The writer's ``join`` waits for that
+write, raises what it raised, and over a process group is the barrier after
+which every rank may read the file; the next save joins first.
+
 On a 2-D mesh (tensor or expert parallelism: the model's
 ``param_sharding``) the parameters, the teacher and the AdamW moments are
 gathered to the whole layout before rank 0 writes (a collective over the
@@ -39,6 +46,7 @@ import datetime
 import json
 import os
 import re
+import threading
 
 import torch
 
@@ -75,19 +83,114 @@ def _atomic_write(path: str, write) -> None:
     os.replace(tmp, path)
 
 
-def _cpu(t):
-    return None if t is None else t.detach().to("cpu", copy=True)
+def _map_tensors(tree, fn, path=()):
+    """``tree`` (nested dicts) with each tensor ``t`` at key path ``path``
+    replaced by ``fn(path, t)``."""
+    if torch.is_tensor(tree):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn, path + (k,)) for k, v in tree.items()}
+    return tree
+
+
+def _write_files(run_dir: str, payload: dict, meta_text: str | None) -> None:
+    """``checkpoint.pt``, then ``checkpoint_meta.json``, each by temporary
+    file and rename."""
+    with annotate("save.write"):
+        _atomic_write(os.path.join(run_dir, CHECKPOINT), lambda tmp: torch.save(payload, tmp))
+        if meta_text is not None:
+            def write_meta(tmp):
+                with open(tmp, "w") as f:
+                    f.write(meta_text)
+            _atomic_write(os.path.join(run_dir, "checkpoint_meta.json"), write_meta)
+
+
+class CheckpointWriter:
+    """Writes each save's files from a thread of its own, at most one write
+    in flight, from host buffers it keeps across saves: one a payload
+    tensor, by its key path, allocated at the first save (pinned for a
+    card's tensor) and filled again at each later one. A write's error is
+    raised by the next ``join``. Every rank of a group keeps one; rank 0's
+    writes."""
+
+    def __init__(self):
+        self._buffers: dict = {}
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self._pending = False
+        self._device = None
+
+    def to_host(self, payload: dict) -> dict:
+        """``payload`` with its tensors copied into the writer's buffers,
+        after one wait for the copies: no later device work changes it."""
+        buffers, cards = {}, set()
+
+        def put(path, t):
+            t = t.detach()
+            b = self._buffers.get(path)
+            if b is None or b.shape != t.shape or b.dtype != t.dtype:
+                b = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            if t.is_cuda:
+                cards.add(t.device)
+            buffers[path] = b
+            return b.copy_(t, non_blocking=True)
+
+        host = _map_tensors(payload, put)
+        self._buffers = buffers
+        for dev in cards:
+            torch.cuda.current_stream(dev).synchronize()
+        return host
+
+    def submit(self, write, device) -> None:
+        """Start ``write`` (None on a rank that writes nothing) on the
+        writer's thread; ``device``: the group's barrier tensor's."""
+        self._pending, self._device = True, device
+        if write is not None:
+            self._thread = threading.Thread(target=self._run, args=(write,),
+                                            name="checkpoint-writer", daemon=True)
+            self._thread.start()
+
+    def _run(self, write) -> None:
+        try:
+            write()
+        except BaseException as e:   # raised on the main thread by the next join
+            self._error = e
+
+    def join(self, group=None) -> bool:
+        """Wait for the write in flight and raise its error, if any. Over
+        ``group`` every rank calls it, and all return once the files are
+        whole: where rank 0's write failed, the other ranks raise too
+        (without ``group``, as at the end of a run that raised, no
+        collective). Whether the write was still running."""
+        from timetuning_tpu_torch.parallel.mesh import all_reduce_sum
+
+        if not self._pending:
+            return False
+        self._pending = False
+        thread, self._thread = self._thread, None
+        running = thread is not None and thread.is_alive()
+        if thread is not None:
+            thread.join()
+        error, self._error = self._error, None
+        if group is not None:   # a barrier: the file is whole before any rank reads it
+            failed = all_reduce_sum(
+                torch.tensor([float(error is not None)], device=self._device), group)
+            if error is None and failed.item() > 0:
+                raise RuntimeError("the checkpoint write on rank 0 failed")
+        if error is not None:
+            raise error
+        return running
 
 
 def _gather_chunks(v: torch.Tensor, opt, group) -> torch.Tensor:
-    """A ZeRO-1 chunk of every rank as the [padded] vector, on the CPU."""
+    """A ZeRO-1 chunk of every rank as the [padded] vector."""
     from timetuning_tpu_torch.parallel.mesh import all_reduce_sum
 
     full = torch.zeros(opt.plan.padded, dtype=v.dtype, device=v.device)
     opt.chunk_of(full).copy_(v)
     if group is not None:
         full = all_reduce_sum(full, group)
-    return full.cpu()
+    return full
 
 
 def _opt_payload(opt, group=None, sharding=None) -> dict:
@@ -100,14 +203,14 @@ def _opt_payload(opt, group=None, sharding=None) -> dict:
         return {"layout": "zero1", "count": opt.count,
                 "mu": _gather_chunks(opt.mu, opt, group),
                 "nu": _gather_chunks(opt.nu, opt, group),
-                "decay_vec": opt.plan.decay_vec.clone()}
+                "decay_vec": opt.plan.decay_vec}
     state = {}
     for name, p in opt.named_params.items():
         st = opt.adamw.state.get(p)
         if st:
             state[name] = {
-                k: _cpu(v if sharding is None or not v.dim() else sharding.gather(name, v))
-                if torch.is_tensor(v) else v for k, v in st.items()}
+                k: v if sharding is None or not torch.is_tensor(v) or not v.dim()
+                else sharding.gather(name, v) for k, v in st.items()}
     return {"count": opt.count, "state": state}
 
 
@@ -152,12 +255,15 @@ def _load_opt(opt, payload: dict, sharding=None) -> None:
 
 
 def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None,
-                    group=None) -> str:
+                    group=None, writer: CheckpointWriter | None = None) -> str:
     """Write the whole ``TrainState`` and the epoch to
     ``run_dir/checkpoint.pt``, and ``meta`` (small, JSON-able) to
     ``checkpoint_meta.json`` beside it; both by temporary file and rename.
     With ``group`` every rank calls it, rank 0 writes, and all return once
-    the files are in place."""
+    the files are in place. With ``writer`` it first joins the writer's
+    previous write, and returns once the state and ``meta`` are copied to
+    the host: the writer's thread writes the files, and its next ``join``
+    is where they are whole."""
     from timetuning_tpu_torch.core.optimizer import Zero1Optimizer
     from timetuning_tpu_torch.parallel.mesh import (
         all_gather_rows,
@@ -167,48 +273,46 @@ def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None,
     )
 
     run_dir = os.path.abspath(run_dir)
-    path = os.path.join(run_dir, CHECKPOINT)
-    writer = data_rank(group) == 0
+    writes = data_rank(group) == 0
     sharding = param_sharding(state.model)
+    device = state.model.prototypes.device
     with annotate("train.save", epoch=int(epoch)):
+        if writer is not None:
+            with annotate("save.join") as span:
+                waited = writer.join(group)
+                if span is not None:
+                    span.attrs["waited"] = waited
         # the collectives first, on every rank; then the state on the host
         with annotate("save.gather"):
             queue = state.queue
             if queue is not None and group is not None and state.mesh is None:
                 queue = all_gather_rows(queue, group)
             optimizer = model = teacher = payload = None
-            if writer or isinstance(state.opt, Zero1Optimizer) or sharding is not None:
+            if writes or isinstance(state.opt, Zero1Optimizer) or sharding is not None:
                 optimizer = _opt_payload(state.opt, group, sharding)
-            if writer or sharding is not None:
+            if writes or sharding is not None:
                 model = state.model.state_dict()
                 teacher = state.teacher
                 if sharding is not None:
                     model = sharding.gather_state_dict(model)
                     teacher = (None if teacher is None
                                else sharding.gather_state_dict(teacher))
-            if writer:
-                payload = {
-                    "epoch": int(epoch),
-                    "step": int(state.step),
-                    "model": {k: _cpu(v) for k, v in model.items()},
-                    "optimizer": optimizer,
-                    "teacher": (None if teacher is None
-                                else {k: _cpu(v) for k, v in teacher.items()}),
-                    "queue": _cpu(queue),
-                    "queue_fill": int(state.queue_fill),
-                }
-        if writer:
-            with annotate("save.write"):
-                _atomic_write(path, lambda tmp: torch.save(payload, tmp))
-                if meta is not None:
-                    def write_meta(tmp):
-                        with open(tmp, "w") as f:
-                            json.dump(meta, f)
-                    _atomic_write(os.path.join(run_dir, "checkpoint_meta.json"),
-                                  write_meta)
-        if group is not None:   # a barrier: the file is whole before any rank reads it
-            all_reduce_sum(torch.zeros(1, device=state.model.prototypes.device), group)
-    return path
+            if writes:
+                payload = {"epoch": int(epoch), "step": int(state.step), "model": model,
+                           "optimizer": optimizer, "teacher": teacher, "queue": queue,
+                           "queue_fill": int(state.queue_fill)}
+                payload = (writer.to_host(payload) if writer is not None else
+                           _map_tensors(payload, lambda _, t: t.detach().to("cpu", copy=True)))
+                meta_text = None if meta is None else json.dumps(meta)
+        if writer is not None:
+            writer.submit((lambda: _write_files(run_dir, payload, meta_text)) if writes
+                          else None, device)
+        else:
+            if writes:
+                _write_files(run_dir, payload, meta_text)
+            if group is not None:   # a barrier: the file is whole before any rank reads it
+                all_reduce_sum(torch.zeros(1, device=device), group)
+    return os.path.join(run_dir, CHECKPOINT)
 
 
 def load_checkpoint_meta(run_dir: str) -> dict | None:

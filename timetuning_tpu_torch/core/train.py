@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from timetuning_tpu_torch.core.checkpoint import (
+    CheckpointWriter,
     export_best,
     find_last_run_directory,
     load_checkpoint,
@@ -708,110 +709,124 @@ def run_training(cfg: TrainingConfig) -> dict[str, Any]:
             writer.scalar("Loss/train", last_loss, pstep)
             writer.scalar("momentum", float(pmetrics["momentum"]), pstep)
 
+    # each save's files are written by the writer's thread while the next
+    # steps run; every return joins the last write (over the group: the
+    # barrier), and an exception waits for it alone (``finally``)
+    ckpt_writer = CheckpointWriter()
+
     def finish(preempted: bool = False):
         if prev_handler is not None:
             import signal
 
             signal.signal(signal.SIGTERM, prev_handler)
         writer.close()
+        ckpt_writer.join(group)
         return {"run_dir": run_dir, "final_loss": last_loss,
                 "best_score": best_score, "last_eval": last_eval,
                 "global_step": global_step, "state": state,
                 "preempted": preempted}
 
-    for epoch in range(start_epoch, cfg.num_epochs):
-        with annotate("train.epoch", epoch=epoch):
-            save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group)
-            loader.set_epoch(epoch)
-            # a resumed mid-epoch checkpoint skips this epoch's eval: the
-            # uninterrupted run already scored it before the interruption
-            eval_epoch = (cfg.pascal_root and epoch % cfg.eval_every == 0
-                          and not (epoch == start_epoch and resume_skip > 0))
-            do_eval = evaluator_factory is not None and eval_epoch
-            if eval_epoch and tp > 1:
-                # a collective over the model axis, on every rank
-                from timetuning_tpu_torch.parallel.tp import gather_global_params
+    try:
+        for epoch in range(start_epoch, cfg.num_epochs):
+            with annotate("train.epoch", epoch=epoch):
+                save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group,
+                                writer=ckpt_writer)
+                loader.set_epoch(epoch)
+                # a resumed mid-epoch checkpoint skips this epoch's eval: the
+                # uninterrupted run already scored it before the interruption
+                eval_epoch = (cfg.pascal_root and epoch % cfg.eval_every == 0
+                              and not (epoch == start_epoch and resume_skip > 0))
+                do_eval = evaluator_factory is not None and eval_epoch
+                if eval_epoch and tp > 1:
+                    # a collective over the model axis, on every rank
+                    from timetuning_tpu_torch.parallel.tp import gather_global_params
 
-                full = gather_global_params(model)
+                    full = gather_global_params(model)
+                    if do_eval:
+                        eval_model.load_state_dict(full)
                 if do_eval:
-                    eval_model.load_state_dict(full)
-            if do_eval:
-                score = evaluator_factory().evaluate(
-                    many_to_one=cfg.many_to_one,
-                    evaluation_protocol=cfg.evaluation_protocol,
-                    eval_resolution=eval_res, num_clusters=cfg.eval_num_clusters,
-                    use_mask=cfg.use_mask, precision_based=cfg.precision_based,
-                    streaming=cfg.streaming_eval)
-                writer.scalar("Scores/localization", score, epoch)
-                last_eval = score
-                if cfg.log_histograms:
-                    if diag_scores_fn is None:
-                        diag_scores_fn = make_diagnostics_scores_fn(eval_model,
-                                                                    cfg.input_resolution)
-                    log_training_diagnostics(diag_scores_fn, eval_loader, writer,
-                                             run_dir, epoch, cfg, spatial_res)
-                if score > best_score:
-                    best_score = score
-                    ckpt_meta["best_score"] = best_score
-                    export_best(eval_model, run_dir, score, epoch)
+                    score = evaluator_factory().evaluate(
+                        many_to_one=cfg.many_to_one,
+                        evaluation_protocol=cfg.evaluation_protocol,
+                        eval_resolution=eval_res, num_clusters=cfg.eval_num_clusters,
+                        use_mask=cfg.use_mask, precision_based=cfg.precision_based,
+                        streaming=cfg.streaming_eval)
+                    writer.scalar("Scores/localization", score, epoch)
+                    last_eval = score
+                    if cfg.log_histograms:
+                        if diag_scores_fn is None:
+                            diag_scores_fn = make_diagnostics_scores_fn(eval_model,
+                                                                        cfg.input_resolution)
+                        log_training_diagnostics(diag_scores_fn, eval_loader, writer,
+                                                 run_dir, epoch, cfg, spatial_res)
+                    if score > best_score:
+                        best_score = score
+                        ckpt_meta["best_score"] = best_score
+                        export_best(eval_model, run_dir, score, epoch)
 
-            t0 = time.time()
-            skip = resume_skip if epoch == start_epoch else 0
-            if skip:
-                loader.skip_next_batches(skip)
-                logger.info("resuming epoch %d at batch %d (mid-epoch checkpoint)",
-                            epoch, skip)
-            # (step, metrics, loss copy, its event): logged one step late,
-            # after the next step is queued; the loss's copy is queued before
-            # that step, so the read waits for its own step alone
-            pending = None
-            for bi, (frames, sizes, gmeans) in enumerate(
-                    device_prefetch(loader, to_device, stream=copy_stream)):
-                if cfg.max_steps_per_epoch and bi + skip >= cfg.max_steps_per_epoch:
-                    break
-                with annotate("train.step", step=global_step):
-                    state, metrics = step_fn(
-                        state, frames, sizes, gmeans,
-                        step_generator(cfg.seed, global_step, data_index))
-                global_step += 1
-                current = (global_step, metrics, *queue_loss_copy(metrics["loss"]))
-                if not mem_reported:
-                    mem_reported = True
-                    if device.type == "cuda" and rank == 0:
-                        torch.cuda.synchronize(device)
-                        gib = 1024 ** 3
-                        in_use = torch.cuda.memory_allocated(device)
-                        logger.info("device memory after step %d: %.2f GiB in use, "
-                                    "%.2f GiB peak", global_step, in_use / gib,
-                                    torch.cuda.max_memory_allocated(device) / gib)
-                        writer.scalar("Memory/bytes_in_use", float(in_use), global_step)
+                t0 = time.time()
+                skip = resume_skip if epoch == start_epoch else 0
+                if skip:
+                    loader.skip_next_batches(skip)
+                    logger.info("resuming epoch %d at batch %d (mid-epoch checkpoint)",
+                                epoch, skip)
+                # (step, metrics, loss copy, its event): logged one step late,
+                # after the next step is queued; the loss's copy is queued before
+                # that step, so the read waits for its own step alone
+                pending = None
+                for bi, (frames, sizes, gmeans) in enumerate(
+                        device_prefetch(loader, to_device, stream=copy_stream)):
+                    if cfg.max_steps_per_epoch and bi + skip >= cfg.max_steps_per_epoch:
+                        break
+                    with annotate("train.step", step=global_step):
+                        state, metrics = step_fn(
+                            state, frames, sizes, gmeans,
+                            step_generator(cfg.seed, global_step, data_index))
+                    global_step += 1
+                    current = (global_step, metrics, *queue_loss_copy(metrics["loss"]))
+                    if not mem_reported:
+                        mem_reported = True
+                        if device.type == "cuda" and rank == 0:
+                            torch.cuda.synchronize(device)
+                            gib = 1024 ** 3
+                            in_use = torch.cuda.memory_allocated(device)
+                            logger.info("device memory after step %d: %.2f GiB in use, "
+                                        "%.2f GiB peak", global_step, in_use / gib,
+                                        torch.cuda.max_memory_allocated(device) / gib)
+                            writer.scalar("Memory/bytes_in_use", float(in_use), global_step)
+                    if pending is not None:
+                        log_pending(pending, next_ready=current[3])
+                    pending = current
+                    every = cfg.checkpoint_every_steps
+                    if every and global_step % every == 0:
+                        save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group,
+                                        writer=ckpt_writer)
+                    # over a group the ranks agree on the flag every 20 steps (the
+                    # batch index is aligned: equal per-rank counts), so all stop at
+                    # one step: SIGTERM may reach one rank first, and the save is a
+                    # collective
+                    preempt_now = preempt["flag"]
+                    if group is not None:
+                        preempt_now = bi % 20 == 0 and mesh.all_reduce_sum(
+                            torch.tensor([float(preempt["flag"])], device=device),
+                            group).item() > 0
+                    if preempt_now:
+                        log_pending(pending)
+                        save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group,
+                                        writer=ckpt_writer)
+                        logger.info("preemption signal: checkpoint saved at step %d "
+                                    "(epoch %d); resume with --load_checkpoint",
+                                    global_step, epoch)
+                        return finish(preempted=True)
                 if pending is not None:
-                    log_pending(pending, next_ready=current[3])
-                pending = current
-                if cfg.checkpoint_every_steps and global_step % cfg.checkpoint_every_steps == 0:
-                    save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group)
-                # over a group the ranks agree on the flag every 20 steps (the
-                # batch index is aligned: equal per-rank counts), so all stop at
-                # one step: SIGTERM may reach one rank first, and the save is a
-                # collective
-                preempt_now = preempt["flag"]
-                if group is not None:
-                    preempt_now = bi % 20 == 0 and mesh.all_reduce_sum(
-                        torch.tensor([float(preempt["flag"])], device=device),
-                        group).item() > 0
-                if preempt_now:
                     log_pending(pending)
-                    save_checkpoint(state, run_dir, epoch, meta=ckpt_meta, group=group)
-                    logger.info("preemption signal: checkpoint saved at step %d "
-                                "(epoch %d); resume with --load_checkpoint",
-                                global_step, epoch)
-                    return finish(preempted=True)
-            if pending is not None:
-                log_pending(pending)
-            logger.info("epoch %d done in %.1fs (loss %s)", epoch, time.time() - t0,
-                        last_loss)
+                logger.info("epoch %d done in %.1fs (loss %s)", epoch, time.time() - t0,
+                            last_loss)
 
-    # the epoch-top saves never hold the last epoch's training: epoch =
-    # num_epochs marks every epoch trained, so a same-config resume is a no-op
-    save_checkpoint(state, run_dir, cfg.num_epochs, meta=ckpt_meta, group=group)
-    return finish()
+        # the epoch-top saves never hold the last epoch's training: epoch =
+        # num_epochs marks every epoch trained, so a same-config resume is a no-op
+        save_checkpoint(state, run_dir, cfg.num_epochs, meta=ckpt_meta, group=group,
+                        writer=ckpt_writer)
+        return finish()
+    finally:
+        ckpt_writer.join()
