@@ -359,20 +359,15 @@ def test_graphed_serving_program_equals_eager(dev, tmp_path):
 
 
 def _s16_train(dev, graphed):
-    """A TimeT at dino-s16 width, bf16, its state and its full step, with a
-    queue of 80 rows and a schedule over ``STEPS`` steps; and ``STEPS``
-    batches of 4 clips of 3 frames."""
-    from timetuning_tpu_torch.models.vit import vit_small
+    """The flagship TimeT (``torch_dp_worker.flagship``: dino-s16 width,
+    bf16), its state and its full step, with a queue of 80 rows and a
+    schedule over ``STEPS`` steps; and ``STEPS`` batches of 4 clips of 3
+    frames."""
+    from torch_dp_worker import flagship
 
-    vit = VisionTransformer(vit_small(16, img_size=224, dtype=torch.bfloat16))
-    model = tt.TimeT(FeatureExtractor(vit, 384, (1024, 1024, 512, 256)), 200)
-    model.init_weights(torch.Generator().manual_seed(0)).to(dev)
-    cfg = tt.TimeTConfig(frozen_trunk_blocks=10, use_queue=True, queue_size=80,
-                         spatial_resolution=14, **SCHED)
-    opt, mask = swav_optimizer(model, lr=1e-4, opt_over_trainable=True, **SCHED)
-    state = tt.init_state(model, cfg, opt, trainable_mask=mask)
-    step = ttrain.make_full_step(model, cfg, opt, ttf.AugmentConfig(), trainable_mask=mask,
-                                 opt_over_trainable=True, graphed=graphed)
+    _, _, _, state, step = flagship(dev, torch.bfloat16, sched=SCHED,
+                                    full_step=dict(graphed=graphed), use_queue=True,
+                                    queue_size=80)
     rng = np.random.default_rng(2)
     frames = torch.from_numpy(rng.integers(0, 256, (STEPS, 4, 3, 256, 320, 3), np.uint8)).to(dev)
     sizes = torch.tensor([[480, 854]] * 4, device=dev)

@@ -186,7 +186,7 @@ def test_wide_product_at_ragged_rows_and_columns(dev, M, N, K):
     """The wide form (a streamed product from K = 1,024 on whose blocks fill
     the card: 384 output columns a block in one walk over K) at its edges.
     Bound: bf16 rounding at O(1) values."""
-    assert fb.gemm_plan(M, N, K, False, fb._sm_count(0)).unit_cols == fb.GEMM_WIDE_COLS
+    assert fb.gemm_plan(M, N, K, False, kernel_lib.sm_count(0)).unit_cols == fb.GEMM_WIDE_COLS
     x, res, _, w, b = _dense_inputs(dev, M, N, K, seed=M + N + K)
     got, want = fb.dense_residual_rows(x, res, w, b), fb.dense_residual_xla(x, res, w, b)
     assert got.shape == (1, M, N) and torch.isfinite(got.float()).all()

@@ -11,6 +11,8 @@ hang fails a test instead of stalling the suite.
 
 The worker imports torch and the port only (no jax): it also records the
 modules of JAX or of the JAX package that got loaded, which must be none.
+The ``card_*`` cases run the flagship at full width on the rank's card
+(``tests/test_torch_card_paths.py``).
 
     python tests/torch_dp_worker.py JOB RANK WORLD PORT OUT_DIR [DEVICE]
 """
@@ -481,13 +483,14 @@ def run_export_mesh(case: dict, rank: int, world: int) -> dict:
     and the manifest written to ``case["dir"]/<name>.json``
     (``export_features`` + ``save_exported``, or ``main`` for the names in
     ``case["main"]``: its printed lines), and this rank's live mesh forward
-    on its data slice of ``case["frames"]``. ``case["moe_state"]``: the
-    upcycled MoE ViT's whole state dict, loaded over the port's upcycle
-    (the routers' init)."""
+    on its data slice of ``case["frames"]`` (on ``case["device"]``).
+    ``case["moe_state"]``: the upcycled MoE ViT's whole state dict, loaded
+    over the port's upcycle (the routers' init)."""
     import io
 
     from timetuning_tpu_torch.cli import export as texport
 
+    dev = case.get("device", "cpu")
     real = texport.upcycled_moe_backbone
     if case.get("moe_state") is not None:
         def upcycle(bb, k, e, seed=0):
@@ -512,8 +515,8 @@ def run_export_mesh(case: dict, rank: int, world: int) -> dict:
                 out[name] = {}
                 continue
             with torch.no_grad():
-                got = live(torch.from_numpy(em.local_slice(case["frames"])))
-            out[name] = {"coords": em.coords, "live": got}
+                got = live(torch.from_numpy(em.local_slice(case["frames"])).to(dev))
+            out[name] = {"coords": em.coords, "live": got.cpu()}
     finally:
         texport.upcycled_moe_backbone = real
     return out
@@ -522,11 +525,14 @@ def run_export_mesh(case: dict, rank: int, world: int) -> dict:
 def run_load_mesh(case: dict, rank: int, world: int) -> dict:
     """Each program of ``case["paths"]`` (name -> manifest) loaded with
     ``load_exported`` and called on this rank's data slice of
-    ``case["frames"]``."""
+    ``case["frames"]`` (on ``case["device"]``): its output and the kernel
+    launches of the call."""
     import json
 
     from timetuning_tpu_torch.cli import export as texport
+    from timetuning_tpu_torch.ops import kernel_lib
 
+    dev = case.get("device", "cpu")
     out = {}
     for name, path in case["paths"].items():
         fn = texport.load_exported(path)
@@ -536,9 +542,372 @@ def run_load_mesh(case: dict, rank: int, world: int) -> dict:
         manifest = json.load(open(path))
         d = manifest["ranks"][rank]["coords"][0]
         b = manifest["batch"] // manifest["axis_sizes"][0]
+        x = torch.from_numpy(case["frames"][d * b:(d + 1) * b]).to(dev)
         with torch.no_grad():
-            out[name] = {"coords": tuple(manifest["ranks"][rank]["coords"]),
-                         "program": fn(torch.from_numpy(case["frames"][d * b:(d + 1) * b]))}
+            kernel_lib.reset_launch_counts()
+            got = fn(x)
+        out[name] = {"coords": tuple(manifest["ranks"][rank]["coords"]),
+                     "program": got.cpu(), "launches": kernel_lib.launch_counts()}
+    return out
+
+
+# --------------------------------------------------------------- on the card
+
+S16 = 224
+MOE = dict(moe_every_k=2, n_experts=8, moe_capacity_factor=1.25)
+
+
+def train_clips(n: int, dev, seed: int = 0) -> torch.Tensor:
+    """[n, 4, 224, 224, 3] f32 clips as the augmentation hands them to the
+    step: three coloured boxes moving over a colour gradient
+    (``benchmark/generate.clips``, from ``seed``), normalised."""
+    from benchmark import generate
+    from timetuning_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    frames, _ = generate.clips(seed, n, 4, S16, S16, (3, 3), False, "gradient", dev)
+    x = torch.from_numpy(frames).to(dev).float() / 255
+    return (x - x.new_tensor(IMAGENET_MEAN)) / x.new_tensor(IMAGENET_STD)
+
+
+def moe_vit(dtype, seed: int = 0):
+    """(dense, MoE) DINO ViT-S/16 at 224 from ``seed``, on the host: the MoE
+    ViT (``MOE``: every 2nd block 8 experts) sparse-upcycled from the dense
+    weights, its routers a seeded init (``cli/export``'s construction)."""
+    import dataclasses
+
+    from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
+    from timetuning_tpu_torch.parallel.ep import upcycle_dense_to_moe
+
+    cfg = vit_small(16, img_size=S16, dtype=dtype)
+    dense = VisionTransformer(cfg).init_weights(torch.Generator().manual_seed(seed))
+    mcfg = dataclasses.replace(cfg, **MOE)
+    moe = VisionTransformer(mcfg).init_weights(torch.Generator().manual_seed(seed + 1))
+    moe.load_state_dict(upcycle_dense_to_moe(dense.state_dict(), moe.state_dict(), mcfg))
+    return dense, moe
+
+
+def flagship(dev, dtype, attn_impl: str = "auto", remat: bool = False, moe: bool = False,
+             zero1: bool = False, shard=None, mesh=None, sched=None, full_step=None,
+             **cfg_kw):
+    """The reference's flagship at full width (time_tuning.py:573-577): DINO
+    ViT-S/16 at 224, head [1024, 1024, 512, 256], 200 prototypes, seeded;
+    blocks 10 and 11, the head and the prototypes trainable over 10 frozen
+    trunk blocks, AdamW over the trainable subtree. ``moe``: the ViT of
+    ``moe_vit``; ``zero1``: the optimizer state split over the data axis;
+    ``shard(model)`` keeps a rank's slices before the optimizer is built,
+    ``mesh`` is the step's 2-D mesh; ``sched``: the schedule's
+    ``num_epochs`` and ``steps_per_epoch`` (default 1 and 100);
+    ``full_step``: ``core/train.make_full_step``'s keywords, for its step
+    (augmentation included) in place of ``make_train_step``'s; ``cfg_kw``:
+    more ``TimeTConfig`` fields. Returns (model, cfg, mask, state, step)."""
+    import dataclasses
+
+    from timetuning_tpu_torch.core import timet as tt
+    from timetuning_tpu_torch.core.optimizer import swav_optimizer, swav_optimizer_zero1
+    from timetuning_tpu_torch.models.extractor import FeatureExtractor
+    from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
+    from timetuning_tpu_torch.parallel.mesh import data_rank
+
+    vcfg = vit_small(16, img_size=S16, dtype=dtype, attn_impl=attn_impl, remat=remat)
+    vit = VisionTransformer(dataclasses.replace(vcfg, **MOE) if moe else vcfg)
+    model = tt.TimeT(FeatureExtractor(vit, 384, (1024, 1024, 512, 256)), 200)
+    model.init_weights(torch.Generator().manual_seed(0))
+    if moe:
+        vit.load_state_dict(moe_vit(dtype)[1].state_dict())
+    model.to(dev)
+    if shard is not None:
+        shard(model)
+    sched = sched or dict(num_epochs=1, steps_per_epoch=100)
+    cfg = tt.TimeTConfig(n_prototypes=200, use_teacher=True, frozen_trunk_blocks=10,
+                         n_last_frames=7, size_mask_neighborhood=6, topk=5,
+                         spatial_resolution=S16 // 16, **sched, **cfg_kw)
+    if zero1:
+        opt, mask, _ = swav_optimizer_zero1(model, world_size=cfg.world_size,
+                                            rank=data_rank(), lr=1e-4, **sched)
+    else:
+        opt, mask = swav_optimizer(model, opt_over_trainable=True, lr=1e-4, **sched)
+    state = tt.init_state(model, cfg, opt, trainable_mask=mask, mesh=mesh)
+    if full_step is not None:
+        from timetuning_tpu_torch.core.train import make_full_step
+        from timetuning_tpu_torch.data.transforms import AugmentConfig
+
+        step = make_full_step(model, cfg, opt, AugmentConfig(), trainable_mask=mask,
+                              opt_over_trainable=True, **full_step)
+    else:
+        step = tt.make_train_step(model, cfg, opt, trainable_mask=mask,
+                                  opt_over_trainable=True, mesh=mesh)
+    return model, cfg, mask, state, step
+
+
+def replica_mismatches(state, group=None) -> int:
+    """Tensors of the replicated state that differ from rank 0's, bit for
+    bit."""
+    import torch.distributed as dist
+
+    from timetuning_tpu_torch.core import timet as tt
+
+    bad = 0
+    for t in tt.replicated_tensors(state).values():
+        ref = t.detach().clone()
+        dist.broadcast(ref, 0, group=group)
+        bad += int(not torch.equal(ref, t))
+    return bad
+
+
+def card_steps(state, step, clip, n_steps: int) -> dict:
+    """``n_steps`` steps on ``clip``: the losses, the MoE auxiliaries (None
+    without) and the kernel launches of the steps."""
+    from timetuning_tpu_torch.ops import kernel_lib
+
+    torch.cuda.synchronize()
+    kernel_lib.reset_launch_counts()
+    losses, aux = [], []
+    for _ in range(n_steps):
+        _, m = step(state, clip)
+        losses.append(float(m["loss"]))
+        aux.append(float(m["moe_aux"]) if "moe_aux" in m else None)
+    torch.cuda.synchronize()
+    return {"losses": losses, "aux": aux, "counts": kernel_lib.launch_counts()}
+
+
+def lattice_features(rng, lead: tuple, D: int = 384, nnz: int = 256):
+    """[*lead, D] f32 features with ``nnz`` entries of +-1/16 at random
+    places and zeros elsewhere: unit norm exactly (the normalisation is
+    exact), every dot product a multiple of 1/256, exact in f32 whatever
+    the summation order."""
+    n = int(np.prod(lead))
+    x = np.zeros((n, D), np.float32)
+    cols = np.argsort(rng.random((n, D)), axis=1)[:, :nnz]
+    x[np.arange(n)[:, None], cols] = rng.choice(
+        np.asarray([-1 / 16, 1 / 16], np.float32), (n, nnz))
+    return x.reshape(*lead, D)
+
+
+def bank_dataset(name: str = "card_bank", frames: int = 4, decode: int = 256) -> str:
+    """Register ``name`` with ``data/loader``: as many videos as its
+    ``data_root`` says, each a clip of a bank of 8 seeded ones
+    (``benchmark/generate``, the train cell's boxes over a gradient) in the
+    item layout of the benchmark's ``BankDataset``; returns ``name``."""
+    from benchmark import generate
+    from benchmark.drivers.timet_train import BankDataset
+    from timetuning_tpu_torch.data.loader import register_dataset
+
+    bank, _ = generate.clips(5, 8, frames, decode, decode, (3, 3), False, "gradient", "cpu")
+    gray = generate.pil_gray_means(bank)
+    register_dataset(name)(
+        lambda _n, root, **_kw: BankDataset(bank, gray, int(root), (480, 854)))
+    return name
+
+
+def driver_config(dev, log_dir: str, batch: int, world: int = 1, **kw):
+    """``run_training``'s configuration of the flagship (the train cell's
+    model: dino-s16 at 224, head [1024, 1024, 512, 256], 200 prototypes,
+    bf16, 4-frame clips from a 256 buffer) over ``bank_dataset``: ``batch``
+    clips a rank, 2 epochs of 4 steps, 2 loader workers; ``kw`` overrides."""
+    from timetuning_tpu_torch.core.train import TrainingConfig
+
+    steps = kw.get("max_steps_per_epoch", 4)
+    base = dict(architecture="dino-s16", dataset=bank_dataset(),
+                data_root=str(steps * batch * world), log_dir=log_dir, batch_size=batch,
+                num_frames=4, decode_size=256, num_workers=2, num_clusters=200,
+                input_resolution=224, compute_dtype="bfloat16", num_epochs=2,
+                max_steps_per_epoch=4, use_tensorboard=False, device=str(dev))
+    return TrainingConfig(**(base | kw))
+
+
+def run_card_driver(case, rank, world):
+    """``run_training`` of the flagship on the data axis at ``case["clips"]``
+    clips a rank: 2 epochs of 4 steps, then a resume for a third (the
+    launches, steps and run dir of each, the replicas after); then
+    ``cli/train --multihost true --tensor_parallel 2`` for an epoch of 2
+    steps and a resumed second (each run takes down its group, so they come
+    last; gloo, as two ranks share the card)."""
+    import io
+
+    import torch.distributed as dist
+
+    from timetuning_tpu_torch.cli import train as tcli
+    from timetuning_tpu_torch.core import train as ttrain
+    from timetuning_tpu_torch.ops import kernel_lib
+
+    dev, B, logs = case["device"], case["clips"], case["log_dir"]
+    out = {}
+    for key, kw in (("first", {}), ("resumed", dict(num_epochs=3, load_checkpoint=True))):
+        torch.cuda.synchronize()
+        kernel_lib.reset_launch_counts()
+        r = ttrain.run_training(driver_config(dev, os.path.join(logs, "dp"), B, world, **kw))
+        torch.cuda.synchronize()
+        out[key] = {"step": r["global_step"], "run_dir": r["run_dir"],
+                    "loss": r["final_loss"], "counts": kernel_lib.launch_counts()}
+    out["mismatches"] = replica_mismatches(r["state"])
+    del r
+    torch.cuda.empty_cache()
+    argv = ["--multihost", "true", "--tensor_parallel", str(world), "--device", dev,
+            "--architecture", "dino-s16", "--dataset", bank_dataset(),
+            "--data_root", str(2 * B), "--batch_size", str(B // world), "--num_frames", "4",
+            "--num_workers", "2", "--log_dir", os.path.join(logs, "cli"),
+            "--use_queue", "true", "--queue_size", "4096"]
+    out["cli"] = []
+    for extra, port in zip((["--num_epochs", "1"],
+                            ["--num_epochs", "2", "--load_checkpoint", "true"]), case["ports"]):
+        if dist.is_initialized():
+            dist.barrier()
+            dist.destroy_process_group()
+        # cli/train keeps a group it finds: gloo, not its NCCL
+        os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world),
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=world)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert tcli.main(argv + extra) == 0
+        out["cli"].append(buf.getvalue())
+    return out
+
+
+def run_card_dp(case, rank, world):
+    """The flagship's bf16 steps on the data axis at ``case["clips"]`` clips
+    a rank, default then ZeRO-1 (``card_steps``, the matvec form's calls,
+    ``replica_mismatches``); kernel 11's cross-rank form on the default
+    run's last scores against the plain group form, and on rank 0 the
+    one-launch kernel 11 on the gathered scores against the gathered
+    result; then 2 f32 steps at 4 clips a rank (rank 0: the trainable
+    parameters after them)."""
+    from timetuning_tpu_torch.core import timet as tt
+    from timetuning_tpu_torch.ops import sinkhorn as skm
+    from timetuning_tpu_torch.ops import sinkhorn_cuda as sk
+    from timetuning_tpu_torch.parallel.mesh import all_gather_rows, data_group
+
+    dev = torch.device(case["device"])
+    group = data_group("data")
+    clip = train_clips(case["clips"], dev, seed=100 + rank)
+    seen, calls = {}, [0]
+    assign, plain = tt.sinkhorn_assignment, skm.sinkhorn
+
+    def recording(scores, *a, **kw):
+        seen["scores"] = scores
+        return assign(scores, *a, **kw)
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    out = {}
+    for name, zero1 in (("default", False), ("zero1", True)):
+        _, _, _, state, step = flagship(dev, torch.bfloat16, zero1=zero1, axis_name="data",
+                                        world_size=world)
+        calls[0] = 0
+        tt.sinkhorn_assignment, skm.sinkhorn = recording, counting
+        try:
+            out[name] = card_steps(state, step, clip, 3)
+        finally:
+            tt.sinkhorn_assignment, skm.sinkhorn = assign, plain
+        out[name].update(plain_calls=calls[0], mismatches=replica_mismatches(state, group))
+        del state, step
+    scores = seen["scores"]
+    kern = sk.sinkhorn_assignment_dp_cuda(scores, 0.05, 10, group=group, world_size=world)
+    want = skm.sinkhorn(torch.exp(scores / 0.05).t(), 10, group=group, world_size=world)
+    out["sinkhorn"] = {"err": float((kern - want).abs().max())}
+    s_all, k_all = all_gather_rows(scores, group), all_gather_rows(kern, group)
+    if rank == 0:
+        one = sk.sinkhorn_assignment_cuda(s_all, 0.05, 10)
+        out["sinkhorn"]["err_global"] = float((one - k_all).abs().max())
+    model, _, mask, state, step = flagship(dev, torch.float32, axis_name="data",
+                                           world_size=world)
+    clip = train_clips(4, dev, seed=200 + rank)
+    out["f32"] = {"losses": [float(step(state, clip)[1]["loss"]) for _ in range(2)]}
+    if rank == 0:
+        out["f32"]["params"] = {n: p.detach().cpu().clone()
+                                for n, p in model.named_parameters() if mask[n]}
+    return out
+
+
+def run_card_mesh(case, rank, world):
+    """The flagship on a dp 1 x ``world`` mesh, ``case["mesh"]`` "ep" (the
+    MoE ViT, the experts split) or "tp" (the dense one, qkv, fc1, proj and
+    fc2 split; plain attention): the bare ViT's tokens on 4 frames, 3 bf16
+    steps at ``case["clips"]`` clips (``card_steps``, the sharded leaves'
+    shapes, ``replica_mismatches``), then 2 f32 steps at 4 clips."""
+    from timetuning_tpu_torch.core import timet as tt
+    from timetuning_tpu_torch.models.vit import VisionTransformer, vit_small
+    from timetuning_tpu_torch.parallel import ep, tp
+
+    dev = torch.device(case["device"])
+    if case["mesh"] == "ep":
+        mesh = ep.make_dp_ep_mesh(1, world)
+        vit = moe_vit(torch.bfloat16)[1].to(dev).eval()
+        ep.shard_experts(mesh, vit)
+
+        def shard(m):
+            ep.shard_experts(mesh, m)
+
+        kw = dict(moe=True, moe_aux_weight=0.01)
+    else:
+        mesh = tp.make_dp_tp_mesh(1, world)
+        vit = VisionTransformer(vit_small(16, img_size=S16, dtype=torch.bfloat16)).init_weights(
+            torch.Generator().manual_seed(0)).to(dev).eval()
+        tp.shard_params(mesh, vit)
+
+        def shard(m):
+            tp.force_xla_attention(m)
+            tp.shard_params(mesh, m)
+
+        kw = {}
+    with torch.no_grad():
+        out = {"tokens": vit(train_clips(1, dev, seed=7)[0])["tokens"].float().cpu()}
+    _, _, _, state, step = flagship(dev, torch.bfloat16, shard=shard, mesh=mesh, **kw)
+    out.update(card_steps(state, step, train_clips(case["clips"], dev, seed=300), 3))
+    out["shapes"] = {n: tuple(v.shape) for n, v in tt.sharded_tensors(state).items()
+                     if n.startswith("params.")}
+    out["mismatches"] = replica_mismatches(state)
+    del state, step
+    model, _, _, state, step = flagship(dev, torch.float32, shard=shard, mesh=mesh, **kw)
+    clip = train_clips(4, dev, seed=301)
+    out["f32"] = [float(step(state, clip)[1]["loss"]) for _ in range(2)]
+    if case["mesh"] == "tp":
+        from timetuning_tpu_torch.core.checkpoint import save_checkpoint
+        from timetuning_tpu_torch.parallel.mesh import data_group
+
+        os.makedirs(case["ckpt"], exist_ok=True)
+        save_checkpoint(state, case["ckpt"], 1, group=data_group("data"))
+        out["gathered"] = tp.gather_global_params(model)
+    return out
+
+
+def run_card_seq_pipe(case, rank, world):
+    """The registry's bf16 and f32 ViTs on a dp 1 x ``world`` mesh:
+    ``dino-s8`` on ``case["x448"]`` through the sp feature function, then
+    ``dino-s16`` on ``case["x224"]`` through the pp one at each n_micro of
+    ``case["n_micro"]``: the tokens and the kernel launches of each forward,
+    and for pp the parameter bytes the rank holds beside the whole model's."""
+    from timetuning_tpu_torch.models.registry import get_backbone
+    from timetuning_tpu_torch.ops import kernel_lib
+    from timetuning_tpu_torch.parallel import pp, sp
+
+    dev = torch.device(case["device"])
+
+    def forward(fn, x):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            kernel_lib.reset_launch_counts()
+            tokens = fn(torch.from_numpy(x).to(dev))
+            torch.cuda.synchronize()
+        return {"tokens": tokens.float().cpu(), "counts": kernel_lib.launch_counts()}
+
+    def param_bytes(module):
+        return sum(p.numel() * p.element_size() for p in module.parameters())
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        vit = get_backbone("dino-s8", dtype=dtype, device=dev).module.eval()
+        out["sp", dtype] = forward(sp.make_sp_feature_fn(vit, sp.make_dp_sp_mesh(1, world)),
+                                   case["x448"])
+        vit = get_backbone("dino-s16", dtype=dtype, device=dev).module.eval()
+        whole = param_bytes(vit)
+        mesh = pp.make_dp_pp_mesh(1, world)
+        for nm in case["n_micro"]:
+            out["pp", dtype, nm] = forward(pp.make_pp_feature_fn(vit, mesh, nm), case["x224"])
+            out["pp", dtype, nm].update(param_bytes=param_bytes(vit), whole_bytes=whole)
     return out
 
 
@@ -546,7 +915,8 @@ CASES = {"step": run_steps, "sinkhorn": run_sinkhorn, "contrastive": run_contras
          "loader": run_loader, "driver": run_driver, "mesh_step": run_mesh_step,
          "gather": run_gather, "cli": run_cli, "seq_pipe": run_seq_pipe,
          "sp_export": run_sp_export, "all_gather": run_all_gather, "export_mesh": run_export_mesh,
-         "load_mesh": run_load_mesh}
+         "load_mesh": run_load_mesh, "card_dp": run_card_dp, "card_mesh": run_card_mesh,
+         "card_seq_pipe": run_card_seq_pipe, "card_driver": run_card_driver}
 
 
 def main(argv) -> int:

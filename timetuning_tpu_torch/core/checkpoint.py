@@ -30,7 +30,9 @@ the state is on the host, in host buffers the writer owns and reuses
 (pinned for a card's tensors), and a thread of the writer's writes the
 files while the caller steps on. The writer's ``join`` waits for that
 write, raises what it raised, and over a process group is the barrier after
-which every rank may read the file; the next save joins first.
+which every rank may read the file; the next save joins first. A save
+without a writer writes through one of its own and joins it before it
+returns.
 
 On a 2-D mesh (tensor or expert parallelism: the model's
 ``param_sharding``) the parameters, the teacher and the AdamW moments are
@@ -259,25 +261,24 @@ def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None,
     """Write the whole ``TrainState`` and the epoch to
     ``run_dir/checkpoint.pt``, and ``meta`` (small, JSON-able) to
     ``checkpoint_meta.json`` beside it; both by temporary file and rename.
-    With ``group`` every rank calls it, rank 0 writes, and all return once
-    the files are in place. With ``writer`` it first joins the writer's
-    previous write, and returns once the state and ``meta`` are copied to
-    the host: the writer's thread writes the files, and its next ``join``
-    is where they are whole."""
+    With ``group`` every rank calls it and rank 0 writes. The files are
+    written from a ``CheckpointWriter``'s thread. With ``writer`` it first
+    joins the writer's previous write, and returns once the state and
+    ``meta`` are copied to the host: the writer's next ``join`` is where the
+    files are whole. Without, it saves through a writer of its own and joins
+    it (over ``group``): all ranks return once the files are in place."""
     from timetuning_tpu_torch.core.optimizer import Zero1Optimizer
-    from timetuning_tpu_torch.parallel.mesh import (
-        all_gather_rows,
-        all_reduce_sum,
-        data_rank,
-        param_sharding,
-    )
+    from timetuning_tpu_torch.parallel.mesh import all_gather_rows, data_rank, param_sharding
 
     run_dir = os.path.abspath(run_dir)
     writes = data_rank(group) == 0
     sharding = param_sharding(state.model)
     device = state.model.prototypes.device
+    own = writer is None
+    if own:
+        writer = CheckpointWriter()
     with annotate("train.save", epoch=int(epoch)):
-        if writer is not None:
+        if not own:
             with annotate("save.join") as span:
                 waited = writer.join(group)
                 if span is not None:
@@ -301,17 +302,12 @@ def save_checkpoint(state, run_dir: str, epoch: int, meta: dict | None = None,
                 payload = {"epoch": int(epoch), "step": int(state.step), "model": model,
                            "optimizer": optimizer, "teacher": teacher, "queue": queue,
                            "queue_fill": int(state.queue_fill)}
-                payload = (writer.to_host(payload) if writer is not None else
-                           _map_tensors(payload, lambda _, t: t.detach().to("cpu", copy=True)))
+                payload = writer.to_host(payload)
                 meta_text = None if meta is None else json.dumps(meta)
-        if writer is not None:
-            writer.submit((lambda: _write_files(run_dir, payload, meta_text)) if writes
-                          else None, device)
-        else:
-            if writes:
-                _write_files(run_dir, payload, meta_text)
-            if group is not None:   # a barrier: the file is whole before any rank reads it
-                all_reduce_sum(torch.zeros(1, device=device), group)
+        writer.submit((lambda: _write_files(run_dir, payload, meta_text)) if writes
+                      else None, device)
+        if own:
+            writer.join(group)
     return os.path.join(run_dir, CHECKPOINT)
 
 

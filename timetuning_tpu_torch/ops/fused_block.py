@@ -266,14 +266,8 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
                     row_blocks * n_slices)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _slices(device, M, N, K, ln, gelu=False, residual=True) -> int:
-    index = torch.cuda.current_device() if device.index is None else device.index
-    return gemm_plan(M, N, K, ln, _sm_count(index), gelu, residual).n_slices
+    return gemm_plan(M, N, K, ln, kernel_lib.sm_count(device), gelu, residual).n_slices
 
 
 # The fakes of the custom ops (kernel_lib.kernel_entry): each output is a

@@ -103,6 +103,18 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def sm_count(device) -> int:
+    """The SMs of the card ``device`` (a ``torch.device``, its name or its
+    index; without an index the current card), queried once a card."""
+    device = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "tt_attention_block": [_P] * 10 + [_I] * 8 + [_P],

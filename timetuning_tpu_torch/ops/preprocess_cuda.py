@@ -156,11 +156,6 @@ def band_plan(h: int, w: int, s: int, frames: int = 1, sms: int = 132) -> BandPl
     return best[1]
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(device: str) -> int:
-    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
-
-
 def preprocess_cuda_available(h: int, w: int, out_size: int, frames_dtype,
                               compute_dtype) -> bool:
     """The kernel's gate, as the TPU kernel's (preprocess_pallas.py:130-153):
@@ -212,7 +207,7 @@ def eval_preprocess_cuda(frames, out_size: int, mean: tuple, std: tuple,
     hs, hw, h_taps = _band_tensors(h, s, dev)
     ws, www, w_taps = _band_tensors(w, s, dev)
     kernel_lib.require_cuda("eval_preprocess_cuda", x, hs, ws)
-    plan = band_plan(h, w, s, n, _sm_count(dev))
+    plan = band_plan(h, w, s, n, kernel_lib.sm_count(x.device))
     out = torch.empty(lead + (s, s, 3), dtype=torch.bfloat16, device=x.device)
     kernel_lib.launch(
         "preprocess", "tt_eval_preprocess", x.device,

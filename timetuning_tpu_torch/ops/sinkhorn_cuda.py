@@ -217,7 +217,7 @@ def _launch_dp(src, K: int, B: int, n_iters: int, epsilon: float, valid, group,
     if not epsilon > 0:
         raise ValueError(f"{name}: epsilon must be > 0, got {epsilon}")
     dev = src.device
-    cols, blocks = sinkhorn_dp_plan(B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    cols, blocks = sinkhorn_dp_plan(B, kernel_lib.sm_count(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((B, K), **f32)
     part = torch.empty(blocks * (K + 1), **f32)

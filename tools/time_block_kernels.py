@@ -10,7 +10,7 @@ several (copies of it with one edit each, kept in a gitignored directory),
 each is built and timed in the order given and then in the reverse order, so
 that two variants are compared on one card under one power limit. Times are
 CUDA events over 20 launches queued behind a device-side sleep
-(``chip_smoke.cuda_ms``): device times, whatever the host does.
+(``card.cuda_ms``): device times, whatever the host does.
 
 The MLP branch (K2 / K9) is timed whole and as its two launches apart (fc1
 with the LayerNorm prologue and the GELU epilogue; fc2 with the residual).
@@ -44,7 +44,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402
+import card  # noqa: E402
 from timetuning_tpu_torch.ops import attention as at  # noqa: E402
 from timetuning_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from timetuning_tpu_torch.ops import fused_block as fb  # noqa: E402
@@ -98,7 +98,7 @@ def forced_slices(ns):
     """``fused_block._slices`` with every plan's slices forced to ``ns``,
     capped at the product's units (a wide product keeps one item a unit)."""
     def slices(device, M, N, K, ln, gelu=False, residual=True):
-        p = fb.gemm_plan(M, N, K, ln, fb._sm_count(0), gelu, residual)
+        p = fb.gemm_plan(M, N, K, ln, kernel_lib.sm_count(0), gelu, residual)
         return p.n_units if p.unit_cols == fb.GEMM_WIDE_COLS else min(ns, p.n_units)
 
     return slices
@@ -144,8 +144,8 @@ def g14(dev, gen):
             lambda: fa.flash_attention_xla(q, k, v)),
     }
     for name, (kern, lib, plain) in rows.items():
-        print(f"g14 {name} ms: kernel {cs.cuda_ms(kern):.4f}  library "
-              f"{cs.cuda_ms(lib):.4f}  plain {cs.cuda_ms(plain, reps=3):.4f}", flush=True)
+        print(f"g14 {name} ms: kernel {card.cuda_ms(kern):.4f}  library "
+              f"{card.cuda_ms(lib):.4f}  plain {card.cuda_ms(plain, reps=3):.4f}", flush=True)
     from torch.profiler import ProfilerActivity, profile
 
     for name in ("ln_wide_dense (LN1 + qkv)", "swiglu_mlp"):
@@ -163,12 +163,12 @@ def g14(dev, gen):
     plan = fb._slices
     fb._slices = forced_slices(1 << 20)
     for name in ("ln_wide_dense (LN1 + qkv)", "swiglu_mlp"):
-        print(f"g14 {name} with a tile a block, ms: {cs.cuda_ms(rows[name][0]):.4f}", flush=True)
+        print(f"g14 {name} with a tile a block, ms: {card.cuda_ms(rows[name][0]):.4f}", flush=True)
     fb._slices = plan
 
 
 def line(label, fns):
-    print(f"{label}: " + "  ".join(f"{k} {cs.cuda_ms(f):.4f}" for k, f in fns.items()),
+    print(f"{label}: " + "  ".join(f"{k} {card.cuda_ms(f):.4f}" for k, f in fns.items()),
           flush=True)
 
 
@@ -181,7 +181,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_block_kernels: needs a CUDA card")
-    print(cs.nvidia_smi(), flush=True)
+    print(card.nvidia_smi(), flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     data = {name: inputs(dev, gen, B, S) for name, (B, S) in SHAPES.items()}

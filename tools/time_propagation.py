@@ -7,12 +7,13 @@ turns inside one process on one card.
 
 Shapes (``SHAPES``): ``s8`` the ViT-S/8 448 eval group (2 clips x 25 frames x
 3,136 patches, D 384, 4 label channels, n_last 4, radius 12, top-k 5) on
-lattice features (``chip_smoke.lattice_features``: every dot product exact),
+lattice features (``tests/torch_dp_worker.lattice_features``: every dot
+product exact),
 in bf16 and f32; ``s16`` the ViT-S/16 224 eval group (196 patches) on
 normal features, bf16 and f32; ``step`` the train step's (32 clips x 4
 frames x 196 patches, 200 channels, n_last 7, radius 6) on lattice features
 in bf16. Each line gives the wrapper's time (CUDA events over 10 calls queued
-behind a device-side sleep, ``chip_smoke.cuda_ms``) and the device time of
+behind a device-side sleep, ``card.cuda_ms``) and the device time of
 each kernel by name (``torch.profiler``), one call's worth.
 
 ``--split``: each source is also built with ``-DTT_PROP_PHASES=1``, ``2`` and
@@ -41,8 +42,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
-import chip_smoke as cs  # noqa: E402
+import card  # noqa: E402
+from torch_dp_worker import lattice_features  # noqa: E402
 from timetuning_tpu_torch.ops import kernel_lib  # noqa: E402
 from timetuning_tpu_torch.ops import propagation_cuda as prc  # noqa: E402
 
@@ -56,7 +59,7 @@ SHAPES = {
 def inputs(dev, name, dtype):
     B, T, N, K, n_last, radius, lattice, _ = SHAPES[name]
     rng = np.random.default_rng(N)
-    f = cs.lattice_features(rng, (B, T, N)) if lattice else \
+    f = lattice_features(rng, (B, T, N)) if lattice else \
         rng.standard_normal((B, T, N, 384)).astype(np.float32)
     feats = torch.from_numpy(f).to(dev, dtype)
     seg0 = torch.softmax(torch.from_numpy(
@@ -64,33 +67,13 @@ def inputs(dev, name, dtype):
     return feats, seg0, dict(n_last=n_last, radius=radius, topk=5)
 
 
-def kernel_times(fn, reps: int = 3) -> dict:
-    """Device time of each kernel by name, ms a call, under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
-            continue
-        n, t = by.get(e.name(), (0, 0))
-        by[e.name()] = (n + 1, t + e.end_ns() - e.start_ns())
-    return {k: (n / reps, t / reps / 1e6) for k, (n, t) in by.items()}
-
-
 def measure(label, dev, data, phase: int) -> None:
     for (name, dtype), (feats, seg0, kw) in data.items():
         def fn():
             return prc.propagate_labels_batch_cuda(feats, seg0, **kw)
 
-        ms = cs.cuda_ms(fn, warmup=2, reps=10)
-        by = kernel_times(fn)
+        ms = card.cuda_ms(fn, warmup=2, reps=10)
+        by = card.kernel_times(fn)
         parts = "  ".join(
             f"{k.replace('(anonymous namespace)::', '').replace('void ', '').split('(')[0][:48]}"
             f" {n:.0f}x {t:.4f}" for k, (n, t) in sorted(by.items(), key=lambda kv: -kv[1][1]))
@@ -100,14 +83,14 @@ def measure(label, dev, data, phase: int) -> None:
 
 def groups(dev) -> None:
     """The S/16 224 and S/8 448 eval groups (``cli/propagate``'s per-group
-    compute on ``chip_smoke.synthetic_clips``, bf16): time and peak memory,
+    compute on ``card.eval_clips``, bf16): time and peak memory,
     K3's share of it by name."""
     from timetuning_tpu_torch.cli import propagate as prop
     from timetuning_tpu_torch.models.registry import get_backbone
 
-    clips = cs.synthetic_clips(textured=True)
+    clips = card.eval_clips(dev)
     frames = torch.from_numpy(np.stack([f for f, _ in clips])).to(dev)
-    for arch, size in (("dino-s16", cs.S), ("dino-s8", cs.S8)):
+    for arch, size in (("dino-s16", 224), ("dino-s8", 448)):
         bb = get_backbone(arch, dtype=torch.bfloat16, device=dev)
         first = [prop.resize_nearest(torch.from_numpy(a[:1].astype(np.float32)),
                                      (size, size))[0].numpy().astype(np.int64)
@@ -128,8 +111,8 @@ def groups(dev) -> None:
         group()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        ms = cs.cuda_ms(group, warmup=1, reps=5, queued=False)
-        by = kernel_times(group, reps=2)
+        ms = card.cuda_ms(group, warmup=1, reps=5, queued=False)
+        by = card.kernel_times(group, reps=2)
         k3 = sum(t for k, (_, t) in by.items() if "prop_" in k)
         print(f"group {arch}/{size} bf16: {ms:.3f} ms a group, K3 {k3:.4f} ms by name, "
               f"peak memory {peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} "
@@ -146,7 +129,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_propagation: needs a CUDA card")
-    print(cs.nvidia_smi(), flush=True)
+    print(card.nvidia_smi(), flush=True)
     dev = torch.device("cuda", 0)
     data = {(name, dtype): inputs(dev, name, dtype)
             for name in args.shapes.split(",") if name for dtype in SHAPES[name][-1]}

@@ -12,7 +12,7 @@ and to 448 (ViT-S/8); ``sk6272`` / ``sk25088`` / ``sk22656`` K11 over [200, B]
 with its queue full), 10 iterations, through ``sinkhorn_cuda``; ``asg6272`` /
 ``asg25088`` the step's own entry, ``sinkhorn_assignment_cuda`` on [B, 200] scores,
 where the package has it. Each line gives the wrapper's time (CUDA events over
-20 calls queued behind a device-side sleep, ``chip_smoke.cuda_ms``; and the
+20 calls queued behind a device-side sleep, ``card.cuda_ms``; and the
 median of 10 calls each alone between two synchronises) and the
 device time of each kernel by name (``torch.profiler``): the launches seen a
 call (the profiler drops some events) and the time a launch;
@@ -44,8 +44,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402
-from time_propagation import kernel_times  # noqa: E402
+import card  # noqa: E402
 from timetuning_tpu_torch.data.transforms import IMAGENET_MEAN, REFERENCE_STD  # noqa: E402
 from timetuning_tpu_torch.ops import kernel_lib  # noqa: E402
 from timetuning_tpu_torch.ops import preprocess_cuda as pc  # noqa: E402
@@ -73,7 +72,7 @@ def inputs(dev, name):
             return None
         return lambda: sk.sinkhorn_assignment_cuda(scores, 0.05, 10)
     Q = torch.exp(scores / 0.05).t().contiguous()
-    ms = cs.cuda_ms(lambda: skm.sinkhorn(Q, 10))
+    ms = card.cuda_ms(lambda: skm.sinkhorn(Q, 10))
     plan = (" | the kernel's plan %s, %d clusters of 8 resident" % sk.device_plan(200, n)
             if hasattr(sk, "device_plan") else "")
     print(f"{name}: the matvec form (plain torch) {ms:.4f} ms{plan}", flush=True)
@@ -97,9 +96,9 @@ def isolated_ms(fn, reps: int = 10) -> float:
 
 def measure(label, calls: dict, phase: int) -> None:
     for name, fn in calls.items():
-        ms = cs.cuda_ms(fn)
+        ms = card.cuda_ms(fn)
         alone = isolated_ms(fn)
-        by = kernel_times(fn)
+        by = card.kernel_times(fn)
         # per launch: the profiler may drop some of a run's events
         parts = "  ".join(
             f"{k.replace('(anonymous namespace)::', '').replace('void ', '').split('(')[0][:48]}"
@@ -116,7 +115,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_small_kernels: needs a CUDA card")
-    print(cs.nvidia_smi(), flush=True)
+    print(card.nvidia_smi(), flush=True)
     dev = torch.device("cuda", 0)
     calls = {name: fn for name in args.shapes.split(",") if name
              for fn in [inputs(dev, name)] if fn is not None}
