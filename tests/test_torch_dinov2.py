@@ -248,20 +248,25 @@ def test_layerscale_fold_matches_the_scaled_branch():
 
 
 def test_plans_of_the_new_products():
-    """The SwiGLU product (2 Hd columns) and the streamed qkv after the
-    LayerNorm pass go by turns, never wide (the wide form has the residual
-    epilogue), in slices by waves among those whose wave of blocks spans
-    row blocks of A that fit the share of L2 (a block of one tile would
-    leave a warpgroup idle); w3 is wide."""
+    """At a request's 25 x 1,029 rows the SwiGLU product (2 Hd columns) is
+    wide, one item for each of its 22 units of 384 columns (the last of one
+    128-row W tile), as are w3 and proj; the streamed qkv after the
+    LayerNorm pass has the bias epilogue and goes by turns, in slices by
+    waves among those whose wave of blocks spans row blocks of A that fit
+    the share of L2 (a block of one tile would leave a warpgroup idle)."""
     rows = 25 * 1029
-    for N, n_slices in ((8192, 5), (4608, 3)):
-        p = fb.gemm_plan(rows, N, 1536, False, 132, N == 8192, False)
-        assert p.unit_cols == fb.GEMM_TILE_COLS and p.n_units == N // 128
-        assert p.n_slices == n_slices
-        assert (-(-132 // p.n_slices) + 1) * 128 * 1536 * 2 <= fb.GEMM_L2_SHARE
+    p = fb.gemm_plan(rows, 8192, 1536, False, 132, fb.EPI_SWIGLU)
+    assert (p.unit_cols, p.n_units) == (fb.GEMM_WIDE_COLS, 22)
+    assert p.n_slices == p.n_units and p.items == 201 * 22
+    qkv = fb.gemm_plan(rows, 4608, 1536, False, 132, fb.EPI_BIAS)
+    assert qkv.unit_cols == fb.GEMM_TILE_COLS and qkv.n_units == 4608 // 128
+    assert qkv.n_slices == 3
+    assert (-(-132 // qkv.n_slices) + 1) * 128 * 1536 * 2 <= fb.GEMM_L2_SHARE
+    for N in (8192, 4608):
         # a residual product by turns that overflows the share keeps a slice a tile
-        assert fb.gemm_plan(rows, N, 768, False, 132).n_slices == p.n_units
-    assert fb.gemm_plan(rows, 1536, 4096, False, 132).unit_cols == fb.GEMM_WIDE_COLS
+        assert fb.gemm_plan(rows, N, 768, False, 132).n_slices == N // 128
+    for N, K in ((1536, 4096), (1536, 1536)):
+        assert fb.gemm_plan(rows, N, K, False, 132).unit_cols == fb.GEMM_WIDE_COLS
     with pytest.raises(ValueError, match="D <= 2048"):
         fb._check_ln_width("ln_dense_rows", 2112)
 

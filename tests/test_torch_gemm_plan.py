@@ -77,7 +77,8 @@ def test_gemm_plan_slices_at_the_main_paths_shapes(name, N, K, ln, n_slices):
 def test_gemm_plan_slices_of_fc1_with_the_gelu_epilogue(name, n_slices, plain):
     """The GELU tile costs a quarter more than a bias tile, which moves the
     77 row blocks of an eval group from one slice to three."""
-    assert fb.gemm_plan(ROWS[name], 1536, 384, True, H100_SMS, True).n_slices == n_slices
+    assert fb.gemm_plan(ROWS[name], 1536, 384, True, H100_SMS,
+                        fb.EPI_GELU).n_slices == n_slices
     assert fb.gemm_plan(ROWS[name], 1536, 384, True, H100_SMS).n_slices == plain
 
 
@@ -103,6 +104,31 @@ def test_gemm_plan_cuts_a_streamed_block_only_where_l2_overflows():
     small = fb.gemm_plan(ROWS["s16_eval"], 384, 1536, False, H100_SMS)
     assert (small.unit_cols, small.n_slices) == (128, 3)
     assert fb.gemm_plan(ROWS["s16_eval"], 384, 1536, False, 64).unit_cols == 384
+
+
+@pytest.mark.parametrize("M,N,K,wide", [
+    # DINOv2 ViT-g's w12 (2 x 4,096 columns, 22 units): 5 row blocks x 22 =
+    # 110 blocks leave SMs idle, 6 x 22 = 132 fill the card once
+    (640, 8192, 1536, False),
+    (641, 8192, 1536, True),
+    (129, 8192, 1536, False),
+    (25 * 1029, 8192, 1536, True),
+    # 2 x 1,024 columns, 6 units: 21 row blocks x 6 = 126, 22 x 6 = 132
+    (2688, 2048, 1024, False),
+    (2689, 2048, 1024, True),
+    (100_000, 8192, 960, False),      # K under GEMM_WIDE_K: always by turns
+])
+def test_gemm_plan_swiglu_product_goes_wide_where_it_fills_the_card(M, N, K, wide):
+    """The SwiGLU product is wide on the rule of the residual product: K >=
+    1,024 and its row blocks x units of 384 columns fill the card's 132 SMs
+    at least once; fewer go by turns in slices by waves. The bias epilogue
+    (the streamed qkv) is never wide."""
+    p = fb.gemm_plan(M, N, K, False, H100_SMS, fb.EPI_SWIGLU)
+    assert (p.unit_cols == fb.GEMM_WIDE_COLS) == wide
+    assert p.n_units == -(-N // p.unit_cols)
+    assert (p.n_slices == p.n_units) if wide else 1 <= p.n_slices <= p.n_units
+    assert p.items == -(-M // 128) * p.n_slices
+    assert fb.gemm_plan(M, N, K, False, H100_SMS, fb.EPI_BIAS).unit_cols == fb.GEMM_TILE_COLS
 
 
 @pytest.mark.parametrize("M,N,K,ln,match", [

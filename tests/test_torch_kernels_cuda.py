@@ -216,16 +216,16 @@ def test_gemm_plan_mirrors_the_tiles_own_route(dev, K, ln, epi):
     whose shared memory fits a block, for each epilogue (bias, GELU,
     residual, SwiGLU; the LayerNorm prologue stops at K = 1,024) and both
     forms (by turns; wide from K = 1,024 on for a streamed product with the
-    residual, where the row blocks fill the card)."""
+    residual or the SwiGLU epilogue, where the row blocks fill the card)."""
     import ctypes
 
     out = (ctypes.c_int * 5)()
     for M in (1000, 100_000):       # 8 and 782 row blocks: under and over a card's SMs
         assert kernel_lib.library().tt_gemm_route(int(ln), epi, M, 1152, K, 132, out) == 0
-        plan = fb.gemm_plan(M, 1152, K, ln, 132, epi in (1, 3), epi == 2)
+        plan = fb.gemm_plan(M, 1152, K, ln, 132, epi)
         assert (out[0], out[3]) == (plan.block_rows, plan.unit_cols)
         assert out[1] >= 3 and out[2] <= 227 * 1024
-        assert out[4] == int(not ln and epi == 2 and K >= 1024 and M > 1000)
+        assert out[4] == int(not ln and epi in (2, 3) and K >= 1024 and M > 1000)
 
 
 def _swiglu_inputs(dev, M, D, Hd, seed):
@@ -240,8 +240,10 @@ def _swiglu_inputs(dev, M, D, Hd, seed):
 
 @pytest.mark.parametrize("M,D,Hd", [
     (1, 1536, 4096), (129, 1536, 4096),
-    (2 * 1029, 1536, 4096),        # two frames of DINOv2 ViT-g at 448
-    (25 * 1029, 1536, 4096),       # a request: the wide w3 product
+    (2 * 1029, 1536, 4096),        # two frames of DINOv2 ViT-g at 448: wide w12
+    (25 * 1029, 1536, 4096),       # a request: the wide w12 and w3 products
+    (2500, 1536, 1280),            # wide w12 whose last unit holds two W tiles
+    (3000, 1024, 1024),            # wide from K = 1,024, the last unit one tile
     (300, 1152, 512),              # a narrower pass and a hidden of 8 tiles
     (300, 2048, 576),              # the pass's widest rows; 9 tiles
     (200, 384, 1024),              # rows the prologue could hold
@@ -269,16 +271,79 @@ def test_ln_wide_dense_matches_plain(dev, M, N):
                                atol=3e-2, rtol=3e-2)
 
 
-def test_swiglu_rows_reads_silu_of_the_first_half(dev):
+@pytest.mark.parametrize("M", [130, 2 * 1029])     # by turns; wide
+def test_swiglu_rows_reads_silu_of_the_first_half(dev, M):
     """A ``w12`` whose second half gives 1 everywhere leaves ``silu(a)``:
-    the kernel pairs the halves as DINOv2 does (``a`` first)."""
-    x, (ln_s, ln_b, w12, b12, w3, b3) = _swiglu_inputs(dev, 130, 1536, 4096, seed=4)
+    the kernel pairs the halves as DINOv2 does (``a`` first), in both forms
+    of the SwiGLU product."""
+    x, (ln_s, ln_b, w12, b12, w3, b3) = _swiglu_inputs(dev, M, 1536, 4096, seed=4)
     w12[:, 4096:] = 0.0
     b12[4096:] = 1.0
     got = fb.swiglu_rows(x, ln_s, ln_b, w12, b12, w3, b3)
     h = torch.nn.functional.silu(fb._dot(fb._ln(x, ln_s, ln_b), w12[:, :4096]) + b12[:4096])
     want = fb.dense_residual_xla(h.to(torch.bfloat16), x, w3, b3)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+def test_swiglu_forms_give_the_same_bits(dev):
+    """The two forms of the SwiGLU product run the same products in the same
+    K order and the same epilogue arithmetic: the fewest rows that go wide
+    give, on the rows they share, the bits of one row fewer by turns."""
+    sms = kernel_lib.sm_count(0)
+    M = (-(-sms // 22) - 1) * 128 + 1          # 22 wide units of DINOv2's w12
+    forms = [fb.gemm_plan(m, 8192, 1536, False, sms, fb.EPI_SWIGLU).unit_cols
+             for m in (M - 1, M)]
+    assert forms == [fb.GEMM_TILE_COLS, fb.GEMM_WIDE_COLS]
+    x, mlp = _swiglu_inputs(dev, M, 1536, 4096, seed=6)
+    wide = fb.swiglu_rows(x, *mlp)
+    turns = fb.swiglu_rows(x[:, :M - 1].contiguous(), *mlp)
+    assert torch.equal(wide[:, :M - 1], turns)
+
+
+# swiglu_rows once under torch.profiler; prints the names of the device
+# kernels that ran, as JSON
+_TRACE_SWIGLU = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from timetuning_tpu_torch.ops import fused_block as fb
+M, D, Hd = int(sys.argv[1]), 1536, 4096
+g = torch.Generator(device="cuda").manual_seed(5)
+r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+x = r(1, M, D).bfloat16()
+mlp = (1 + 0.1 * r(D), 0.1 * r(D), r(D, 2 * Hd) / D ** 0.5, 0.1 * r(2 * Hd),
+       r(Hd, D) / Hd ** 0.5, 0.1 * r(D))
+fb.swiglu_rows(x, *mlp)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    fb.swiglu_rows(x, *mlp)
+    torch.cuda.synchronize()
+print(json.dumps(sorted({e.name() for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == DeviceType.CUDA})))
+"""
+
+
+@pytest.mark.parametrize("M,wide", [(25 * 1029, True), (129, False)])
+def test_swiglu_product_runs_in_the_form_its_plan_names(dev, M, wide):
+    """In the device trace a request's 25 x 1,029 rows run the SwiGLU
+    product as the wide form's kernel (``gemm_swiglu_kernel_wide``) and
+    never by turns; 129 rows, too few to fill the card, go by turns. The
+    trace is taken in a process of its own: with the session in this
+    process, the span test of tests/test_torch_profiling.py, run later in
+    the same process after the card paths, once found no device events."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    assert (fb.gemm_plan(M, 8192, 1536, False, kernel_lib.sm_count(0), fb.EPI_SWIGLU)
+            .unit_cols == fb.GEMM_WIDE_COLS) == wide
+    run = subprocess.run([sys.executable, "-c", _TRACE_SWIGLU, str(M)], capture_output=True,
+                         text=True, timeout=600, cwd=Path(__file__).resolve().parents[1])
+    assert run.returncode == 0, run.stderr[-2000:]
+    names = [n for n in json.loads(run.stdout.splitlines()[-1]) if "gemm_swiglu_kernel" in n]
+    assert names and all(("gemm_swiglu_kernel_wide" in n) == wide for n in names), names
 
 
 @pytest.mark.parametrize("T,N,D,n_last,radius,topk", [

@@ -75,10 +75,10 @@ extern "C" int tt_mlp_block(const void* x, const float* ln_s, const float* ln_b,
 // token rows. Three launches: the LayerNorm pass into `normed` (bf16 [M, D]),
 // the tile's SwiGLU form writing the bf16 hidden [M, Hd] (w12 [2 Hd, D] read
 // as 64 rows of each half a tile: the [M, 2 Hd] pre-activation is never
-// written), then w3 + b3 + the residual in f32 as fc2 (wide where the row
-// blocks fill the card). What bounds it: at DINOv2 ViT-g's 25 x 1,029 rows
-// the two products (647 + 324 GFLOP, 0.98 ms at the bf16 peak) against
-// ~0.5 GB moved; the LayerNorm pass (158 MB) is bound by its bytes.
+// written), then w3 + b3 + the residual in f32 as fc2; both products are
+// wide where their row blocks fill the card. What bounds it: at DINOv2
+// ViT-g's 25 x 1,029 rows the two products (647 + 324 GFLOP, 0.98 ms at the
+// bf16 peak) against ~0.5 GB moved; the LayerNorm pass (158 MB) is bound by its bytes.
 // slices_w12, slices_w3: the products' plans (ops/fused_block.gemm_plan, the
 // first over 2 Hd columns).
 extern "C" int tt_swiglu_mlp(const void* x, const float* ln_s, const float* ln_b,

@@ -17,9 +17,11 @@ DINOv2 ViT-g's 1,536) take a LayerNorm pass of their own
 (``ln_wide_rows_kernel``) that feeds the streamed tile: ``ln_dense_rows``
 does so there, counted as ``ln_wide_dense``. The SwiGLU MLP of DINOv2,
 ``swiglu_rows`` (``x + w3(silu(a) * b)``, ``[a | b] = w12(LN2(x))``), is
-that pass, the tile's SwiGLU form (``gemm_swiglu_kernel``: a tile holds 64
-columns of each half of ``w12`` and writes only the product's hidden) and
-the residual product, at any token count; a LayerScale is folded into the
+that pass, the tile's SwiGLU form (a tile holds 64 columns of each half of
+``w12`` and writes only the product's hidden: ``gemm_swiglu_kernel_wide``,
+three tiles a walk over K, where the rows fill the card, else
+``gemm_swiglu_kernel`` by turns) and the residual product, at any token
+count; a LayerScale is folded into the
 residual product's weight and bias by the caller (models/vit).
 
 Counterpart of ``timetuning_tpu/ops/fused_block.py``. Weights keep the JAX
@@ -167,7 +169,8 @@ def _check_x(name, x):
 # prologue a block's rows stay resident in shared memory, 128 rows a block up
 # to GEMM_LN_WIDE_K columns and 64 up to GEMM_LN_K. Its two forms: by turns
 # (the short-K products, fc1 + GELU among them) and wide (a streamed product
-# from GEMM_WIDE_K on that fills the card: fc2).
+# with the residual or the SwiGLU epilogue from GEMM_WIDE_K on that fills the
+# card: fc2, w3, DINOv2's w12). Its epilogues, numbered as tt::Epilogue.
 GEMM_TILE_COLS = 128
 GEMM_K_STEP = 64
 GEMM_LN_WIDE_K = 512
@@ -175,6 +178,7 @@ GEMM_LN_K = 1024
 GEMM_WIDE_K = 1024
 GEMM_WIDE_COLS = 3 * GEMM_TILE_COLS
 GEMM_L2_SHARE = 20 * 2 ** 20     # of the card's L2 (50 MB on an H100)
+EPI_BIAS, EPI_GELU, EPI_RESIDUAL, EPI_SWIGLU = range(4)
 # the LayerNorm pass of rows wider than GEMM_LN_K (csrc/gemm_wgmma.cuh
 # ln_wide_rows_kernel: a warp a row, the row in its registers)
 LN_WIDE_MAX_K = 2048
@@ -196,23 +200,21 @@ class GemmPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
-              gelu: bool = False, residual: bool = True) -> GemmPlan:
-    """The plan of one product on a card of ``sms`` multiprocessors
-    (``gelu``: with the GELU or the SwiGLU epilogue, whose ``N`` is the
-    product's 2 Hd columns; ``residual``: a streamed product with the
-    residual epilogue, the only one that can be wide).
+              epi: int = EPI_RESIDUAL) -> GemmPlan:
+    """The plan of one product on a card of ``sms`` multiprocessors with the
+    epilogue ``epi`` (``EPI_SWIGLU``: ``N`` is the product's 2 Hd columns).
 
     Rows a block and columns a unit, by K (mirrors ``tt::gemm::route``, to
     which the card's tests hold it): with the LayerNorm prologue (``ln``) the
     block's normalised rows stay resident in shared memory, 128 of them up to
     K = 512 and 64 up to 1,024; without it A streams through the ring with W,
     128 rows a block. A unit is one 128-column tile, except that a streamed
-    product from K = 1,024 on (fc2) whose blocks fill
-    the card at least once is wide, 384 columns a unit, one item a unit, so
-    that the rows of A (the hidden) are read once a unit and not once a tile
-    (fewer row blocks go by turns, a slice a tile: measured on an H100, fc2 at
-    77 row blocks 0.0314 ms by turns against 0.0355 wide, at 1,226 0.408
-    against 0.364).
+    product from K = 1,024 on with the residual (fc2) or the SwiGLU epilogue
+    whose blocks fill the card at least once is wide, 384 columns a unit, one
+    item a unit, so that the rows of A (the hidden, LN2's rows) are read once
+    a unit and not once a tile (fewer row blocks go by turns, a slice a tile:
+    measured on an H100, fc2 at 77 row blocks 0.0314 ms by turns against
+    0.0355 wide, at 1,226 0.408 against 0.364).
 
     Slices of the other forms, by waves: a block costs its fill plus its
     units, and the card runs ``sms`` blocks at a time, so the count with the
@@ -230,8 +232,8 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
     not fit ``GEMM_L2_SHARE`` (ViT-B's proj: K = 768, 197 KB a block) a row
     block is cut into as many slices as it has tiles, which then run side by
     side and share one pass over A. A product without the residual (the
-    streamed qkv and SwiGLU products of rows wider than the prologue holds)
-    takes the slices by waves there too, over the counts at which the row
+    streamed qkv of rows wider than the prologue holds, and their SwiGLU
+    product on too few rows to go wide) takes the slices by waves there too, over the counts at which the row
     blocks a wave spans fit the share: a block of one tile leaves one of its
     two warpgroups without work."""
     if min(M, N, K, sms) < 1 or K % GEMM_K_STEP or N % 8:
@@ -244,7 +246,8 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
     block_rows = 64 if ln and K > GEMM_LN_WIDE_K else 128
     row_blocks = -(-M // block_rows)
     n_units = -(-N // GEMM_WIDE_COLS)
-    if not ln and residual and K >= GEMM_WIDE_K and -(-M // 128) * n_units >= sms:
+    if (not ln and epi in (EPI_RESIDUAL, EPI_SWIGLU) and K >= GEMM_WIDE_K
+            and -(-M // 128) * n_units >= sms):
         return GemmPlan(block_rows, GEMM_WIDE_COLS, n_units, n_units,
                         row_blocks * n_units)
     unit_cols = GEMM_TILE_COLS
@@ -252,13 +255,13 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
     a_bytes = block_rows * K * 2
     least = 1
     if not ln and min(row_blocks, sms) * a_bytes > GEMM_L2_SHARE:
-        if residual:
+        if epi == EPI_RESIDUAL:
             return GemmPlan(block_rows, unit_cols, n_units, n_units, row_blocks * n_units)
         # a wave of sms blocks spans sms / ns + 1 row blocks of A
         least = next((ns for ns in range(1, n_units + 1)
                       if (-(-sms // ns) + 1) * a_bytes <= GEMM_L2_SHARE), n_units)
     fill4 = 18 if ln else 4             # in quarter tiles
-    tile4 = 5 if gelu else 4
+    tile4 = 5 if epi in (EPI_GELU, EPI_SWIGLU) else 4
     _, n_slices = min(
         (-(-row_blocks * ns // sms) * (fill4 + tile4 * -(-n_units // ns)), ns)
         for ns in range(least, n_units + 1))
@@ -266,8 +269,8 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
                     row_blocks * n_slices)
 
 
-def _slices(device, M, N, K, ln, gelu=False, residual=True) -> int:
-    return gemm_plan(M, N, K, ln, kernel_lib.sm_count(device), gelu, residual).n_slices
+def _slices(device, M, N, K, ln, epi=EPI_RESIDUAL) -> int:
+    return gemm_plan(M, N, K, ln, kernel_lib.sm_count(device), epi).n_slices
 
 
 # The fakes of the custom ops (kernel_lib.kernel_entry): each output is a
@@ -359,7 +362,7 @@ def _mlp_launch(kernel, x, ln_s, ln_b, w1, b1, w2, b2):
     kernel_lib.launch(
         kernel, "tt_mlp_block", x.device,
         *(a.data_ptr() for a in args), hidden.data_ptr(), out.data_ptr(),
-        B * S, D, Hd, _slices(x.device, B * S, Hd, D, True, True),
+        B * S, D, Hd, _slices(x.device, B * S, Hd, D, True, EPI_GELU),
         _slices(x.device, B * S, D, Hd, False))
     return out
 
@@ -381,7 +384,7 @@ def mlp_hidden_rows(x, ln_s, ln_b, w1, b1):
     hidden = torch.empty(B, S, Hd, dtype=torch.bfloat16, device=x.device)
     kernel_lib.launch(None, "tt_mlp_fc1", x.device,
                       *(a.data_ptr() for a in args), hidden.data_ptr(), B * S, D,
-                      Hd, _slices(x.device, B * S, Hd, D, True, True))
+                      Hd, _slices(x.device, B * S, Hd, D, True, EPI_GELU))
     return hidden
 
 
@@ -460,7 +463,7 @@ def ln_dense_rows(x, ln_s, ln_b, w, b):
         kernel_lib.launch("ln_wide_dense", "tt_ln_wide_dense", x.device,
                           *(a.data_ptr() for a in args), normed.data_ptr(),
                           out.data_ptr(), B * S, E, D,
-                          _slices(x.device, B * S, E, D, False, False, False))
+                          _slices(x.device, B * S, E, D, False, EPI_BIAS))
         return out
     kernel_lib.launch("ln_dense", "tt_ln_dense", x.device,
                       *(a.data_ptr() for a in args), out.data_ptr(), B * S, E, D,
@@ -507,7 +510,7 @@ def swiglu_rows(x, ln_s, ln_b, w12, b12, w3, b3):
         "swiglu_mlp", "tt_swiglu_mlp", x.device,
         *(a.data_ptr() for a in args), normed.data_ptr(), hidden.data_ptr(),
         out.data_ptr(), B * S, D, Hd,
-        _slices(x.device, B * S, 2 * Hd, D, False, True, False),
+        _slices(x.device, B * S, 2 * Hd, D, False, EPI_SWIGLU),
         _slices(x.device, B * S, D, Hd, False))
     return out
 

@@ -11,8 +11,9 @@ Without arguments: the sources that hold ``wgmma`` kernels, the two attention
 cores (``flash_attention.cu``, ``mha.cu``), the three block sources built
 on the GEMM tile of ``gemm_wgmma.cuh`` (``rows_block.cu``,
 ``attention_block.cu``, ``mlp_block.cu``; its kernels print as
-``gemm_wgmma_kernel<LN prologue, 64-row groups, prologue chunks, epilogue>``
-and ``gemm_wide_kernel``) and the propagation kernel (``propagation.cu``:
+``gemm_wgmma_kernel<LN prologue, 64-row groups, prologue chunks, epilogue>``,
+``gemm_wide_kernel``, ``gemm_swiglu_kernel`` and
+``gemm_swiglu_kernel_wide``) and the propagation kernel (``propagation.cu``:
 ``prop_rows_kernel<f32 split>``, ``prop_seg_kernel``), the eval preprocess
 (``preprocess.cu``: ``preprocess_kernel<W taps bucket>``) and the Sinkhorn
 (``sinkhorn.cu``: ``sinkhorn_kernel<rows a lane, scores entry, slab in
@@ -46,7 +47,7 @@ def short(mangled: str) -> str:
     for m in re.finditer(r"(?=(\d+))", mangled):
         end = m.end(1)
         name = mangled[end:end + int(m.group(1))]
-        if name.endswith("_kernel"):
+        if name.endswith(("_kernel", "_kernel_wide")):
             args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end + len(name):])
             vals = re.findall(r"L[a-z](\d+)E", args.group(1)) if args else []
             return name + (f"<{','.join(vals)}>" if vals else "")

@@ -21,8 +21,9 @@ with the GEMM tile's plan forced to each of these slice counts (capped at
 the product's tiles), beside the plan's own choice: the measurements
 ``ops/fused_block.gemm_plan``'s cost constants come from. ``--host``: the host's time for one call of each wrapper
 at a tiny shape, without synchronising (what a launch costs the Python side).
-``--g14``: DINOv2 ViT-g's block at a request of 25 frames at 448 (25 x 1,029
-rows, D 1,536, SwiGLU hidden 4,096, 24 heads of 64): LN1 + qkv (the
+``--g14``: in each directory's turn, DINOv2 ViT-g's block at a request of
+25 frames at 448 (25 x 1,029 rows, D 1,536, SwiGLU hidden 4,096, 24 heads of
+64), on the same inputs each turn: LN1 + qkv (the
 LayerNorm pass and the streamed tile), proj + residual, the SwiGLU MLP, the
 flash core; each beside its PyTorch library form (F.layer_norm, F.linear,
 F.silu in bf16) and its plain version (the f32 composition); the device time
@@ -97,15 +98,16 @@ def products(i):
 def forced_slices(ns):
     """``fused_block._slices`` with every plan's slices forced to ``ns``,
     capped at the product's units (a wide product keeps one item a unit)."""
-    def slices(device, M, N, K, ln, gelu=False, residual=True):
-        p = fb.gemm_plan(M, N, K, ln, kernel_lib.sm_count(0), gelu, residual)
+    def slices(device, M, N, K, ln, epi=fb.EPI_RESIDUAL):
+        p = fb.gemm_plan(M, N, K, ln, kernel_lib.sm_count(0), epi)
         return p.n_units if p.unit_cols == fb.GEMM_WIDE_COLS else min(ns, p.n_units)
 
     return slices
 
 
-def g14(dev, gen):
+def g14(dev, label):
     M, D, Hd, H = 25 * 1029, 1536, 4096, 24
+    gen = torch.Generator(device=dev).manual_seed(1)     # the same inputs each call
 
     def r(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
@@ -144,7 +146,7 @@ def g14(dev, gen):
             lambda: fa.flash_attention_xla(q, k, v)),
     }
     for name, (kern, lib, plain) in rows.items():
-        print(f"g14 {name} ms: kernel {card.cuda_ms(kern):.4f}  library "
+        print(f"{label} g14 {name} ms: kernel {card.cuda_ms(kern):.4f}  library "
               f"{card.cuda_ms(lib):.4f}  plain {card.cuda_ms(plain, reps=3):.4f}", flush=True)
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,12 +160,14 @@ def g14(dev, gen):
             torch.cuda.synchronize()
         by = {e.key[:60]: e.device_time_total / 5e3 for e in prof.key_averages()
               if e.device_time_total > 0}
-        print(f"g14 {name} kernels ms: " + "  ".join(f"{k} {v:.4f}" for k, v in by.items()),
+        print(f"{label} g14 {name} kernels ms: "
+              + "  ".join(f"{k} {v:.4f}" for k, v in by.items()),
               flush=True)
     plan = fb._slices
     fb._slices = forced_slices(1 << 20)
     for name in ("ln_wide_dense (LN1 + qkv)", "swiglu_mlp"):
-        print(f"g14 {name} with a tile a block, ms: {card.cuda_ms(rows[name][0]):.4f}", flush=True)
+        print(f"{label} g14 {name} with a tile a block, ms: {card.cuda_ms(rows[name][0]):.4f}",
+              flush=True)
     fb._slices = plan
 
 
@@ -193,6 +197,8 @@ def main() -> int:
         kernel_lib.library()
         for name, (_, S) in SHAPES.items():
             line(f"{d.name} {name} ms", kernels(data[name], S))
+        if args.g14:
+            g14(dev, d.name)
 
     if args.slices:
         plan = fb._slices
@@ -202,9 +208,6 @@ def main() -> int:
                 fb._slices = forced_slices(ns)
                 line(f"{dirs[0].name} {name} slices={ns} ms", products(data[name]))
             fb._slices = plan
-
-    if args.g14:
-        g14(dev, gen)
 
     if args.host:
         tiny = inputs(dev, gen, 1, 16)
