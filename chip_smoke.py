@@ -14,8 +14,9 @@ set to 0 just before it and read just after, and must launch its kernels:
 * ``train, pallas route`` and ``train, cross-rank form``: one flagship step
   (``torch_dp_worker.flagship``, 32 clips) with ``attn_impl="pallas"`` (K10)
   and one on the data axis of a one-rank gloo group (K11's cross-rank form);
-* ``serve-s8-c25`` and ``serve-g14reg-c25``: the cells' serving programs
-  (``benchmark/drivers/serve_export.export_program``: the seeded weights,
+* ``serve-s8-c25``, ``serve-g14reg-c25`` and ``serve-v3-7b16-c8``: the
+  cells' serving programs (their drivers' ``export_program``:
+  ``serve_export`` or ``serve_export_dinov3``; the seeded weights,
   ``cli/export``, ``load_exported(graphed=True)``) on a clip of the cell's
   traffic, called 3 times (eager, capture, replay).
 
@@ -75,6 +76,8 @@ PATH_KERNELS = {
     "serve-s8-c25": ("preprocess", "ln_dense", "flash_attention", "dense_residual",
                      "mlp_rows"),
     "serve-g14reg-c25": ("preprocess", "ln_wide_dense", "dense_residual", "swiglu_mlp"),
+    "serve-v3-7b16-c8": ("preprocess", "ln_rope_dense", "flash_d128", "dense_residual",
+                         "swiglu_mlp"),
 }
 
 # ----------------------------------------- the wrappers and their plain forms
@@ -87,8 +90,8 @@ def _sinkhorn_plain(scores, epsilon, n_iters, valid, world_size, group=None):
     return skm.sinkhorn(q, n_iters, group=group, world_size=world_size, valid=valid)
 
 
-def _ln(x, ln_s, ln_b):
-    return F.layer_norm(x, x.shape[-1:], ln_s.to(x.dtype), ln_b.to(x.dtype), eps=1e-6)
+def _ln(x, ln_s, ln_b, eps=1e-6):
+    return F.layer_norm(x, x.shape[-1:], ln_s.to(x.dtype), ln_b.to(x.dtype), eps=eps)
 
 
 def _lin(y, w, b):
@@ -107,9 +110,20 @@ def _lib_mlp(x, ln_s, ln_b, w1, b1, w2, b2):
     return x + _lin(F.gelu(_lin(_ln(x, ln_s, ln_b), w1, b1)), w2, b2)
 
 
-def _lib_swiglu(x, ln_s, ln_b, w12, b12, w3, b3):
-    a, g = _lin(_ln(x, ln_s, ln_b), w12, b12).chunk(2, dim=-1)
+def _lib_swiglu(x, ln_s, ln_b, w12, b12, w3, b3, eps=1e-6):
+    a, g = _lin(_ln(x, ln_s, ln_b, eps), w12, b12).chunk(2, dim=-1)
     return x + _lin(F.silu(a) * g, w3, b3)
+
+
+def _lib_ln_rope_dense(x, ln_s, ln_b, w, b, cos, sin, num_heads, prefix, eps):
+    B, S, D = x.shape
+    h = _lin(_ln(x, ln_s, ln_b, eps), w, b).reshape(B, S, 3, num_heads, D // num_heads)
+    qk = h[:, prefix:, :2]
+    half = qk.shape[-1] // 2
+    rot = torch.cat([-qk[..., half:], qk[..., :half]], dim=-1)
+    c, s = cos[:, None, None].to(x.dtype), sin[:, None, None].to(x.dtype)
+    qk = torch.cat([h[:, :prefix, :2], qk * c + rot * s], dim=1)
+    return torch.cat([qk, h[:, :, 2:]], dim=2).reshape(B, S, 3 * D)
 
 
 def _lib_sdpa(q, k, v, kv_len=None):
@@ -122,6 +136,7 @@ WRAPPERS = {
     "mlp_block_branch": (fb, fb.mlp_block_xla, _lib_mlp),
     "mlp_rows": (fb, fb.mlp_block_xla, _lib_mlp),
     "ln_dense_rows": (fb, fb.ln_dense_xla, lambda x, s, b, w, wb: _lin(_ln(x, s, b), w, wb)),
+    "ln_rope_dense_rows": (fb, fb.ln_rope_dense_xla, _lib_ln_rope_dense),
     "swiglu_rows": (fb, fb.swiglu_block_xla, _lib_swiglu),
     "dense_residual_rows": (fb, fb.dense_residual_xla, lambda y, x, w, b: x + _lin(y, w, b)),
     "flash_attention": (fa, lambda *a: att._heads_view(fa.flash_attention_xla(*a)), _lib_sdpa),
@@ -187,10 +202,12 @@ def _flops(kernel, args) -> float:
     if kernel == "propagation":
         (B, T, N, D), K = ts[0].shape, ts[1].shape[1]
         return counts.propagation_flops(B, T, N, D, K, *args[2:5])
-    if kernel in ("flash_attention", "mha"):
+    if kernel in ("flash_attention", "flash_d128", "mha"):
         B, H, Sq, Dh = ts[0].shape
         return 4.0 * B * H * Sq * ts[1].shape[2] * Dh
     rows = ts[0].numel() // ts[0].shape[-1]
+    if kernel == "ln_rope_dense":      # its one weight; the RoPE tables are bytes
+        ts = ts[:4]
     f = sum(2.0 * rows * w.shape[0] * w.shape[1] for w in ts[1:] if w.dim() == 2)
     if kernel == "attention_block":
         B, S, D = ts[0].shape
@@ -216,7 +233,7 @@ def hold(kernel: str) -> None:
         ok = close == 1.0 and agree >= 0.999
         tol = f"rtol=1e-4 atol=1e-5 on every value ({close:.6f}), argmax >= 99.9% ({agree:.6f})"
     else:
-        if kernel in ("flash_attention", "mha"):
+        if kernel in ("flash_attention", "flash_d128", "mha"):
             atol, rtol, why = ATTN_TOL[got.dtype]
         else:
             atol, rtol, why = TOL.get(kernel, BLOCK_TOL)
@@ -282,13 +299,19 @@ def train_step(dev, **kw) -> None:
 
 
 def serve(dev, work: str, cell_name: str) -> None:
-    from benchmark.drivers.serve_export import export_program
-    from benchmark.reference import dinov2, vit
+    from benchmark.drivers import serve_export, serve_export_dinov3
+    from benchmark.reference import dinov2, dinov3, vit
 
     cell = harness.load_cell(ROOT, cell_name)
     cfg, tr = cell.config, cell.traffic
-    ref = dinov2 if "n_registers" in cfg else vit
-    shape = (ref.DinoV2Shape if ref is dinov2 else ref.ViTShape).of(cfg)
+    export_program = serve_export.export_program
+    if "n_storage_tokens" in cfg:
+        ref, shape = dinov3, dinov3.DinoV3Shape.of(cfg)
+        export_program = serve_export_dinov3.export_program
+    elif "n_registers" in cfg:
+        ref, shape = dinov2, dinov2.DinoV2Shape.of(cfg)
+    else:
+        ref, shape = vit, vit.ViTShape.of(cfg)
     weights = ref.seeded_weights(shape, 1, dev)
     run = types.SimpleNamespace(config=cfg, work_dir=work, device=dev)
     program = export_program(run, weights, tr["frames"])
@@ -316,7 +339,8 @@ def main() -> int:
     paths = (("train", lambda: train(dev, work)),
              ("train, pallas route", lambda: train_step(dev, attn_impl="pallas")),
              ("serve-s8-c25", lambda: serve(dev, work, "serve-s8-c25")),
-             ("serve-g14reg-c25", lambda: serve(dev, work, "serve-g14reg-c25")))
+             ("serve-g14reg-c25", lambda: serve(dev, work, "serve-g14reg-c25")),
+             ("serve-v3-7b16-c8", lambda: serve(dev, work, "serve-v3-7b16-c8")))
     for path, fn in paths:
         run_path(path, fn, totals)
         torch.cuda.empty_cache()

@@ -267,8 +267,8 @@ def test_plans_of_the_new_products():
         assert fb.gemm_plan(rows, N, 768, False, 132).n_slices == N // 128
     for N, K in ((1536, 4096), (1536, 1536)):
         assert fb.gemm_plan(rows, N, K, False, 132).unit_cols == fb.GEMM_WIDE_COLS
-    with pytest.raises(ValueError, match="D <= 2048"):
-        fb._check_ln_width("ln_dense_rows", 2112)
+    with pytest.raises(ValueError, match="D <= 8192"):
+        fb._check_ln_width("ln_dense_rows", 8256)
 
 
 # ------------------------------------------------------------------ the card

@@ -1033,10 +1033,16 @@ def test_each_wrapper_counts_its_launches(dev):
     skm.sinkhorn_assignment(torch.rand(9, 4, device=dev))    # no group: kernel 11
     skm.sinkhorn(torch.rand(4, 9, device=dev), 2)            # the matvec form
     sk.sinkhorn_assignment_dp_cuda(torch.rand(9, 4, device=dev), 0.05, 2)  # 1 + 2
+    xr = torch.randn(1, 5 + 12, 256, device=dev).bfloat16()            # heads of 128, RoPE
+    cos, sin = torch.ones(12, 128, device=dev), torch.zeros(12, 128, device=dev)
+    fb.ln_rope_dense_rows(xr, torch.ones(256, device=dev), torch.zeros(256, device=dev),
+                          torch.randn(256, 768, device=dev).bfloat16(), None, cos, sin, 2, 5)
+    fa.flash_attention(*(torch.randn(1, 2, 9, 128, device=dev).bfloat16() for _ in range(3)))
     assert kernel_lib.launch_counts() == {
         "attention_block": 1, "mlp_block": 1, "propagation": 1, "preprocess": 1,
         "flash_attention": 2, "ln_dense": 1, "dense_residual": 1, "mlp_rows": 1,
-        "mha": 2, "sinkhorn": 3, "sinkhorn_dp": 3, "ln_wide_dense": 1, "swiglu_mlp": 1}
+        "mha": 2, "sinkhorn": 3, "sinkhorn_dp": 3, "ln_wide_dense": 1, "swiglu_mlp": 1,
+        "ln_rope_dense": 1, "flash_d128": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

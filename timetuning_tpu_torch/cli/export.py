@@ -116,6 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda, and an error where there "
                         "is no card; pass cpu to run on the host)")
+    p.add_argument("--depth", type=int, default=None,
+                   help="export a ViT's first DEPTH blocks and its final norm "
+                        "(default: the published depth)")
     return p
 
 
@@ -260,12 +263,15 @@ def export_features(architecture: str, model_path: str | None,
                     sequence_parallel: int = 1, pipeline_parallel: int = 1,
                     pp_microbatches: int = 0, expert_parallel: int = 1,
                     moe_every_k: int = 0, moe_experts: int = 0,
-                    device: str | None = None):
+                    device: str | None = None, depth: int | None = None):
     """Build and export the uint8 -> features forward. Returns (the saved
     program's bytes, the live forward, the global input shape, the mesh).
     Without ``model_path`` the weights are the registry's seeded init (seed
     0); with ``moe_every_k`` / ``moe_experts`` the backbone is upcycled to a
-    MoE ViT (``upcycled_moe_backbone``).
+    MoE ViT (``upcycled_moe_backbone``). ``depth``: a ViT's first ``depth``
+    blocks and its final norm (``get_backbone``'s). A RoPE ViT's tables of
+    the input's grid are made once here (span ``export.rope_table``) and
+    are buffers of the program.
 
     One device: the mesh is None. A mesh (any of the parallel flags > 1) is
     a COLLECTIVE over the process group (module docstring): the mesh is an
@@ -281,7 +287,11 @@ def export_features(architecture: str, model_path: str | None,
     n_mesh = data_parallel * n_inner
     dev = _mesh_device(device) if n_mesh > 1 else resolve_device(device)
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-    bb = get_backbone(architecture, model_path, dtype=dtype, device=dev)
+    bb = get_backbone(architecture, model_path, dtype=dtype, device=dev, depth=depth)
+    if getattr(getattr(bb.module, "config", None), "rope_base", 0):
+        with annotate("export.rope_table"):
+            g = input_resolution // bb.patch_size
+            bb.module.prepare_grid(g, g)
     _check_flags(bb, batch_size, symbolic_batch, tensor_parallel,
                  data_parallel, sequence_parallel, pipeline_parallel,
                  expert_parallel, moe_every_k, moe_experts)
@@ -492,6 +502,7 @@ def _main(args) -> int:
         moe_every_k=args.moe_every_k,
         moe_experts=args.moe_experts,
         device=args.device,
+        depth=args.depth,
     )
     sizes = save_exported(args.out, blob, em)
     lead = em is None or pm.data_rank() == 0

@@ -90,17 +90,23 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// one box of the map at (0, row, head, batch) into shared memory at dst; the
-// bytes of the whole box (rows past the tensor's end arrive as zeros) are
-// counted on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int head, int batch) {
+// one box of the map at (col, row, head, batch) into shared memory at dst
+// (col: the box's first head feature, 64 for the second half of a head of
+// 128, else 0); the bytes of the whole box (rows past the tensor's end arrive
+// as zeros) are counted on bar
+__device__ __forceinline__ void tma_load_at(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int col, int row, int head,
+                                            int batch) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
       "r"(head), "r"(batch)
       : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head, int batch) {
+  tma_load_at(dst, map, bar, 0, row, head, batch);
 }
 
 // one box of a 2-D map (make_2d_map) at (col, row): global to shared memory
@@ -587,28 +593,30 @@ inline EncodeTiled tensor_map_encoder() {
 // elements; the Dh head features contiguous, every stride a multiple of 8
 // and the base 16-byte aligned) whose box is [box_rows, Dh] of one (batch,
 // head): Dh = 64 128-byte swizzled, Dh = 32 64-byte swizzled (one row a
-// swizzle atom either way, as head_desc<Dh> reads it). Returns cudaSuccess
-// or an error.
+// swizzle atom either way, as head_desc<Dh> reads it). Dh = 128: a box is
+// [box_rows, 64], one half of the head features (tma_load_at's col 0 or 64),
+// 128-byte swizzled. Returns cudaSuccess or an error.
 inline cudaError_t make_qkv_map(CUtensorMap* map, const void* base, int B, int H,
                                 int S, long long sb, long long sh, long long ss,
                                 int box_rows, int head_dim = kHeadDim) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (box_rows < 1 || box_rows > 256 || ss <= 0 || (H > 1 && sh <= 0) ||
-      (B > 1 && sb <= 0) || (head_dim != 64 && head_dim != 32))
+      (B > 1 && sb <= 0) || (head_dim != 64 && head_dim != 32 && head_dim != 128))
     return cudaErrorInvalidValue;
+  const int box_cols = head_dim == 128 ? 64 : head_dim;
   // a dimension of one element never uses its stride: give it a valid one
   const cuuint64_t row = static_cast<cuuint64_t>(ss) * 2;
   const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {row, H > 1 ? (cuuint64_t)sh * 2 : row,
                                  B > 1 ? (cuuint64_t)sb * 2 : row};
-  const cuuint32_t box[4] = {(cuuint32_t)head_dim, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      head_dim == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -211,6 +211,176 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   hp::store_rows(acc, l0, l1, o + b * ob + h * oh, os, r0, Sq, lane);
 }
 
+// --------------------------------------------------------- bf16, Dh 128 --
+// Heads of 128 (DINOv3 ViT-7B's 32): a row is 256 bytes, two 128-byte
+// swizzle atoms, so every tile is held as two panels of 64 head features
+// ([rows, 64], 128-byte swizzle, a panel of 128 rows 16 KB), each arriving
+// by its own TMA box (make_qkv_map(..., 128), tma_load_at col 0 and 64), as
+// the GEMM tile holds K in 64-wide panels. q k^T is m64n128k16 over eight
+// k16 steps, four a panel; p v is two m64n64k16 a k16 step, one a V panel,
+// into the accumulator's two halves (head features 0-63 and 64-127, 32
+// registers each). Two consumer warpgroups (128 query rows): at 64 + 64 + 32
+// registers of scores, output and packed p a thread a third would not fit
+// (setmaxnreg 160). Shared memory: q 32 KB and three stages of K and V, 64
+// KB a stage (224 KB of the 227). The softmax, the masking of a ragged
+// last key tile and the store are the heads-of-64 kernel's; RoPE, where a
+// model has it, was applied to q and k by the qkv product's epilogue
+// (gemm_wgmma.cuh kBiasRope), so this kernel reads rotated heads. At 8 x 32
+// heads x 3,141 tokens: 2.565 ms, 51 % of its least (PyTorch's SDPA 2.291;
+// H100 80GB HBM3, 700 W): a warpgroup's products and softmax run one after
+// another, as in the heads-of-64 form.
+struct FlashBlock128 {
+  static constexpr int kWG = 2;
+  static constexpr int kPanelRows = 64 * kWG;         // q rows of a block
+  static constexpr int kQPanel = kPanelRows * 128;     // one q panel: 16 KB
+  static constexpr int kTilePanel = kBK * 128;         // one K or V panel: 16 KB
+  static constexpr int kTileBytes = 2 * kTilePanel;    // a K or V tile
+  static constexpr int kStages = 3;
+  static constexpr int kConsumerWarps = 4 * kWG;
+  static constexpr int kThreads = (kWG + 1) * 128;
+  static constexpr int kQBytes = 2 * kQPanel;
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
+};
+
+__global__ void __launch_bounds__(FlashBlock128::kThreads, 1)
+flash_bf16_d128_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                       int Sq, int kv_len, float scale_log2, long long ob, long long oh,
+                       long long os) {
+  using Blk = FlashBlock128;
+  constexpr int kStages = Blk::kStages;
+  constexpr int kTileBytes = Blk::kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                       // panel p: q_s + p kQPanel
+  const uint32_t kv_s = base + Blk::kQBytes;       // stage s: K's two panels, then V's
+  const uint32_t bar_q = base + Blk::kBarOffset;
+  const uint32_t bar_full = bar_q + 8;             // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * Blk::kPanelRows;
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31;
+  const int n_tiles = (kv_len + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    hp::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(bar_full + 8 * s, 1);
+      hp::mbar_init(bar_empty + 8 * s, Blk::kConsumerWarps);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= Blk::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (warp == Blk::kConsumerWarps && lane == 0) {
+      hp::mbar_arrive_expect_tx(bar_q, Blk::kQBytes);
+      hp::tma_load_at(q_s, &map_q, bar_q, 0, q0, h, b);
+      hp::tma_load_at(q_s + Blk::kQPanel, &map_q, bar_q, 64, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t round = (it / kStages) & 1;
+        hp::mbar_wait(bar_empty + 8 * s, round ^ 1);
+        hp::mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kTileBytes);
+        const uint32_t st = kv_s + s * 2 * kTileBytes;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          hp::tma_load_at(st + p * Blk::kTilePanel, &map_k, bar_full + 8 * s, 64 * p,
+                          it * kBK, h, b);
+          hp::tma_load_at(st + kTileBytes + p * Blk::kTilePanel, &map_v, bar_full + 8 * s,
+                          64 * p, it * kBK, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int wg = warp >> 2;
+  const int r0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);   // and r0 + 8
+  const uint32_t q_wg = q_s + wg * 64 * hp::kRowBytes;
+  float lo[32], hi[32];                // output features 0-63 and 64-127
+#pragma unroll
+  for (int i = 0; i < 32; ++i) lo[i] = hi[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg;
+  float l0 = 0.f, l1 = 0.f;
+
+  hp::mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t round = (it / kStages) & 1;
+    const uint32_t k_s = kv_s + s * 2 * kTileBytes;
+    const uint32_t v_s = k_s + kTileBytes;
+    hp::mbar_wait(bar_full + 8 * s, round);
+
+    float sc[kBK / 2];
+    hp::pin(sc);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t p = kk >> 2;
+      hp::wgmma_ss(sc, hp::smem_desc(q_wg + p * Blk::kQPanel) + (kk & 3) * hp::kDescKStep,
+                   hp::smem_desc(k_s + p * Blk::kTilePanel) + (kk & 3) * hp::kDescKStep,
+                   kk > 0);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::pin(sc);
+    if (it == n_tiles - 1 && kv_len % kBK != 0) hp::mask_keys(sc, it * kBK, kv_len, lane);
+
+    float mx0, mx1, sum0, sum1;
+    hp::row_max(sc, mx0, mx1);
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float corr0 = hp::fast_exp2(m0 - mn0);
+    const float corr1 = hp::fast_exp2(m1 - mn1);
+    hp::exp_rows(sc, scale_log2, mn0, mn1, sum0, sum1);
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      lo[4 * j] *= corr0, lo[4 * j + 1] *= corr0, lo[4 * j + 2] *= corr1, lo[4 * j + 3] *= corr1;
+      hi[4 * j] *= corr0, hi[4 * j + 1] *= corr0, hi[4 * j + 2] *= corr1, hi[4 * j + 3] *= corr1;
+    }
+    uint32_t pa[kBK / 4];
+    hp::pack_rows(sc, 1.f, 1.f, pa);
+    const uint64_t vd0 = hp::smem_desc(v_s), vd1 = hp::smem_desc(v_s + Blk::kTilePanel);
+    hp::pin(pa);
+    hp::pin(lo);
+    hp::pin(hi);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      hp::wgmma_rs(lo, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   vd0 + kk * hp::kDescRowStep, 1);
+      hp::wgmma_rs(hi, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   vd1 + kk * hp::kDescRowStep, 1);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::pin(lo);
+    hp::pin(hi);
+    hp::pin(pa);
+    if (lane == 0) hp::mbar_arrive(bar_empty + 8 * s);
+  }
+
+  l0 = fmaxf(hp::quad_sum(l0), 1e-20f);
+  l1 = fmaxf(hp::quad_sum(l1), 1e-20f);
+  bf16* dst = o + b * ob + h * oh;
+  hp::store_rows(lo, l0, l1, dst, os, r0, Sq, lane);
+  hp::store_rows(hi, l0, l1, dst + 64, os, r0, Sq, lane);
+}
+
 // ----------------------------------------------------------------- f32 --
 namespace f32 = tt::f32attn;
 template <int Dh>
@@ -318,6 +488,20 @@ cudaError_t launch_bf16_form(const CUtensorMap& mq, const CUtensorMap& mk,
   return cudaGetLastError();
 }
 
+cudaError_t launch_bf16_d128(const CUtensorMap& mq, const CUtensorMap& mk,
+                             const CUtensorMap& mv, bf16* o, int B, int H, int Sq,
+                             int kv_len, float scale_log2, long long ob, long long oh,
+                             long long os, cudaStream_t s) {
+  using Blk = FlashBlock128;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Blk::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + Blk::kPanelRows - 1) / Blk::kPanelRows, H, B);
+  flash_bf16_d128_kernel<<<grid, Blk::kThreads, Blk::kSmem, s>>>(
+      mq, mk, mv, o, Sq, kv_len, scale_log2, ob, oh, os);
+  return cudaGetLastError();
+}
+
 template <int Dh>
 cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
                        int B, int H, int Sq, int Sk, int kv_len, float scale,
@@ -334,9 +518,9 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 
 // q, k, v, o: device pointers of bf16 (is_bf16 = 1) or f32 values; strides
-// in elements; Dh 64 or 32. 1 <= kv_len <= Sk. bf16: the head features
-// contiguous, every stride a multiple of 8 elements and every base 16-byte
-// aligned (TMA).
+// in elements; Dh 64 or 32, or 128 in bf16. 1 <= kv_len <= Sk. bf16: the
+// head features contiguous, every stride a multiple of 8 elements and every
+// base 16-byte aligned (TMA).
 extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int is_bf16, int B, int H, int Sq,
                                   int Sk, int kv_len, int Dh, long long qb,
@@ -345,11 +529,21 @@ extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
                                   long long vh, long long vs, long long ob,
                                   long long oh, long long os, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Sq <= 0 || Sk <= 0 ||
-      kv_len < 1 || kv_len > Sk || (Dh != 32 && Dh != 64))
+      kv_len < 1 || kv_len > Sk || (Dh != 32 && Dh != 64 && !(Dh == 128 && is_bf16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale = 1.f / sqrtf((float)Dh);
   cudaError_t e;
+  if (Dh == 128) {
+    CUtensorMap map_q, map_k, map_v;
+    if ((e = hp::make_qkv_map(&map_q, q, B, H, Sq, qb, qh, qs, FlashBlock128::kPanelRows,
+                              128)) != cudaSuccess ||
+        (e = hp::make_qkv_map(&map_k, k, B, H, Sk, kb, kh, ks, kBK, 128)) != cudaSuccess ||
+        (e = hp::make_qkv_map(&map_v, v, B, H, Sk, vb, vh, vs, kBK, 128)) != cudaSuccess)
+      return (int)e;
+    return (int)launch_bf16_d128(map_q, map_k, map_v, static_cast<bf16*>(o), B, H, Sq, kv_len,
+                                 scale * hp::kLog2e, ob, oh, os, s);
+  }
   if (is_bf16) {
     CUtensorMap map_q, map_k, map_v;
     // three consumer warpgroups a block run a row ~9 % faster than two, in

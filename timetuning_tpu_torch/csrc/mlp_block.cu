@@ -80,15 +80,18 @@ extern "C" int tt_mlp_block(const void* x, const float* ln_s, const float* ln_b,
 // ViT-g's 25 x 1,029 rows the two products (647 + 324 GFLOP, 0.98 ms at the
 // bf16 peak) against ~0.5 GB moved; the LayerNorm pass (158 MB) is bound by its bytes.
 // slices_w12, slices_w3: the products' plans (ops/fused_block.gemm_plan, the
-// first over 2 Hd columns).
+// first over 2 Hd columns); eps: the LayerNorm's, 1e-6 up to D = 2,048
+// (DINOv3's 1e-5 at its 4,096-wide rows: the pass of a block a row). DINOv3
+// ViT-7B's MLP is this at D 4,096, Hd 8,192 (its w1 and w2 stacked as w12).
 extern "C" int tt_swiglu_mlp(const void* x, const float* ln_s, const float* ln_b,
                              const void* w12, const float* b12, const void* w3,
                              const float* b3, void* normed, void* hidden, void* out, int M,
-                             int D, int Hd, int slices_w12, int slices_w3, void* stream) {
+                             int D, int Hd, int slices_w12, int slices_w3, float eps,
+                             void* stream) {
   using tt::bf16;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = tt::launch_ln_wide(static_cast<const bf16*>(x), ln_s, ln_b,
-                                     static_cast<bf16*>(normed), M, D, st);
+                                     static_cast<bf16*>(normed), M, D, eps, st);
   if (e != cudaSuccess) return (int)e;
   e = tt::launch_gemm<false, tt::kBiasSwiglu>(
       static_cast<const bf16*>(normed), nullptr, nullptr, static_cast<const bf16*>(w12), b12,

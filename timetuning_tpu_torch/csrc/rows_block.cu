@@ -53,11 +53,33 @@ extern "C" int tt_ln_wide_dense(const void* x, const float* ln_s, const float* l
   using tt::bf16;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = tt::launch_ln_wide(static_cast<const bf16*>(x), ln_s, ln_b,
-                                           static_cast<bf16*>(normed), M, K, st);
+                                           static_cast<bf16*>(normed), M, K, tt::kLnEps, st);
   if (e != cudaSuccess) return (int)e;
   return (int)tt::launch_gemm<false, tt::kBias>(
       static_cast<const bf16*>(normed), nullptr, nullptr, static_cast<const bf16*>(w), b,
       nullptr, static_cast<bf16*>(out), M, N, K, n_slices, st);
+}
+
+// LN + qkv + RoPE (DINOv3 ViT-7B's LN1 + qkv at K = 4,096, heads of 128):
+// the LayerNorm pass into `normed`, then the streamed tile with the RoPE
+// epilogue (gemm_wgmma.cuh kBiasRope): q and k of the tokens from `prefix`
+// on of each `seq` rows rotated by the f32 tables cos, sin [seq - prefix,
+// 128] in f32 before the one rounding, v and the prefix as the bias epilogue
+// leaves them. N = 3 K. No TPU kernel: the JAX package has no RoPE model.
+extern "C" int tt_ln_rope_dense(const void* x, const float* ln_s, const float* ln_b,
+                                const void* w, const float* b, const float* cos,
+                                const float* sin, void* normed, void* out, int M, int N, int K,
+                                int seq, int prefix, int n_slices, float eps, void* stream) {
+  using tt::bf16;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = tt::launch_ln_wide(static_cast<const bf16*>(x), ln_s, ln_b,
+                                           static_cast<bf16*>(normed), M, K, eps, st);
+  if (e != cudaSuccess) return (int)e;
+  tt::RopeArgs rope;
+  rope.cos = cos, rope.sin = sin, rope.seq = seq, rope.prefix = prefix;
+  rope.rot_cols = 2 * (N / 3);
+  return (int)tt::launch_gemm_rope(static_cast<const bf16*>(normed), static_cast<const bf16*>(w),
+                                   b, static_cast<bf16*>(out), M, N, K, n_slices, rope, st);
 }
 
 extern "C" int tt_dense_residual(const void* y, const void* x, const void* w,
@@ -72,7 +94,7 @@ extern "C" int tt_dense_residual(const void* y, const void* x, const void* w,
 
 // How the tile lays out the product [M, K] x [K, N] on a card of sms
 // multiprocessors (ln: with the LayerNorm prologue; epi: 0 bias, 1 bias +
-// GELU, 2 bias + residual, 3 SwiGLU, N the product's columns): out[0] = the
+// GELU, 2 bias + residual, 3 SwiGLU, N the product's columns, 4 RoPE): out[0] = the
 // rows of a block, out[1] = the ring's stages, out[2] = its dynamic shared
 // memory in bytes, out[3] = the output columns of a unit of work, out[4] =
 // the form (tt::gemm::Form). For the tests that hold

@@ -8,7 +8,13 @@ architectures and the two test ViTs, with the JAX package's feature dims,
 patch sizes, ``drop_cls`` and fixed grids, and the port's own
 ``dinov2-g14-reg`` (DINOv2 ViT-g/14 with registers, which the JAX package
 lacks; its checkpoint in the hub's layout: ``register_tokens``,
-``blocks.i.ls1.gamma``, ``mlp.w12``, ``mlp.w3``, ``mask_token`` ignored). There is no download: every
+``blocks.i.ls1.gamma``, ``mlp.w12``, ``mlp.w3``, ``mask_token`` ignored) and
+``dinov3-vit7b16`` (DINOv3 ViT-7B/16; the hub's layout: ``storage_tokens``,
+``rope_embed.periods`` where the file has it, ``blocks.i.mlp.w1`` / ``w2`` /
+``w3``, no qkv bias, no ``pos_embed``, ``mask_token`` ignored). ``depth``
+builds the first ``depth`` blocks of a ViT (a pipeline stage's worth of a
+model too large to serve whole); a checkpoint with fewer blocks than are
+built raises. There is no download: every
 entry takes a local ``model_path`` in the reference layout, and without one
 the weights are a seeded random init. A module's ``forward(x [B, H, W, 3])``
 returns the ViT's dict (``tokens``, ``attention``, ``grid``).
@@ -25,6 +31,8 @@ from timetuning_tpu_torch.models.vit import (
     ViTConfig,
     VisionTransformer,
     dinov2_giant_reg,
+    dinov3_vit7b,
+    rope_periods,
     vit_base,
     vit_small,
 )
@@ -70,11 +78,11 @@ ARCHITECTURES = (
     "mocov3-s16", "mocov3-b16", "mae", "motion_grouping", "dul", "stego",
 )
 # the port's names beyond the JAX registry's (``ARCHITECTURES`` mirrors it)
-PORT_ARCHITECTURES = ("dinov2-g14-reg",)
+PORT_ARCHITECTURES = ("dinov2-g14-reg", "dinov3-vit7b16")
 ALL_ARCHITECTURES = ARCHITECTURES + PORT_ARCHITECTURES
 VIT_NAMES = ("vit-tiny-test", "vit-tiny-test-p4", "dino-s16", "msn-s16", "ibot-s16",
              "leopart", "dino-s8", "dino-b16", "vit", "mocov3-s16", "mocov3-b16",
-             "dinov2-g14-reg")
+             "dinov2-g14-reg", "dinov3-vit7b16")
 
 
 @dataclasses.dataclass
@@ -125,6 +133,8 @@ def _vit_config(name: str, dtype: torch.dtype) -> ViTConfig:
         return vit_base(16, dtype=dtype)
     if name == "dinov2-g14-reg":
         return dinov2_giant_reg(dtype=dtype)
+    if name == "dinov3-vit7b16":
+        return dinov3_vit7b(dtype=dtype)
     if name == "mocov3-s16":
         return moco_vit_small(dtype=dtype)
     return moco_vit_base(dtype=dtype)
@@ -201,10 +211,13 @@ def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-def _build(name: str, model_path: str | None, dtype: torch.dtype, seed: int) -> Backbone:
+def _build(name: str, model_path: str | None, dtype: torch.dtype, seed: int,
+           depth: int | None = None) -> Backbone:
     from timetuning_tpu_torch.models.import_torch import load_torch_state_dict, strip_prefixes
 
     gen = torch.Generator().manual_seed(seed)
+    if depth is not None and name not in VIT_NAMES:
+        raise ValueError(f"get_backbone: depth applies to the ViTs, not {name!r}")
     if name in ("resnet18", "resnet50", "swav"):
         from timetuning_tpu_torch.models import resnet
 
@@ -218,14 +231,21 @@ def _build(name: str, model_path: str | None, dtype: torch.dtype, seed: int) -> 
 
     if name in VIT_NAMES:
         cfg = _vit_config(name, dtype)
+        if depth is not None:
+            if not 1 <= depth <= cfg.depth:
+                raise ValueError(f"get_backbone: depth {depth} of {name!r}'s {cfg.depth} blocks")
+            cfg = dataclasses.replace(cfg, depth=depth)
         if model_path:
             # built without an init (every parameter is the file's: 1.14 B of
             # them for DINOv2 ViT-g); head weights of a TimeT.pth share the
-            # file and are not the ViT's
+            # file and are not the ViT's, nor are blocks past ``depth``
+            sd = load_vit_state_dict(model_path)
+            if cfg.rope_base and "rope_embed.periods" not in sd:
+                sd["rope_embed.periods"] = rope_periods(cfg.embed_dim // cfg.num_heads,
+                                                        cfg.rope_base)
             with torch.device("meta"):
                 module = VisionTransformer(cfg)
-            load_checked(module, load_vit_state_dict(model_path), only_known=True,
-                         assign=True)
+            load_checked(module, sd, only_known=True, assign=True)
         else:
             module = VisionTransformer(cfg)
             module.init_weights(gen)
@@ -296,11 +316,14 @@ def _build(name: str, model_path: str | None, dtype: torch.dtype, seed: int) -> 
 
 def get_backbone(name: str, model_path: str | None = None,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cuda", seed: int = 0) -> Backbone:
+                 device: torch.device | str = "cuda", seed: int = 0,
+                 depth: int | None = None) -> Backbone:
     """Build backbone ``name`` on ``device``, the card unless the caller
     names the host (``device="cpu"``); with no card a CUDA device raises.
     With ``model_path`` the reference-layout weights load as the JAX
-    registry reads them; without, the weights are a seeded random init."""
+    registry reads them; without, the weights are a seeded random init.
+    ``depth`` (a ViT's): build only its first ``depth`` blocks, then the
+    final norm; None builds the published depth."""
     key = name.lower()
     if key not in ALL_ARCHITECTURES:
         raise ValueError(f"unknown backbone {name!r}; the zoo has {list(ALL_ARCHITECTURES)}")
@@ -308,7 +331,7 @@ def get_backbone(name: str, model_path: str | None = None,
         raise RuntimeError(
             "get_backbone: no CUDA device found (torch.cuda.is_available() is "
             "false); pass device='cpu' to build on the host")
-    bb = _build(key, model_path, dtype, seed)
+    bb = _build(key, model_path, dtype, seed, depth)
     bb.module = bb.module.to(device).eval()
     return bb
 

@@ -52,11 +52,29 @@ token count (their LayerNorm pass feeds the streamed tile); a SwiGLU MLP is
 ``fused_block.swiglu_rows``, and LayerScale is folded into ``proj`` / ``w3``
 and their biases in f32 before the bf16 cast. A GELU MLP wider than the
 prologue raises there (no kernel takes it, and no configuration has one).
+
+DINOv3 (Simeoni et al. 2025, arXiv:2508.10104; ``facebookresearch/dinov3``
+``dinov3/layers/rope_position_encoding.py``, ``attention.py``,
+``ffn_layers.py``), the port's own too: 2-D axial RoPE of base
+``rope_base`` on q and k of the patch tokens in place of learned positions
+(the CLS token and the registers, ``storage_tokens`` in the hub's layout,
+pass unrotated; v is never rotated), LayerNorm eps ``ln_eps``
+(1e-5) and ``ffn="swiglu64"`` (DINOv3's ``SwiGLUFFN``: ``w1``, ``w2`` and
+``w3``, the hidden rounded up to a multiple of 64; ``w1`` and ``w2`` are
+held stacked as ``w12`` and ``state_dict`` gives them back apart). The RoPE
+tables (``RopeEmbed``) depend only on the patch grid: ``prepare_grid``
+makes them buffers of the model once (the serving export does, so its
+program holds them), else a forward computes them. A bf16 RoPE block takes
+``fused_block.attention_block_branch_rope`` at any token count (heads of
+128: a tile of the qkv product is one head); an f32 block on the card runs
+the plain composition, whose flash core takes heads of 128 in bf16 only and
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn as nn
@@ -65,12 +83,15 @@ import torch.utils.checkpoint
 
 from timetuning_tpu_torch.ops.attention import WHOLE_SEQUENCE_TOKENS, attention
 from timetuning_tpu_torch.ops.fused_block import (
+    _LN_EPS,
     GEMM_LN_K,
     _ln,
     attention_block_branch,
     attention_block_branch_flash,
+    attention_block_branch_rope,
     mlp_block_branch,
     mlp_rows,
+    rope_rows,
     swiglu_rows,
 )
 from timetuning_tpu_torch.parallel.ep import MoEMlp
@@ -98,8 +119,13 @@ class ViTConfig:
     # SwiGLU MLP (its hidden width) and the position resize
     n_registers: int = 0
     layerscale: bool = False
-    ffn: str = "mlp"                     # mlp | swiglu
+    ffn: str = "mlp"                     # mlp | swiglu | swiglu64
     pos_resize: str = "dino"             # dino | dinov2
+    # DINOv3 (module docstring): the RoPE base (0: learned positions, no
+    # RoPE), the LayerNorm eps and the registers' parameter name
+    rope_base: float = 0.0
+    ln_eps: float = _LN_EPS
+    register_name: str = "register_tokens"
 
 
 def is_moe_block(cfg: ViTConfig, i: int) -> bool:
@@ -123,10 +149,11 @@ def vit_base(patch_size: int = 16, **kw) -> ViTConfig:
                      num_heads=12, **kw)
 
 
-def swiglu_hidden(dim: int, mlp_ratio: float = 4.0) -> int:
-    """DINOv2's SwiGLU hidden width (``SwiGLUFFNFused``): two thirds of
-    ``dim * mlp_ratio``, rounded up to a multiple of 8; 4,096 at D 1,536."""
-    return (int(dim * mlp_ratio * 2 / 3) + 7) // 8 * 8
+def swiglu_hidden(dim: int, mlp_ratio: float = 4.0, align: int = 8) -> int:
+    """The SwiGLU hidden width: two thirds of ``dim * mlp_ratio``, rounded up
+    to a multiple of ``align`` (DINOv2's ``SwiGLUFFNFused``: 8, 4,096 at D
+    1,536; DINOv3's "swiglu64": 64, 8,192 at D 4,096 and ratio 3)."""
+    return (int(dim * mlp_ratio * 2 / 3) + align - 1) // align * align
 
 
 def dinov2_giant_reg(patch_size: int = 14, **kw) -> ViTConfig:
@@ -136,6 +163,60 @@ def dinov2_giant_reg(patch_size: int = 14, **kw) -> ViTConfig:
     return ViTConfig(patch_size=patch_size, embed_dim=1536, depth=40, num_heads=24,
                      img_size=518, n_registers=4, layerscale=True, ffn="swiglu",
                      pos_resize="dinov2", **kw)
+
+
+def dinov3_vit7b(patch_size: int = 16, **kw) -> ViTConfig:
+    """DINOv3 ViT-7B/16 (``dinov3_vit7b16``: ``vit_7b``, D 4,096, 40 blocks,
+    32 heads of 128, ``ffn_ratio`` 3 and "swiglu64", 4 storage tokens, no
+    qkv bias, LayerScale, RoPE of base 100, LayerNorm eps 1e-5, no learned
+    positions)."""
+    return ViTConfig(patch_size=patch_size, embed_dim=4096, depth=40, num_heads=32,
+                     mlp_ratio=3.0, qkv_bias=False, n_registers=4, layerscale=True,
+                     ffn="swiglu64", rope_base=100.0, ln_eps=1e-5,
+                     register_name="storage_tokens", **kw)
+
+
+def rope_periods(head_dim: int, base: float) -> torch.Tensor:
+    """DINOv3's periods, ``base ** (j / (head_dim / 4))`` for j < head_dim / 4
+    (f32)."""
+    n = head_dim // 4
+    return base ** (2 * torch.arange(n, dtype=torch.float32) / (head_dim // 2))
+
+
+def rope_table(periods: torch.Tensor, h: int, w: int):
+    """The RoPE tables (cos, sin) [h * w, 4 len(periods)] of an h x w patch
+    grid, rows in raster order (DINOv3's ``RopePositionEmbedding`` at eval,
+    ``normalize_coords="separate"``): patch (r, c) at y = 2 (r + 1/2) / h - 1,
+    x = 2 (c + 1/2) / w - 1; angles [2 pi y / p_j ..., 2 pi x / p_j ...]
+    tiled twice. In f32 on the periods' device."""
+    dev = periods.device
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h * 2 - 1
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2 - 1
+    coords = torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1).flatten(0, 1)
+    angles = 2 * math.pi * coords[:, :, None] / periods.float()[None, None, :]
+    angles = angles.flatten(1, 2).tile(2)
+    return torch.cos(angles), torch.sin(angles)
+
+
+class RopeEmbed(nn.Module):
+    """DINOv3's ``rope_embed``: its ``periods`` (a buffer of the hub's
+    checkpoint) and the tables of a grid, made buffers by ``prepare``."""
+
+    def __init__(self, head_dim: int, base: float):
+        super().__init__()
+        self.register_buffer("periods", rope_periods(head_dim, base))
+        self.grid = None
+
+    def prepare(self, h: int, w: int) -> None:
+        cos, sin = rope_table(self.periods, h, w)
+        self.register_buffer("cos", cos, persistent=False)
+        self.register_buffer("sin", sin, persistent=False)
+        self.grid = (h, w)
+
+    def table(self, h: int, w: int):
+        if self.grid == (h, w):
+            return self.cos, self.sin
+        return rope_table(self.periods, h, w)
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, h_patches: int,
@@ -205,17 +286,21 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, return_probs: bool = False, impl: str = "auto", group=None):
+    def forward(self, x, return_probs: bool = False, impl: str = "auto", group=None,
+                rope=None):
         """``group``: the model axis of parallel/tp, whose ranks each hold
         their heads' q, k and v rows of ``qkv`` and the matching input
         columns of ``proj``; the probabilities, when asked for, are then
-        every head's (gathered)."""
+        every head's (gathered). ``rope``: (cos, sin, prefix), RoPE on q and
+        k of the tokens from ``prefix`` on (``fused_block.rope_rows``)."""
         B, S, D = x.shape
         Dh = D // self.num_heads
         qkv = _linear(copy_to_group(x, group), self.qkv)
         heads = qkv.shape[-1] // (3 * Dh)
         qkv = qkv.reshape(B, S, 3, heads, Dh)
         q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        if rope is not None:
+            q, k = (rope_rows(t, *rope) for t in (q, k))
         out, probs = attention(q, k, v, return_probs=return_probs, impl=impl)
         out = out.permute(0, 2, 1, 3).reshape(B, S, heads * Dh)
         if probs is not None:
@@ -238,12 +323,31 @@ class Mlp(nn.Module):
 
 class SwiGLUMlp(nn.Module):
     """DINOv2's ``SwiGLUFFNFused``: ``w3(silu(a) * b)`` with ``[a | b] =
-    w12(x)`` (the first and second halves of ``w12``'s outputs)."""
+    w12(x)`` (the first and second halves of ``w12``'s outputs). ``split``:
+    DINOv3's ``SwiGLUFFN`` layout, ``w3(silu(w1 x) * w2 x)``: ``w1`` and
+    ``w2`` are held stacked as ``w12``, ``state_dict`` gives them apart and
+    ``load_state_dict`` stacks them."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, split: bool = False):
         super().__init__()
         self.w12 = nn.Linear(dim, 2 * hidden)
         self.w3 = nn.Linear(hidden, dim)
+        if split:
+            self.register_state_dict_post_hook(SwiGLUMlp._unstack)
+            self.register_load_state_dict_pre_hook(SwiGLUMlp._stack)
+
+    @staticmethod
+    def _unstack(module, state_dict, prefix, local_metadata):
+        for k in ("weight", "bias"):
+            w1, w2 = state_dict.pop(f"{prefix}w12.{k}").chunk(2, dim=0)
+            state_dict[f"{prefix}w1.{k}"], state_dict[f"{prefix}w2.{k}"] = w1, w2
+
+    @staticmethod
+    def _stack(module, state_dict, prefix, *_):
+        for k in ("weight", "bias"):
+            if f"{prefix}w1.{k}" in state_dict and f"{prefix}w2.{k}" in state_dict:
+                state_dict[f"{prefix}w12.{k}"] = torch.cat(
+                    [state_dict.pop(f"{prefix}w1.{k}"), state_dict.pop(f"{prefix}w2.{k}")])
 
     def forward(self, x, group=None):
         if group is not None:
@@ -276,14 +380,14 @@ class Block(nn.Module):
                  qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
                  attn_impl: str = "auto", moe: bool = False, n_experts: int = 0,
                  moe_capacity: float = 1.25, layerscale: bool = False,
-                 ffn: str = "mlp"):
+                 ffn: str = "mlp", ln_eps: float = _LN_EPS):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = Attention(dim, num_heads, qkv_bias)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         hidden = int(dim * mlp_ratio)
         if moe:
             # one routing group a sample: the dispatch stays linear in the
@@ -291,6 +395,8 @@ class Block(nn.Module):
             self.moe = MoEMlp(dim, n_experts, hidden, moe_capacity, group_size=-1)
         elif ffn == "swiglu":
             self.mlp = SwiGLUMlp(dim, swiglu_hidden(dim, mlp_ratio))
+        elif ffn == "swiglu64":
+            self.mlp = SwiGLUMlp(dim, swiglu_hidden(dim, mlp_ratio, 64), split=True)
         else:
             self.mlp = Mlp(dim, hidden)
         self.ls1 = LayerScale(dim) if layerscale else None
@@ -304,18 +410,20 @@ class Block(nn.Module):
     def _mlp_branch(self, x):
         """LN2 + the MoE MLP + residual, in plain ops (JAX's
         ``Block._mlp_branch``)."""
-        return x + self.moe(_ln(x, self.norm2.weight, self.norm2.bias))
+        return x + self.moe(_ln(x, self.norm2.weight, self.norm2.bias, self.norm2.eps))
 
     def forward(self, x, return_probs: bool = False,
-                attn_impl: str | None = None):
+                attn_impl: str | None = None, rope=None):
         """``attn_impl`` overrides the block's own for this call. A block
         split over a model axis (``tp_group``, parallel/tp) runs the plain
         composition with the plain attention core, as under JAX's
-        ``force_xla_attention``: the block kernels take whole weights."""
+        ``force_xla_attention``: the block kernels take whole weights.
+        ``rope``: (cos, sin, prefix) of a RoPE model (``Attention``)."""
         g = self.tp_group
         impl = "xla" if g is not None else (
             self.attn_impl if attn_impl is None else attn_impl)
         moe = hasattr(self, "moe")
+        eps = self.norm1.eps
         if (impl in ("auto", "fused") and not return_probs
                 and (self.dtype == torch.bfloat16 or impl == "fused")):
             a, dt = self.attn, self.dtype
@@ -325,33 +433,43 @@ class Block(nn.Module):
             if wide and not moe and isinstance(self.mlp, Mlp):
                 raise ValueError(f"Block: no kernel takes a GELU MLP at D {x.shape[-1]} "
                                  f"> {GEMM_LN_K} (the SwiGLU MLP's kernels do)")
-            rows = x.shape[1] > WHOLE_SEQUENCE_TOKENS or wide
-            attn_branch = attention_block_branch_flash if rows else attention_block_branch
+            swiglu = not moe and isinstance(self.mlp, SwiGLUMlp)
+            if eps != _LN_EPS and (rope is None or not swiglu):
+                raise ValueError(f"Block: LayerNorm eps {eps} takes the RoPE and SwiGLU "
+                                 f"kernels only (the tile's prologue holds {_LN_EPS})")
             w_proj, b_proj = _scaled(a.proj, self.ls1)
-            x = attn_branch(
-                x.to(dt), self.norm1.weight, self.norm1.bias,
-                a.qkv.weight.t().to(dt), a.qkv.bias, w_proj.t().to(dt),
-                b_proj, self.num_heads)
+            if rope is not None:
+                x = attention_block_branch_rope(
+                    x.to(dt), self.norm1.weight, self.norm1.bias, a.qkv.weight.t().to(dt),
+                    a.qkv.bias, w_proj.t().to(dt), b_proj, self.num_heads, *rope, eps)
+            else:
+                rows = x.shape[1] > WHOLE_SEQUENCE_TOKENS or wide
+                attn_branch = attention_block_branch_flash if rows else attention_block_branch
+                x = attn_branch(
+                    x.to(dt), self.norm1.weight, self.norm1.bias,
+                    a.qkv.weight.t().to(dt), a.qkv.bias, w_proj.t().to(dt),
+                    b_proj, self.num_heads)
             if moe:
                 return self._mlp_branch(x), None
             m = self.mlp
-            if isinstance(m, SwiGLUMlp):
+            if swiglu:
                 w3, b3 = _scaled(m.w3, self.ls2)
                 return swiglu_rows(
                     x, self.norm2.weight, self.norm2.bias, m.w12.weight.t().to(dt),
-                    m.w12.bias, w3.t().to(dt), b3), None
+                    m.w12.bias, w3.t().to(dt), b3, eps), None
             w2, b2 = _scaled(m.fc2, self.ls2)
-            mlp_branch = mlp_rows if rows else mlp_block_branch
+            mlp_branch = mlp_rows if x.shape[1] > WHOLE_SEQUENCE_TOKENS or wide \
+                else mlp_block_branch
             x = mlp_branch(
                 x, self.norm2.weight, self.norm2.bias, m.fc1.weight.t().to(dt),
                 m.fc1.bias, w2.t().to(dt), b2)
             return x, None
-        y, probs = self.attn(_ln(x, self.norm1.weight, self.norm1.bias),
-                             return_probs=return_probs, impl=impl, group=g)
+        y, probs = self.attn(_ln(x, self.norm1.weight, self.norm1.bias, eps),
+                             return_probs=return_probs, impl=impl, group=g, rope=rope)
         x = x + self._ls(1, y)
         if moe:
             return self._mlp_branch(x), probs
-        y = self.mlp(_ln(x, self.norm2.weight, self.norm2.bias), group=g)
+        y = self.mlp(_ln(x, self.norm2.weight, self.norm2.bias, eps), group=g)
         return x + self._ls(2, y), probs
 
 
@@ -374,7 +492,8 @@ class VisionTransformer(nn.Module):
     ``attn_impl`` overrides the configuration's for this call. With
     ``n_registers`` the registers sit after the CLS token in ``hidden`` and
     are taken out of ``tokens``, ``intermediates`` and ``attention``;
-    ``registers`` [B, R, D] holds them, final-normed.
+    ``registers`` [B, R, D] holds them, final-normed. A RoPE model's later
+    blocks (``start_block > 0``) take the grid ``prepare_grid`` made.
     """
 
     def __init__(self, config: ViTConfig):
@@ -383,18 +502,31 @@ class VisionTransformer(nn.Module):
         self.config = c
         self.patch_embed = PatchEmbed(c.patch_size, c.embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.embed_dim))
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, 1 + (c.img_size // c.patch_size) ** 2, c.embed_dim))
+        if not c.rope_base:
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, 1 + (c.img_size // c.patch_size) ** 2, c.embed_dim))
         if c.n_registers:
-            self.register_tokens = nn.Parameter(
-                torch.zeros(1, c.n_registers, c.embed_dim))
+            setattr(self, c.register_name,
+                    nn.Parameter(torch.zeros(1, c.n_registers, c.embed_dim)))
+        if c.rope_base:
+            self.rope_embed = RopeEmbed(c.embed_dim // c.num_heads, c.rope_base)
         self.blocks = nn.ModuleList(
             Block(c.embed_dim, c.num_heads, c.mlp_ratio, c.qkv_bias, c.dtype,
                   c.attn_impl, moe=is_moe_block(c, i), n_experts=c.n_experts,
                   moe_capacity=c.moe_capacity_factor, layerscale=c.layerscale,
-                  ffn=c.ffn)
+                  ffn=c.ffn, ln_eps=c.ln_eps)
             for i in range(c.depth))
-        self.norm = nn.LayerNorm(c.embed_dim, eps=1e-6)
+        self.norm = nn.LayerNorm(c.embed_dim, eps=c.ln_eps)
+
+    @property
+    def registers(self) -> nn.Parameter:
+        return getattr(self, self.config.register_name)
+
+    def prepare_grid(self, h: int, w: int) -> None:
+        """Make the RoPE tables of an h x w patch grid buffers of the model
+        (a forward at that grid reads them; nothing without RoPE)."""
+        if self.config.rope_base:
+            self.rope_embed.prepare(h, w)
 
     def init_weights(self, generator: torch.Generator) -> "VisionTransformer":
         """Seeded random init: truncated normal (std 0.02) for the CLS token,
@@ -403,10 +535,10 @@ class VisionTransformer(nn.Module):
         biases, unit LayerNorm and LayerScale scales."""
         with torch.no_grad():
             nn.init.trunc_normal_(self.cls_token, std=0.02, generator=generator)
-            nn.init.trunc_normal_(self.pos_embed, std=0.02, generator=generator)
+            if not self.config.rope_base:
+                nn.init.trunc_normal_(self.pos_embed, std=0.02, generator=generator)
             if self.config.n_registers:
-                nn.init.trunc_normal_(self.register_tokens, std=0.02,
-                                      generator=generator)
+                nn.init.trunc_normal_(self.registers, std=0.02, generator=generator)
             for mod in self.modules():
                 if isinstance(mod, (nn.Linear, nn.Conv2d)):
                     fan_in = mod.weight[0].numel()
@@ -440,14 +572,23 @@ class VisionTransformer(nn.Module):
             x = x.flatten(2).transpose(1, 2)
             x = torch.cat([self.cls_token.expand(B, 1, c.embed_dim).to(dt), x],
                           dim=1)
-            if c.pos_resize == "dinov2":
-                pos = interpolate_pos_embed_dinov2(self.pos_embed, hp, wp)
-            else:
-                pos = interpolate_pos_embed(self.pos_embed, hp, wp, c.patch_size)
-            x = x + pos.to(dt)
+            if not c.rope_base:
+                if c.pos_resize == "dinov2":
+                    pos = interpolate_pos_embed_dinov2(self.pos_embed, hp, wp)
+                else:
+                    pos = interpolate_pos_embed(self.pos_embed, hp, wp, c.patch_size)
+                x = x + pos.to(dt)
             if c.n_registers:
-                reg = self.register_tokens.expand(B, c.n_registers, c.embed_dim)
+                reg = self.registers.expand(B, c.n_registers, c.embed_dim)
                 x = torch.cat([x[:, :1], reg.to(dt), x[:, 1:]], dim=1)
+        rope = None
+        if c.rope_base:
+            grid = (hp, wp) if start_block == 0 else self.rope_embed.grid
+            prefix = 1 + c.n_registers
+            if grid is None or grid[0] * grid[1] != x.shape[1] - prefix:
+                raise ValueError(f"VisionTransformer: no RoPE grid for {x.shape[1]} tokens "
+                                 "(prepare_grid makes one for later blocks)")
+            rope = (*self.rope_embed.table(*grid), prefix)
         stop = c.depth if stop_block is None else stop_block
         interm = []
         probs = None
@@ -458,15 +599,15 @@ class VisionTransformer(nn.Module):
                 # JAX's nn.remat(Block) (timetuning_tpu/models/vit.py:344):
                 # the block's activations are recomputed in the backward
                 x, p_i = torch.utils.checkpoint.checkpoint(
-                    block, x, want_attention and is_last, attn_impl,
+                    block, x, want_attention and is_last, attn_impl, rope,
                     use_reentrant=False)
             else:
                 x, p_i = block(x, return_probs=want_attention and is_last,
-                               attn_impl=attn_impl)
+                               attn_impl=attn_impl, rope=rope)
             if p_i is not None:
                 probs = p_i
             if i >= c.depth - n_intermediates:
-                interm.append(_ln(x, self.norm.weight, self.norm.bias))
+                interm.append(_ln(x, self.norm.weight, self.norm.bias, c.ln_eps))
         if stop < c.depth:
             return {"hidden": x, "grid": (hp, wp)}
         R = c.n_registers

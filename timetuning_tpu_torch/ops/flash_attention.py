@@ -5,7 +5,9 @@ Counterpart of ``timetuning_tpu/ops/flash_attention.py``. One CUDA kernel
 ``_flash_kernel`` (:47) and the K/V-streamed ``_flash_kernel_stream``
 (:154): a Hopper SM's shared memory holds a few key tiles, not a head's
 whole K/V, so the kernel always streams them. Heads of 64 or 32, in bf16 or
-f32. Its backward is JAX's (``_chunked_bwd``, :274-327), plain torch:
+f32; heads of 128 (DINOv3 ViT-7B) in bf16 only, a form of their own
+(``flash_bf16_d128_kernel``, counted as ``flash_d128``): an f32 input at 128
+raises. Its backward is JAX's (``_chunked_bwd``, :274-327), plain torch:
 ``flash_attention_bwd``, the analytic softmax-attention gradient streamed
 over query chunks.
 
@@ -27,8 +29,10 @@ from timetuning_tpu_torch.ops.attention import _aligned, _heads_fake, _heads_vie
 
 _NEG = -1e30
 
-# the head widths the kernel takes, in bf16 and f32; any other raises
+# the head widths the kernel takes, in bf16 and f32, and in bf16 only; any
+# other raises
 FLASH_HEAD_DIMS = (32, 64)
+FLASH_BF16_HEAD_DIMS = (32, 64, 128)
 
 
 def flash_attention_xla(q, k, v, kv_len: int | None = None):
@@ -103,7 +107,8 @@ class _FlashVJP(torch.autograd.Function):
     lambda q, k, v, kv_len=None: _heads_fake(q), lambda kernel, *a: _FlashVJP.apply(kernel, *a))
 def flash_attention(q, k, v, kv_len: int | None = None):
     """Kernels 5 and 6 (csrc/flash_attention.cu). q [B, H, Sq, Dh], k and v
-    [B, H, Sk, Dh], Dh 32 or 64, bf16 or f32; ``kv_len`` masks keys at or
+    [B, H, Sk, Dh], Dh 32 or 64, bf16 or f32, or 128 in bf16 (launches
+    counted as ``flash_d128``); ``kv_len`` masks keys at or
     beyond it. Returns [B, H, Sq, Dh] in q's dtype, a view of a [B, Sq, H,
     Dh] buffer (on CPU tensors too: the custom op's fake has one layout)."""
     if q.device.type == "cpu":
@@ -117,13 +122,14 @@ def flash_attention(q, k, v, kv_len: int | None = None):
     if k.shape[:2] != (B, H) or k.shape[3] != Dh:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} differ in batch, heads or width")
-    if Dh not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes 32- or 64-wide "
-                         f"heads, got Dh={Dh}")
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention: expected q, k, v all bf16 or all "
                          f"f32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    dims = FLASH_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 else FLASH_HEAD_DIMS
+    if Dh not in dims:
+        raise ValueError(f"flash_attention: the kernel takes 32- or 64-wide heads, and "
+                         f"128-wide in bf16; got Dh={Dh} in {q.dtype}")
     valid = Sk if kv_len is None else int(kv_len)
     if not 1 <= valid <= Sk:
         raise ValueError(f"flash_attention: kv_len={kv_len} outside [1, {Sk}]")
@@ -132,7 +138,7 @@ def flash_attention(q, k, v, kv_len: int | None = None):
     out = torch.empty((B, Sq, H, Dh), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
     kernel_lib.launch(
-        "flash_attention", "tt_flash_attention", q.device,
+        "flash_d128" if Dh == 128 else "flash_attention", "tt_flash_attention", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), B, H, Sq, Sk, valid, Dh,
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))

@@ -24,6 +24,15 @@ three tiles a walk over K, where the rows fill the card, else
 count; a LayerScale is folded into the
 residual product's weight and bias by the caller (models/vit).
 
+DINOv3 ViT-7B's blocks (no JAX counterpart): ``attention_block_branch_rope``
+is ``ln_rope_dense_rows`` (the LayerNorm pass and the streamed tile with
+the RoPE epilogue, ``gemm_rope_kernel_wide``: q and k of the patch tokens
+rotated in f32 before the one rounding) -> the flash core at heads of 128 ->
+``dense_residual_rows``; its MLP is ``swiglu_rows`` with ``w1`` and ``w2``
+stacked as ``w12``. Rows wider than 2,048 take the LayerNorm pass of a block
+a row (``ln_block_rows_kernel``), which alone takes another eps than the
+prologue's 1e-6 (DINOv3's 1e-5: the eps of the two entries above).
+
 Counterpart of ``timetuning_tpu/ops/fused_block.py``. Weights keep the JAX
 package's layout, ``[in, out]`` (pass ``linear.weight.t()``). For a bf16
 CUDA tensor a wrapper launches its kernel (csrc/attention_block.cu,
@@ -59,20 +68,37 @@ from timetuning_tpu_torch.ops.flash_attention import flash_attention
 _LN_EPS = 1e-6   # the reference LayerNorm eps (torch's default is 1e-5)
 
 
-def _ln_rows(xf, scale, bias):
+def _ln_rows(xf, scale, bias, eps: float = _LN_EPS):
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-    return (xf - mu) * torch.rsqrt(var + _LN_EPS) * scale + bias
+    return (xf - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def _ln(x, scale, bias):
+def _ln(x, scale, bias, eps: float = _LN_EPS):
     """LayerNorm computed in f32, returned in ``x``'s dtype."""
-    return _ln_rows(x.float(), scale.float(), bias.float()).to(x.dtype)
+    return _ln_rows(x.float(), scale.float(), bias.float(), eps).to(x.dtype)
 
 
 def _dot(a, w):
     """``a @ w`` with f32 accumulation of the operands' values."""
     return torch.matmul(a.float(), w.float())
+
+
+def _biased(h, b):
+    return h if b is None else h + b
+
+
+def rope_rows(t, cos, sin, prefix: int):
+    """2-D RoPE of heads ``t`` [B, H, S, Dh] (DINOv3's ``rope_apply``): the
+    tokens from ``prefix`` on become ``t * cos + rot(t) * sin`` with ``rot(u)
+    = [-u[Dh/2:], u[:Dh/2]]`` and the tables [S - prefix, Dh]; the prefix
+    tokens pass. In f32, returned in ``t``'s dtype."""
+    f = t.float()
+    p = f[:, :, prefix:]
+    half = p.shape[-1] // 2
+    rot = torch.cat([-p[..., half:], p[..., :half]], dim=-1)
+    p = p * cos.float() + rot * sin.float()
+    return torch.cat([f[:, :, :prefix], p], dim=2).to(t.dtype)
 
 
 def attention_block_xla(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
@@ -125,30 +151,45 @@ def gelu_kernel_form(h):
     return h.clamp(min=0) - t * e
 
 
-def swiglu_hidden_xla(x, ln_s, ln_b, w12, b12):
+def swiglu_hidden_xla(x, ln_s, ln_b, w12, b12, eps: float = _LN_EPS):
     """``silu(a) * b`` with ``[a | b] = LN2(x) @ w12 + b12`` (the halves of
     the output), in f32 and rounded to ``x``'s dtype once: the hidden of
     ``swiglu_block_xla``."""
-    a, g = (_dot(_ln(x, ln_s, ln_b), w12) + b12).chunk(2, dim=-1)
+    a, g = _biased(_dot(_ln(x, ln_s, ln_b, eps), w12), b12).chunk(2, dim=-1)
     return (F.silu(a) * g).to(x.dtype)
 
 
-def swiglu_block_xla(x, ln_s, ln_b, w12, b12, w3, b3):
-    return dense_residual_xla(swiglu_hidden_xla(x, ln_s, ln_b, w12, b12), x, w3, b3)
+def swiglu_block_xla(x, ln_s, ln_b, w12, b12, w3, b3, eps: float = _LN_EPS):
+    return dense_residual_xla(swiglu_hidden_xla(x, ln_s, ln_b, w12, b12, eps), x, w3, b3)
 
 
-def ln_dense_xla(x, ln_s, ln_b, w, b):
-    return (_dot(_ln(x, ln_s, ln_b), w) + b).to(x.dtype)
+def ln_dense_xla(x, ln_s, ln_b, w, b, eps: float = _LN_EPS):
+    return _biased(_dot(_ln(x, ln_s, ln_b, eps), w), b).to(x.dtype)
+
+
+def ln_rope_dense_xla(x, ln_s, ln_b, w, b, cos, sin, num_heads: int, prefix: int,
+                      eps: float = _LN_EPS):
+    """``ln_dense_xla`` with RoPE on q and k (``rope_rows``) of the f32
+    product before its one rounding; ``w`` [D, 3 D], v and the prefix as
+    they come."""
+    B, S, _ = x.shape
+    h = _biased(_dot(_ln(x, ln_s, ln_b, eps), w), b)
+    h = h.reshape(B, S, 3, num_heads, -1)
+    qk = h[:, :, :2].permute(0, 2, 3, 1, 4).reshape(B, 2 * num_heads, S, -1)
+    qk = rope_rows(qk, cos, sin, prefix).reshape(B, 2, num_heads, S, -1).permute(0, 3, 1, 2, 4)
+    return torch.cat([qk, h[:, :, 2:]], dim=2).reshape(B, S, -1).to(x.dtype)
 
 
 def dense_residual_xla(y, x, w, b):
     """``x + (y @ w + b)``, the sum in f32 and rounded once
     (``timetuning_tpu/ops/fused_block.py:391-394``)."""
-    return (x.float() + (_dot(y, w) + b)).to(x.dtype)
+    return (x.float() + _biased(_dot(y, w), b)).to(x.dtype)
 
 
-def _f32(t, n):
-    return (torch.zeros(n, dtype=torch.float32, device=t.device) if t is None
+def _f32(t, n, device=None):
+    """``t`` as a contiguous f32 tensor; None: ``n`` zeros on ``device`` (a
+    product without a bias)."""
+    return (torch.zeros(n, dtype=torch.float32, device=device) if t is None
             else t.detach().float().contiguous())
 
 
@@ -178,10 +219,15 @@ GEMM_LN_K = 1024
 GEMM_WIDE_K = 1024
 GEMM_WIDE_COLS = 3 * GEMM_TILE_COLS
 GEMM_L2_SHARE = 20 * 2 ** 20     # of the card's L2 (50 MB on an H100)
-EPI_BIAS, EPI_GELU, EPI_RESIDUAL, EPI_SWIGLU = range(4)
+EPI_BIAS, EPI_GELU, EPI_RESIDUAL, EPI_SWIGLU, EPI_ROPE = range(5)
 # the LayerNorm pass of rows wider than GEMM_LN_K (csrc/gemm_wgmma.cuh
-# ln_wide_rows_kernel: a warp a row, the row in its registers)
+# ln_wide_rows_kernel: a warp a row, the row in its registers, up to
+# LN_WIDE_MAX_K at eps 1e-6; ln_block_rows_kernel: a block a row past it, up
+# to LN_BLOCK_MAX_K, at any eps)
 LN_WIDE_MAX_K = 2048
+LN_BLOCK_MAX_K = 8192
+# heads of this width take the RoPE epilogue: a 128-column tile is one head
+ROPE_HEAD_DIM = 128
 
 
 class GemmPlan(NamedTuple):
@@ -209,10 +255,11 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
     block's normalised rows stay resident in shared memory, 128 of them up to
     K = 512 and 64 up to 1,024; without it A streams through the ring with W,
     128 rows a block. A unit is one 128-column tile, except that a streamed
-    product from K = 1,024 on with the residual (fc2) or the SwiGLU epilogue
-    whose blocks fill the card at least once is wide, 384 columns a unit, one
-    item a unit, so that the rows of A (the hidden, LN2's rows) are read once
-    a unit and not once a tile (fewer row blocks go by turns, a slice a tile:
+    product from K = 1,024 on with the residual (fc2), the SwiGLU or the
+    RoPE epilogue whose blocks fill the card at least once is wide, 384
+    columns a unit, one item a unit, so that the rows of A (the hidden, LN2's
+    rows) are read once a unit and not once a tile (fewer row blocks go by
+    turns, a slice a tile:
     measured on an H100, fc2 at 77 row blocks 0.0314 ms by turns against
     0.0355 wide, at 1,226 0.408 against 0.364).
 
@@ -246,7 +293,7 @@ def gemm_plan(M: int, N: int, K: int, ln: bool, sms: int,
     block_rows = 64 if ln and K > GEMM_LN_WIDE_K else 128
     row_blocks = -(-M // block_rows)
     n_units = -(-N // GEMM_WIDE_COLS)
-    if (not ln and epi in (EPI_RESIDUAL, EPI_SWIGLU) and K >= GEMM_WIDE_K
+    if (not ln and epi in (EPI_RESIDUAL, EPI_SWIGLU, EPI_ROPE) and K >= GEMM_WIDE_K
             and -(-M // 128) * n_units >= sms):
         return GemmPlan(block_rows, GEMM_WIDE_COLS, n_units, n_units,
                         row_blocks * n_units)
@@ -283,7 +330,7 @@ def _rows_fake(y, x, w, b):
     return x.new_empty(x.shape)
 
 
-def _dense_fake(x, ln_s, ln_b, w, b):
+def _dense_fake(x, ln_s, ln_b, w, b, *_):
     return x.new_empty(x.shape[:-1] + (w.shape[1],))
 
 
@@ -320,7 +367,7 @@ def attention_block_branch(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     passes, keys = mha_plan(S)
     x = x.contiguous()
     args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w_qkv),
-            _f32(b_qkv, 3 * D), _weight_nk(w_proj), _f32(b_proj, D)]
+            _f32(b_qkv, 3 * D, x.device), _weight_nk(w_proj), _f32(b_proj, D, x.device)]
     kernel_lib.require_cuda("attention_block_branch", *args)
     qkv = torch.empty(B * S, 3 * D, dtype=torch.bfloat16, device=x.device)
     merged = torch.empty(B * S, D, dtype=torch.bfloat16, device=x.device)
@@ -354,8 +401,8 @@ def _mlp_launch(kernel, x, ln_s, ln_b, w1, b1, w2, b2):
     B, S, D = x.shape
     Hd = _mlp_weights(kernel, D, w1, w2)
     x = x.contiguous()
-    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w1), _f32(b1, Hd),
-            _weight_nk(w2), _f32(b2, D)]
+    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w1), _f32(b1, Hd, x.device),
+            _weight_nk(w2), _f32(b2, D, x.device)]
     kernel_lib.require_cuda(kernel, *args)
     hidden = torch.empty(B * S, Hd, dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
@@ -379,7 +426,7 @@ def mlp_hidden_rows(x, ln_s, ln_b, w1, b1):
     B, S, D = x.shape
     Hd = _mlp_weights("mlp_hidden_rows", D, w1, None)
     args = [x.contiguous(), _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w1),
-            _f32(b1, Hd)]
+            _f32(b1, Hd, x.device)]
     kernel_lib.require_cuda("mlp_hidden_rows", *args)
     hidden = torch.empty(B, S, Hd, dtype=torch.bfloat16, device=x.device)
     kernel_lib.launch(None, "tt_mlp_fc1", x.device,
@@ -401,7 +448,7 @@ def mlp_out_rows(hidden, x, w2, b2):
     if tuple(hidden.shape) != (B, S, Hd):
         raise ValueError(f"mlp_out_rows: hidden {tuple(hidden.shape)} for "
                          f"[{B}, {S}, {Hd}]")
-    args = [hidden.contiguous(), x.contiguous(), _weight_nk(w2), _f32(b2, D)]
+    args = [hidden.contiguous(), x.contiguous(), _weight_nk(w2), _f32(b2, D, x.device)]
     kernel_lib.require_cuda("mlp_out_rows", *args)
     out = torch.empty_like(x)
     kernel_lib.launch(None, "tt_mlp_fc2", x.device,
@@ -445,7 +492,8 @@ def ln_dense_rows(x, ln_s, ln_b, w, b):
     """Kernel 7 (csrc/rows_block.cu ``tt_ln_dense``): ``LN(x) @ w + b`` over
     the token rows (``_ln_dense_pallas``,
     ``timetuning_tpu/ops/fused_block.py:364``). ``x``: [B, S, D] bf16,
-    ``w``: [D, E]."""
+    ``w``: [D, E]. Rows wider than the prologue holds take the LayerNorm
+    pass first (``ln_wide_dense``)."""
     if x.device.type == "cpu":
         return ln_dense_xla(x, ln_s, ln_b, w, b)
     _check_x("ln_dense_rows", x)
@@ -454,7 +502,7 @@ def ln_dense_rows(x, ln_s, ln_b, w, b):
     _check_ln_width("ln_dense_rows", D)
     E = w.shape[1]
     x = x.contiguous()
-    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w), _f32(b, E)]
+    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w), _f32(b, E, x.device)]
     kernel_lib.require_cuda("ln_dense_rows", *args)
     out = torch.empty(B, S, E, dtype=torch.bfloat16, device=x.device)
     if D > GEMM_LN_K:
@@ -471,25 +519,72 @@ def ln_dense_rows(x, ln_s, ln_b, w, b):
     return out
 
 
-def _check_ln_width(name, D):
-    if D > LN_WIDE_MAX_K:
-        raise ValueError(f"{name}: the LayerNorm takes D <= {LN_WIDE_MAX_K}, got {D}")
+def _check_ln_width(name, D, eps: float = _LN_EPS):
+    if D > LN_BLOCK_MAX_K:
+        raise ValueError(f"{name}: the LayerNorm takes D <= {LN_BLOCK_MAX_K}, got {D}")
+    if eps != _LN_EPS and D <= LN_WIDE_MAX_K:
+        raise ValueError(f"{name}: the LayerNorm takes eps {_LN_EPS} on rows up to "
+                         f"{LN_WIDE_MAX_K} wide, another only on wider ones; got eps {eps} "
+                         f"at D {D}")
+
+
+@kernel_lib.kernel_entry(
+    "ln_rope_dense_rows",
+    "(Tensor x, Tensor ln_s, Tensor ln_b, Tensor w, Tensor? b, Tensor cos, Tensor sin, "
+    "int num_heads, int prefix, float eps=1e-06) -> Tensor",
+    _dense_fake, kernel_lib.plain_vjp(ln_rope_dense_xla))
+def ln_rope_dense_rows(x, ln_s, ln_b, w, b, cos, sin, num_heads: int, prefix: int,
+                       eps: float = _LN_EPS):
+    """LN1 + qkv + RoPE over the token rows (csrc/rows_block.cu
+    ``tt_ln_rope_dense``, counted as ``ln_rope_dense``): the LayerNorm pass,
+    then the streamed tile whose epilogue rotates q and k of the tokens from
+    ``prefix`` on by the f32 tables ``cos``, ``sin`` [S - prefix, Dh]
+    (``ln_rope_dense_xla``). ``x``: [B, S, D] bf16, ``w``: [D, 3 D], heads of
+    128 (a tile of the product is one head). No JAX counterpart (DINOv3's
+    ``rope_apply`` on the qkv heads)."""
+    if x.device.type == "cpu":
+        return ln_rope_dense_xla(x, ln_s, ln_b, w, b, cos, sin, num_heads, prefix, eps)
+    _check_x("ln_rope_dense_rows", x)
+    B, S, D = x.shape
+    _check_dense("ln_rope_dense_rows", D, w)
+    _check_ln_width("ln_rope_dense_rows", D, eps)
+    if (w.shape[1] != 3 * D or D % num_heads or D // num_heads != ROPE_HEAD_DIM
+            or not 0 <= prefix < S):
+        raise ValueError(f"ln_rope_dense_rows: the RoPE tile takes w [D, 3 D] over heads of "
+                         f"{ROPE_HEAD_DIM} and 0 <= prefix < S; got w {tuple(w.shape)}, "
+                         f"{num_heads} heads, prefix {prefix}, S {S}")
+    if tuple(cos.shape) != (S - prefix, ROPE_HEAD_DIM) or cos.shape != sin.shape:
+        raise ValueError(f"ln_rope_dense_rows: tables {tuple(cos.shape)}, "
+                         f"{tuple(sin.shape)} for [{S - prefix}, {ROPE_HEAD_DIM}]")
+    E = w.shape[1]
+    x = x.contiguous()
+    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w), _f32(b, E, x.device),
+            _f32(cos, None), _f32(sin, None)]
+    kernel_lib.require_cuda("ln_rope_dense_rows", *args)
+    normed = torch.empty_like(x)
+    out = torch.empty(B, S, E, dtype=torch.bfloat16, device=x.device)
+    kernel_lib.launch("ln_rope_dense", "tt_ln_rope_dense", x.device,
+                      *(a.data_ptr() for a in args), normed.data_ptr(), out.data_ptr(),
+                      B * S, E, D, S, prefix,
+                      _slices(x.device, B * S, E, D, False, EPI_ROPE), eps)
+    return out
 
 
 @kernel_lib.kernel_entry(
     "swiglu_rows",
     "(Tensor x, Tensor ln_s, Tensor ln_b, Tensor w12, Tensor? b12, "
-    "Tensor w3, Tensor? b3) -> Tensor",
+    "Tensor w3, Tensor? b3, float eps=1e-06) -> Tensor",
     _like_x, kernel_lib.plain_vjp(swiglu_block_xla))
-def swiglu_rows(x, ln_s, ln_b, w12, b12, w3, b3):
+def swiglu_rows(x, ln_s, ln_b, w12, b12, w3, b3, eps: float = _LN_EPS):
     """LN2 + the SwiGLU MLP + residual over the token rows (csrc/mlp_block.cu
     ``tt_swiglu_mlp``, counted as ``swiglu_mlp``): the LayerNorm pass, the
     tile's SwiGLU form writing the bf16 hidden ``silu(a) * b`` [B*S, Hd], and
     ``x + hidden @ w3 + b3`` with the sum in f32. ``x``: [B, S, D] bf16,
     ``w12``: [D, 2 Hd] (``a`` the first Hd outputs), ``w3``: [Hd, D]. No
-    JAX counterpart (DINOv2's ``SwiGLUFFNFused``)."""
+    JAX counterpart (DINOv2's ``SwiGLUFFNFused``; DINOv3's ``SwiGLUFFN``
+    with ``w1`` and ``w2`` stacked)."""
     if x.device.type == "cpu":
-        return swiglu_block_xla(x, ln_s, ln_b, w12, b12, w3, b3)
+        return swiglu_block_xla(x, ln_s, ln_b, w12, b12, w3, b3, eps)
     _check_x("swiglu_rows", x)
     B, S, D = x.shape
     Hd = w3.shape[0]
@@ -498,10 +593,10 @@ def swiglu_rows(x, ln_s, ln_b, w12, b12, w3, b3):
         raise ValueError(f"swiglu_rows: weight shapes {tuple(w12.shape)}, "
                          f"{tuple(w3.shape)} for D={D} (widths must be multiples "
                          f"of {GEMM_K_STEP})")
-    _check_ln_width("swiglu_rows", D)
+    _check_ln_width("swiglu_rows", D, eps)
     x = x.contiguous()
-    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w12), _f32(b12, 2 * Hd),
-            _weight_nk(w3), _f32(b3, D)]
+    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w12), _f32(b12, 2 * Hd, x.device),
+            _weight_nk(w3), _f32(b3, D, x.device)]
     kernel_lib.require_cuda("swiglu_rows", *args)
     normed = torch.empty_like(x)
     hidden = torch.empty(B * S, Hd, dtype=torch.bfloat16, device=x.device)
@@ -511,7 +606,7 @@ def swiglu_rows(x, ln_s, ln_b, w12, b12, w3, b3):
         *(a.data_ptr() for a in args), normed.data_ptr(), hidden.data_ptr(),
         out.data_ptr(), B * S, D, Hd,
         _slices(x.device, B * S, 2 * Hd, D, False, EPI_SWIGLU),
-        _slices(x.device, B * S, D, Hd, False))
+        _slices(x.device, B * S, D, Hd, False), eps)
     return out
 
 
@@ -534,7 +629,7 @@ def dense_residual_rows(y, x, w, b):
     if tuple(x.shape) != (B, S, E):
         raise ValueError(f"dense_residual_rows: residual {tuple(x.shape)} for "
                          f"output [{B}, {S}, {E}]")
-    args = [y.contiguous(), x.contiguous(), _weight_nk(w), _f32(b, E)]
+    args = [y.contiguous(), x.contiguous(), _weight_nk(w), _f32(b, E, y.device)]
     kernel_lib.require_cuda("dense_residual_rows", *args)
     out = torch.empty(B, S, E, dtype=torch.bfloat16, device=y.device)
     kernel_lib.launch("dense_residual", "tt_dense_residual", y.device,
@@ -553,6 +648,21 @@ def attention_block_branch_flash(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     kernels. On CPU tensors, the composition of their plain versions."""
     B, S, D = x.shape
     qkv = ln_dense_rows(x, ln_s, ln_b, w_qkv, b_qkv)
+    qkv = qkv.reshape(B, S, 3, num_heads, D // num_heads)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    merged = flash_attention(q, k, v).permute(0, 2, 1, 3).reshape(B, S, D)
+    return dense_residual_rows(merged, x, w_proj, b_proj)
+
+
+def attention_block_branch_rope(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
+                                num_heads: int, cos, sin, prefix: int,
+                                eps: float = _LN_EPS):
+    """The attention branch with 2-D RoPE (DINOv3), at any token count:
+    ``ln_rope_dense_rows`` (LN1 + qkv, q and k of the tokens from ``prefix``
+    on rotated) -> the flash core on the strided q, k, v views (heads of 128)
+    -> ``dense_residual_rows``. On CPU tensors, their plain versions."""
+    B, S, D = x.shape
+    qkv = ln_rope_dense_rows(x, ln_s, ln_b, w_qkv, b_qkv, cos, sin, num_heads, prefix, eps)
     qkv = qkv.reshape(B, S, 3, num_heads, D // num_heads)
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
     merged = flash_attention(q, k, v).permute(0, 2, 1, 3).reshape(B, S, D)

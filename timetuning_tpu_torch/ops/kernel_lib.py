@@ -90,6 +90,11 @@ KERNELS = {
                "none: LN + qkv over rows wider than the prologue (K7's width)"),
         Kernel("swiglu_mlp", "timetuning_tpu_torch/csrc/mlp_block.cu",
                "none: DINOv2's SwiGLU MLP (K9's place in its blocks)"),
+        # DINOv3 ViT-7B's blocks: LN1 + qkv with RoPE, heads of 128
+        Kernel("ln_rope_dense", "timetuning_tpu_torch/csrc/rows_block.cu",
+               "none: LN + qkv + 2-D RoPE (K7's place in DINOv3's blocks)"),
+        Kernel("flash_d128", "timetuning_tpu_torch/csrc/flash_attention.cu",
+               "timetuning_tpu/ops/flash_attention.py:47 at heads of 128"),
     )
 }
 
@@ -129,7 +134,8 @@ _SIGNATURES = {
     "tt_ln_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 4 + [_P],
     "tt_ln_wide_dense": [_P] * 7 + [_I] * 4 + [_P],
-    "tt_swiglu_mlp": [_P] * 10 + [_I] * 5 + [_P],
+    "tt_ln_rope_dense": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "tt_swiglu_mlp": [_P] * 10 + [_I] * 5 + [_F, _P],
     "tt_gemm_route": [_I] * 6 + [_P],
     "tt_mha": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
     "tt_sinkhorn": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P],

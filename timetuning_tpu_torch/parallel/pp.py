@@ -234,6 +234,9 @@ def pp_forward_fn(model, mesh: Mesh2D, n_micro: int | None = None):
             "pipeline parallelism does not support MoE ViTs (MoE and dense "
             "blocks have different param trees, so stages cannot be stacked "
             "uniformly) — shard the experts instead (parallel/ep.py)")
+    if getattr(cfg, "rope_base", 0):
+        raise ValueError("pipeline parallelism runs ViTs with learned positions; a "
+                         "RoPE ViT (DINOv3) runs on one device")
     n_pipe, dp = mesh.n_inner, mesh.n_outer
     blocks = keep_stage(mesh, model)
     stage = mesh.inner_index

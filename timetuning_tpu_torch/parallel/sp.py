@@ -91,6 +91,9 @@ def sp_forward_fn(model, mesh: Mesh2D):
     works: the padding is masked out of attention and sliced off."""
     if mesh.coords is None:
         raise ValueError("sp_forward_fn: this rank is not on the mesh")
+    if getattr(model.config, "rope_base", 0):
+        raise ValueError("sequence parallelism runs ViTs with learned positions; a "
+                         "RoPE ViT (DINOv3) runs on one device")
     if any(hasattr(b, "moe") for b in model.blocks):
         raise ValueError("sequence parallelism runs dense ViT blocks; a MoE ViT "
                          "shards its experts instead (parallel/ep.py)")

@@ -29,6 +29,13 @@ flash core; each beside its PyTorch library form (F.layer_norm, F.linear,
 F.silu in bf16) and its plain version (the f32 composition); the device time
 of each kernel of the two DINOv2 entries (``torch.profiler``); the SwiGLU and
 qkv products with a tile a block (the plan's slices before slices by waves).
+``--v3``: in each directory's turn, DINOv3 ViT-7B's block at a request of 8
+frames at 896 (8 x 3,141 rows, D 4,096, SwiGLU hidden 8,192, 32 heads of 128,
+LayerNorm eps 1e-5): LN1 + qkv + RoPE (the LayerNorm pass of a block a row
+and the RoPE tile), the flash core at heads of 128, proj + residual, the
+SwiGLU MLP; each beside its library form and its plain version, and the
+device time of each kernel of the RoPE and SwiGLU entries (the pass's among
+them).
 
 Needs a CUDA card and nvcc; prints the card's name and power limit first.
 """
@@ -171,6 +178,66 @@ def g14(dev, label):
     fb._slices = plan
 
 
+def v3(dev, label):
+    B, S, D, Hd, H, prefix, eps = 8, 3141, 4096, 8192, 32, 5, 1e-5
+    gen = torch.Generator(device=dev).manual_seed(1)     # the same inputs each call
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def w(n_in, n_out):
+        return (r(n_out, n_in) / n_in ** 0.5).t().to(torch.bfloat16)
+
+    from timetuning_tpu_torch.models import vit
+
+    x, y = r(B, S, D).bfloat16(), r(B, S, D).bfloat16()
+    ln = (1 + 0.1 * r(D), 0.1 * r(D))
+    qkv, proj = w(D, 3 * D), (w(D, D), 0.1 * r(D))
+    mlp = (*ln, w(D, 2 * Hd), 0.1 * r(2 * Hd), w(Hd, D), 0.1 * r(D))
+    cos, sin = vit.rope_table(vit.rope_periods(128, 100.0).to(dev), 56, 56)
+    q3 = r(B, S, 3, H, 128).bfloat16()
+    q, k, v = (q3[:, :, j].permute(0, 2, 1, 3) for j in range(3))
+    F = torch.nn.functional
+    lnb = tuple(t.bfloat16() for t in ln)
+
+    def lib_rope():
+        h = F.linear(F.layer_norm(x, (D,), *lnb, eps), qkv.t()).reshape(B, S, 3, H, 128)
+        qk = h[:, prefix:, :2]
+        rot = torch.cat([-qk[..., 64:], qk[..., :64]], dim=-1)
+        c, s_ = cos[:, None, None].bfloat16(), sin[:, None, None].bfloat16()
+        return torch.cat([h[:, :prefix, :2], qk * c + rot * s_], dim=1)
+
+    def lib_swiglu():
+        h = F.layer_norm(x, (D,), *lnb, eps)
+        a, b = F.linear(h, mlp[2].t(), mlp[3].bfloat16()).chunk(2, dim=-1)
+        return x + F.linear(F.silu(a) * b, mlp[4].t(), mlp[5].bfloat16())
+
+    rows = {
+        "ln_rope_dense (LN1 + qkv + RoPE)": (
+            lambda: fb.ln_rope_dense_rows(x, *ln, qkv, None, cos, sin, H, prefix, eps),
+            lib_rope,
+            lambda: fb.ln_rope_dense_xla(x, *ln, qkv, None, cos, sin, H, prefix, eps)),
+        "flash_d128 (3,141 tokens)": (
+            lambda: fa.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            lambda: fa.flash_attention_xla(q, k, v)),
+        "dense_residual (proj)": (
+            lambda: fb.dense_residual_rows(y, x, *proj),
+            lambda: x + F.linear(y, proj[0].t(), proj[1].bfloat16()),
+            lambda: fb.dense_residual_xla(y, x, *proj)),
+        "swiglu_mlp": (lambda: fb.swiglu_rows(x, *mlp, eps), lib_swiglu,
+                       lambda: fb.swiglu_block_xla(x, *mlp, eps)),
+    }
+    for name, (kern, lib, plain) in rows.items():
+        print(f"{label} v3 {name} ms: kernel {card.cuda_ms(kern):.4f}  library "
+              f"{card.cuda_ms(lib):.4f}  plain {card.cuda_ms(plain, warmup=1, reps=2):.4f}",
+              flush=True)
+    for name in ("ln_rope_dense (LN1 + qkv + RoPE)", "swiglu_mlp"):
+        by = card.kernel_times(rows[name][0])
+        print(f"{label} v3 {name} kernels ms: "
+              + "  ".join(f"{k[:60]} {n:g}x {t:.4f}" for k, (n, t) in by.items()), flush=True)
+
+
 def line(label, fns):
     print(f"{label}: " + "  ".join(f"{k} {card.cuda_ms(f):.4f}" for k, f in fns.items()),
           flush=True)
@@ -182,6 +249,7 @@ def main() -> int:
     ap.add_argument("--slices", default="")
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--g14", action="store_true")
+    ap.add_argument("--v3", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_block_kernels: needs a CUDA card")
@@ -199,6 +267,8 @@ def main() -> int:
             line(f"{d.name} {name} ms", kernels(data[name], S))
         if args.g14:
             g14(dev, d.name)
+        if args.v3:
+            v3(dev, d.name)
 
     if args.slices:
         plan = fb._slices
