@@ -13,6 +13,7 @@ from timetuning_tpu.ops import attention as jattn
 from timetuning_tpu.ops import flash_attention as jfa
 from timetuning_tpu_torch.ops import attention as tattn
 from timetuning_tpu_torch.ops import flash_attention as tfa
+from timetuning_tpu_torch.ops import kernel_lib
 
 torch.set_num_threads(2)
 
@@ -130,6 +131,58 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         tfa.flash_attention(q, q, q.half())
     with pytest.raises(ValueError, match="kv_len"):
         tfa.flash_attention(q, q, q, kv_len=9)
+
+
+@pytest.mark.parametrize("B,H,Sk,kv_len,overlapped,tiles", [
+    (25, 6, 3137, None, 24, 25),      # S/8 at 448, the serving request
+    (25, 24, 1029, None, 8, 9),       # DINOv2 ViT-g at 448 (a last tile of 5 keys)
+    (2, 3, 128, None, 0, 1),          # one key tile: nothing overlaps
+    (2, 3, 40, None, 0, 1),
+    (2, 3, 256, None, 1, 2),          # two tiles: the prologue and the epilogue
+    (1, 2, 3138, 3137, 24, 25),       # sp's launch: keys past kv_len are not walked
+    (4, 6, 1100, 129, 1, 2),
+])
+@pytest.mark.parametrize("Dh", [64, 32])
+def test_a_launch_counts_its_key_tiles_from_its_shape(monkeypatch, B, H, Sk, kv_len,
+                                                      overlapped, tiles, Dh):
+    """The bf16 core's work counts beside its launch count: every key tile of
+    each (batch, head), and those whose softmax runs under the p @ v of the
+    tile before ((n - 1) / n of them: 24/25 at 3,137 keys, 8/9 at 1,029,
+    none in one tile); f32 and heads of 128 raise neither. The launch itself
+    is stood in for (meta tensors)."""
+    launched = []
+    monkeypatch.setattr(kernel_lib, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(kernel_lib, "launch", lambda kernel, fn, *a: launched.append(kernel))
+    assert tfa.key_tile_counts(B, H, Sk if kv_len is None else kv_len) == (
+        B * H * overlapped, B * H * tiles)
+    kernel_lib.reset_launch_counts()
+    q = torch.zeros(B, H, 100, Dh, device="meta", dtype=torch.bfloat16)
+    k = torch.zeros(B, H, Sk, Dh, device="meta", dtype=torch.bfloat16)
+    tfa.flash_attention(q, k, k, kv_len=kv_len)
+    assert launched == ["flash_attention"]
+    assert kernel_lib.WORK_COUNTS == {"flash_key_tiles": B * H * tiles,
+                                      "flash_key_tiles_overlapped": B * H * overlapped}
+    tfa.flash_attention(q.float(), k.float(), k.float(), kv_len=kv_len)
+    wide = torch.zeros(B, H, Sk, 128, device="meta", dtype=torch.bfloat16)
+    tfa.flash_attention(wide[:, :, :100], wide, wide, kv_len=kv_len)
+    assert launched == ["flash_attention", "flash_attention", "flash_d128"]
+    assert kernel_lib.counts()["flash_key_tiles"] == B * H * tiles
+    kernel_lib.reset_launch_counts()
+    assert not any(kernel_lib.counts().values())
+
+
+def test_counts_are_raised_by_name_as_a_graph_replay_raises_them():
+    """``counts`` holds the launch and the work counts under one set of names
+    and ``add_counts`` raises either by name: what ``CapturedCall`` takes out
+    of a capture and adds on a replay."""
+    kernel_lib.reset_launch_counts()
+    kernel_lib.add_counts({"flash_attention": 12, "flash_key_tiles": 300,
+                           "flash_key_tiles_overlapped": 288})
+    kernel_lib.add_counts({"flash_attention": 12, "flash_key_tiles": 300})
+    got = {k: v for k, v in kernel_lib.counts().items() if v}
+    assert got == {"flash_attention": 24, "flash_key_tiles": 600,
+                   "flash_key_tiles_overlapped": 288}
+    kernel_lib.reset_launch_counts()
 
 
 def _jax_route(monkeypatch, dtype, S, return_probs):

@@ -498,6 +498,7 @@ def test_flash_attention_kernel_uneven_and_masked(dev, dtype, Sq, Sk, kv_len):
     (127, 63, None), (129, 300, None),      # either side of a 128-row block
     (200, 256, 128), (200, 256, 129),       # the mask on and just past a tile edge
     (129, 500, 1),                # one valid key
+    (200, 256, None), (129, 256, 250),      # two tiles: the pipeline's prologue and epilogue
 ])
 def test_flash_attention_kernel_block_and_tile_edges(dev, dtype, Sq, Sk, kv_len):
     """The edges of the bf16 kernel's tiling: 128 query rows a block (a last
@@ -519,6 +520,76 @@ def test_flash_attention_kernel_three_warpgroup_blocks(dev):
     got = fa.flash_attention(q, k, v, kv_len=1000)
     want = fa.flash_attention_xla(q, k, v, kv_len=1000)
     torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[torch.bfloat16])
+
+
+def _qkv_views(dev, B, S, H, Dh, seed):
+    """q, k, v as the [B, H, S, Dh] views of one [B, S, 3, H, Dh] qkv buffer."""
+    qkv = _t(np.random.default_rng(seed).standard_normal((B, S, 3, H, Dh)), dev,
+             torch.bfloat16)
+    return tuple(qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+
+
+@pytest.mark.parametrize("B,H,S,Dh", [
+    (25, 6, 3137, 64),     # S/8 at 448: a request of the serving program (24 of 25 tiles overlap)
+    (25, 24, 1029, 64),    # DINOv2 ViT-g at 448: a last tile of 5 keys
+    (4, 12, 3137, 32),     # MoCo-v3 ViT-S/16 above 512 px: heads of 32
+])
+def test_flash_attention_kernel_at_the_serving_shapes(dev, B, H, S, Dh):
+    """The pipelined key loop (each key tile's softmax under the p @ v of the
+    tile before) on the strided qkv views of the serving programs' shapes;
+    bound as the other bf16 cases."""
+    q, k, v = _qkv_views(dev, B, S, H, Dh, seed=S + H)
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_xla(q, k, v)
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("warpgroups", [2, 3])
+@pytest.mark.parametrize("Sq,Sk,kv_len,Dh", [
+    (3137, 3137, None, 64),     # many tiles
+    (1029, 1029, None, 64),     # a ragged last tile of 5 keys
+    (100, 128, None, 64),       # one tile: the prologue and the epilogue alone
+    (300, 256, None, 64),       # two tiles, nothing between
+    (300, 1100, 1000, 64),      # the mask ends inside the second-to-last of Sk's tiles
+    (1025, 1025, 1000, 32),     # heads of 32
+])
+def test_flash_attention_kernel_in_either_warpgroup_form(dev, warpgroups, Sq, Sk, kv_len, Dh):
+    """Each form of the bf16 core (2 consumer warpgroups a block, 232
+    registers a thread; 3, 160), forced whatever the card's waves would
+    pick, on the same inputs; bound as the other bf16 cases. A row's
+    arithmetic does not depend on the form: the form the waves pick gives
+    the same bits."""
+    rng = np.random.default_rng(Sq + Sk + Dh)
+    q = _t(rng.standard_normal((2, 6, Sq, Dh)), dev, torch.bfloat16)
+    k, v = (_t(rng.standard_normal((2, 6, Sk, Dh)), dev, torch.bfloat16) for _ in range(2))
+    kernel_lib.reset_launch_counts()
+    got = fa.flash_attention_form(q, k, v, kv_len, warpgroups)
+    assert not any(kernel_lib.counts().values())
+    want = fa.flash_attention_xla(q, k, v, kv_len=kv_len)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_FLASH_TOL[torch.bfloat16])
+    assert torch.equal(got, fa.flash_attention(q, k, v, kv_len=kv_len))
+
+
+def test_graph_replays_raise_the_flash_tile_counts(dev):
+    """A ``CapturedCall`` replay raises the flash core's key-tile counts as it
+    raises its launch count, by what one eager call raises: at 3,137 keys 24
+    of each (batch, head)'s 25 tiles overlap."""
+    from timetuning_tpu_torch.runtime import CapturedCall
+
+    q, k, v = _qkv_views(dev, 2, 3137, 6, 64, seed=3)
+    graphed = CapturedCall(lambda q, k, v: fa.flash_attention(q, k, v))
+    kernel_lib.reset_launch_counts()
+    want = fa.flash_attention(q, k, v)
+    eager = {name: n for name, n in kernel_lib.counts().items() if n}
+    assert eager == {"flash_attention": 1, "flash_key_tiles": 2 * 6 * 25,
+                     "flash_key_tiles_overlapped": 2 * 6 * 24}
+    for call in range(3):      # eager on a side stream, capture + replay, replay
+        kernel_lib.reset_launch_counts()
+        got = graphed(q, k, v)
+        assert {name: n for name, n in kernel_lib.counts().items() if n} == eager, call
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_flash_attention_kernel_reads_strided_views_at_the_eval_batch(dev):

@@ -474,6 +474,37 @@ __device__ __forceinline__ void pv_product(float (&o)[R], uint32_t (&pa)[4 * KS]
   pin(pa);
 }
 
+// The two products above, issued and committed as one group each but not
+// awaited, for a loop that runs a softmax while they are in flight: the
+// caller waits (wgmma_wait<n>: groups complete in the order committed) and
+// then pins the registers the group wrote or read before it touches them.
+template <int Dh = kHeadDim, int R>
+__device__ __forceinline__ void qk_issue(float (&d)[R], uint32_t q_addr, uint32_t k_addr) {
+  const uint64_t qd = head_desc<Dh>(q_addr), kd = head_desc<Dh>(k_addr);
+  pin(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Dh / 16; ++kk)
+    wgmma_ss(d, qd + kk * kDescKStep, kd + kk * kDescKStep, kk > 0);
+  wgmma_commit();
+}
+
+// o[64 x Dh] += P V as pv_product, issued and committed, not awaited
+template <int KS, int R>
+__device__ __forceinline__ void pv_issue(float (&o)[R], uint32_t (&pa)[4 * KS],
+                                         uint32_t v_addr) {
+  constexpr int Dh = 2 * R;
+  const uint64_t vd = head_desc<Dh>(v_addr);
+  pin(pa);
+  pin(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+             vd + kk * head_row_step<Dh>(), 1);
+  wgmma_commit();
+}
+
 // --------------------------------------------------------------- softmax --
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

@@ -33,8 +33,8 @@
 //   ring of four [128 keys, 64] K and V tiles by TMA (cp.async.bulk.tensor
 //   on an mbarrier, 128-byte swizzle, rows past Sk zero-filled), ahead of
 //   their use; each K/V tile serves every warpgroup. Three warpgroups keep
-//   the tensor cores and the exponential units busier (9 % faster at 50 x 6
-//   x 3,137 on an H100) but make fewer, larger blocks: the host takes
+//   the tensor cores and the exponential units busier (~11 % faster a row
+//   on an H100) but make fewer, larger blocks: the host takes
 //   whichever needs fewer waves of the card's SMs. A consumer computes
 //   s = q k^T by wgmma (m64n128k16, q and k from shared memory, s in
 //   registers), the softmax in the accumulator's own register layout (row
@@ -42,11 +42,31 @@
 //   one FMA, the key mask only in a ragged last tile), packs p to bf16 in
 //   registers and feeds it as the A operand of the second wgmma (m64n64k16,
 //   v MN-major from shared memory); acc stays in registers and is rescaled
-//   there. Scores, p and acc never touch shared memory. The
-//   warpgroups are not ordered against each other: while one is in its
-//   softmax the others' products can run. (Forcing them to take turns with
-//   named barriers, tile it's q k^T issued with tile it - 1's p @ v, was
-//   measured 19 % slower at 50 x 6 x 3,137 on an H100 and is not kept.)
+//   there. Scores, p and acc never touch shared memory.
+//   Since the exponentials take as long as the products, the kernel is fast
+//   only where the two overlap, and each warpgroup overlaps them itself, a
+//   key tile behind in its products (software pipelining): tile 0's q k^T
+//   and softmax first; then for each tile it, tile it's q k^T is issued,
+//   acc is rescaled by tile it - 1's correction under it, tile it - 1's
+//   p @ v is issued, wgmma.wait_group 1 lets the scores land, and tile it's
+//   row max, exp2 and row sums run while p @ v is still on the tensor
+//   cores; wait_group 0 then precedes the release of tile it - 1's K/V slot
+//   (one tile later than a loop without the overlap: the ring of four
+//   absorbs it) and the packing of tile it's p; the last tile's rescale and
+//   p @ v close the loop. acc is rescaled and summed in the order of the
+//   loop without the overlap (acc * corr + p v), so the output is the same
+//   to the bit. Live a lane: 64 scores, 32 packed p, acc (32 at Dh 64): no
+//   spills in either form. At 50 x 6 x 3,137 on an H100 the kernel takes
+//   ~1.61 ms (47 % of its least; a loop without the overlap 1.73); without
+//   any exp2 it would take ~1.36 ms, without q k^T ~1.34: the three
+//   warpgroups of a block run their products and their softmax in step
+//   with each other, so the tensor cores and the exponential units still
+//   wait on each other across warpgroups. (Forcing the warpgroups to take
+//   turns with named barriers, tile it's q k^T issued with tile it - 1's
+//   p @ v across warpgroups, was measured 19 % slower at 50 x 6 x 3,137 in
+//   a loop without this overlap and is not kept; on top of this loop,
+//   turns in issuing the products measured 2-4 % faster, not kept either:
+//   this kernel orders nothing across warpgroups.)
 //   f32: CUDA-core FMAs in f32 (no TF32: the f32 path is held to the plain
 //   f32 composition at f32 tolerance) on the tiles of attention_f32.cuh: a
 //   block of 128 threads owns 64 query rows, a thread 8 rows x 4 columns of
@@ -96,6 +116,39 @@ struct FlashBlock {
   static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0,
                 "swizzled tiles start on 1,024-byte boundaries");
 };
+
+// One key tile's online softmax in the accumulator's layout, in place: s
+// (raw scores) becomes p = 2^(s * scale_log2 - m_new), unrounded; the row
+// maxima m move to m_new (log2 units), the row sums l to l * corr + rowsum p;
+// corr = 2^(m_old - m_new) is what the caller rescales acc by.
+template <int R>
+__device__ __forceinline__ void online_softmax(float (&s)[R], float scale_log2, float& m0,
+                                               float& m1, float& l0, float& l1,
+                                               float& corr0, float& corr1) {
+  float mx0, mx1, sum0, sum1;
+  hp::row_max(s, mx0, mx1);
+  const float mn0 = fmaxf(m0, mx0 * scale_log2);
+  const float mn1 = fmaxf(m1, mx1 * scale_log2);
+  corr0 = hp::fast_exp2(m0 - mn0);
+  corr1 = hp::fast_exp2(m1 - mn1);
+  hp::exp_rows(s, scale_log2, mn0, mn1, sum0, sum1);
+  l0 = l0 * corr0 + sum0;
+  l1 = l1 * corr1 + sum1;
+  m0 = mn0;
+  m1 = mn1;
+}
+
+// this lane's two rows of an accumulator times their corrections
+template <int R>
+__device__ __forceinline__ void rescale_rows(float (&acc)[R], float corr0, float corr1) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    acc[4 * j] *= corr0;
+    acc[4 * j + 1] *= corr0;
+    acc[4 * j + 2] *= corr1;
+    acc[4 * j + 3] *= corr1;
+  }
+}
 
 // one block an SM: 384 or 512 threads whose consumers take 232 or 160
 // registers (setmaxnreg) leave no room for a second
@@ -170,41 +223,46 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   float m0 = kNeg, m1 = kNeg;          // running row max, in log2 units
   float l0 = 0.f, l1 = 0.f;            // this lane's share of the row sums
 
+  const bool ragged = kv_len % kBK != 0;
+  float sc[kBK / 2];                   // scores, then p, of the newest tile
+  uint32_t pa[kBK / 4];                // p of the tile before, bf16, p @ v's A
+  float corr0, corr1;
+
+  // prologue: tile 0's scores and softmax (acc is 0: its rescale by tile
+  // 0's correction, in the loop, changes nothing)
   hp::mbar_wait(bar_q, 0);
-  for (int it = 0; it < n_tiles; ++it) {
+  hp::mbar_wait(bar_full, 0);
+  hp::qk_product<Dh>(sc, q_wg, kv_s);
+  if (n_tiles == 1 && ragged) hp::mask_keys(sc, 0, kv_len, lane);
+  online_softmax(sc, scale_log2, m0, m1, l0, l1, corr0, corr1);
+  hp::pack_rows(sc, 1.f, 1.f, pa);
+
+  // tile it's q k^T and tile it - 1's p @ v go out together, acc's rescale
+  // by tile it - 1's correction between them; tile it's softmax runs while
+  // p @ v is still on the tensor cores
+  for (int it = 1; it < n_tiles; ++it) {
     const int s = it % kStages;
-    const uint32_t round = (it / kStages) & 1;
-    const uint32_t k_s = kv_s + s * 2 * kTileBytes;
-    hp::mbar_wait(bar_full + 8 * s, round);
-
-    float sc[kBK / 2];
-    hp::qk_product<Dh>(sc, q_wg, k_s);
-    if (it == n_tiles - 1 && kv_len % kBK != 0)
-      hp::mask_keys(sc, it * kBK, kv_len, lane);
-
-    float mx0, mx1, sum0, sum1;
-    hp::row_max(sc, mx0, mx1);
-    const float mn0 = fmaxf(m0, mx0 * scale_log2);
-    const float mn1 = fmaxf(m1, mx1 * scale_log2);
-    const float corr0 = hp::fast_exp2(m0 - mn0);
-    const float corr1 = hp::fast_exp2(m1 - mn1);
-    hp::exp_rows(sc, scale_log2, mn0, mn1, sum0, sum1);
-    l0 = l0 * corr0 + sum0;
-    l1 = l1 * corr1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int j = 0; j < Dh / 8; ++j) {
-      acc[4 * j] *= corr0;
-      acc[4 * j + 1] *= corr0;
-      acc[4 * j + 2] *= corr1;
-      acc[4 * j + 3] *= corr1;
-    }
-    uint32_t pa[kBK / 4];
+    const int prev = (it - 1) % kStages;
+    hp::mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+    hp::qk_issue<Dh>(sc, q_wg, kv_s + s * 2 * kTileBytes);
+    rescale_rows(acc, corr0, corr1);
+    hp::pv_issue<kBK / 16>(acc, pa, kv_s + prev * 2 * kTileBytes + kTileBytes);
+    hp::wgmma_wait<1>();                 // q k^T has landed
+    hp::pin(sc);
+    if (it == n_tiles - 1 && ragged) hp::mask_keys(sc, it * kBK, kv_len, lane);
+    online_softmax(sc, scale_log2, m0, m1, l0, l1, corr0, corr1);
+    hp::pin(sc);
+    hp::wgmma_wait<0>();                 // and p @ v
+    hp::pin(acc);
+    hp::pin(pa);
+    if (lane == 0) hp::mbar_arrive(bar_empty + 8 * prev);   // this warp's reads are done
     hp::pack_rows(sc, 1.f, 1.f, pa);
-    hp::pv_product<kBK / 16>(acc, pa, k_s + kTileBytes, true);
-    if (lane == 0) hp::mbar_arrive(bar_empty + 8 * s);   // this warp's reads are done
   }
+
+  // epilogue: the last tile's rescale and p @ v (its slot is never refilled)
+  rescale_rows(acc, corr0, corr1);
+  hp::pv_product<kBK / 16>(acc, pa,
+                           kv_s + ((n_tiles - 1) % kStages) * 2 * kTileBytes + kTileBytes, true);
 
   l0 = fmaxf(hp::quad_sum(l0), 1e-20f);
   l1 = fmaxf(hp::quad_sum(l1), 1e-20f);
@@ -228,7 +286,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 // (gemm_wgmma.cuh kBiasRope), so this kernel reads rotated heads. At 8 x 32
 // heads x 3,141 tokens: 2.565 ms, 51 % of its least (PyTorch's SDPA 2.291;
 // H100 80GB HBM3, 700 W): a warpgroup's products and softmax run one after
-// another, as in the heads-of-64 form.
+// another (the heads-of-64 form overlaps them).
 struct FlashBlock128 {
   static constexpr int kWG = 2;
   static constexpr int kPanelRows = 64 * kWG;         // q rows of a block
@@ -515,6 +573,30 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
   return cudaGetLastError();
 }
 
+// bf16 at Dh 64 or 32 in the form of `wg` consumer warpgroups (2 or 3)
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int Sq, int Sk, int kv_len, int Dh, int wg, float scale_log2,
+                        const Strides& st, cudaStream_t s) {
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t e;
+  if ((e = hp::make_qkv_map(&map_q, q, B, H, Sq, st.qb, st.qh, st.qs, 64 * wg, Dh)) !=
+          cudaSuccess ||
+      (e = hp::make_qkv_map(&map_k, k, B, H, Sk, st.kb, st.kh, st.ks, kBK, Dh)) !=
+          cudaSuccess ||
+      (e = hp::make_qkv_map(&map_v, v, B, H, Sk, st.vb, st.vh, st.vs, kBK, Dh)) !=
+          cudaSuccess)
+    return e;
+  const auto launch = wg == 3 ? (Dh == 64 ? launch_bf16_form<3, 64> : launch_bf16_form<3, 32>)
+                              : (Dh == 64 ? launch_bf16_form<2, 64> : launch_bf16_form<2, 32>);
+  return launch(map_q, map_k, map_v, static_cast<bf16*>(o), B, H, Sq, kv_len, scale_log2,
+                st.ob, st.oh, st.os, s);
+}
+
+bool valid_shape(int B, int H, int Sq, int Sk, int kv_len) {
+  return B > 0 && B <= 65535 && H > 0 && H <= 65535 && Sq > 0 && Sk > 0 && kv_len >= 1 &&
+         kv_len <= Sk;
+}
+
 }  // namespace
 
 // q, k, v, o: device pointers of bf16 (is_bf16 = 1) or f32 values; strides
@@ -528,11 +610,12 @@ extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
                                   long long kh, long long ks, long long vb,
                                   long long vh, long long vs, long long ob,
                                   long long oh, long long os, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || Sq <= 0 || Sk <= 0 ||
-      kv_len < 1 || kv_len > Sk || (Dh != 32 && Dh != 64 && !(Dh == 128 && is_bf16)))
+  if (!valid_shape(B, H, Sq, Sk, kv_len) ||
+      (Dh != 32 && Dh != 64 && !(Dh == 128 && is_bf16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale = 1.f / sqrtf((float)Dh);
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   cudaError_t e;
   if (Dh == 128) {
     CUtensorMap map_q, map_k, map_v;
@@ -545,10 +628,10 @@ extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
                                  scale * hp::kLog2e, ob, oh, os, s);
   }
   if (is_bf16) {
-    CUtensorMap map_q, map_k, map_v;
-    // three consumer warpgroups a block run a row ~9 % faster than two, in
-    // blocks of 192 rows instead of 128: take the form whose waves over the
-    // card's SMs cost less
+    // three consumer warpgroups a block run a row ~11 % faster than two
+    // (0.86-0.96 of two's time a row-wave, 0.89 in the mean, at 25 and 50 x
+    // 6 x 3,137 and 25 x 24 x 1,029 on an H100), in blocks of 192 rows
+    // instead of 128: take the form whose waves over the card's SMs cost less
     int sms = 0, device = 0;
     if ((e = cudaGetDevice(&device)) != cudaSuccess ||
         (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
@@ -557,21 +640,31 @@ extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
     auto waves = [&](int rows) {
       return (((long long)(Sq + rows - 1) / rows * H * B + sms - 1) / sms) * rows;
     };
-    const bool three = 0.91 * waves(192) < waves(128);
-    const int q_rows = three ? 192 : 128;
-    if ((e = hp::make_qkv_map(&map_q, q, B, H, Sq, qb, qh, qs, q_rows, Dh)) !=
-            cudaSuccess ||
-        (e = hp::make_qkv_map(&map_k, k, B, H, Sk, kb, kh, ks, kBK, Dh)) != cudaSuccess ||
-        (e = hp::make_qkv_map(&map_v, v, B, H, Sk, vb, vh, vs, kBK, Dh)) != cudaSuccess)
-      return (int)e;
-    const auto launch = three ? (Dh == 64 ? launch_bf16_form<3, 64> : launch_bf16_form<3, 32>)
-                              : (Dh == 64 ? launch_bf16_form<2, 64> : launch_bf16_form<2, 32>);
-    return (int)launch(map_q, map_k, map_v, static_cast<bf16*>(o), B, H, Sq, kv_len,
-                       scale * hp::kLog2e, ob, oh, os, s);
+    const int wg = 0.89 * waves(192) < waves(128) ? 3 : 2;
+    return (int)launch_bf16(q, k, v, o, B, H, Sq, Sk, kv_len, Dh, wg, scale * hp::kLog2e, st,
+                            s);
   }
-  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   return (int)(Dh == 64 ? launch_f32<64> : launch_f32<32>)(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), B, H, Sq, Sk, kv_len, scale,
       st, s);
+}
+
+// The bf16 core at Dh 64 or 32 in the form of `warpgroups` consumer
+// warpgroups a block (2 or 3) whatever the shape, for the card's checks and
+// the timing tools; arguments as tt_flash_attention's, all bf16.
+extern "C" int tt_flash_attention_form(const void* q, const void* k, const void* v, void* o,
+                                       int B, int H, int Sq, int Sk, int kv_len, int Dh,
+                                       int warpgroups, long long qb, long long qh,
+                                       long long qs, long long kb, long long kh,
+                                       long long ks, long long vb, long long vh,
+                                       long long vs, long long ob, long long oh,
+                                       long long os, void* stream) {
+  if (!valid_shape(B, H, Sq, Sk, kv_len) || (Dh != 32 && Dh != 64) ||
+      (warpgroups != 2 && warpgroups != 3))
+    return (int)cudaErrorInvalidValue;
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  return (int)launch_bf16(q, k, v, o, B, H, Sq, Sk, kv_len, Dh, warpgroups,
+                          1.f / sqrtf((float)Dh) * hp::kLog2e, st,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -33,6 +33,17 @@ _NEG = -1e30
 # other raises
 FLASH_HEAD_DIMS = (32, 64)
 FLASH_BF16_HEAD_DIMS = (32, 64, 128)
+KEY_TILE = 128      # keys a tile of the bf16 core (kBK)
+
+
+def key_tile_counts(B: int, H: int, kv_len: int) -> tuple[int, int]:
+    """The key tiles a launch of the bf16 core at heads of 32 or 64 walks,
+    counted once for each (batch, head): (those whose softmax runs while the
+    warpgroup's p @ v of the tile before is still in flight, all). Each
+    (batch, head)'s first tile has no product before it: (n - 1) / n of its
+    n tiles overlap, none where one tile holds every key."""
+    n = -(-kv_len // KEY_TILE)
+    return B * H * (n - 1), B * H * n
 
 
 def flash_attention_xla(q, k, v, kv_len: int | None = None):
@@ -141,5 +152,33 @@ def flash_attention(q, k, v, kv_len: int | None = None):
         "flash_d128" if Dh == 128 else "flash_attention", "tt_flash_attention", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), B, H, Sq, Sk, valid, Dh,
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    if q.dtype == torch.bfloat16 and Dh != 128:
+        overlapped, tiles = key_tile_counts(B, H, valid)
+        kernel_lib.WORK_COUNTS["flash_key_tiles_overlapped"] += overlapped
+        kernel_lib.WORK_COUNTS["flash_key_tiles"] += tiles
+    return out
+
+
+def flash_attention_form(q, k, v, kv_len: int | None = None, warpgroups: int = 3):
+    """The bf16 core at heads of 32 or 64 in the form of ``warpgroups``
+    consumer warpgroups a block (2: 128 query rows, 3: 192), whatever the
+    shape; ``flash_attention`` picks the form by the card's waves. For the
+    card's checks and the timing tools: it counts no launch and no tile."""
+    kernel_lib.require_no_grad("flash_attention_form", q, k, v)
+    kernel_lib.require_cuda("flash_attention_form", q, k, v)
+    B, H, Sq, Dh = q.shape
+    Sk = k.shape[2]
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or Dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention_form: bf16 heads of 32 or 64, got Dh={Dh} "
+                         f"in {q.dtype}")
+    if warpgroups not in (2, 3):
+        raise ValueError(f"flash_attention_form: 2 or 3 warpgroups, got {warpgroups}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    kernel_lib.launch(
+        None, "tt_flash_attention_form", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq, Sk,
+        Sk if kv_len is None else int(kv_len), Dh, warpgroups,
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     return out

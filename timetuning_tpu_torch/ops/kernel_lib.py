@@ -12,7 +12,8 @@ Nothing here runs at import: the CPU tests import every module, and neither
 ``nvcc`` nor a card is needed until a CUDA tensor reaches a kernel wrapper.
 
 Each kernel has a plain-integer launch count, raised by its wrapper once per
-launch, so a run can show that its main path went through the kernels.
+launch, so a run can show that its main path went through the kernels; a
+few counts of work inside launches (``WORK_COUNTS``) sit beside them.
 
 ``kernel_entry`` makes a wrapper's public function. Eagerly it calls the
 wrapper itself, or, where an input requires grad, the wrapper inside an
@@ -99,13 +100,40 @@ KERNELS = {
 }
 
 
+# Plain-integer counts of work inside launches, raised by a wrapper from a
+# launch's shape beside its launch count: the key tiles that the flash core
+# (K5/6) in bf16 at heads of 32 and 64 walks, once for each (batch, head),
+# and those of them whose softmax ran while a product was in flight
+# (``flash_attention.key_tile_counts``).
+WORK_COUNTS = {"flash_key_tiles": 0, "flash_key_tiles_overlapped": 0}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    for name in WORK_COUNTS:
+        WORK_COUNTS[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def counts() -> dict[str, int]:
+    """The launch counts and the work counts in one dict (what a
+    ``runtime.CapturedCall`` takes back out of a capture and adds on each
+    replay)."""
+    return {**launch_counts(), **WORK_COUNTS}
+
+
+def add_counts(delta: dict[str, int]) -> None:
+    """Raise the counts named in ``delta`` (keys as ``counts()``'s) by its
+    values."""
+    for name, n in delta.items():
+        if name in WORK_COUNTS:
+            WORK_COUNTS[name] += n
+        else:
+            KERNELS[name].launches += n
 
 
 def sm_count(device) -> int:
@@ -131,6 +159,7 @@ _SIGNATURES = {
     "tt_eval_preprocess": [_P, _P, _P, _I, _P, _P, _I] + [_F] * 6 + [_P]
     + [_I] * 8 + [_P],
     "tt_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
+    "tt_flash_attention_form": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
     "tt_ln_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tt_dense_residual": [_P] * 5 + [_I] * 4 + [_P],
     "tt_ln_wide_dense": [_P] * 7 + [_I] * 4 + [_P],

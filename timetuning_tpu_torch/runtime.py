@@ -71,10 +71,10 @@ class CapturedCall:
       ``CapturedCall``: the graphs of all its keys share one memory pool, so
       a replay of any of them may reuse another's output memory. A caller
       that keeps them longer clones them.
-    * Kernel launches (``ops/kernel_lib``'s counts, raised on the host when a
-      wrapper launches) are counted as eager calls count them: the counts a
-      capture raised are taken back out, kept with the graph, and added on
-      every replay.
+    * Kernel launches and the work counts beside them (``ops/kernel_lib``'s
+      ``counts()``, raised on the host when a wrapper launches) are counted
+      as eager calls count them: the counts a capture raised are taken back
+      out, kept with the graph, and added on every replay.
     * A capture that fails raises. Nothing falls back to the eager path.
     * While a profiler runs, each call is a span (``obs/profiling``):
       ``graph.eager``, ``graph.capture`` (then ``graph.replay``) on a key's
@@ -124,8 +124,7 @@ class CapturedCall:
             for s, i in zip(entry.static, where):
                 s.copy_(leaves[i], non_blocking=True)
             entry.graph.replay()
-            for name, n in entry.launches.items():
-                kernel_lib.KERNELS[name].launches += n
+            kernel_lib.add_counts(entry.launches)
         return entry.out
 
     def _eager(self, args, dev):
@@ -153,7 +152,7 @@ class CapturedCall:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = kernel_lib.launch_counts()
+        before = kernel_lib.counts()
         try:
             # on the warm-up call's stream; thread_local: the loader's threads
             # may call the CUDA runtime while the main thread captures
@@ -161,9 +160,8 @@ class CapturedCall:
                                   capture_error_mode="thread_local"):
                 out = self.fn(*pytree.tree_unflatten(leaves, spec))
         finally:
-            after = kernel_lib.launch_counts()
-            for name, n in before.items():
-                kernel_lib.KERNELS[name].launches = n
+            after = kernel_lib.counts()
+            kernel_lib.add_counts({name: n - after[name] for name, n in before.items()})
         entry.graph, entry.static, entry.out = graph, static, out
         entry.launches = {name: after[name] - n for name, n in before.items()
                           if after[name] != n}

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of the port's block kernels (K1, K2/K9, K7, K8) and of kernel
-10 at the main paths' shapes, for one or several copies of the kernel
-sources, in turns inside one process on one card.
+"""Device times of the port's block kernels (K1, K2/K9, K7, K8), of the
+flash core (K5/6) and of kernel 10 at the main paths' shapes, for one or
+several copies of the kernel sources, in turns inside one process on one
+card.
 
     python tools/time_block_kernels.py [--slices 1,2,3] [--host] [csrc_dir ...]
 
@@ -11,6 +12,14 @@ each is built and timed in the order given and then in the reverse order, so
 that two variants are compared on one card under one power limit. Times are
 CUDA events over 20 launches queued behind a device-side sleep
 (``card.cuda_ms``): device times, whatever the host does.
+
+The flash core (K5/6, bf16, heads of 64) on the strided views of a qkv
+buffer at the S/8 serving request (25 x 6 heads x 3,137 tokens), beside
+PyTorch's SDPA and the plain version, and at the eval group's 50 x 6 x 3,137
+and DINOv2 ViT-g's request (25 x 24 x 1,029): the form the card's waves pick
+and each form forced (2 consumer warpgroups a block, 3), with each form's
+waves (query rows a block times its waves of blocks over the SMs), what the
+host's rule weighs.
 
 The MLP branch (K2 / K9) is timed whole and as its two launches apart (fc1
 with the LayerNorm prologue and the GELU epilogue; fc2 with the residual).
@@ -238,6 +247,29 @@ def v3(dev, label):
               + "  ".join(f"{k[:60]} {n:g}x {t:.4f}" for k, (n, t) in by.items()), flush=True)
 
 
+FLASH_SHAPES = {"25x6x3137": (25, 6, 3137), "50x6x3137": (50, 6, 3137),
+                "25x24x1029": (25, 24, 1029)}
+
+
+def flash(dev, label):
+    F = torch.nn.functional
+    sms = kernel_lib.sm_count(dev)
+    for name, (B, H, S) in FLASH_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(2)     # the same inputs each call
+        q3 = torch.randn(B, S, 3, H, 64, device=dev, generator=gen).bfloat16()
+        q, k, v = (q3[:, :, j].permute(0, 2, 1, 3) for j in range(3))
+        row = {"kernel": card.cuda_ms(lambda: fa.flash_attention(q, k, v))}
+        for wg in (2, 3):
+            row[f"{wg} warpgroups"] = card.cuda_ms(
+                lambda wg=wg: fa.flash_attention_form(q, k, v, None, wg))
+        row["library"] = card.cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        if name == "25x6x3137":
+            row["plain"] = card.cuda_ms(lambda: fa.flash_attention_xla(q, k, v), reps=3)
+        waves = {rows: -(-(-(-S // rows) * B * H) // sms) * rows for rows in (128, 192)}
+        print(f"{label} flash {name} ms: " + "  ".join(f"{k} {t:.4f}" for k, t in row.items())
+              + f"  (waves x rows: 2 warpgroups {waves[128]}, 3 {waves[192]})", flush=True)
+
+
 def line(label, fns):
     print(f"{label}: " + "  ".join(f"{k} {card.cuda_ms(f):.4f}" for k, f in fns.items()),
           flush=True)
@@ -265,6 +297,7 @@ def main() -> int:
         kernel_lib.library()
         for name, (_, S) in SHAPES.items():
             line(f"{d.name} {name} ms", kernels(data[name], S))
+        flash(dev, d.name)
         if args.g14:
             g14(dev, d.name)
         if args.v3:
