@@ -14,15 +14,18 @@ set to 0 just before it and read just after, and must launch its kernels:
 * ``train, pallas route`` and ``train, cross-rank form``: one flagship step
   (``torch_dp_worker.flagship``, 32 clips) with ``attn_impl="pallas"`` (K10)
   and one on the data axis of a one-rank gloo group (K11's cross-rank form);
-* ``serve-s8-c25``, ``serve-g14reg-c25`` and ``serve-v3-7b16-c8``: the
-  cells' serving programs (their drivers' ``export_program``:
-  ``serve_export`` or ``serve_export_dinov3``; the seeded weights,
-  ``cli/export``, ``load_exported(graphed=True)``) on a clip of the cell's
-  traffic, called 3 times (eager, capture, replay).
+* ``serve-s8-c25``, ``serve-g14reg-c25``, ``serve-v3-7b16-c8`` and
+  ``serve-samh-c8``: the cells' serving programs (their drivers'
+  ``export_program``: ``serve_export``, ``serve_export_dinov3`` or
+  ``serve_export_sam``; the seeded weights, ``cli/export``,
+  ``load_exported(graphed=True)``) on a clip of the cell's traffic, called
+  3 times (eager, capture, replay).
 
 The first call of each kernel's wrapper outside a graph capture is recorded
 (its arguments copied), and after its path the wrapper is held against the
-plain version on those arguments; K3 reads lattice features of the same shape
+plain version on those arguments; the heads-of-80 core is recorded and held
+in each of its two forms (``flash_relpos`` in a windowed block,
+``flash_relpos.global`` in a global one); K3 reads lattice features of the same shape
 (every dot product exact, so no near-tie of the top-k), as its kernel test
 does. Beside it are printed the wrapper's device time, the plain version's,
 PyTorch's library calls for the same function where there are some
@@ -57,7 +60,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 import card  # noqa: E402
 import torch_dp_worker as worker  # noqa: E402
-from benchmark import counts, generate, harness  # noqa: E402
+from benchmark import counts, counts_sam, generate, harness  # noqa: E402
 from timetuning_tpu_torch.ops import attention as att  # noqa: E402
 from timetuning_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from timetuning_tpu_torch.ops import fused_block as fb  # noqa: E402
@@ -78,6 +81,8 @@ PATH_KERNELS = {
     "serve-g14reg-c25": ("preprocess", "ln_wide_dense", "dense_residual", "swiglu_mlp"),
     "serve-v3-7b16-c8": ("preprocess", "ln_rope_dense", "flash_d128", "dense_residual",
                          "swiglu_mlp"),
+    "serve-samh-c8": ("preprocess", "ln_window_dense", "ln_wide_dense", "flash_relpos",
+                      "dense_residual", "mlp_wide"),
 }
 
 # ----------------------------------------- the wrappers and their plain forms
@@ -130,6 +135,22 @@ def _lib_sdpa(q, k, v, kv_len=None):
     return None if kv_len not in (None, k.shape[2]) else F.scaled_dot_product_attention(q, k, v)
 
 
+def _lib_relpos(qkv, rel_h, rel_w, num_heads, grid, window):
+    """SDPA with SAM's decomposed bias as an additive mask, the [N, H, S, S]
+    bias made from the two tables' products; windows merged and cropped."""
+    N, S, E = qkv.shape
+    K, Dh = window or grid, E // 3 // num_heads
+    q, k, v = qkv.view(N, S, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
+    idx = fa.rel_index(K, qkv.device)
+    rq = q.reshape(N, num_heads, K, K, Dh)
+    bh = torch.einsum("nhyxc,ykc->nhyxk", rq, rel_h.to(q.dtype)[idx])
+    bw = torch.einsum("nhyxc,xkc->nhyxk", rq, rel_w.to(q.dtype)[idx])
+    bias = (bh[..., :, None] + bw[..., None, :]).reshape(N, num_heads, S, S)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias).transpose(1, 2)
+    o = o.reshape(N, S, E // 3)
+    return fa.grid_rows(o, grid, window) if window else o
+
+
 # wrapper name: (its module, plain version, library composition or None)
 WRAPPERS = {
     "attention_block_branch": (fb, fb.attention_block_xla, _lib_attention),
@@ -137,9 +158,13 @@ WRAPPERS = {
     "mlp_rows": (fb, fb.mlp_block_xla, _lib_mlp),
     "ln_dense_rows": (fb, fb.ln_dense_xla, lambda x, s, b, w, wb: _lin(_ln(x, s, b), w, wb)),
     "ln_rope_dense_rows": (fb, fb.ln_rope_dense_xla, _lib_ln_rope_dense),
+    "ln_window_dense_rows": (fb, fb.ln_window_dense_xla,
+                             lambda x, s, b, w, wb, grid, window: _lin(
+                                 fa.window_rows(_ln(x, s, b), grid, window), w, wb)),
     "swiglu_rows": (fb, fb.swiglu_block_xla, _lib_swiglu),
     "dense_residual_rows": (fb, fb.dense_residual_xla, lambda y, x, w, b: x + _lin(y, w, b)),
     "flash_attention": (fa, lambda *a: att._heads_view(fa.flash_attention_xla(*a)), _lib_sdpa),
+    "relpos_attention": (fa, fa.relpos_attention_xla, _lib_relpos),
     "attention_mha": (att, lambda *a: att._heads_view(att.attention_mha_plain(*a)), _lib_sdpa),
     "eval_preprocess_cuda": (pc, lambda *a: pc.eval_preprocess_plain(*a).contiguous(), None),
     "propagate_labels_batch_cuda": (prc, prc.propagate_labels_batch_plain, None),
@@ -149,6 +174,7 @@ WRAPPERS = {
 }
 
 # kernel: (atol, rtol, why) of got against want (K3 and K11's forms: below)
+ATTN_KERNELS = ("flash_attention", "flash_d128", "mha", "flash_relpos")
 BLOCK_TOL = (3e-2, 3e-2, "bf16 rounding at O(1)")
 ATTN_TOL = {torch.bfloat16: (4e-3, 1e-2, "one bf16 ulp of the output"),
             torch.float32: (1e-5, 1e-4, "f32 sums in another order")}
@@ -160,15 +186,25 @@ SEEN: dict = {}          # kernel: (wrapper name, wrapper, positional args)
 RESULTS: dict = {}
 
 
+def _form(name: str, kernel: str, args) -> str:
+    """The key a launch is recorded under: the kernel's name, and for the
+    heads-of-80 core in a global block (``window`` 0) a form of its own."""
+    return f"{kernel}.global" if name == "relpos_attention" and args[-1] == 0 else kernel
+
+
 def _record(name, wrapper, *args, **kwargs):
     """The wrapper, with its arguments copied (all positional) on the first
-    eager launch of each kernel it makes."""
+    eager launch of each kernel (or form, ``_form``) it makes."""
     before = kernel_lib.launch_counts()
     out = wrapper(*args, **kwargs)
-    new = [k for k, v in kernel_lib.launch_counts().items() if v > before[k] and k not in SEEN]
-    if new and not torch.cuda.is_current_stream_capturing():
-        bound = inspect.signature(wrapper).bind(*args, **kwargs)
-        bound.apply_defaults()
+    if torch.cuda.is_current_stream_capturing():
+        return out
+    bound = inspect.signature(wrapper).bind(*args, **kwargs)
+    bound.apply_defaults()
+    new = [_form(name, k, bound.args) for k, v in kernel_lib.launch_counts().items()
+           if v > before[k]]
+    new = [k for k in new if k not in SEEN]
+    if new:
         rec = (name, wrapper, [a.detach().clone() if torch.is_tensor(a) else a
                                for a in bound.args])
         SEEN.update({k: rec for k in new})
@@ -197,8 +233,15 @@ def _bytes(*ts) -> int:
 
 def _flops(kernel, args) -> float:
     """Operations of one call: each weight's product with the rows, the
-    attention's two products; K3 its affinities and top-k (counts)."""
+    attention's two products (the heads-of-80 core's: the grid's queries
+    against their window's keys and the two bias products, as
+    ``counts_sam.attn_least_s``); K3 its affinities and top-k (counts)."""
     ts = [a for a in args if torch.is_tensor(a)]
+    if kernel == "flash_relpos":
+        (N, S, E), grid, window = ts[0].shape, args[-2], args[-1]
+        K = window or grid
+        frames = N // ((-(-grid // window)) ** 2 if window else 1)
+        return counts_sam.attn_flops(frames * grid * grid, K * K, K, E // 3)
     if kernel == "propagation":
         (B, T, N, D), K = ts[0].shape, ts[1].shape[1]
         return counts.propagation_flops(B, T, N, D, K, *args[2:5])
@@ -215,10 +258,11 @@ def _flops(kernel, args) -> float:
     return f
 
 
-def hold(kernel: str) -> None:
-    """The kernel's wrapper against its plain version on the recorded
-    arguments; times and bound into ``RESULTS``."""
-    name, wrapper, args = SEEN[kernel]
+def hold(form: str) -> None:
+    """The kernel's wrapper against its plain version on the arguments
+    recorded for ``form``; times and bound into ``RESULTS``."""
+    name, wrapper, args = SEEN[form]
+    kernel = form.split(".")[0]
     _, plain, lib = WRAPPERS[name]
     if kernel == "propagation":     # lattice features of the recorded shape
         f = args[0]
@@ -233,7 +277,7 @@ def hold(kernel: str) -> None:
         ok = close == 1.0 and agree >= 0.999
         tol = f"rtol=1e-4 atol=1e-5 on every value ({close:.6f}), argmax >= 99.9% ({agree:.6f})"
     else:
-        if kernel in ("flash_attention", "flash_d128", "mha"):
+        if kernel in ATTN_KERNELS:
             atol, rtol, why = ATTN_TOL[got.dtype]
         else:
             atol, rtol, why = TOL.get(kernel, BLOCK_TOL)
@@ -247,14 +291,14 @@ def hold(kernel: str) -> None:
     kind = "bf16" if torch.bfloat16 in (got.dtype, args[0].dtype) else "f32"
     bound_ms = 1e3 * counts.least_s(_flops(kernel, args), _bytes(*args, got), kind)
     shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
-    RESULTS[kernel] = {"wrapper": name, "shapes": shapes, "max_abs_err": err, "ms": ms,
+    RESULTS[form] = {"wrapper": name, "shapes": shapes, "max_abs_err": err, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": lib_ms}
     lib_s = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    print(f"kernel {kernel} ({name} {shapes[0]}): max_abs_err={err:.3e} gate {tol}: "
+    print(f"kernel {form} ({name} {shapes[0]}): max_abs_err={err:.3e} gate {tol}: "
           f"{'ok' if ok else 'FAILED'} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library {lib_s}, least {bound_ms:.4f} ms", flush=True)
     if not ok:
-        raise AssertionError(f"{kernel}: the kernel disagrees with its plain version")
+        raise AssertionError(f"{form}: the kernel disagrees with its plain version")
 
 
 def run_path(path: str, fn, totals: dict) -> None:
@@ -273,8 +317,8 @@ def run_path(path: str, fn, totals: dict) -> None:
         raise AssertionError(f"{path}: kernels not launched: {missing}")
     for k, v in launched.items():
         totals[k] = totals.get(k, 0) + v
-    for k in kernel_lib.KERNELS:
-        if k in SEEN and k not in seen:
+    for k in list(SEEN):
+        if k not in seen:
             hold(k)
 
 
@@ -299,13 +343,16 @@ def train_step(dev, **kw) -> None:
 
 
 def serve(dev, work: str, cell_name: str) -> None:
-    from benchmark.drivers import serve_export, serve_export_dinov3
-    from benchmark.reference import dinov2, dinov3, vit
+    from benchmark.drivers import serve_export, serve_export_dinov3, serve_export_sam
+    from benchmark.reference import dinov2, dinov3, sam, vit
 
     cell = harness.load_cell(ROOT, cell_name)
     cfg, tr = cell.config, cell.traffic
     export_program = serve_export.export_program
-    if "n_storage_tokens" in cfg:
+    if "global_attn_indexes" in cfg:
+        ref, shape = sam, sam.SamShape.of(cfg)
+        export_program = serve_export_sam.export_program
+    elif "n_storage_tokens" in cfg:
         ref, shape = dinov3, dinov3.DinoV3Shape.of(cfg)
         export_program = serve_export_dinov3.export_program
     elif "n_registers" in cfg:
@@ -340,7 +387,8 @@ def main() -> int:
              ("train, pallas route", lambda: train_step(dev, attn_impl="pallas")),
              ("serve-s8-c25", lambda: serve(dev, work, "serve-s8-c25")),
              ("serve-g14reg-c25", lambda: serve(dev, work, "serve-g14reg-c25")),
-             ("serve-v3-7b16-c8", lambda: serve(dev, work, "serve-v3-7b16-c8")))
+             ("serve-v3-7b16-c8", lambda: serve(dev, work, "serve-v3-7b16-c8")),
+             ("serve-samh-c8", lambda: serve(dev, work, "serve-samh-c8")))
     for path, fn in paths:
         run_path(path, fn, totals)
         torch.cuda.empty_cache()
@@ -356,9 +404,10 @@ def main() -> int:
         "jax", "jaxlib", "flax", "optax", "timetuning_tpu"))
     if loaded:
         raise AssertionError(f"modules of JAX or of the JAX package were imported: {loaded}")
-    line = {"kernels": [{"name": n, "source": k.source, "replaces": k.replaces,
-                         "launches": totals.get(n, 0), **RESULTS[n]}
-                        for n, k in kernel_lib.KERNELS.items()]}
+    line = {"kernels": [{"name": form, "source": k.source, "replaces": k.replaces,
+                         "launches": totals.get(n, 0), **RESULTS[form]}
+                        for n, k in kernel_lib.KERNELS.items()
+                        for form in RESULTS if form.split(".")[0] == n]}
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(line, indent=1))
     print(json.dumps(line))

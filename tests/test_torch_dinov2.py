@@ -205,7 +205,7 @@ def test_wide_blocks_take_the_row_kernels_at_any_token_count(monkeypatch):
     """A bf16 block wider than the tile's LayerNorm prologue holds (D 1,152
     > 1,024) at 10 tokens routes to the row kernels (never K1/K2, which
     raise at that width), its SwiGLU MLP to ``swiglu_rows``; a GELU MLP that
-    wide, which no kernel takes, raises at the route before any branch."""
+    wide to ``mlp_rows`` (its wide route: SAM ViT-H's MLP), never K2."""
     routes = []
     for name in ("attention_block_branch", "attention_block_branch_flash",
                  "mlp_block_branch", "mlp_rows", "swiglu_rows"):
@@ -219,9 +219,11 @@ def test_wide_blocks_take_the_row_kernels_at_any_token_count(monkeypatch):
     assert y.shape == x.shape and y.dtype == torch.bfloat16
     assert routes == ["attention_block_branch_flash", "swiglu_rows"]
     gelu = vit.Block(1152, 18, 4.0, dtype=torch.bfloat16, layerscale=True, ffn="mlp")
-    with torch.no_grad(), pytest.raises(ValueError, match="GELU MLP at D 1152"):
-        gelu(x)
-    assert routes == ["attention_block_branch_flash", "swiglu_rows"]
+    with torch.no_grad():
+        y, _ = gelu(x)
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    assert routes == ["attention_block_branch_flash", "swiglu_rows",
+                      "attention_block_branch_flash", "mlp_rows"]
 
 
 def test_layerscale_fold_matches_the_scaled_branch():

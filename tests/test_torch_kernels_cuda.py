@@ -1109,11 +1109,23 @@ def test_each_wrapper_counts_its_launches(dev):
     fb.ln_rope_dense_rows(xr, torch.ones(256, device=dev), torch.zeros(256, device=dev),
                           torch.randn(256, 768, device=dev).bfloat16(), None, cos, sin, 2, 5)
     fa.flash_attention(*(torch.randn(1, 2, 9, 128, device=dev).bfloat16() for _ in range(3)))
+    # SAM's: LN1 + qkv into window order (a 7 x 7 grid in windows of 3), the
+    # heads-of-80 core with the bias over its 9 windows, the GELU MLP past D 1,024
+    xs = torch.randn(1, 49, 128, device=dev).bfloat16()
+    fb.ln_window_dense_rows(xs, torch.ones(128, device=dev), torch.zeros(128, device=dev),
+                            torch.randn(128, 192, device=dev).bfloat16(), None, 7, 3)
+    rel = torch.zeros(5, 80, device=dev).bfloat16()
+    fa.relpos_attention(torch.randn(9, 9, 480, device=dev).bfloat16(), rel, rel, 2, 7, 3)
+    xm = torch.randn(1, 10, 1088, device=dev).bfloat16()
+    fb.mlp_rows(xm, torch.ones(1088, device=dev), torch.zeros(1088, device=dev),
+                torch.randn(1088, 128, device=dev).bfloat16(), None,
+                torch.randn(128, 1088, device=dev).bfloat16(), None)
     assert kernel_lib.launch_counts() == {
         "attention_block": 1, "mlp_block": 1, "propagation": 1, "preprocess": 1,
         "flash_attention": 2, "ln_dense": 1, "dense_residual": 1, "mlp_rows": 1,
         "mha": 2, "sinkhorn": 3, "sinkhorn_dp": 3, "ln_wide_dense": 1, "swiglu_mlp": 1,
-        "ln_rope_dense": 1, "flash_d128": 1}
+        "ln_rope_dense": 1, "flash_d128": 1, "ln_window_dense": 1, "flash_relpos": 1,
+        "mlp_wide": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

@@ -203,11 +203,13 @@ class FeatureForward(nn.Module):
         self.dtype = dtype
         self.drop_cls = backbone.drop_cls
         self.tokens = tokens
+        self.norm_std = getattr(backbone, "norm_std", None)
 
     def forward(self, frames_u8):
-        from timetuning_tpu_torch.data.transforms import eval_preprocess_batch
+        from timetuning_tpu_torch.data.transforms import REFERENCE_STD, eval_preprocess_batch
 
         x = eval_preprocess_batch(frames_u8, out_size=self.input_resolution,
+                                  std=self.norm_std or REFERENCE_STD,
                                   compute_dtype=self.dtype)
         tokens = self.backbone(x)["tokens"] if self.tokens is None else self.tokens(x)
         return tokens[:, 1:] if self.drop_cls else tokens
@@ -271,7 +273,8 @@ def export_features(architecture: str, model_path: str | None,
     MoE ViT (``upcycled_moe_backbone``). ``depth``: a ViT's first ``depth``
     blocks and its final norm (``get_backbone``'s). A RoPE ViT's tables of
     the input's grid are made once here (span ``export.rope_table``) and
-    are buffers of the program.
+    are buffers of the program. A backbone with its own pixel std (SAM's)
+    is normalised with it.
 
     One device: the mesh is None. A mesh (any of the parallel flags > 1) is
     a COLLECTIVE over the process group (module docstring): the mesh is an

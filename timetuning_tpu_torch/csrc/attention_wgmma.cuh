@@ -652,6 +652,36 @@ inline cudaError_t make_qkv_map(CUtensorMap* map, const void* base, int B, int H
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A tensor map over a [B, H, S, head_dim] bf16 view as make_qkv_map's whose
+// box is [box_rows, box_cols] of one (batch, head): box_cols 64 128-byte
+// swizzled (head_desc<64>'s layout), 32 64-byte swizzled (head_desc<32>'s).
+// A box that starts at a head feature col (tma_load_at) reads the features
+// col .. col + box_cols - 1; those past head_dim arrive as zeros. Heads of
+// 80 (SAM ViT-H) are two such panels: features 0-63 and 64-95.
+inline cudaError_t make_head_map(CUtensorMap* map, const void* base, int B, int H, int S,
+                                 long long sb, long long sh, long long ss, int box_rows,
+                                 int head_dim, int box_cols) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (box_rows < 1 || box_rows > 256 || ss <= 0 || (H > 1 && sh <= 0) ||
+      (B > 1 && sb <= 0) || head_dim < 8 || head_dim % 8 != 0 ||
+      (box_cols != 64 && box_cols != 32))
+    return cudaErrorInvalidValue;
+  const cuuint64_t row = static_cast<cuuint64_t>(ss) * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, H > 1 ? (cuuint64_t)sh * 2 : row,
+                                 B > 1 ? (cuuint64_t)sb * 2 : row};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A tensor map over a row-major [rows, cols] bf16 matrix (cols a multiple of
 // 8, the base 16-byte aligned) whose box is [box_rows, 64 columns], 128-byte
 // swizzled: a load zero-fills what lies past the matrix, a store skips it.

@@ -6,7 +6,9 @@
 // features contiguous), so the views that a qkv projection gives are read
 // in place and the output is written straight into the merged [B, S, H*Dh]
 // layout. The TPU kernels pad any Dh to 128 lanes (flash_attention.py:109,
-// :221); here Dh is a template parameter of both forms.
+// :221); here Dh is a template parameter of both forms. Heads of 128 (DINOv3)
+// and SAM's heads of 80 with its relative-position bias have bf16 forms of
+// their own, below.
 //
 // Replaces both TPU kernels of timetuning_tpu/ops/flash_attention.py:
 // _flash_kernel (:47, K/V of one head resident in VMEM, the key loop inside
@@ -439,6 +441,366 @@ flash_bf16_d128_kernel(const __grid_constant__ CUtensorMap map_q,
   hp::store_rows(hi, l0, l1, dst + 64, os, r0, Sq, lane);
 }
 
+// ------------------------------------------- bf16, Dh 80, rel-pos bias --
+// SAM ViT-H's heads of 80 with its decomposed relative-position bias: each
+// sequence is a K x K grid of tokens in raster order (a 14 x 14 window of a
+// windowed block, the whole 64 x 64 grid of a global one), and the score of
+// query (qh, qw) against key (kh, kw) is
+//   (q scale) . k + q . Rh[qh - kh + K - 1] + q . Rw[qw - kw + K - 1]
+// with the unscaled q. The two bias terms are tables of the query and one
+// key coordinate: T[r, kh] and T[r, K + kw], [S, 2 K] a (sequence, head),
+// made before the core by relpos_table_kernel (times log2 e) and added to
+// each score in the core's log2 units, s = fma(q . k, scale log2 e, T[r, kh]
+// + T[r, K + kw]), before the row's max: no [S, S] bias is ever made.
+//
+// A row of 80 bf16 (160 bytes) is wider than one 128-byte swizzle atom, so
+// q, K and V tiles are held as two panels, each from its own TMA box: head
+// features 0-63 in 128-byte rows (128-byte swizzle, the heads-of-64
+// layout) and 64-95 in 64-byte rows (64-byte swizzle, the heads-of-32
+// layout), whose features 80-95 lie past the head and arrive as zeros. q k^T
+// is m64n128k16 over five k16 steps: four on the first panel, the first of
+// the second's two (features 64-79; the zeros are not multiplied); p v is
+// m64n64k16 on the first panel and m64n32k16 on the second, whose columns
+// 16-31 (the zero features) are never stored: a sixth of p v's products is
+// padding. Two consumer warpgroups (128 query rows) as the heads-of-128
+// form, without its overlap of softmax and products; three stages of K and
+// V at 48 KB a stage.
+//
+// One launch covers every sequence and head of a block. A window's 196
+// queries take two blocks of 128 rows (the second 68 real rows: 60 of its
+// 256 query rows, 23 %, are padding in q k^T and p v) and its 196 keys two
+// tiles (128 + 68, the ragged tile masked after the bias); SAM masks no key
+// of a window, the padded positions among them (their q, k and v are the qkv
+// bias). A global block's 4,096 queries take 32 blocks and its keys 32
+// tiles. Outputs go straight to the merged [frames, G * G, H * 80] rows of
+// the grid: a window's query (i, j) of window (wy, wx) of frame f to grid
+// row (14 wy + i) * G + 14 wx + j, the rows past the grid (the padding)
+// written nowhere: the crop. At K = 64 (the global grid) a 128-key tile is
+// two grid rows, so a lane's key columns (kw) are the same in every tile and
+// their T values sit in registers; the windows' tiles cut grid rows
+// anywhere and each score reads its two table values (L1).
+struct FlashBlock80 {
+  static constexpr int kWG = 2;
+  static constexpr int kRows = 64 * kWG;               // q rows of a block
+  static constexpr int kPanelA = kBK * 128;            // a K or V tile's features 0-63
+  static constexpr int kPanelB = kBK * 64;             // and 64-95
+  static constexpr int kTileBytes = kPanelA + kPanelB;
+  static constexpr int kQA = kRows * 128;
+  static constexpr int kQBytes = kQA + kRows * 64;
+  static constexpr int kStages = 3;
+  static constexpr int kConsumerWarps = 4 * kWG;
+  static constexpr int kThreads = (kWG + 1) * 128;
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
+  static_assert(kQA % 1024 == 0 && kPanelA % 1024 == 0 && kTileBytes % 1024 == 0,
+                "swizzled panels start on 1,024-byte boundaries");
+};
+
+// Where the core's output row r of sequence n goes (elements from o; the
+// head's offset apart), or -1: a global sequence is one frame's grid in
+// raster order; a windowed one is window n % (nw * nw) of frame n / (nw *
+// nw), nw = ceil(grid / window), and its rows past the grid are the padding.
+struct RelposOut {
+  int grid;
+  int window;      // 0: global
+  long long ob, os;
+
+  __device__ __forceinline__ long long row(int n, int r, int S) const {
+    if (r >= S) return -1;
+    if (window == 0) return n * ob + r * os;
+    const int nw = (grid + window - 1) / window;
+    const int f = n / (nw * nw), w = n - f * nw * nw;
+    const int y = (w / nw) * window + r / window, x = (w % nw) * window + r % window;
+    if (y >= grid || x >= grid) return -1;
+    return f * ob + ((long long)y * grid + x) * os;
+  }
+};
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// T[n, h, r, :] (f32 [S, 2 K], times log2 e) for every row r of every
+// (sequence n, head h): T[r, kh] = q_r . Rh[qh - kh + K - 1] and T[r, K + kw] =
+// q_r . Rw[qw - kw + K - 1], (qh, qw) = (r / K, r % K), q_r the unscaled bf16
+// query, Rh and Rw bf16 [2 K - 1, 80]. A warp takes 16 rows: all of a row's
+// 2 (2 K - 1) products q_r . R[i] on mma.sync m16n8k16 (f32 accumulation),
+// each of which is the one T entry it lands on, or none, written into the
+// block's tile in shared memory; a block of four warps takes 64 rows of one
+// (sequence, head), whose [64, 2 K] tile is contiguous in T and leaves in
+// 16-byte stores.
+__global__ void __launch_bounds__(128)
+relpos_table_kernel(const bf16* __restrict__ q, long long qb, long long qh, long long qs,
+                    const bf16* __restrict__ rh, const bf16* __restrict__ rw,
+                    float* __restrict__ T, int H, int S, int K) {
+  extern __shared__ float tile[];      // [64, 2 K]
+  const int n = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b0 = blockIdx.x * 64;
+  const int r0 = b0 + warp * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = r0 + g, rb = ra + 8;
+  const bf16* qp = q + n * qb + h * qh;
+  uint32_t a[5][4];
+#pragma unroll
+  for (int ks = 0; ks < 5; ++ks) {
+    const int c = ks * 16 + 2 * t;
+    a[ks][0] = ra < S ? ld_u32(qp + ra * qs + c) : 0u;
+    a[ks][1] = rb < S ? ld_u32(qp + rb * qs + c) : 0u;
+    a[ks][2] = ra < S ? ld_u32(qp + ra * qs + c + 8) : 0u;
+    a[ks][3] = rb < S ? ld_u32(qp + rb * qs + c + 8) : 0u;
+  }
+  const int n_idx = 2 * K - 1, w2 = 2 * K;
+#pragma unroll 1
+  for (int tab = 0; tab < 2; ++tab) {
+    const bf16* R = tab ? rw : rh;
+#pragma unroll 1
+    for (int i0 = 0; i0 < n_idx; i0 += 8) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      const int ib = i0 + g;
+#pragma unroll
+      for (int ks = 0; ks < 5; ++ks) {
+        const uint32_t b0_ = ib < n_idx ? ld_u32(R + ib * 80 + ks * 16 + 2 * t) : 0u;
+        const uint32_t b1_ = ib < n_idx ? ld_u32(R + ib * 80 + ks * 16 + 8 + 2 * t) : 0u;
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+            : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+            : "r"(a[ks][0]), "r"(a[ks][1]), "r"(a[ks][2]), "r"(a[ks][3]), "r"(b0_),
+              "r"(b1_));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e < 2 ? ra : rb;
+        const int i = i0 + 2 * t + (e & 1);
+        if (i >= n_idx) continue;
+        const int k = (tab ? r % K : r / K) + K - 1 - i;
+        if (k >= 0 && k < K) tile[(r - b0) * w2 + tab * K + k] = c[e] * hp::kLog2e;
+      }
+    }
+  }
+  __syncthreads();
+  // the block's rows of T are one contiguous run: 16-byte stores (2 K is
+  // even, and a multiple of 4 at K 14 and 64)
+  const int rows = min(64, S - b0);
+  float* out = T + (((long long)n * H + h) * S + b0) * w2;
+  if (w2 % 4 == 0) {
+    for (int j = threadIdx.x; j < rows * w2 / 4; j += 128)
+      reinterpret_cast<float4*>(out)[j] = reinterpret_cast<const float4*>(tile)[j];
+  } else {
+    for (int j = threadIdx.x; j < rows * w2; j += 128) out[j] = tile[j];
+  }
+}
+
+// kSide: 64 where a sequence is a 64 x 64 grid (a 128-key tile is two grid
+// rows), 0 for any side K (the tables' columns found a score at a time)
+template <int kSide>
+__global__ void __launch_bounds__(FlashBlock80::kThreads, 1)
+flash_relpos_kernel(const __grid_constant__ CUtensorMap map_qa,
+                    const __grid_constant__ CUtensorMap map_qb,
+                    const __grid_constant__ CUtensorMap map_ka,
+                    const __grid_constant__ CUtensorMap map_kb,
+                    const __grid_constant__ CUtensorMap map_va,
+                    const __grid_constant__ CUtensorMap map_vb, const float* __restrict__ T,
+                    bf16* __restrict__ o, int H, int S, int K, float scale_log2, long long oh,
+                    const RelposOut dst) {
+  using Blk = FlashBlock80;
+  constexpr int kStages = Blk::kStages;
+  constexpr int kTileBytes = Blk::kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                       // features 0-63, then 64-95
+  const uint32_t kv_s = base + Blk::kQBytes;       // stage s: K's two panels, then V's
+  const uint32_t bar_q = base + Blk::kBarOffset;
+  const uint32_t bar_full = bar_q + 8;             // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+
+  const int n = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * Blk::kRows;
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31;
+  const int n_tiles = (S + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    hp::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(bar_full + 8 * s, 1);
+      hp::mbar_init(bar_empty + 8 * s, Blk::kConsumerWarps);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= Blk::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (warp == Blk::kConsumerWarps && lane == 0) {
+      hp::mbar_arrive_expect_tx(bar_q, Blk::kQBytes);
+      hp::tma_load_at(q_s, &map_qa, bar_q, 0, q0, h, n);
+      hp::tma_load_at(q_s + Blk::kQA, &map_qb, bar_q, 64, q0, h, n);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t round = (it / kStages) & 1;
+        hp::mbar_wait(bar_empty + 8 * s, round ^ 1);
+        hp::mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kTileBytes);
+        const uint32_t st = kv_s + s * 2 * kTileBytes;
+        hp::tma_load_at(st, &map_ka, bar_full + 8 * s, 0, it * kBK, h, n);
+        hp::tma_load_at(st + Blk::kPanelA, &map_kb, bar_full + 8 * s, 64, it * kBK, h, n);
+        hp::tma_load_at(st + kTileBytes, &map_va, bar_full + 8 * s, 0, it * kBK, h, n);
+        hp::tma_load_at(st + kTileBytes + Blk::kPanelA, &map_vb, bar_full + 8 * s, 64,
+                        it * kBK, h, n);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int wg = warp >> 2;
+  const int r0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);   // and r0 + 8
+  const uint32_t q_a = q_s + wg * 64 * 128;
+  const uint32_t q_b = q_s + Blk::kQA + wg * 64 * 64;
+  // this lane's two rows of the tables (rows past S read the last: never stored)
+  const float* ta = T + (((long long)n * H + h) * S + min(r0, S - 1)) * 2 * K;
+  const float* tb = T + (((long long)n * H + h) * S + min(r0 + 8, S - 1)) * 2 * K;
+  float wa[16], wb[16];                // K = 64: T[r, K + kw] of this lane's columns
+  if constexpr (kSide == 64) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      wa[2 * j] = ta[64 + c], wa[2 * j + 1] = ta[64 + c + 1];
+      wb[2 * j] = tb[64 + c], wb[2 * j + 1] = tb[64 + c + 1];
+    }
+  }
+  const float inv_k = 1.f / K;
+  float oa[32], ob[16];                // output features 0-63 and 64-95
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ob[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg;
+  float l0 = 0.f, l1 = 0.f;
+
+  hp::mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const uint32_t k_s = kv_s + s * 2 * kTileBytes;
+    const uint32_t v_s = k_s + kTileBytes;
+    hp::mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+
+    float sc[kBK / 2];
+    hp::pin(sc);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hp::wgmma_ss(sc, hp::smem_desc(q_a) + kk * hp::kDescKStep,
+                   hp::smem_desc(k_s) + kk * hp::kDescKStep, kk > 0);
+    hp::wgmma_ss(sc, hp::head_desc<32>(q_b), hp::head_desc<32>(k_s + Blk::kPanelA), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::pin(sc);
+
+    // the bias, in log2 units, then the scaled score
+    if constexpr (kSide == 64) {
+      const float ha0 = ta[2 * it], ha1 = ta[2 * it + 1];
+      const float hb0 = tb[2 * it], hb1 = tb[2 * it + 1];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int w = 2 * (j & 7);
+        const float ha = j < 8 ? ha0 : ha1, hb = j < 8 ? hb0 : hb1;
+        sc[4 * j] = fmaf(sc[4 * j], scale_log2, ha + wa[w]);
+        sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale_log2, ha + wa[w + 1]);
+        sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale_log2, hb + wb[w]);
+        sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale_log2, hb + wb[w + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = it * kBK + 8 * j + 2 * (lane & 3) + e;
+          const int kh = min(__float2int_rd((key + 0.5f) * inv_k), K - 1);
+          const int kw = min(max(key - kh * K, 0), K - 1);
+          sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2, ta[kh] + ta[K + kw]);
+          sc[4 * j + 2 + e] = fmaf(sc[4 * j + 2 + e], scale_log2, tb[kh] + tb[K + kw]);
+        }
+      }
+    }
+    if (it == n_tiles - 1 && S % kBK != 0) hp::mask_keys(sc, it * kBK, S, lane);
+
+    float mx0, mx1, sum0, sum1;
+    hp::row_max(sc, mx0, mx1);
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float corr0 = hp::fast_exp2(m0 - mn0), corr1 = hp::fast_exp2(m1 - mn1);
+    hp::exp_rows(sc, 1.f, mn0, mn1, sum0, sum1);
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+    rescale_rows(oa, corr0, corr1);
+    rescale_rows(ob, corr0, corr1);
+    uint32_t pa[kBK / 4];
+    hp::pack_rows(sc, 1.f, 1.f, pa);
+    const uint64_t va = hp::smem_desc(v_s), vb = hp::head_desc<32>(v_s + Blk::kPanelA);
+    hp::pin(pa);
+    hp::pin(oa);
+    hp::pin(ob);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      hp::wgmma_rs(oa, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   va + kk * hp::kDescRowStep, 1);
+      hp::wgmma_rs(ob, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   vb + kk * hp::head_row_step<32>(), 1);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::pin(oa);
+    hp::pin(ob);
+    hp::pin(pa);
+    if (lane == 0) hp::mbar_arrive(bar_empty + 8 * s);
+  }
+
+  l0 = fmaxf(hp::quad_sum(l0), 1e-20f);
+  l1 = fmaxf(hp::quad_sum(l1), 1e-20f);
+  const long long da = dst.row(n, r0, S), db = dst.row(n, r0 + 8, S);
+  bf16* oh_ = o + h * oh;
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (da >= 0)
+      *reinterpret_cast<uint32_t*>(oh_ + da + 8 * j + c0) =
+          hp::pack_bf16(oa[4 * j] / l0, oa[4 * j + 1] / l0);
+    if (db >= 0)
+      *reinterpret_cast<uint32_t*>(oh_ + db + 8 * j + c0) =
+          hp::pack_bf16(oa[4 * j + 2] / l1, oa[4 * j + 3] / l1);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (da >= 0)
+      *reinterpret_cast<uint32_t*>(oh_ + da + 64 + 8 * j + c0) =
+          hp::pack_bf16(ob[4 * j] / l0, ob[4 * j + 1] / l0);
+    if (db >= 0)
+      *reinterpret_cast<uint32_t*>(oh_ + db + 64 + 8 * j + c0) =
+          hp::pack_bf16(ob[4 * j + 2] / l1, ob[4 * j + 3] / l1);
+  }
+}
+
+template <int kSide>
+cudaError_t launch_relpos(const CUtensorMap (&m)[6], const float* T, bf16* o, int N, int H,
+                          int S, int K, float scale_log2, long long oh, const RelposOut& dst,
+                          cudaStream_t s) {
+  using Blk = FlashBlock80;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_relpos_kernel<kSide>, cudaFuncAttributeMaxDynamicSharedMemorySize, Blk::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + Blk::kRows - 1) / Blk::kRows, H, N);
+  flash_relpos_kernel<kSide><<<grid, Blk::kThreads, Blk::kSmem, s>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], T, o, H, S, K, scale_log2, oh, dst);
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------- f32 --
 namespace f32 = tt::f32attn;
 template <int Dh>
@@ -648,6 +1010,49 @@ extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), B, H, Sq, Sk, kv_len, scale,
       st, s);
+}
+
+// SAM's attention with the decomposed relative-position bias at heads of 80,
+// bf16 (flash_relpos_kernel): q, k, v [N, H, S, 80] strided views (the
+// qkv rows of N sequences of S = K * K tokens), rh, rw the block's bf16
+// tables [2 K - 1, 80], `tables` an f32 scratch [N, H, S, 2 K], o the
+// merged output rows [frames, grid * grid, H * 80] with strides ob (a frame)
+// and os (a row), oh (a head: 80). window 0: each sequence is a frame's grid
+// (K = grid); else K = window and the sequences are the windows of the grid
+// padded to a multiple of the window, frame by frame, their padded rows not
+// written. K <= 64 (a table block's [64, 2 K] f32 tile in shared memory).
+// Two launches: the tables, then the core.
+extern "C" int tt_flash_relpos(const void* q, const void* k, const void* v, const void* rh,
+                               const void* rw, float* tables, void* o, int N, int H, int S,
+                               int K, int grid, int window, long long qb, long long qh,
+                               long long qs, long long kb, long long kh, long long ks,
+                               long long vb, long long vh, long long vs, long long ob,
+                               long long oh, long long os, void* stream) {
+  if (!valid_shape(N, H, S, S, S) || K < 1 || K > 64 || S != K * K || grid < 1 ||
+      (window == 0 ? K != grid : (K != window || window > grid)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 tgrid((S + 63) / 64, H, N);
+  relpos_table_kernel<<<tgrid, 128, 64 * 2 * K * sizeof(float), s>>>(
+      static_cast<const bf16*>(q), qb, qh, qs, static_cast<const bf16*>(rh),
+      static_cast<const bf16*>(rw), tables, H, S, K);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap m[6];
+  const void* src[3] = {q, k, v};
+  const long long sb[3] = {qb, kb, vb}, sh[3] = {qh, kh, vh}, ss[3] = {qs, ks, vs};
+  for (int i = 0; i < 3; ++i) {
+    const int rows = i == 0 ? FlashBlock80::kRows : kBK;
+    if ((e = hp::make_head_map(&m[2 * i], src[i], N, H, S, sb[i], sh[i], ss[i], rows, 80,
+                               64)) != cudaSuccess ||
+        (e = hp::make_head_map(&m[2 * i + 1], src[i], N, H, S, sb[i], sh[i], ss[i], rows, 80,
+                               32)) != cudaSuccess)
+      return (int)e;
+  }
+  const RelposOut dst{grid, window, ob, os};
+  const float scale_log2 = hp::kLog2e / sqrtf(80.f);
+  return (int)(K == 64 ? launch_relpos<64> : launch_relpos<0>)(
+      m, tables, static_cast<bf16*>(o), N, H, S, K, scale_log2, oh, dst, s);
 }
 
 // The bf16 core at Dh 64 or 32 in the form of `warpgroups` consumer

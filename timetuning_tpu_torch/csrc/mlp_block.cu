@@ -99,3 +99,26 @@ extern "C" int tt_swiglu_mlp(const void* x, const float* ln_s, const float* ln_b
   if (e != cudaSuccess) return (int)e;
   return tt_mlp_fc2(hidden, x, w3, b3, out, M, D, Hd, slices_w3, stream);
 }
+
+// The GELU MLP branch over rows wider than the prologue holds (SAM ViT-H's
+// D 1,280, hidden 5,120): out = x + fc2(GELU(fc1(LN2(x)))) in three
+// launches, the LayerNorm pass into `normed` (bf16 [M, D]), the streamed
+// tile with the bias-GELU epilogue writing the bf16 hidden [M, Hd] (by
+// turns), then fc2 + b2 + the residual in f32 as tt_mlp_fc2 (wide where its
+// row blocks fill the card). No TPU kernel: the JAX package has no GELU MLP
+// this wide. slices_fc1, slices_fc2: the products' plans.
+extern "C" int tt_mlp_wide(const void* x, const float* ln_s, const float* ln_b, const void* w1,
+                           const float* b1, const void* w2, const float* b2, void* normed,
+                           void* hidden, void* out, int M, int D, int Hd, int slices_fc1,
+                           int slices_fc2, void* stream) {
+  using tt::bf16;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = tt::launch_ln_wide(static_cast<const bf16*>(x), ln_s, ln_b,
+                                     static_cast<bf16*>(normed), M, D, tt::kLnEps, st);
+  if (e != cudaSuccess) return (int)e;
+  e = tt::launch_gemm<false, tt::kBiasGelu>(
+      static_cast<const bf16*>(normed), nullptr, nullptr, static_cast<const bf16*>(w1), b1,
+      nullptr, static_cast<bf16*>(hidden), M, Hd, D, slices_fc1, st);
+  if (e != cudaSuccess) return (int)e;
+  return tt_mlp_fc2(hidden, x, w2, b2, out, M, D, Hd, slices_fc2, stream);
+}

@@ -82,6 +82,27 @@ extern "C" int tt_ln_rope_dense(const void* x, const float* ln_s, const float* l
                                    b, static_cast<bf16*>(out), M, N, K, n_slices, rope, st);
 }
 
+// LN1 + qkv of SAM's windowed blocks: the LayerNorm pass into window order
+// (`normed`, bf16 [frames nw^2 win^2, K], the padded rows zeros: SAM pads
+// LN1's output) out of x [frames, grid^2, K], then the streamed tile with the
+// bias epilogue over every window row (a padded row's qkv is the bias). No
+// TPU kernel: the JAX package has no windowed model.
+extern "C" int tt_ln_window_dense(const void* x, const float* ln_s, const float* ln_b,
+                                  const void* w, const float* b, void* normed, void* out,
+                                  int frames, int grid, int window, int N, int K,
+                                  int n_slices, void* stream) {
+  using tt::bf16;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = tt::launch_ln_window(static_cast<const bf16*>(x), ln_s, ln_b,
+                                             static_cast<bf16*>(normed), frames, grid, window,
+                                             K, st);
+  if (e != cudaSuccess) return (int)e;
+  const int nw = (grid + window - 1) / window;
+  return (int)tt::launch_gemm<false, tt::kBias>(
+      static_cast<const bf16*>(normed), nullptr, nullptr, static_cast<const bf16*>(w), b,
+      nullptr, static_cast<bf16*>(out), frames * nw * nw * window * window, N, K, n_slices, st);
+}
+
 extern "C" int tt_dense_residual(const void* y, const void* x, const void* w,
                                  const float* b, void* out, int M, int N, int K,
                                  int n_slices, void* stream) {

@@ -11,7 +11,11 @@ lacks; its checkpoint in the hub's layout: ``register_tokens``,
 ``blocks.i.ls1.gamma``, ``mlp.w12``, ``mlp.w3``, ``mask_token`` ignored) and
 ``dinov3-vit7b16`` (DINOv3 ViT-7B/16; the hub's layout: ``storage_tokens``,
 ``rope_embed.periods`` where the file has it, ``blocks.i.mlp.w1`` / ``w2`` /
-``w3``, no qkv bias, no ``pos_embed``, ``mask_token`` ignored). ``depth``
+``w3``, no qkv bias, no ``pos_embed``, ``mask_token`` ignored) and
+``sam-vit-h`` (the image encoder of Segment Anything ViT-H, models/sam.py;
+the release's layout: the ``image_encoder.`` keys, the prompt encoder and
+mask decoder ignored; no CLS token, features the neck's 256 channels, SAM's
+pixel std, ImageNet's 0.229, in ``Backbone.norm_std``). ``depth``
 builds the first ``depth`` blocks of a ViT (a pipeline stage's worth of a
 model too large to serve whole); a checkpoint with fewer blocks than are
 built raises. There is no download: every
@@ -78,7 +82,7 @@ ARCHITECTURES = (
     "mocov3-s16", "mocov3-b16", "mae", "motion_grouping", "dul", "stego",
 )
 # the port's names beyond the JAX registry's (``ARCHITECTURES`` mirrors it)
-PORT_ARCHITECTURES = ("dinov2-g14-reg", "dinov3-vit7b16")
+PORT_ARCHITECTURES = ("dinov2-g14-reg", "dinov3-vit7b16", "sam-vit-h")
 ALL_ARCHITECTURES = ARCHITECTURES + PORT_ARCHITECTURES
 VIT_NAMES = ("vit-tiny-test", "vit-tiny-test-p4", "dino-s16", "msn-s16", "ibot-s16",
              "leopart", "dino-s8", "dino-b16", "vit", "mocov3-s16", "mocov3-b16",
@@ -97,6 +101,9 @@ class Backbone:
     drop_cls: bool
     name: str
     fixed_resolution: int | None = None
+    # the std of the eval preprocess's normalisation, where the backbone was
+    # trained with another than the TimeT pipeline's (None: that one)
+    norm_std: tuple | None = None
 
     def spatial_resolution(self, input_size: int = 224) -> int:
         if self.fixed_resolution is not None:
@@ -250,6 +257,21 @@ def _build(name: str, model_path: str | None, dtype: torch.dtype, seed: int,
             module = VisionTransformer(cfg)
             module.init_weights(gen)
         return Backbone(module, cfg.patch_size, cfg.embed_dim, True, name)
+
+    if name == "sam-vit-h":
+        from timetuning_tpu_torch.data.transforms import IMAGENET_STD
+        from timetuning_tpu_torch.models.sam import SamImageEncoder, sam_state_dict, sam_vit_h
+
+        cfg = sam_vit_h(dtype=dtype)
+        if model_path:
+            with torch.device("meta"):
+                module = SamImageEncoder(cfg)
+            load_checked(module, sam_state_dict(load_vit_state_dict(model_path)),
+                         only_known=True, assign=True)
+        else:
+            module = SamImageEncoder(cfg).init_weights(gen)
+        return Backbone(module, cfg.patch_size, cfg.out_chans, False, name,
+                        norm_std=IMAGENET_STD)
 
     if name == "mae":
         from timetuning_tpu_torch.models.mae import mae_vit_base

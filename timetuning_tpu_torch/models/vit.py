@@ -51,7 +51,9 @@ prologue holds (``fused_block.GEMM_LN_K``) takes the row kernels at any
 token count (their LayerNorm pass feeds the streamed tile); a SwiGLU MLP is
 ``fused_block.swiglu_rows``, and LayerScale is folded into ``proj`` / ``w3``
 and their biases in f32 before the bf16 cast. A GELU MLP wider than the
-prologue raises there (no kernel takes it, and no configuration has one).
+prologue is ``mlp_rows``' wide route (the LayerNorm pass, the tile's
+bias-GELU epilogue, fc2 + residual: SAM ViT-H's MLP at D 1,280,
+models/sam.py).
 
 DINOv3 (Simeoni et al. 2025, arXiv:2508.10104; ``facebookresearch/dinov3``
 ``dinov3/layers/rope_position_encoding.py``, ``attention.py``,
@@ -430,9 +432,6 @@ class Block(nn.Module):
             # the row kernels above 1024 tokens, and at any count for rows
             # wider than the tile's LayerNorm prologue holds
             wide = x.shape[-1] > GEMM_LN_K
-            if wide and not moe and isinstance(self.mlp, Mlp):
-                raise ValueError(f"Block: no kernel takes a GELU MLP at D {x.shape[-1]} "
-                                 f"> {GEMM_LN_K} (the SwiGLU MLP's kernels do)")
             swiglu = not moe and isinstance(self.mlp, SwiGLUMlp)
             if eps != _LN_EPS and (rope is None or not swiglu):
                 raise ValueError(f"Block: LayerNorm eps {eps} takes the RoPE and SwiGLU "

@@ -15,6 +15,14 @@ Layout is JAX's, q ``[B, H, Sq, Dh]`` and k, v ``[B, H, Sk, Dh]``, and the
 kernel reads strided views in place (the q, k, v slices of a qkv projection
 need no copy); its output is a ``[B, H, Sq, Dh]`` view of a ``[B, Sq, H,
 Dh]`` buffer, so merging the heads afterwards is free.
+
+SAM ViT-H's attention (no JAX counterpart), ``relpos_attention``: heads of
+80 in bf16 with SAM's decomposed relative-position bias, over the qkv rows
+of a windowed block (a sequence a 14 x 14 window of the padded grid) or of
+a global one (a sequence a frame's grid), its output the merged rows of the
+grid (the windows merged and cropped by the kernel's stores;
+``flash_relpos_kernel``, counted as ``flash_relpos``). Forward only: its
+gradient is its plain version's.
 """
 
 from __future__ import annotations
@@ -157,6 +165,125 @@ def flash_attention(q, k, v, kv_len: int | None = None):
         overlapped, tiles = key_tile_counts(B, H, valid)
         kernel_lib.WORK_COUNTS["flash_key_tiles_overlapped"] += overlapped
         kernel_lib.WORK_COUNTS["flash_key_tiles"] += tiles
+    return out
+
+
+RELPOS_HEAD_DIM = 80    # the head width of SAM's core (ViT-H's 16 heads of 80)
+RELPOS_MAX_SIDE = 64    # the widest grid its bias tables take (SAM's at 1,024)
+
+
+def window_rows(x, grid: int, window: int):
+    """[B, G * G, D] rows of a G x G grid -> [B nw^2, window^2, D]: the grid
+    padded with zero rows at the bottom and right to nw window (nw =
+    ceil(G / window)), cut into windows, frame by frame, window by window
+    (SAM's ``window_partition``)."""
+    B, _, D = x.shape
+    nw = -(-grid // window)
+    pad = nw * window - grid
+    g = F.pad(x.reshape(B, grid, grid, D), (0, 0, 0, pad, 0, pad))
+    g = g.reshape(B, nw, window, nw, window, D).permute(0, 1, 3, 2, 4, 5)
+    return g.reshape(B * nw * nw, window * window, D)
+
+
+def grid_rows(w, grid: int, window: int):
+    """The inverse of ``window_rows``, the padding cropped: [B nw^2,
+    window^2, D] -> [B, G * G, D] (SAM's ``window_unpartition``)."""
+    nw = -(-grid // window)
+    D = w.shape[-1]
+    B = w.shape[0] // (nw * nw)
+    g = w.reshape(B, nw, nw, window, window, D).permute(0, 1, 3, 2, 4, 5)
+    g = g.reshape(B, nw * window, nw * window, D)[:, :grid, :grid]
+    return g.reshape(B, grid * grid, D)
+
+
+def rel_index(K: int, device=None):
+    """[K, K] rows of a [2 K - 1, Dh] table for query and key coordinates
+    (a, b): a - b + K - 1 (SAM's ``get_rel_pos`` at equal sides)."""
+    r = torch.arange(K, device=device)
+    return r[:, None] - r[None, :] + K - 1
+
+
+def relpos_attention_xla(qkv, rel_h, rel_w, num_heads: int, grid: int, window: int):
+    """The plain version of ``relpos_attention``: for each sequence of the
+    qkv rows, scores ``(q . k) / sqrt(Dh) + q . Rh[qh - kh + K - 1] + q .
+    Rw[qw - kw + K - 1]`` in f32 from the operands' values (the unscaled q,
+    the tables' values), softmax, the probabilities rounded to v's dtype
+    before the f32 product with v, the heads merged; windowed (``window``
+    > 0), the windows merged back into the grid and the padding cropped."""
+    N, S, E = qkv.shape
+    D = E // 3
+    Dh = D // num_heads
+    K = window or grid
+    t = qkv.reshape(N, S, 3, num_heads, Dh)
+    q, k, v = (t[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    qf = q.float()
+    s = torch.einsum("nhqd,nhkd->nhqk", qf, k.float()) * Dh ** -0.5
+    idx = rel_index(K, qkv.device)
+    rq = qf.reshape(N, num_heads, K, K, Dh)
+    bh = torch.einsum("nhyxc,ykc->nhyxk", rq, rel_h.float()[idx])
+    bw = torch.einsum("nhyxc,xkc->nhyxk", rq, rel_w.float()[idx])
+    s = (s.view(N, num_heads, K, K, K, K) + bh[..., :, None] + bw[..., None, :]).view(s.shape)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("nhqk,nhkd->nhqd", p.to(v.dtype).float(), v.float()).to(qkv.dtype)
+    o = o.permute(0, 2, 1, 3).reshape(N, S, D)
+    return grid_rows(o, grid, window) if window else o
+
+
+def _relpos_fake(qkv, rel_h, rel_w, num_heads, grid, window):
+    nw = -(-grid // window) if window else 1
+    return qkv.new_empty((qkv.shape[0] // (nw * nw), grid * grid, qkv.shape[-1] // 3))
+
+
+@kernel_lib.kernel_entry(
+    "relpos_attention",
+    "(Tensor qkv, Tensor rel_h, Tensor rel_w, int num_heads, int grid, int window) -> Tensor",
+    _relpos_fake, kernel_lib.plain_vjp(relpos_attention_xla))
+def relpos_attention(qkv, rel_h, rel_w, num_heads: int, grid: int, window: int):
+    """SAM's attention with the decomposed relative-position bias
+    (csrc/flash_attention.cu ``tt_flash_relpos``): ``qkv`` bf16 [N, K^2, 3
+    D], the qkv rows of N sequences of a K x K grid each (q, k, v the first,
+    second and third D columns, heads of 80); ``rel_h``, ``rel_w`` [2 K - 1,
+    80] the block's tables. ``window`` 0: each sequence is a frame's G x G
+    grid (K = G = ``grid``); else K = ``window`` and the sequences are the
+    windows of each frame's grid padded to a multiple of the window
+    (``window_rows``' order). Returns the merged heads [frames, G^2, D] in
+    the grid's order, the windows merged and cropped. The bias tables [N,
+    H, K^2, 2 K] are made in f32 by a small product before the core."""
+    if qkv.device.type == "cpu":
+        return relpos_attention_xla(qkv, rel_h, rel_w, num_heads, grid, window)
+    if qkv.dtype != torch.bfloat16 or qkv.dim() != 3:
+        raise ValueError(f"relpos_attention: expected bf16 qkv [N, S, 3 D], got {qkv.dtype} "
+                         f"{tuple(qkv.shape)}")
+    N, S, E = qkv.shape
+    D = E // 3
+    K = window or grid
+    nw = -(-grid // window) if window else 1
+    if (E % 3 or D != num_heads * RELPOS_HEAD_DIM or S != K * K or N % (nw * nw)
+            or (window and window > grid) or K > RELPOS_MAX_SIDE):
+        raise ValueError(f"relpos_attention: the core takes heads of {RELPOS_HEAD_DIM} over "
+                         f"sequences of K x K tokens, K <= {RELPOS_MAX_SIDE}; got K = {K} "
+                         f"({'windows' if window else 'the grid'}"
+                         f" of a {grid} x {grid} grid); got qkv {tuple(qkv.shape)}, "
+                         f"{num_heads} heads")
+    for t in (rel_h, rel_w):
+        if tuple(t.shape) != (2 * K - 1, RELPOS_HEAD_DIM):
+            raise ValueError(f"relpos_attention: tables {tuple(rel_h.shape)}, "
+                             f"{tuple(rel_w.shape)} for [{2 * K - 1}, {RELPOS_HEAD_DIM}]")
+    rh = rel_h.detach().to(torch.bfloat16).contiguous()
+    rw = rel_w.detach().to(torch.bfloat16).contiguous()
+    kernel_lib.require_cuda("relpos_attention", qkv, rh, rw)
+    qkv = qkv.contiguous()
+    t = qkv.view(N, S, 3, num_heads, RELPOS_HEAD_DIM)
+    q, k, v = (t[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    tables = torch.empty(N, num_heads, S, 2 * K, dtype=torch.float32, device=qkv.device)
+    out = torch.empty(N // (nw * nw), grid * grid, D, dtype=qkv.dtype, device=qkv.device)
+    kernel_lib.launch(
+        "flash_relpos", "tt_flash_relpos", qkv.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
+        tables.data_ptr(), out.data_ptr(), N, num_heads, S, K, grid, window,
+        *(s for u in (q, k, v) for s in u.stride()[:3]),
+        out.stride(0), RELPOS_HEAD_DIM, out.stride(1))
+    kernel_lib.WORK_COUNTS["relpos_windows" if window else "relpos_global"] += N * num_heads
     return out
 
 

@@ -33,6 +33,16 @@ stacked as ``w12``. Rows wider than 2,048 take the LayerNorm pass of a block
 a row (``ln_block_rows_kernel``), which alone takes another eps than the
 prologue's 1e-6 (DINOv3's 1e-5: the eps of the two entries above).
 
+SAM ViT-H's blocks (no JAX counterpart): ``attention_block_branch_relpos``
+is, in a windowed block, ``ln_window_dense_rows`` (the LayerNorm pass
+writing LN1's rows in window order, the padding's rows zeros, then the
+streamed tile over every window row) -> ``relpos_attention`` (heads of 80
+with the decomposed relative-position bias; its stores merge the windows
+and crop the padding) -> ``dense_residual_rows`` over the grid's rows; in a
+global block ``ln_dense_rows`` feeds the same core. Its GELU MLP at D 1,280
+is ``mlp_rows``, which above the prologue's width runs the LayerNorm pass,
+the tile's bias-GELU epilogue and fc2 + residual (``mlp_wide``).
+
 Counterpart of ``timetuning_tpu/ops/fused_block.py``. Weights keep the JAX
 package's layout, ``[in, out]`` (pass ``linear.weight.t()``). For a bf16
 CUDA tensor a wrapper launches its kernel (csrc/attention_block.cu,
@@ -63,7 +73,11 @@ import torch.nn.functional as F
 
 from timetuning_tpu_torch.ops import kernel_lib
 from timetuning_tpu_torch.ops.attention import MHA_HEAD_DIMS, mha_plan
-from timetuning_tpu_torch.ops.flash_attention import flash_attention
+from timetuning_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    relpos_attention,
+    window_rows,
+)
 
 _LN_EPS = 1e-6   # the reference LayerNorm eps (torch's default is 1e-5)
 
@@ -165,6 +179,13 @@ def swiglu_block_xla(x, ln_s, ln_b, w12, b12, w3, b3, eps: float = _LN_EPS):
 
 def ln_dense_xla(x, ln_s, ln_b, w, b, eps: float = _LN_EPS):
     return _biased(_dot(_ln(x, ln_s, ln_b, eps), w), b).to(x.dtype)
+
+
+def ln_window_dense_xla(x, ln_s, ln_b, w, b, grid: int, window: int):
+    """LN(x) in x's dtype, in window order with zero rows for the padding
+    (``flash_attention.window_rows``), times ``w`` plus ``b`` in f32,
+    rounded once: [B nw^2, window^2, E]."""
+    return _biased(_dot(window_rows(_ln(x, ln_s, ln_b), grid, window), w), b).to(x.dtype)
 
 
 def ln_rope_dense_xla(x, ln_s, ln_b, w, b, cos, sin, num_heads: int, prefix: int,
@@ -478,10 +499,39 @@ def mlp_rows(x, ln_s, ln_b, w1, b1, w2, b2):
     """Kernel 9, the row-chunked LN2 + MLP + residual of sequences over 1024
     tokens (``_mlp_rows_pallas``, ``timetuning_tpu/ops/fused_block.py:350``).
     csrc/mlp_block.cu's GEMM tile is row-tiled already, so this launches it,
-    counted as ``mlp_rows``. ``x``: [B, S, D] bf16."""
+    counted as ``mlp_rows``. ``x``: [B, S, D] bf16. Rows wider than the
+    prologue holds (SAM ViT-H's D 1,280) take the LayerNorm pass, the tile's
+    bias-GELU epilogue without the prologue and fc2 + residual
+    (``tt_mlp_wide``, counted as ``mlp_wide``)."""
     if x.device.type == "cpu":
         return mlp_block_xla(x, ln_s, ln_b, w1, b1, w2, b2)
+    if x.dim() == 3 and x.shape[-1] > GEMM_LN_K:
+        return _mlp_wide_launch(x, ln_s, ln_b, w1, b1, w2, b2)
     return _mlp_launch("mlp_rows", x, ln_s, ln_b, w1, b1, w2, b2)
+
+
+def _mlp_wide_launch(x, ln_s, ln_b, w1, b1, w2, b2):
+    _check_x("mlp_rows", x)
+    B, S, D = x.shape
+    Hd = w1.shape[1]
+    if (tuple(w1.shape) != (D, Hd) or tuple(w2.shape) != (Hd, D) or D % GEMM_K_STEP
+            or Hd % GEMM_K_STEP or D > LN_WIDE_MAX_K):
+        raise ValueError(f"mlp_rows: weight shapes {tuple(w1.shape)}, {tuple(w2.shape)} for "
+                         f"D={D} (widths must be multiples of {GEMM_K_STEP}, D <= "
+                         f"{LN_WIDE_MAX_K})")
+    x = x.contiguous()
+    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w1), _f32(b1, Hd, x.device),
+            _weight_nk(w2), _f32(b2, D, x.device)]
+    kernel_lib.require_cuda("mlp_rows", *args)
+    normed = torch.empty_like(x)
+    hidden = torch.empty(B * S, Hd, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    kernel_lib.launch(
+        "mlp_wide", "tt_mlp_wide", x.device, *(a.data_ptr() for a in args),
+        normed.data_ptr(), hidden.data_ptr(), out.data_ptr(), B * S, D, Hd,
+        _slices(x.device, B * S, Hd, D, False, EPI_GELU),
+        _slices(x.device, B * S, D, Hd, False))
+    return out
 
 
 @kernel_lib.kernel_entry(
@@ -526,6 +576,47 @@ def _check_ln_width(name, D, eps: float = _LN_EPS):
         raise ValueError(f"{name}: the LayerNorm takes eps {_LN_EPS} on rows up to "
                          f"{LN_WIDE_MAX_K} wide, another only on wider ones; got eps {eps} "
                          f"at D {D}")
+
+
+def _window_fake(x, ln_s, ln_b, w, b, grid, window):
+    nw = -(-grid // window)
+    return x.new_empty((x.shape[0] * nw * nw, window * window, w.shape[1]))
+
+
+@kernel_lib.kernel_entry(
+    "ln_window_dense_rows",
+    "(Tensor x, Tensor ln_s, Tensor ln_b, Tensor w, Tensor? b, int grid, int window) -> Tensor",
+    _window_fake, kernel_lib.plain_vjp(ln_window_dense_xla))
+def ln_window_dense_rows(x, ln_s, ln_b, w, b, grid: int, window: int):
+    """LN1 + qkv of SAM's windowed blocks (csrc/rows_block.cu
+    ``tt_ln_window_dense``, counted as ``ln_window_dense``): the LayerNorm
+    pass writes LN(x)'s rows in window order (the grid of each frame of ``x``
+    [B, grid^2, D] padded with zero rows to a multiple of ``window``, cut
+    into windows: ``flash_attention.window_rows``), then the streamed tile
+    with the bias epilogue over every window row, so a padded row's output
+    is ``b``. Returns [B nw^2, window^2, E]. The padded rows computed are
+    counted (``WORK_COUNTS["window_pad_rows"]``)."""
+    if x.device.type == "cpu":
+        return ln_window_dense_xla(x, ln_s, ln_b, w, b, grid, window)
+    _check_x("ln_window_dense_rows", x)
+    B, S, D = x.shape
+    _check_dense("ln_window_dense_rows", D, w)
+    if S != grid * grid or not 0 < window <= grid or D > LN_WIDE_MAX_K:
+        raise ValueError(f"ln_window_dense_rows: x {tuple(x.shape)} for a {grid} x {grid} "
+                         f"grid in windows of {window} (D <= {LN_WIDE_MAX_K})")
+    E = w.shape[1]
+    nw = -(-grid // window)
+    M = B * nw * nw * window * window
+    x = x.contiguous()
+    args = [x, _f32(ln_s, D), _f32(ln_b, D), _weight_nk(w), _f32(b, E, x.device)]
+    kernel_lib.require_cuda("ln_window_dense_rows", *args)
+    normed = torch.empty(M, D, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(B * nw * nw, window * window, E, dtype=torch.bfloat16, device=x.device)
+    kernel_lib.launch("ln_window_dense", "tt_ln_window_dense", x.device,
+                      *(a.data_ptr() for a in args), normed.data_ptr(), out.data_ptr(),
+                      B, grid, window, E, D, _slices(x.device, M, E, D, False, EPI_BIAS))
+    kernel_lib.WORK_COUNTS["window_pad_rows"] += M - B * S
+    return out
 
 
 @kernel_lib.kernel_entry(
@@ -666,4 +757,20 @@ def attention_block_branch_rope(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj,
     qkv = qkv.reshape(B, S, 3, num_heads, D // num_heads)
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
     merged = flash_attention(q, k, v).permute(0, 2, 1, 3).reshape(B, S, D)
+    return dense_residual_rows(merged, x, w_proj, b_proj)
+
+
+def attention_block_branch_relpos(x, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj, rel_h, rel_w,
+                                  num_heads: int, grid: int, window: int):
+    """SAM's attention branch over x [B, grid^2, D]: LN1 + qkv (in window
+    order through ``ln_window_dense_rows`` where ``window`` > 0, else
+    ``ln_dense_rows``) -> ``relpos_attention`` (heads of 80, the decomposed
+    bias of ``rel_h``, ``rel_w``; the merged, cropped grid rows) ->
+    ``dense_residual_rows`` over the grid's rows only. On CPU tensors, the
+    composition of their plain versions."""
+    if window:
+        qkv = ln_window_dense_rows(x, ln_s, ln_b, w_qkv, b_qkv, grid, window)
+    else:
+        qkv = ln_dense_rows(x, ln_s, ln_b, w_qkv, b_qkv)
+    merged = relpos_attention(qkv, rel_h, rel_w, num_heads, grid, window)
     return dense_residual_rows(merged, x, w_proj, b_proj)

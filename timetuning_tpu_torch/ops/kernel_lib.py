@@ -96,6 +96,14 @@ KERNELS = {
                "none: LN + qkv + 2-D RoPE (K7's place in DINOv3's blocks)"),
         Kernel("flash_d128", "timetuning_tpu_torch/csrc/flash_attention.cu",
                "timetuning_tpu/ops/flash_attention.py:47 at heads of 128"),
+        # SAM ViT-H's blocks: LN1 + qkv into window order, heads of 80 with
+        # the decomposed relative-position bias, the GELU MLP at D 1,280
+        Kernel("ln_window_dense", "timetuning_tpu_torch/csrc/rows_block.cu",
+               "none: LN + qkv of SAM's windowed blocks (K7's place)"),
+        Kernel("flash_relpos", "timetuning_tpu_torch/csrc/flash_attention.cu",
+               "timetuning_tpu/ops/flash_attention.py:47 at heads of 80, with SAM's bias"),
+        Kernel("mlp_wide", "timetuning_tpu_torch/csrc/mlp_block.cu",
+               "none: the GELU MLP over rows wider than K9's prologue"),
     )
 }
 
@@ -104,8 +112,11 @@ KERNELS = {
 # launch's shape beside its launch count: the key tiles that the flash core
 # (K5/6) in bf16 at heads of 32 and 64 walks, once for each (batch, head),
 # and those of them whose softmax ran while a product was in flight
-# (``flash_attention.key_tile_counts``).
-WORK_COUNTS = {"flash_key_tiles": 0, "flash_key_tiles_overlapped": 0}
+# (``flash_attention.key_tile_counts``); SAM's (sequence, head) pairs that
+# the heads-of-80 core attended over a window and over the whole grid, and
+# the padded rows of the windows that LN1 + qkv computed.
+WORK_COUNTS = {"flash_key_tiles": 0, "flash_key_tiles_overlapped": 0,
+               "relpos_windows": 0, "relpos_global": 0, "window_pad_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -165,6 +176,9 @@ _SIGNATURES = {
     "tt_ln_wide_dense": [_P] * 7 + [_I] * 4 + [_P],
     "tt_ln_rope_dense": [_P] * 9 + [_I] * 6 + [_F, _P],
     "tt_swiglu_mlp": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "tt_ln_window_dense": [_P] * 7 + [_I] * 6 + [_P],
+    "tt_flash_relpos": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_P],
+    "tt_mlp_wide": [_P] * 10 + [_I] * 5 + [_P],
     "tt_gemm_route": [_I] * 6 + [_P],
     "tt_mha": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_P],
     "tt_sinkhorn": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P],

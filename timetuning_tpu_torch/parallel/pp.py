@@ -44,6 +44,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from timetuning_tpu_torch.models.vit import VisionTransformer
 from timetuning_tpu_torch.ops.fused_block import _ln
 from timetuning_tpu_torch.parallel.mesh import (
     Mesh2D,
@@ -228,6 +229,9 @@ def pp_forward_fn(model, mesh: Mesh2D, n_micro: int | None = None):
     at each call (``validate_pp_geometry``). Under grad the blocks' inputs
     of every tick are kept and the blocks recomputed in the backward, one
     tick at a time (``ViTConfig.remat`` is implied)."""
+    if not isinstance(model, VisionTransformer):
+        raise ValueError(f"pipeline parallelism runs the port's VisionTransformer; a "
+                         f"{type(model).__name__} runs on one device")
     cfg = model.config
     if getattr(cfg, "moe_every_k", 0):
         raise ValueError(

@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from timetuning_tpu_torch.models.vit import _linear
+from timetuning_tpu_torch.models.vit import VisionTransformer, _linear
 from timetuning_tpu_torch.ops import fused_block as fb
 from timetuning_tpu_torch.ops.attention import WHOLE_SEQUENCE_TOKENS
 from timetuning_tpu_torch.ops.flash_attention import flash_attention
@@ -91,6 +91,9 @@ def sp_forward_fn(model, mesh: Mesh2D):
     works: the padding is masked out of attention and sliced off."""
     if mesh.coords is None:
         raise ValueError("sp_forward_fn: this rank is not on the mesh")
+    if not isinstance(model, VisionTransformer):
+        raise ValueError(f"sequence parallelism runs the port's VisionTransformer; a "
+                         f"{type(model).__name__} runs on one device")
     if getattr(model.config, "rope_base", 0):
         raise ValueError("sequence parallelism runs ViTs with learned positions; a "
                          "RoPE ViT (DINOv3) runs on one device")

@@ -45,6 +45,15 @@ and the RoPE tile), the flash core at heads of 128, proj + residual, the
 SwiGLU MLP; each beside its library form and its plain version, and the
 device time of each kernel of the RoPE and SwiGLU entries (the pass's among
 them).
+``--sam``: in each directory's turn, SAM ViT-H's block at a request of 8
+frames at 1,024 (8 x 4,096 grid rows, 8 x 4,900 window rows, D 1,280, MLP
+5,120, 16 heads of 80): LN1 + qkv into window order, the heads-of-80 core
+with the bias over the windows (8 x 25 x 16 x 196) and over the grid (8 x
+16 x 4,096), proj + residual, the GELU MLP at D 1,280; each beside its
+library form (F.layer_norm and F.linear in bf16, the windows by pad and
+permute; SDPA with the bias as an additive [.., S, S] mask; F.gelu) and its
+plain version, with its least (``benchmark/counts_sam``), and the device
+time of each kernel of the three entries.
 
 Needs a CUDA card and nvcc; prints the card's name and power limit first.
 """
@@ -247,6 +256,97 @@ def v3(dev, label):
               + "  ".join(f"{k[:60]} {n:g}x {t:.4f}" for k, (n, t) in by.items()), flush=True)
 
 
+def sam(dev, label):
+    from benchmark import counts, counts_sam
+
+    B, G, win, D, Hd, H = 8, 64, 14, 1280, 5120, 16
+    gen = torch.Generator(device=dev).manual_seed(3)     # the same inputs each call
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def w(n_in, n_out):
+        return (r(n_out, n_in) / n_in ** 0.5).t().to(torch.bfloat16)
+
+    F = torch.nn.functional
+    x, y = r(B, G * G, D).bfloat16(), r(B, G * G, D).bfloat16()
+    ln = (1 + 0.1 * r(D), 0.1 * r(D))
+    lnb = tuple(t.bfloat16() for t in ln)
+    qkv_w, qkv_b = w(D, 3 * D), 0.02 * r(3 * D)
+    proj = (w(D, D), 0.1 * r(D))
+    mlp = (*ln, w(D, Hd), 0.1 * r(Hd), w(Hd, D), 0.1 * r(D))
+    qkv_win = r(B * 25, win * win, 3 * D).bfloat16()
+    qkv_grid = r(B, G * G, 3 * D).bfloat16()
+    tabs = {K: tuple((0.08 * r(2 * K - 1, 80)).bfloat16() for _ in range(2)) for K in (win, G)}
+
+    def lib_window_qkv():
+        h = fa.window_rows(F.layer_norm(x, (D,), *lnb, 1e-6), G, win)
+        return F.linear(h, qkv_w.t(), qkv_b.bfloat16())
+
+    def lib_relpos(qkv, K, window):
+        # SDPA with SAM's bias as an additive mask, the [.., S, S] bias made
+        N, S, _ = qkv.shape
+        t = qkv.view(N, S, 3, H, 80)
+        q, k, v = (t[:, :, i].transpose(1, 2) for i in range(3))
+        idx = fa.rel_index(K, dev)
+        rq = q.reshape(N, H, K, K, 80)
+        bh = torch.einsum("nhyxc,ykc->nhyxk", rq, tabs[K][0][idx])
+        bw = torch.einsum("nhyxc,xkc->nhyxk", rq, tabs[K][1][idx])
+        bias = (bh[..., :, None] + bw[..., None, :]).reshape(N, H, S, S)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias).transpose(1, 2)
+        o = o.reshape(N, S, D)
+        return fa.grid_rows(o, G, window) if window else o
+
+    def lib_mlp():
+        h = F.gelu(F.linear(F.layer_norm(x, (D,), *lnb, 1e-6), mlp[2].t(), mlp[3].bfloat16()))
+        return x + F.linear(h, mlp[4].t(), mlp[5].bfloat16())
+
+    rows_w = B * counts_sam.window_rows(G, win)
+    least = {       # the work the result needs: the grid's rows and queries only
+        "ln_window_dense (LN1 + qkv, window order)": (
+            2 * 2 * B * G * G * D / counts.MEM_BYTES_PER_S
+            + counts.least_s(2 * B * G * G * D * 3 * D,
+                             2 * (B * G * G * D + 3 * D * D + rows_w * 3 * D))),
+        "flash_relpos windowed (8 x 25 x 16 x 196)": counts.least_s(
+            B * counts_sam.attn_flops(G * G, 196, win, D), B * 2 * (2 * 4096 + 2 * 4900) * D),
+        "flash_relpos global (8 x 16 x 4,096)": counts.least_s(
+            B * counts_sam.attn_flops(G * G, G * G, G, D), B * 2 * 4 * 4096 * D),
+        "dense_residual (proj, D 1,280)": counts.least_s(
+            2 * B * G * G * D * D, 2 * (3 * B * G * G * D + D * D)),
+        "mlp_wide (GELU MLP, D 1,280)": counts_sam.gelu_mlp_least_s(B * G * G, D, Hd),
+    }
+    rows = {
+        "ln_window_dense (LN1 + qkv, window order)": (
+            lambda: fb.ln_window_dense_rows(x, *ln, qkv_w, qkv_b, G, win), lib_window_qkv,
+            lambda: fb.ln_window_dense_xla(x, *ln, qkv_w, qkv_b, G, win)),
+        "flash_relpos windowed (8 x 25 x 16 x 196)": (
+            lambda: fa.relpos_attention(qkv_win, *tabs[win], H, G, win),
+            lambda: lib_relpos(qkv_win, win, win),
+            lambda: fa.relpos_attention_xla(qkv_win, *tabs[win], H, G, win)),
+        "flash_relpos global (8 x 16 x 4,096)": (
+            lambda: fa.relpos_attention(qkv_grid, *tabs[G], H, G, 0),
+            lambda: lib_relpos(qkv_grid, G, 0),
+            lambda: fa.relpos_attention_xla(qkv_grid[:2], *tabs[G], H, G, 0)),
+        "dense_residual (proj, D 1,280)": (
+            lambda: fb.dense_residual_rows(y, x, *proj),
+            lambda: x + F.linear(y, proj[0].t(), proj[1].bfloat16()),
+            lambda: fb.dense_residual_xla(y, x, *proj)),
+        "mlp_wide (GELU MLP, D 1,280)": (lambda: fb.mlp_rows(x, *mlp), lib_mlp,
+                                         lambda: fb.mlp_block_xla(x, *mlp)),
+    }
+    for name, (kern, lib, plain) in rows.items():
+        note = " (2 of 8 frames)" if "global" in name else ""
+        print(f"{label} sam {name} ms: kernel {card.cuda_ms(kern):.4f}  library "
+              f"{card.cuda_ms(lib):.4f}  plain{note} {card.cuda_ms(plain, warmup=1, reps=2):.4f}"
+              f"  least {1e3 * least[name]:.4f}", flush=True)
+    for name in ("ln_window_dense (LN1 + qkv, window order)",
+                 "flash_relpos windowed (8 x 25 x 16 x 196)",
+                 "flash_relpos global (8 x 16 x 4,096)", "mlp_wide (GELU MLP, D 1,280)"):
+        by = card.kernel_times(rows[name][0])
+        print(f"{label} sam {name} kernels ms: "
+              + "  ".join(f"{k[:60]} {n:g}x {t:.4f}" for k, (n, t) in by.items()), flush=True)
+
+
 FLASH_SHAPES = {"25x6x3137": (25, 6, 3137), "50x6x3137": (50, 6, 3137),
                 "25x24x1029": (25, 24, 1029)}
 
@@ -282,6 +382,7 @@ def main() -> int:
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--g14", action="store_true")
     ap.add_argument("--v3", action="store_true")
+    ap.add_argument("--sam", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_block_kernels: needs a CUDA card")
@@ -302,6 +403,8 @@ def main() -> int:
             g14(dev, d.name)
         if args.v3:
             v3(dev, d.name)
+        if args.sam:
+            sam(dev, d.name)
 
     if args.slices:
         plan = fb._slices
