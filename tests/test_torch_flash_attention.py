@@ -163,7 +163,7 @@ def test_a_launch_counts_its_key_tiles_from_its_shape(monkeypatch, B, H, Sk, kv_
     assert kernel_lib.WORK_COUNTS == {"flash_key_tiles": B * H * tiles,
                                       "flash_key_tiles_overlapped": B * H * overlapped,
                                       "relpos_windows": 0, "relpos_global": 0,
-                                      "window_pad_rows": 0}
+                                      "relpos_windows_resident": 0, "window_pad_rows": 0}
     tfa.flash_attention(q.float(), k.float(), k.float(), kv_len=kv_len)
     wide = torch.zeros(B, H, Sk, 128, device="meta", dtype=torch.bfloat16)
     tfa.flash_attention(wide[:, :, :100], wide, wide, kv_len=kv_len)

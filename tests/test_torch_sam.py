@@ -227,8 +227,9 @@ def test_launch_and_work_counts_of_the_new_entries(monkeypatch):
     """At the cell's shapes, on meta tensors with the launch stood in for:
     a windowed block's LN1 + qkv counts ``ln_window_dense`` and the padded
     rows it computes (8 x (4,900 - 4,096)); its core ``flash_relpos`` and
-    8 x 25 x 16 window sequences, a global block's 8 x 16 grid sequences;
-    the GELU MLP at D 1,280 ``mlp_wide``."""
+    8 x 25 x 16 window sequences, all in the resident form, a global block's
+    8 x 16 grid sequences, none in it; the GELU MLP at D 1,280
+    ``mlp_wide``."""
     launched = []
     monkeypatch.setattr(kernel_lib, "require_cuda", lambda *a: None)
     monkeypatch.setattr(kernel_lib, "launch", lambda kernel, fn, *a: launched.append(kernel))
@@ -248,11 +249,30 @@ def test_launch_and_work_counts_of_the_new_entries(monkeypatch):
                 None)
     assert launched == ["ln_window_dense", "flash_relpos", "flash_relpos", "mlp_wide"]
     assert {k: kernel_lib.WORK_COUNTS[k] for k in ("relpos_windows", "relpos_global",
+                                                   "relpos_windows_resident",
                                                    "window_pad_rows")} == {
-        "relpos_windows": 200 * 16, "relpos_global": 8 * 16, "window_pad_rows": 8 * 804}
+        "relpos_windows": 200 * 16, "relpos_global": 8 * 16,
+        "relpos_windows_resident": 200 * 16, "window_pad_rows": 8 * 804}
     with pytest.raises(ValueError, match="heads of 80"):
         fa.relpos_attention(qkv, rh, rh, 20, 64, 14)
     kernel_lib.reset_launch_counts()
+
+
+@pytest.mark.parametrize("G,window", [(64, 17), (64, 32), (32, 0), (63, 0)])
+def test_the_core_refuses_a_side_it_has_no_form_for(monkeypatch, G, window):
+    """The card's core has a form for sequences of side K <= 16 (windows)
+    and for K = 64 (SAM's grid) alone: any other side is refused before a
+    launch, windowed or global."""
+    launched = []
+    monkeypatch.setattr(kernel_lib, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(kernel_lib, "launch", lambda kernel, fn, *a: launched.append(kernel))
+    K = window or G
+    nw = -(-G // window) if window else 1
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    rk = torch.zeros(2 * K - 1, 80, **meta)
+    with pytest.raises(ValueError, match=f"K = 64; got K = {K} "):
+        fa.relpos_attention(torch.zeros(nw * nw, K * K, 3 * 160, **meta), rk, rk, 2, G, window)
+    assert launched == []
 
 
 # ------------------------------------------------------------------ the card
@@ -266,28 +286,62 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("window", [14, 0])
-def test_relpos_core_matches_plain(dev, window):
-    """The heads-of-80 core with the bias at the cell's shapes, counted as
-    ``flash_relpos``: a windowed block's 8 x 25 windows x 16 heads x 196
-    tokens (K 14, the crop in its stores) and a global block's 8 frames x
-    16 heads x 4,096 (K 64), against ``relpos_attention_xla`` two frames at
-    a time. Bound: the other flash forms' (one bf16 ulp of the output plus
-    p's rounding); an f32 input raises."""
-    G, H, D = 64, 16, 1280
+def _exact(qkv, rh, rw, H, G, window):
+    """The core's result in f64 with p unrounded, and sum_k p_k |v_k|, both
+    in the grid's rows (merged and cropped as the core's)."""
+    N, S, E = qkv.shape
     K = window or G
-    N = 8 * (25 if window else 1)
+    t = qkv.double().reshape(N, S, 3, H, 80)
+    q, k, v = (t[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    idx = fa.rel_index(K, qkv.device)
+    rq = q.reshape(N, H, K, K, 80)
+    bh = torch.einsum("nhyxc,ykc->nhyxk", rq, rh.double()[idx])
+    bw = torch.einsum("nhyxc,xkc->nhyxk", rq, rw.double()[idx])
+    s = (q @ k.transpose(-1, -2) * 80 ** -0.5).view(N, H, K, K, K, K)
+    p = torch.softmax((s + bh[..., :, None] + bw[..., None, :]).view(N, H, S, S), -1)
+    out = ((p @ x).permute(0, 2, 1, 3).reshape(N, S, E // 3) for x in (v, v.abs()))
+    return [fa.grid_rows(o, G, window) if window else o for o in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,window", [(64, 14), (9, 4), (32, 16), (64, 0)])
+def test_relpos_core_matches_plain(dev, G, window):
+    """The heads-of-80 core with the bias, counted as ``flash_relpos``, 8
+    frames x 16 heads: a windowed block at the cell's shapes (25 windows of
+    196 tokens a frame, K 14, the crop in its stores), a ragged grid (windows
+    of 4 over 9 x 9, padded to 12 x 12), windows of 256 tokens (K 16, the
+    largest the resident form takes) and a global block's 4,096 tokens (K 64),
+    two frames at a time. The windows take the resident form
+    (``relpos_windows_resident`` counts their pairs), the grid the streamed
+    one. Bounds: against ``relpos_attention_xla``, the other flash forms'
+    (one bf16 ulp of the output plus p's rounding) where a row has 196 keys
+    or more; every windowed case also within the rounding of p and of the
+    output of the exact (f64) result, |o - o_exact| <= 2^-8 (sum_k p_k |v_k|
+    + |o_exact|) + 1e-4 (bf16's unit roundoff 2^-8; p rounded before p v,
+    the output once). At 16 keys a row p's rounding alone moves the plain
+    version up to 0.013 from the exact result, past the first bound, so
+    those windows are held to the second. An f32 input raises."""
+    H, D = 16, 1280
+    K = window or G
+    nw = -(-G // window) if window else 1
+    N = 8 * nw * nw
     qkv = _qkv(N, K, D, seed=K, device=dev)
     rh, rw = _tables(K, seed=K + 1, device=dev)
     kernel_lib.reset_launch_counts()
     got = fa.relpos_attention(qkv, rh, rw, H, G, window)
     assert kernel_lib.launch_counts()["flash_relpos"] == 1
+    assert kernel_lib.WORK_COUNTS["relpos_windows_resident"] == (N * H if window else 0)
     per = N // 8 * 2
     for i in range(0, N, per):
-        want = fa.relpos_attention_xla(qkv[i:i + per], rh, rw, H, G, window)
         f = i // (N // 8)
-        torch.testing.assert_close(got[f:f + 2].float(), want.float(), atol=4e-3, rtol=1e-2)
+        if K * K >= 196:
+            want = fa.relpos_attention_xla(qkv[i:i + per], rh, rw, H, G, window)
+            torch.testing.assert_close(got[f:f + 2].float(), want.float(), atol=4e-3,
+                                       rtol=1e-2)
+        if window:
+            exact, spread = _exact(qkv[i:i + per], rh, rw, H, G, window)
+            err = (got[f:f + 2].double() - exact).abs()
+            assert bool((err <= 2 ** -8 * (spread + exact.abs()) + 1e-4).all()), float(err.max())
     with pytest.raises(ValueError, match="bf16"):
         fa.relpos_attention(qkv.float(), rh, rw, H, G, window)
 
@@ -356,8 +410,9 @@ def test_a_windowed_and_a_global_block_through_the_graphed_program(dev, tmp_path
     ``get_backbone``, ``export_features`` and ``load_exported(graphed=True)``,
     against the f32 reference on the same frames: every block's products,
     norms and attention core in the port's kernels (one launch of each entry
-    a block a call). Bound: bf16 rounding over two blocks and the neck (0.03
-    of a token's norm)."""
+    a block a call; the windows' pairs all in the resident form, counted on
+    the replay). Bound: bf16 rounding over two blocks and the neck (0.03 of
+    a token's norm)."""
     from timetuning_tpu_torch.cli.export import export_features, load_exported
 
     monkeypatch.setattr(sam, "sam_vit_h",
@@ -383,6 +438,7 @@ def test_a_windowed_and_a_global_block_through_the_graphed_program(dev, tmp_path
     assert counts["ln_window_dense"] == counts["ln_wide_dense"] == 1
     assert counts["flash_attention"] == counts["mlp_rows"] == 0
     assert (counts["relpos_windows"], counts["relpos_global"]) == (2 * 25 * 16, 2 * 16)
+    assert counts["relpos_windows_resident"] == counts["relpos_windows"]
     want = ref.features_u8(weights, frames, shape, MEAN, STD)
     assert got.shape == want.shape == (2, 4096, 256)
     assert _gap(got, want) < 0.03

@@ -466,20 +466,15 @@ flash_bf16_d128_kernel(const __grid_constant__ CUtensorMap map_q,
 // form, without its overlap of softmax and products; three stages of K and
 // V at 48 KB a stage.
 //
-// One launch covers every sequence and head of a block. A window's 196
-// queries take two blocks of 128 rows (the second 68 real rows: 60 of its
-// 256 query rows, 23 %, are padding in q k^T and p v) and its 196 keys two
-// tiles (128 + 68, the ragged tile masked after the bias); SAM masks no key
-// of a window, the padded positions among them (their q, k and v are the qkv
-// bias). A global block's 4,096 queries take 32 blocks and its keys 32
-// tiles. Outputs go straight to the merged [frames, G * G, H * 80] rows of
-// the grid: a window's query (i, j) of window (wy, wx) of frame f to grid
-// row (14 wy + i) * G + 14 wx + j, the rows past the grid (the padding)
-// written nowhere: the crop. At K = 64 (the global grid) a 128-key tile is
+// One launch covers every sequence and head of a block. Only SAM's global
+// grid, K = 64, takes this form (its windows take the resident form below).
+// A global block's 4,096 queries take 32 blocks of 128 rows and its keys 32
+// tiles; SAM masks no key. Outputs go straight to the merged [frames, G * G,
+// H * 80] rows of the grid (RelposOut, the global case). A 128-key tile is
 // two grid rows, so a lane's key columns (kw) are the same in every tile and
-// their T values sit in registers; the windows' tiles cut grid rows
-// anywhere and each score reads its two table values (L1).
+// their T values sit in registers.
 struct FlashBlock80 {
+  static constexpr int kSide = 64;                     // the grid's side K
   static constexpr int kWG = 2;
   static constexpr int kRows = 64 * kWG;               // q rows of a block
   static constexpr int kPanelA = kBK * 128;            // a K or V tile's features 0-63
@@ -593,9 +588,6 @@ relpos_table_kernel(const bf16* __restrict__ q, long long qb, long long qh, long
   }
 }
 
-// kSide: 64 where a sequence is a 64 x 64 grid (a 128-key tile is two grid
-// rows), 0 for any side K (the tables' columns found a score at a time)
-template <int kSide>
 __global__ void __launch_bounds__(FlashBlock80::kThreads, 1)
 flash_relpos_kernel(const __grid_constant__ CUtensorMap map_qa,
                     const __grid_constant__ CUtensorMap map_qb,
@@ -603,9 +595,11 @@ flash_relpos_kernel(const __grid_constant__ CUtensorMap map_qa,
                     const __grid_constant__ CUtensorMap map_kb,
                     const __grid_constant__ CUtensorMap map_va,
                     const __grid_constant__ CUtensorMap map_vb, const float* __restrict__ T,
-                    bf16* __restrict__ o, int H, int S, int K, float scale_log2, long long oh,
+                    bf16* __restrict__ o, int H, float scale_log2, long long oh,
                     const RelposOut dst) {
   using Blk = FlashBlock80;
+  constexpr int K = Blk::kSide, S = K * K;
+  static_assert(S % kBK == 0, "no ragged key tile");
   constexpr int kStages = Blk::kStages;
   constexpr int kTileBytes = Blk::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
@@ -664,16 +658,13 @@ flash_relpos_kernel(const __grid_constant__ CUtensorMap map_qa,
   // this lane's two rows of the tables (rows past S read the last: never stored)
   const float* ta = T + (((long long)n * H + h) * S + min(r0, S - 1)) * 2 * K;
   const float* tb = T + (((long long)n * H + h) * S + min(r0 + 8, S - 1)) * 2 * K;
-  float wa[16], wb[16];                // K = 64: T[r, K + kw] of this lane's columns
-  if constexpr (kSide == 64) {
+  float wa[16], wb[16];                // T[r, K + kw] of this lane's columns
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * (lane & 3);
-      wa[2 * j] = ta[64 + c], wa[2 * j + 1] = ta[64 + c + 1];
-      wb[2 * j] = tb[64 + c], wb[2 * j + 1] = tb[64 + c + 1];
-    }
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    wa[2 * j] = ta[K + c], wa[2 * j + 1] = ta[K + c + 1];
+    wb[2 * j] = tb[K + c], wb[2 * j + 1] = tb[K + c + 1];
   }
-  const float inv_k = 1.f / K;
   float oa[32], ob[16];                // output features 0-63 and 64-95
 #pragma unroll
   for (int i = 0; i < 32; ++i) oa[i] = 0.f;
@@ -702,32 +693,17 @@ flash_relpos_kernel(const __grid_constant__ CUtensorMap map_qa,
     hp::pin(sc);
 
     // the bias, in log2 units, then the scaled score
-    if constexpr (kSide == 64) {
-      const float ha0 = ta[2 * it], ha1 = ta[2 * it + 1];
-      const float hb0 = tb[2 * it], hb1 = tb[2 * it + 1];
+    const float ha0 = ta[2 * it], ha1 = ta[2 * it + 1];
+    const float hb0 = tb[2 * it], hb1 = tb[2 * it + 1];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int w = 2 * (j & 7);
-        const float ha = j < 8 ? ha0 : ha1, hb = j < 8 ? hb0 : hb1;
-        sc[4 * j] = fmaf(sc[4 * j], scale_log2, ha + wa[w]);
-        sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale_log2, ha + wa[w + 1]);
-        sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale_log2, hb + wb[w]);
-        sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale_log2, hb + wb[w + 1]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = it * kBK + 8 * j + 2 * (lane & 3) + e;
-          const int kh = min(__float2int_rd((key + 0.5f) * inv_k), K - 1);
-          const int kw = min(max(key - kh * K, 0), K - 1);
-          sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2, ta[kh] + ta[K + kw]);
-          sc[4 * j + 2 + e] = fmaf(sc[4 * j + 2 + e], scale_log2, tb[kh] + tb[K + kw]);
-        }
-      }
+    for (int j = 0; j < 16; ++j) {
+      const int w = 2 * (j & 7);
+      const float ha = j < 8 ? ha0 : ha1, hb = j < 8 ? hb0 : hb1;
+      sc[4 * j] = fmaf(sc[4 * j], scale_log2, ha + wa[w]);
+      sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale_log2, ha + wa[w + 1]);
+      sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale_log2, hb + wb[w]);
+      sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale_log2, hb + wb[w + 1]);
     }
-    if (it == n_tiles - 1 && S % kBK != 0) hp::mask_keys(sc, it * kBK, S, lane);
 
     float mx0, mx1, sum0, sum1;
     hp::row_max(sc, mx0, mx1);
@@ -787,17 +763,586 @@ flash_relpos_kernel(const __grid_constant__ CUtensorMap map_qa,
   }
 }
 
-template <int kSide>
 cudaError_t launch_relpos(const CUtensorMap (&m)[6], const float* T, bf16* o, int N, int H,
-                          int S, int K, float scale_log2, long long oh, const RelposOut& dst,
+                          float scale_log2, long long oh, const RelposOut& dst,
                           cudaStream_t s) {
   using Blk = FlashBlock80;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_relpos_kernel<kSide>, cudaFuncAttributeMaxDynamicSharedMemorySize, Blk::kSmem);
+      flash_relpos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Blk::kSmem);
   if (e != cudaSuccess) return e;
+  constexpr int S = Blk::kSide * Blk::kSide;
   const dim3 grid((S + Blk::kRows - 1) / Blk::kRows, H, N);
-  flash_relpos_kernel<kSide><<<grid, Blk::kThreads, Blk::kSmem, s>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], T, o, H, S, K, scale_log2, oh, dst);
+  flash_relpos_kernel<<<grid, Blk::kThreads, Blk::kSmem, s>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], T, o, H, scale_log2, oh, dst);
+  return cudaGetLastError();
+}
+
+// ------------------------------ bf16, Dh 80, rel-pos bias, windows resident --
+// The heads-of-80 core over short sequences, S = K * K <= 256 tokens (K <= 16:
+// SAM's 14 x 14 windows), one (sequence, head) pair at a time with its whole
+// q, K and V in shared memory. The form above, run over windows, spent a
+// 168 KB block on a window's 128 query rows and two key tiles: 6,400 blocks
+// of one an SM at 8 x 25 windows x 16 heads, each paying its loads' latency
+// bare, K and V loaded twice a window, and the bias tables a second launch
+// and an f32 round trip through device memory. Here:
+//
+// * A persistent grid, one block an SM, walks pairs b, b + G, ... (pair p
+//   is sequence p / H, head p % H, so the card reads whole qkv rows). Two
+//   (q, K) stages and one V stage are filled by TMA, the next pair's q and K
+//   while this pair's products run and its V while the next pair's first
+//   scores run (thread 0 issues each load at the end of a pair, once every
+//   warp has freed the slot); the block's two warpgroups take the pair's
+//   64-row query slabs in turn (0, 2 and 1, 3).
+// * Heads of 80 are two panels: features 0-63 in 128-byte rows (128-byte
+//   swizzle) and 64-79 in 32-byte rows (32-byte swizzle), so a row is 160
+//   bytes and no zero feature is multiplied. q is held in raster order, its
+//   rows padded to a multiple of 8 (the last slab starts at the last 64 rows
+//   and stores only those after the slab before); K and V in 16 slots a
+//   grid row, slot 16 kh + kw, by a 5-D map ([80, kw, kh, head, sequence])
+//   whose bounds give zeros at kw >= K and kh >= K. So a score column's key
+//   row kh is known at compile time and its kw is one of four values a lane.
+//   Only those empty slots are masked: SAM masks no key of a window, its
+//   padded positions (q, k and v the qkv bias) among them.
+// * All keys are one score tile: q k^T m64n224k16 over five k16 steps, the
+//   softmax once over the whole row with its exact max, p rounded to bf16,
+//   p v m64n64k16 + m64n16k16 over 14 key steps. At K 15-16 (256 slots) the
+//   keys are two tiles of 128 with the usual rescale: 128 score registers
+//   beside the rest would spill.
+// * The bias tables are made in the block: the layer's Rh and Rw, [2 K - 1,
+//   80] bf16 each and shared by the heads, are loaded once a block as rows
+//   0-31 and 32-63 of a [64, 80] operand; each slab's q . Rh and q . Rw come
+//   from one m64n64k16 product over the resident q (f32 accumulation),
+//   issued with q k^T and landed first, and each warp writes its own 16 rows
+//   (times log2 e) to a tile of its own in shared memory, from which each
+//   score adds Th[r, qh - kh + K - 1] + Tw[r, qw - kw + K - 1] as
+//   fma(q . k, scale log2 e, Th + Tw): the form above's arithmetic. No table
+//   scratch, no second launch.
+// * Each warp stages its 16 output rows in its table tile and stores whole
+//   160-byte head rows, 16 bytes a lane: 4-byte stores from the accumulator
+//   layout write every sector in halves and took 0.31 ms a launch, not 0.23.
+// Shared memory at K <= 14: two (q, K) stages of 67 KB, V 35 KB, the tables
+// 10 KB, eight warps' tiles 34 KB (214 KB); at K 15-16 one (q, K) stage.
+// At 8 x 25 windows x 16 heads on an H100 (80GB HBM3, 700 W): 0.229-0.233
+// ms, tables included (the form above 0.68 with its tables); without its
+// loads after the first pair 0.222-0.225: the SM's own work (exponentials,
+// products, the bias) bounds it, not the bytes (least 0.110 ms).
+
+__host__ __device__ constexpr int align1k(int bytes) { return (bytes + 1023) / 1024 * 1024; }
+
+// kKR: key grid rows held, 14 (K <= 14) or 16
+template <int kKR>
+struct WindowBlock {
+  static constexpr int kKeys = 16 * kKR;                        // key slots 16 kh + kw
+  static constexpr int kQRows = kKR * kKR < 64 ? 64 : (kKR * kKR + 7) / 8 * 8;
+  static constexpr int kStages = kKR <= 14 ? 2 : 1;             // (q, K) stages
+  static constexpr int kQA = kQRows * 128;                      // q's panel A
+  static constexpr int kKA = kKeys * 128;                       // K's (at kQA)
+  static constexpr int kQB = kQA + kKA;                         // q's panel B
+  static constexpr int kKB = kQB + align1k(kQRows * 32);        // K's
+  static constexpr int kStageBytes = kKB + align1k(kKeys * 32);
+  static constexpr int kV = kStages * kStageBytes;              // V: panel A, then B at kKA
+  static constexpr int kR = kV + kKA + align1k(kKeys * 32);     // Rh, Rw: panel A, then B
+  static constexpr int kRB = 64 * 128;
+  static constexpr int kT = kR + kRB + 64 * 32;                 // the warps' table tiles
+  static constexpr int kTStride = 68;                           // floats a tile row
+  static constexpr int kTWarp = 16 * kTStride * 4;              // also 16 output rows of 176 B
+  static constexpr int kBar = kT + 8 * kTWarp;
+  // two warpgroups and no producer of their own: registers are allocated
+  // to warps four at a time, so a ninth warp (or a third warpgroup for
+  // setmaxnreg) would cap the compile at 168 a thread and serialise the
+  // n224 wgmma for want of them; at 256 threads the cap is 255
+  static constexpr int kThreads = 2 * 128;
+  static constexpr int kSmem = kBar + 8 * (2 * kStages + 3) + 1024;
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
+  static_assert(kQA % 1024 == 0 && kKA % 1024 == 0 && kStageBytes % 1024 == 0,
+                "swizzled panels start on 1,024-byte boundaries");
+  static_assert(16 * 176 <= kTWarp && kTWarp % 16 == 0, "a warp's output rows fit its tile");
+};
+
+// one box of a 5-D map at (c0 .. c4) into shared memory at dst, counted on bar
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// The descriptor of a tile of 16-feature bf16 rows (32 bytes, one 32-byte
+// swizzle atom) at a 256-byte aligned shared address: a group of eight rows
+// is 256 bytes; a k16 step along an MN-major operand is 16 rows, 512 bytes
+// (+32). K-major, the 16 features are one k16 step.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (16ull << 16) | (16ull << 32) |
+         (3ull << 62);
+}
+constexpr uint64_t kSw32RowStep = 32;
+
+// d[112] (+)= A[64 x 16] B[224 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[112], uint64_t a_desc, uint64_t b_desc,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111},"
+      " %112, %113, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// d[8] (+)= A[64 x 16] B[16 x 16], A from registers (a warp's 16 x 16
+// fragment), B MN-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b_desc), "r"(accumulate));
+}
+
+// q k^T over a score tile: the whole window (n224, here) or half of it at
+// K 15-16 (n128, attention_wgmma.cuh)
+__device__ __forceinline__ void scores_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  hp::wgmma_ss(d, a, b, acc);
+}
+__device__ __forceinline__ void scores_ss(float (&d)[112], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss(d, a, b, acc);
+}
+
+template <int kKR>
+__global__ void __launch_bounds__(WindowBlock<kKR>::kThreads, 1)
+flash_relpos_kernel_windows(const __grid_constant__ CUtensorMap map_qa,
+                            const __grid_constant__ CUtensorMap map_qb,
+                            const __grid_constant__ CUtensorMap map_ka,
+                            const __grid_constant__ CUtensorMap map_kb,
+                            const __grid_constant__ CUtensorMap map_va,
+                            const __grid_constant__ CUtensorMap map_vb,
+                            const __grid_constant__ CUtensorMap map_rha,
+                            const __grid_constant__ CUtensorMap map_rhb,
+                            const __grid_constant__ CUtensorMap map_rwa,
+                            const __grid_constant__ CUtensorMap map_rwb, bf16* __restrict__ o,
+                            int N, int H, int S, int K, float scale_log2, long long oh,
+                            const RelposOut dst) {
+  using Blk = WindowBlock<kKR>;
+  constexpr int kStages = Blk::kStages;
+  // key slots a score tile: all of them at K <= 14 (n224), half at 15-16
+  // (n128 twice, 128 score registers being too many beside the rest)
+  constexpr int kChunks = kKR <= 14 ? 1 : 2;
+  constexpr int kChunkKeys = Blk::kKeys / kChunks;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hp::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t v_s = base + Blk::kV;
+  const uint32_t r_s = base + Blk::kR;
+  const uint32_t bar_r = base + Blk::kBar;
+  const uint32_t bar_v_full = bar_r + 8, bar_v_empty = bar_r + 16;
+  const uint32_t bar_full = bar_r + 24;                  // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31;
+  const long long pairs = (long long)N * H;
+  // block b takes pairs b, b + G, ...: the card works on a few whole
+  // sequences at a time, every head of their qkv rows
+  const int n_pairs = (int)((pairs - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  const int q_rows = max(64, (S + 7) / 8 * 8);           // q's box: rows past S are zeros
+  const int n_slabs = (S + 63) / 64;
+
+  if (tid == 0) {
+    hp::mbar_init(bar_r, 1);
+    hp::mbar_init(bar_v_full, 1);
+    hp::mbar_init(bar_v_empty, 8);                       // every warp
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(bar_full + 8 * s, 1);
+      hp::mbar_init(bar_empty + 8 * s, 8);
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // this block's pair i: (sequence, head)
+  auto pair = [&](int i) {
+    const long long p = blockIdx.x + (long long)i * gridDim.x;
+    return make_int2((int)(p / H), (int)(p % H));
+  };
+  // thread 0 loads: the tables once, and each pair's q and K into its stage
+  // and its V, each as soon as every warp has freed the slot (end of a pair)
+  auto load_qk = [&](int i) {
+    const int n = pair(i).x, h = pair(i).y;
+    const int st = i % kStages;
+    const uint32_t stage = base + st * Blk::kStageBytes, full = bar_full + 8 * st;
+    hp::mbar_arrive_expect_tx(full, (q_rows + Blk::kKeys) * 160);
+    hp::tma_load_at(stage, &map_qa, full, 0, 0, h, n);
+    hp::tma_load_at(stage + Blk::kQB, &map_qb, full, 64, 0, h, n);
+    tma_load_5d(stage + Blk::kQA, &map_ka, full, 0, 0, 0, h, n);
+    tma_load_5d(stage + Blk::kKB, &map_kb, full, 64, 0, 0, h, n);
+  };
+  auto load_v = [&](int i) {
+    const int n = pair(i).x, h = pair(i).y;
+    hp::mbar_arrive_expect_tx(bar_v_full, Blk::kKeys * 160);
+    tma_load_5d(v_s, &map_va, bar_v_full, 0, 0, 0, h, n);
+    tma_load_5d(v_s + Blk::kKA, &map_vb, bar_v_full, 64, 0, 0, h, n);
+  };
+  if (tid == 0) {
+    hp::mbar_arrive_expect_tx(bar_r, 64 * 160);
+    hp::tma_load_at(r_s, &map_rha, bar_r, 0, 0, 0, 0);
+    hp::tma_load_at(r_s + 32 * 128, &map_rwa, bar_r, 0, 0, 0, 0);
+    hp::tma_load_at(r_s + Blk::kRB, &map_rhb, bar_r, 64, 0, 0, 0);
+    hp::tma_load_at(r_s + Blk::kRB + 32 * 32, &map_rwb, bar_r, 64, 0, 0, 0);
+    for (int i = 0; i < kStages && i < n_pairs; ++i) load_qk(i);
+    load_v(0);
+  }
+  __syncwarp();
+
+  // warpgroup wg takes slabs wg, wg + 2 of each pair; each warp its 16 rows
+  // of a slab, a lane rows g and g + 8 of them
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  float* tile = reinterpret_cast<float*>(smem_raw + (base - raw) + Blk::kT) +
+                warp * (Blk::kTWarp / 4);
+  float* t0 = tile + g * Blk::kTStride;                  // this lane's two rows
+  float* t1 = t0 + 8 * Blk::kTStride;
+  // this lane's key columns in a grid row of 16 slots: kw = 8 jj + 2 t + e
+  bool kw_ok[4];
+  int kw_at[4];                                          // kw, clamped to a real column
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int kw = 8 * (c >> 1) + 2 * t + (c & 1);
+    kw_ok[c] = kw < K;
+    kw_at[c] = min(kw, K - 1);
+  }
+  hp::mbar_wait(bar_r, 0);
+
+  for (int i = 0; i < n_pairs; ++i) {
+    const int n = pair(i).x, h = pair(i).y;
+    const int st = i % kStages;
+    const uint32_t stage = base + st * Blk::kStageBytes;
+    const uint32_t qa = stage, ka = stage + Blk::kQA, qb = stage + Blk::kQB, kb = stage + Blk::kKB;
+    bf16* oh_ = o + h * oh;
+    // the sequence's frame and its top-left cell in the grid (window 0: the
+    // frame's whole grid)
+    const int nw = dst.window ? (dst.grid + K - 1) / K : 1;
+    const int f = n / (nw * nw), w = n - f * nw * nw;
+    const int y0 = (w / nw) * K, x0 = (w - (w / nw) * nw) * K;
+    const long long f_off = f * dst.ob;
+    hp::mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
+    bool v_ready = false;
+
+    for (int s = wg; s < n_slabs; s += 2) {
+      const bool last = s + 2 >= n_slabs;               // this warpgroup's last slab of the pair
+      const int q0 = s < n_slabs - 1 ? 64 * s : q_rows - 64;
+      // this lane's rows (padded rows read a real row's coordinates: never stored)
+      const int r0 = q0 + (warp & 3) * 16 + g, r1 = r0 + 8;
+      const int qh0 = min(r0, S - 1) / K, qw0 = min(r0, S - 1) - qh0 * K;
+      const int qh1 = min(r1, S - 1) / K, qw1 = min(r1, S - 1) - qh1 * K;
+      float w0[4], w1[4];                               // Tw of this lane's four kw
+      float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;   // row max (log2 units), row sums
+      float oa[32], ob[8];                              // output features 0-63 and 64-79
+      // the tables, issued first, land while the first score tile runs; no
+      // wgmma, nor a write to its registers, sits in a branch (ptxas would
+      // serialise them)
+      float tt[32];                                     // q . Rh (columns 0-31), q . Rw (32-63)
+      hp::pin(tt);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hp::wgmma_ss(tt, hp::smem_desc(qa + q0 * 128) + kk * hp::kDescKStep,
+                     hp::smem_desc(r_s) + kk * hp::kDescKStep, kk > 0);
+      hp::wgmma_ss(tt, desc_sw32(qb + q0 * 32), desc_sw32(r_s + Blk::kRB), 1);
+      hp::wgmma_commit();
+#pragma unroll 1
+      for (int ch = 0; ch < kChunks; ++ch) {
+        float sc[kChunkKeys / 2];
+        hp::pin(sc);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          scores_ss(sc, hp::smem_desc(qa + q0 * 128) + kk * hp::kDescKStep,
+                    hp::smem_desc(ka + ch * kChunkKeys * 128) + kk * hp::kDescKStep, kk > 0);
+        scores_ss(sc, desc_sw32(qb + q0 * 32), desc_sw32(kb + ch * kChunkKeys * 32), 1);
+        hp::wgmma_commit();
+        hp::wgmma_wait<1>();                            // the tables have landed
+        if (ch == 0) {
+          hp::pin(tt);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = 8 * j + 2 * t;
+            *reinterpret_cast<float2*>(t0 + c) = make_float2(tt[4 * j] * hp::kLog2e,
+                                                             tt[4 * j + 1] * hp::kLog2e);
+            *reinterpret_cast<float2*>(t1 + c) = make_float2(tt[4 * j + 2] * hp::kLog2e,
+                                                             tt[4 * j + 3] * hp::kLog2e);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            w0[c] = t0[32 + qw0 + K - 1 - kw_at[c]];
+            w1[c] = t1[32 + qw1 + K - 1 - kw_at[c]];
+          }
+        }
+        hp::wgmma_wait<0>();                            // and the scores
+        hp::pin(sc);
+        if (last && ch == kChunks - 1 && lane == 0)
+          hp::mbar_arrive(bar_empty + 8 * st);          // q and K read
+
+        // the bias, in log2 units, then the scaled score; slots past the
+        // window's rows and columns to -1e30
+#pragma unroll
+        for (int j2 = 0; j2 < kChunkKeys / 16; ++j2) {
+          const int kh = ch * (kChunkKeys / 16) + j2;
+          float h0 = 0.f, h1 = 0.f;
+          const bool row_ok = kh < K;
+          if (row_ok) {
+            h0 = t0[qh0 + K - 1 - kh];
+            h1 = t1[qh1 + K - 1 - kh];
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int x = 4 * (2 * j2 + (c >> 1)) + (c & 1);
+            const bool ok = row_ok && kw_ok[c];
+            sc[x] = ok ? fmaf(sc[x], scale_log2, h0 + w0[c]) : kNeg;
+            sc[x + 2] = ok ? fmaf(sc[x + 2], scale_log2, h1 + w1[c]) : kNeg;
+          }
+        }
+        // the softmax: one tile, the row's exact max; two, the second
+        // rescales the first's sums and output (the first tile's correction
+        // is 0, and its p v does not accumulate)
+        float mx0, mx1, s0, s1;
+        hp::row_max(sc, mx0, mx1);
+        mx0 = fmaxf(m0, mx0);
+        mx1 = fmaxf(m1, mx1);
+        hp::exp_rows(sc, 1.f, mx0, mx1, s0, s1);
+        if constexpr (kChunks > 1) {
+          const float corr0 = hp::fast_exp2(m0 - mx0), corr1 = hp::fast_exp2(m1 - mx1);
+          l0 = l0 * corr0 + s0;
+          l1 = l1 * corr1 + s1;
+          rescale_rows(oa, corr0, corr1);
+          rescale_rows(ob, corr0, corr1);
+        } else {
+          l0 = s0;
+          l1 = s1;
+        }
+        m0 = mx0;
+        m1 = mx1;
+        uint32_t pa[kChunkKeys / 4];
+        hp::pack_rows(sc, 1.f, 1.f, pa);
+
+        if (!v_ready) {
+          hp::mbar_wait(bar_v_full, i & 1);
+          v_ready = true;
+        }
+        const uint64_t va = hp::smem_desc(v_s + ch * kChunkKeys * 128);
+        const uint64_t vb = desc_sw32(v_s + Blk::kKA + ch * kChunkKeys * 32);
+        hp::pin(pa);
+        hp::pin(oa);
+        hp::pin(ob);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kChunkKeys / 16; ++kk) {
+          hp::wgmma_rs(oa, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                       va + kk * hp::kDescRowStep, ch > 0 || kk > 0);
+          wgmma_rs(ob, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                   vb + kk * kSw32RowStep, ch > 0 || kk > 0);
+        }
+        hp::wgmma_commit();
+        hp::wgmma_wait_all();
+        hp::pin(oa);
+        hp::pin(ob);
+        hp::pin(pa);
+      }
+      if (last && lane == 0) hp::mbar_arrive(bar_v_empty);
+
+      // rows from 64 s on (the last slab starts earlier) into the grid's rows:
+      // each warp stages its 16 rows in its table tile (free once the bias is
+      // added; 176-byte rows, no bank conflict) and stores whole 160-byte
+      // head rows, 16 bytes a lane, so every sector is written whole
+      const float i0 = 1.f / fmaxf(hp::quad_sum(l0), 1e-20f);
+      const float i1 = 1.f / fmaxf(hp::quad_sum(l1), 1e-20f);
+      uint32_t* rows = reinterpret_cast<uint32_t*>(tile);    // [16][44] words
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 10; ++j) {
+        const float* a = j < 8 ? oa + 4 * j : ob + 4 * (j - 8);
+        rows[g * 44 + 4 * j + t] = hp::pack_bf16(a[0] * i0, a[1] * i0);
+        rows[(g + 8) * 44 + 4 * j + t] = hp::pack_bf16(a[2] * i1, a[3] * i1);
+      }
+      __syncwarp();
+      const long long da = r0 >= 64 * s && r0 < S && y0 + qh0 < dst.grid && x0 + qw0 < dst.grid
+                               ? f_off + ((long long)(y0 + qh0) * dst.grid + x0 + qw0) * dst.os
+                               : -1;
+      const long long db = r1 >= 64 * s && r1 < S && y0 + qh1 < dst.grid && x0 + qw1 < dst.grid
+                               ? f_off + ((long long)(y0 + qh1) * dst.grid + x0 + qw1) * dst.os
+                               : -1;
+#pragma unroll
+      for (int m = 0; m < 5; ++m) {
+        const int k = lane + 32 * m;                    // row k / 10, its 16 bytes k % 10
+        const int row = k / 10, c = k - 10 * (k / 10);
+        const long long a = __shfl_sync(0xffffffffu, da, 4 * (row & 7));
+        const long long b = __shfl_sync(0xffffffffu, db, 4 * (row & 7));
+        const long long off = row < 8 ? a : b;
+        if (off >= 0)
+          *reinterpret_cast<uint4*>(oh_ + off + 8 * c) =
+              *reinterpret_cast<const uint4*>(rows + row * 44 + 4 * c);
+      }
+      __syncwarp();
+    }
+    if (wg >= n_slabs) {                                // no slab of this pair: free it all the same
+      if (lane == 0) hp::mbar_arrive(bar_empty + 8 * st);
+      hp::mbar_wait(bar_v_full, i & 1);
+      if (lane == 0) hp::mbar_arrive(bar_v_empty);
+    }
+    if (tid == 0) {
+      // every warp is done with this pair's V, then (earlier) its q and K
+      if (i + 1 < n_pairs) {
+        hp::mbar_wait(bar_v_empty, i & 1);
+        load_v(i + 1);
+      }
+      if (i + kStages < n_pairs) {
+        hp::mbar_wait(bar_empty + 8 * st, (i / kStages) & 1);
+        load_qk(i + kStages);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// A tensor map over `rank` (4 or 5) dimensions of bf16, dims[0] the head's
+// contiguous features, strides in elements for dims 1.. (each a multiple of
+// 8, the base 16-byte aligned), whose box box[] is [64, ...] 128-byte
+// swizzled or [16, ...] 32-byte swizzled (box[0] features from a load's
+// first coordinate; those past dims[0], and rows past any bound, arrive as
+// zeros).
+cudaError_t make_panel_map(CUtensorMap* map, const void* base, int rank,
+                           const long long* dims, const long long* strides,
+                           const int* box) {
+  const hp::EncodeTiled encode = hp::tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (box[0] != 64 && box[0] != 16) return cudaErrorInvalidValue;
+  cuuint64_t d[5], st[4];
+  cuuint32_t b[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    if (dims[i] < 1 || box[i] < 1 || box[i] > 256) return cudaErrorInvalidValue;
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+    elem[i] = 1;
+  }
+  for (int i = 0; i < rank - 1; ++i) {
+    // a dimension of one element never uses its stride: give it a valid one
+    const long long s = dims[i + 1] > 1 ? strides[i] : strides[0];
+    if (s <= 0 || s % 8 != 0) return cudaErrorInvalidValue;
+    st[i] = (cuuint64_t)s * 2;
+  }
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, st, b, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The resident form's launch: q as [80, S, H, N] in boxes of q_rows rows,
+// K and V as [80, K (kw), K (kh), H, N] in boxes of 16 x kKR slots, Rh and
+// Rw as [80, 2 K - 1] in boxes of 32 rows; each in its two panels. A grid of
+// min(SMs, pairs) blocks.
+template <int kKR>
+cudaError_t launch_windows(const void* q, const void* k, const void* v, const void* rh,
+                           const void* rw, bf16* o, int N, int H, int S, int K,
+                           const long long (&sb)[3], const long long (&sh)[3],
+                           const long long (&ss)[3], float scale_log2, long long oh,
+                           const RelposOut& dst, cudaStream_t s) {
+  using Blk = WindowBlock<kKR>;
+  CUtensorMap m[10];
+  cudaError_t e;
+  const int q_rows = max(64, (S + 7) / 8 * 8);
+  const void* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    for (int p = 0; p < 2; ++p) {
+      const int cols = p == 0 ? 64 : 16;
+      if (i == 0) {
+        const long long dims[4] = {80, S, H, N}, st[3] = {ss[0], sh[0], sb[0]};
+        const int box[4] = {cols, q_rows, 1, 1};
+        e = make_panel_map(&m[p], src[0], 4, dims, st, box);
+      } else {
+        const long long dims[5] = {80, K, K, H, N};
+        const long long st[4] = {ss[i], K * ss[i], sh[i], sb[i]};
+        const int box[5] = {cols, 16, kKR, 1, 1};
+        e = make_panel_map(&m[2 * i + p], src[i], 5, dims, st, box);
+      }
+      if (e != cudaSuccess) return e;
+    }
+  }
+  const void* tab[2] = {rh, rw};
+  for (int i = 0; i < 2; ++i)
+    for (int p = 0; p < 2; ++p) {
+      const long long dims[4] = {80, 2 * K - 1, 1, 1}, st[3] = {80, 80, 80};
+      const int box[4] = {p == 0 ? 64 : 16, 32, 1, 1};
+      if ((e = make_panel_map(&m[6 + 2 * i + p], tab[i], 4, dims, st, box)) != cudaSuccess)
+        return e;
+    }
+  int sms = 0, device = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(flash_relpos_kernel_windows<kKR>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, Blk::kSmem)) !=
+          cudaSuccess)
+    return e;
+  const int grid = (long long)N * H < sms ? N * H : sms;
+  flash_relpos_kernel_windows<kKR><<<grid, Blk::kThreads, Blk::kSmem, s>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8], m[9], o, N, H, S, K, scale_log2,
+      oh, dst);
   return cudaGetLastError();
 }
 
@@ -1013,15 +1558,18 @@ extern "C" int tt_flash_attention(const void* q, const void* k, const void* v,
 }
 
 // SAM's attention with the decomposed relative-position bias at heads of 80,
-// bf16 (flash_relpos_kernel): q, k, v [N, H, S, 80] strided views (the
-// qkv rows of N sequences of S = K * K tokens), rh, rw the block's bf16
-// tables [2 K - 1, 80], `tables` an f32 scratch [N, H, S, 2 K], o the
+// bf16: q, k, v [N, H, S, 80] strided views (the qkv rows of N sequences of
+// S = K * K tokens), rh, rw the block's bf16 tables [2 K - 1, 80], o the
 // merged output rows [frames, grid * grid, H * 80] with strides ob (a frame)
 // and os (a row), oh (a head: 80). window 0: each sequence is a frame's grid
 // (K = grid); else K = window and the sequences are the windows of the grid
 // padded to a multiple of the window, frame by frame, their padded rows not
-// written. K <= 64 (a table block's [64, 2 K] f32 tile in shared memory).
-// Two launches: the tables, then the core.
+// written. The caller picks the form by `tables`: null, the resident form
+// (flash_relpos_kernel_windows, one launch, its tables made in the block),
+// which takes K <= 16 (S <= 256, SAM's windows); else an f32 scratch [N, H,
+// S, 2 K] for K = 64 (SAM's global grid), two launches, the tables
+// (relpos_table_kernel) and then the core (flash_relpos_kernel). Any other
+// K, or a form that does not take K, is refused.
 extern "C" int tt_flash_relpos(const void* q, const void* k, const void* v, const void* rh,
                                const void* rw, float* tables, void* o, int N, int H, int S,
                                int K, int grid, int window, long long qb, long long qh,
@@ -1032,6 +1580,16 @@ extern "C" int tt_flash_relpos(const void* q, const void* k, const void* v, cons
       (window == 0 ? K != grid : (K != window || window > grid)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RelposOut dst{grid, window, ob, os};
+  const float scale_log2 = hp::kLog2e / sqrtf(80.f);
+  if (tables == nullptr) {
+    if (K > 16) return (int)cudaErrorInvalidValue;
+    const long long sb[3] = {qb, kb, vb}, sh[3] = {qh, kh, vh}, ss[3] = {qs, ks, vs};
+    return (int)(K <= 14 ? launch_windows<14> : launch_windows<16>)(
+        q, k, v, rh, rw, static_cast<bf16*>(o), N, H, S, K, sb, sh, ss, scale_log2, oh, dst,
+        s);
+  }
+  if (K != FlashBlock80::kSide) return (int)cudaErrorInvalidValue;
   const dim3 tgrid((S + 63) / 64, H, N);
   relpos_table_kernel<<<tgrid, 128, 64 * 2 * K * sizeof(float), s>>>(
       static_cast<const bf16*>(q), qb, qh, qs, static_cast<const bf16*>(rh),
@@ -1049,10 +1607,7 @@ extern "C" int tt_flash_relpos(const void* q, const void* k, const void* v, cons
                                32)) != cudaSuccess)
       return (int)e;
   }
-  const RelposOut dst{grid, window, ob, os};
-  const float scale_log2 = hp::kLog2e / sqrtf(80.f);
-  return (int)(K == 64 ? launch_relpos<64> : launch_relpos<0>)(
-      m, tables, static_cast<bf16*>(o), N, H, S, K, scale_log2, oh, dst, s);
+  return (int)launch_relpos(m, tables, static_cast<bf16*>(o), N, H, scale_log2, oh, dst, s);
 }
 
 // The bf16 core at Dh 64 or 32 in the form of `warpgroups` consumer

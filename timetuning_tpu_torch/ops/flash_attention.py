@@ -20,8 +20,11 @@ SAM ViT-H's attention (no JAX counterpart), ``relpos_attention``: heads of
 80 in bf16 with SAM's decomposed relative-position bias, over the qkv rows
 of a windowed block (a sequence a 14 x 14 window of the padded grid) or of
 a global one (a sequence a frame's grid), its output the merged rows of the
-grid (the windows merged and cropped by the kernel's stores;
-``flash_relpos_kernel``, counted as ``flash_relpos``). Forward only: its
+grid (the windows merged and cropped by the kernel's stores; counted as
+``flash_relpos``): sequences of up to 16 x 16 tokens (the windows) in the
+resident form ``flash_relpos_kernel_windows``, one (sequence, head) pair at
+a time with its bias tables made in the block; the 64 x 64 grid in
+``flash_relpos_kernel`` after ``relpos_table_kernel``. Forward only: its
 gradient is its plain version's.
 """
 
@@ -169,7 +172,8 @@ def flash_attention(q, k, v, kv_len: int | None = None):
 
 
 RELPOS_HEAD_DIM = 80    # the head width of SAM's core (ViT-H's 16 heads of 80)
-RELPOS_MAX_SIDE = 64    # the widest grid its bias tables take (SAM's at 1,024)
+RELPOS_WINDOW_MAX_SIDE = 16   # the widest side of the resident form (SAM's windows, 14)
+RELPOS_GRID_SIDE = 64   # the side of the streamed form (SAM's global grid at 1,024)
 
 
 def window_rows(x, grid: int, window: int):
@@ -247,8 +251,11 @@ def relpos_attention(qkv, rel_h, rel_w, num_heads: int, grid: int, window: int):
     grid (K = G = ``grid``); else K = ``window`` and the sequences are the
     windows of each frame's grid padded to a multiple of the window
     (``window_rows``' order). Returns the merged heads [frames, G^2, D] in
-    the grid's order, the windows merged and cropped. The bias tables [N,
-    H, K^2, 2 K] are made in f32 by a small product before the core."""
+    the grid's order, the windows merged and cropped. At K <= 16 (SAM's
+    windows) one launch of the resident form, which makes the bias tables
+    in its blocks (the pairs counted as ``relpos_windows_resident``); at K
+    64 (SAM's grid) the tables [N, H, K^2, 2 K] are made in f32 by a small
+    product before the core; any other K is refused."""
     if qkv.device.type == "cpu":
         return relpos_attention_xla(qkv, rel_h, rel_w, num_heads, grid, window)
     if qkv.dtype != torch.bfloat16 or qkv.dim() != 3:
@@ -259,9 +266,11 @@ def relpos_attention(qkv, rel_h, rel_w, num_heads: int, grid: int, window: int):
     K = window or grid
     nw = -(-grid // window) if window else 1
     if (E % 3 or D != num_heads * RELPOS_HEAD_DIM or S != K * K or N % (nw * nw)
-            or (window and window > grid) or K > RELPOS_MAX_SIDE):
+            or (window and window > grid)
+            or not (K <= RELPOS_WINDOW_MAX_SIDE or K == RELPOS_GRID_SIDE)):
         raise ValueError(f"relpos_attention: the core takes heads of {RELPOS_HEAD_DIM} over "
-                         f"sequences of K x K tokens, K <= {RELPOS_MAX_SIDE}; got K = {K} "
+                         f"sequences of K x K tokens, K <= {RELPOS_WINDOW_MAX_SIDE} or "
+                         f"K = {RELPOS_GRID_SIDE}; got K = {K} "
                          f"({'windows' if window else 'the grid'}"
                          f" of a {grid} x {grid} grid); got qkv {tuple(qkv.shape)}, "
                          f"{num_heads} heads")
@@ -275,15 +284,19 @@ def relpos_attention(qkv, rel_h, rel_w, num_heads: int, grid: int, window: int):
     qkv = qkv.contiguous()
     t = qkv.view(N, S, 3, num_heads, RELPOS_HEAD_DIM)
     q, k, v = (t[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-    tables = torch.empty(N, num_heads, S, 2 * K, dtype=torch.float32, device=qkv.device)
+    resident = K <= RELPOS_WINDOW_MAX_SIDE    # the C entry takes a null `tables` for this form
+    tables = None if resident else torch.empty(N, num_heads, S, 2 * K, dtype=torch.float32,
+                                               device=qkv.device)
     out = torch.empty(N // (nw * nw), grid * grid, D, dtype=qkv.dtype, device=qkv.device)
     kernel_lib.launch(
         "flash_relpos", "tt_flash_relpos", qkv.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
-        tables.data_ptr(), out.data_ptr(), N, num_heads, S, K, grid, window,
-        *(s for u in (q, k, v) for s in u.stride()[:3]),
+        0 if tables is None else tables.data_ptr(), out.data_ptr(), N, num_heads, S, K, grid,
+        window, *(s for u in (q, k, v) for s in u.stride()[:3]),
         out.stride(0), RELPOS_HEAD_DIM, out.stride(1))
     kernel_lib.WORK_COUNTS["relpos_windows" if window else "relpos_global"] += N * num_heads
+    if resident:
+        kernel_lib.WORK_COUNTS["relpos_windows_resident"] += N * num_heads
     return out
 
 

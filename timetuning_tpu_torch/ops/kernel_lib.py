@@ -114,9 +114,11 @@ KERNELS = {
 # and those of them whose softmax ran while a product was in flight
 # (``flash_attention.key_tile_counts``); SAM's (sequence, head) pairs that
 # the heads-of-80 core attended over a window and over the whole grid, and
-# the padded rows of the windows that LN1 + qkv computed.
+# those of them that its resident form took (sequences of up to 16 x 16
+# tokens); the padded rows of the windows that LN1 + qkv computed.
 WORK_COUNTS = {"flash_key_tiles": 0, "flash_key_tiles_overlapped": 0,
-               "relpos_windows": 0, "relpos_global": 0, "window_pad_rows": 0}
+               "relpos_windows": 0, "relpos_global": 0, "relpos_windows_resident": 0,
+               "window_pad_rows": 0}
 
 
 def reset_launch_counts() -> None:

@@ -47,7 +47,7 @@ def short(mangled: str) -> str:
     for m in re.finditer(r"(?=(\d+))", mangled):
         end = m.end(1)
         name = mangled[end:end + int(m.group(1))]
-        if name.endswith(("_kernel", "_kernel_wide")):
+        if name.endswith(("_kernel", "_kernel_wide", "_kernel_windows")):
             args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end + len(name):])
             vals = re.findall(r"L[a-z](\d+)E", args.group(1)) if args else []
             return name + (f"<{','.join(vals)}>" if vals else "")
